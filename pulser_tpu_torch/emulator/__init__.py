@@ -1,0 +1,28 @@
+"""Emulation of sampled sequences with PyTorch solvers."""
+
+from pulser_tpu_torch.emulator.hamiltonian import Hamiltonian
+from pulser_tpu_torch.emulator.qobj import Qobj, basis, qeye, tensor
+from pulser_tpu_torch.emulator.sim_result import QutipResult, TorchResult
+from pulser_tpu_torch.emulator.simconfig import SimConfig
+from pulser_tpu_torch.emulator.simresults import (
+    CoherentResults,
+    SimulationResults,
+)
+from pulser_tpu_torch.emulator.simulation import QutipEmulator, TorchEmulator
+from pulser_tpu_torch.noise_model import NoiseModel
+
+__all__ = [
+    "CoherentResults",
+    "Hamiltonian",
+    "NoiseModel",
+    "Qobj",
+    "QutipEmulator",
+    "QutipResult",
+    "SimConfig",
+    "SimulationResults",
+    "TorchEmulator",
+    "TorchResult",
+    "basis",
+    "qeye",
+    "tensor",
+]

@@ -1,0 +1,149 @@
+"""Carries sampled sequences, registers and devices across from pulser_tpu.
+
+The sequence builder and the sampler are not ported yet, so the port's
+inputs are built with the JAX package and rebuilt here as the port's own
+objects. Only plain attributes and numpy arrays of the given objects are
+read, and the JAX package is never imported: each object maps onto the
+class of the same name at the same module path under ``pulser_tpu_torch``.
+
+Example::
+
+    samples = pulser_tpu.sampler.sample(seq)
+    emu = TorchEmulator(
+        from_jax_samples(samples),
+        from_jax_register(seq.register),
+        from_jax_device(seq.device),
+    )
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import importlib
+from typing import Any, NamedTuple
+
+import numpy as np
+
+import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.channels.eom import RydbergBeam
+from pulser_tpu_torch.devices._device_datacls import BaseDevice
+from pulser_tpu_torch.register import Register
+from pulser_tpu_torch.register.weight_maps import DetuningMap
+from pulser_tpu_torch.sampler.samples import SequenceSamples
+
+_SRC_PKG = "pulser_tpu"
+_DST_PKG = "pulser_tpu_torch"
+
+
+@dataclasses.dataclass
+class _EOMSettings:
+    """An EOM-mode block of a channel's samples (the sequence builder's
+    ``_EOMSettings``, until that is ported)."""
+
+    rabi_freq: pm.AbstractArray
+    detuning_on: pm.AbstractArray
+    detuning_off: pm.AbstractArray
+    ti: int
+    tf: int | None = None
+    switching_beams: tuple[RydbergBeam, ...] = ()
+
+
+class _TimeSlot(NamedTuple):
+    """A channel timeline entry (the sequence builder's ``_TimeSlot``);
+    ``type`` is "delay", "target" or the name of the pulse's class."""
+
+    type: str
+    ti: int
+    tf: int
+    targets: set
+
+
+def _port_class(obj: Any) -> Any:
+    """The port's class with the name and module path of ``obj``'s."""
+    cls = type(obj)
+    module = cls.__module__
+    if module != _SRC_PKG and not module.startswith(_SRC_PKG + "."):
+        raise TypeError(f"Not a {_SRC_PKG} object: {cls.__qualname__}.")
+    port_module = importlib.import_module(_DST_PKG + module[len(_SRC_PKG):])
+    return getattr(port_module, cls.__name__)
+
+
+def _convert(obj: Any) -> Any:
+    """Rebuilds a value of the JAX package as the port's equivalent."""
+    if isinstance(obj, enum.Enum):
+        return _port_class(obj)(obj.value)
+    if obj is None or isinstance(obj, (str, bool, int, float, complex)):
+        return obj
+    if isinstance(obj, np.generic):
+        return obj
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    name = type(obj).__name__
+    if name == "AbstractArray":
+        return pm.AbstractArray(np.array(obj.as_array(detach=True)))
+    if name == "DetuningMap":
+        return DetuningMap(
+            np.array(obj.trap_coordinates), list(obj.weights), obj.slug
+        )
+    if name == "_EOMSettings":
+        return _EOMSettings(
+            **{
+                f.name: _convert(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+            }
+        )
+    if name == "_TimeSlot":
+        kind = obj.type if isinstance(obj.type, str) else type(obj.type).__name__
+        return _TimeSlot(kind, obj.ti, obj.tf, set(obj.targets))
+    if name == "_QubitRef":
+        # The phase reference as its (time, phase) breakpoints
+        return tuple(obj.phase._steps)
+    if isinstance(obj, (list, tuple, set)):
+        return type(obj)(_convert(x) for x in obj)
+    if isinstance(obj, dict):
+        return {_convert(k): _convert(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        cls = _port_class(obj)
+        ported = {f.name for f in dataclasses.fields(cls) if f.init}
+        return cls(
+            **{
+                f.name: _convert(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if f.init and f.name in ported
+            }
+        )
+    raise TypeError(f"Cannot carry a {type(obj).__qualname__} across.")
+
+
+def from_jax_samples(samples: Any) -> SequenceSamples:
+    """The port's SequenceSamples rebuilt from ``pulser_tpu``'s.
+
+    Carries the channel amp/det/phase series, slots, EOM blocks and
+    buffers, the channel objects, the basis reference, the SLM mask,
+    the magnetic field and the measurement basis.
+    """
+    return _convert(samples)
+
+
+def from_jax_register(register: Any) -> Register:
+    """The port's Register with the same qubit ids and coordinates."""
+    return Register(
+        {
+            qid: np.array(pos.as_array(detach=True))
+            for qid, pos in register.qubits.items()
+        }
+    )
+
+
+def from_jax_device(device: Any) -> BaseDevice:
+    """The port's Device or VirtualDevice with the same dataclass fields.
+
+    Register layouts are not ported, so ``pre_calibrated_layouts`` is
+    left out.
+    """
+    ported = _convert(device)
+    custom_xy = getattr(device, "_custom_interaction_coeff_xy", None)
+    if custom_xy is not None:
+        object.__setattr__(ported, "_custom_interaction_coeff_xy", custom_xy)
+    return ported

@@ -1,0 +1,13 @@
+"""The register: qubit ids and their positions."""
+
+from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
+from pulser_tpu_torch.register.register import Register
+from pulser_tpu_torch.register.weight_maps import DetuningMap, WeightMap
+
+__all__ = [
+    "BaseRegister",
+    "QubitId",
+    "Register",
+    "DetuningMap",
+    "WeightMap",
+]

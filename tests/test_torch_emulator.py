@@ -1,0 +1,222 @@
+"""The port's slice end to end: sampled sequence → TorchEmulator.run().
+
+Sequences are built and sampled with ``pulser_tpu`` and carried across
+with :mod:`pulser_tpu_torch.interop`. The states must reach 1 − F < 1e-6
+against the physics goldens (``bell``, ``afm9`` at every evaluation
+time) and against ``pulser_tpu``'s own run of a short 10-atom AFM sweep,
+and the step count must equal ``pulser_tpu``'s. The port runs in its
+default precision here (complex64, torch's float32 default) unless a
+test sets float64.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+import pulser_tpu as tpu
+from pulser_tpu.emulator import TpuEmulator
+from pulser_tpu.ops import solver as jax_solver
+
+from pulser_tpu_torch import NoiseModel
+from pulser_tpu_torch.emulator import CoherentResults, TorchEmulator
+from pulser_tpu_torch.interop import (
+    from_jax_device,
+    from_jax_register,
+    from_jax_samples,
+)
+from pulser_tpu_torch.ops import solver as torch_solver
+
+torch.set_num_threads(1)
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def _fidelity(a, b):
+    a = a / np.linalg.norm(a)
+    b = b / np.linalg.norm(b)
+    return abs(np.vdot(a, b)) ** 2
+
+
+def _port(seq, **kwargs):
+    return TorchEmulator(
+        from_jax_samples(tpu.sampler.sample(seq)),
+        from_jax_register(seq.register),
+        from_jax_device(seq.device),
+        torch_device="cpu",
+        **kwargs,
+    )
+
+
+class _PlanOnly(Exception):
+    """Raised by the stubbed JAX solver once the plan is built."""
+
+
+def _stop(*args, **kwargs):
+    raise _PlanOnly
+
+
+def _jax_steps(seq, **kwargs):
+    """``pulser_tpu``'s step count for the sequence (plan only)."""
+    emu = TpuEmulator.from_sequence(seq, **kwargs)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("pulser_tpu.emulator.simulation.sesolve_rk4", _stop)
+        with pytest.raises(_PlanOnly):
+            emu.run()
+    return int(np.count_nonzero(emu._plan_cache[1].seg_dts))
+
+
+def _afm_sequence(reg, omega, d0, df, t_rise, t_sweep, t_fall):
+    seq = tpu.Sequence(reg, tpu.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(
+        tpu.Pulse.ConstantDetuning(
+            tpu.RampWaveform(t_rise, 0.0, omega), d0, 0.0
+        ),
+        "ryd",
+    )
+    seq.add(
+        tpu.Pulse.ConstantAmplitude(
+            omega, tpu.RampWaveform(t_sweep, d0, df), 0.0
+        ),
+        "ryd",
+    )
+    seq.add(
+        tpu.Pulse.ConstantDetuning(
+            tpu.RampWaveform(t_fall, omega, 0.0), df, 0.0
+        ),
+        "ryd",
+    )
+    return seq
+
+
+@pytest.fixture
+def float64_default():
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(before)
+
+
+def test_bell_golden():
+    reg = tpu.Register({"q0": (-2.5, 0.0), "q1": (2.5, 0.0)})
+    seq = tpu.Sequence(reg, tpu.AnalogDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(
+        tpu.Pulse.ConstantDetuning(
+            tpu.BlackmanWaveform(1000, np.pi * np.sqrt(2)), 0.0, 0.0
+        ),
+        "ryd",
+    )
+    golden = np.load(os.path.join(GOLDENS, "bell.npz"))["states"][-1]
+    res = _port(seq).run()
+    assert isinstance(res, CoherentResults)
+    final = res.get_final_state(ignore_global_phase=False).full()[:, 0]
+    assert 1 - _fidelity(golden, final) < 1e-6
+    assert torch_solver.last_solve_info["n_steps"] == _jax_steps(seq)
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "complex128"])
+def test_afm9_golden_at_every_eval_time(dtype, request):
+    if dtype == "complex128":
+        request.getfixturevalue("float64_default")
+    om = 2 * np.pi * 1.8
+    seq = _afm_sequence(
+        tpu.Register.square(3, spacing=6.0, prefix="q"),
+        om, -2 * np.pi * 5, 2 * np.pi * 2, 252, 2000, 252,
+    )
+    data = np.load(os.path.join(GOLDENS, "afm9.npz"))
+    eval_times = data["eval_times_us"]
+    res = _port(seq, evaluation_times=eval_times).run()
+    for k, golden in enumerate(data["states"]):
+        state = res.get_state(
+            eval_times[k], ignore_global_phase=False
+        ).full()[:, 0]
+        assert state.dtype == np.complex128  # Qobj data
+        assert 1 - _fidelity(golden, state) < 1e-6, eval_times[k]
+    assert torch_solver.last_solve_info["n_steps"] == _jax_steps(
+        seq, evaluation_times=eval_times
+    )
+
+
+@pytest.fixture(scope="module")
+def afm10():
+    """A short 10-atom AFM sweep and ``pulser_tpu``'s run of it."""
+    seq = _afm_sequence(
+        tpu.Register.rectangle(2, 5, spacing=6.0, prefix="q"),
+        2 * np.pi * 2.0, -2 * np.pi * 6, 2 * np.pi * 2, 100, 400, 100,
+    )
+    eval_times = np.linspace(0, 0.6, 13)
+    res = TpuEmulator.from_sequence(seq, evaluation_times=eval_times).run()
+    states = [s.full()[:, 0] for s in res.states]
+    return seq, eval_times, states, jax_solver.last_solve_info["n_steps"]
+
+
+def test_afm10_matches_pulser_tpu(afm10):
+    seq, eval_times, want, n_steps = afm10
+    emu = _port(seq, evaluation_times=eval_times)
+    res = emu.run()
+    assert torch_solver.last_solve_info["kind"] == "sesolve_torch_loop"
+    assert torch_solver.last_solve_info["n_steps"] == n_steps
+    assert len(res.states) == len(want)
+    for got, ref in zip(res.states, want):
+        assert 1 - _fidelity(ref, got.full()[:, 0]) < 1e-6
+    # A second run reuses the plan and gives the same states
+    again = emu.run()
+    assert emu._plan_cache[1] is not None
+    assert np.array_equal(
+        again.states[-1].full(), res.states[-1].full()
+    )
+
+
+def test_afm10_through_the_kernel_plain_twin(afm10, monkeypatch):
+    """The emulator's kernel route (taken on a card) on CPU tensors runs
+    the kernel's plain twin: same states and step count."""
+    seq, eval_times, want, n_steps = afm10
+    real = torch_solver._sesolve_rk4_kernel
+    calls = []
+
+    def route_to_kernel(psi0, plan, diag, pairs, d, n, **kw):
+        calls.append(n)
+        return real(psi0, plan, diag, n, np.complex64, "cpu", kw["lazy"])
+
+    monkeypatch.setattr(torch_solver, "sesolve_rk4", route_to_kernel)
+    res = _port(seq, evaluation_times=eval_times).run()
+    assert calls == [10]
+    assert torch_solver.last_solve_info["kind"] == "ip_sesolve_plain"
+    assert torch_solver.last_solve_info["n_steps"] == n_steps
+    for got, ref in zip(res.states, want):
+        assert 1 - _fidelity(ref, got.full()[:, 0]) < 1e-6
+
+
+def test_results_api(afm10):
+    seq, eval_times, _, _ = afm10
+    res = _port(seq, evaluation_times=eval_times).run()
+    final = res.get_final_state()
+    assert final.shape == (2**10, 1)
+    assert np.isclose(np.linalg.norm(final.full()), 1.0, atol=1e-6)
+    rng_state = np.random.get_state()
+    try:
+        np.random.seed(7)
+        counts = res.sample_final_state(500)
+    finally:
+        np.random.set_state(rng_state)
+    assert isinstance(counts, Counter)
+    assert sum(counts.values()) == 500
+    assert all(len(b) == 10 for b in counts)
+    assert np.allclose(res._sim_times, eval_times)
+
+
+def test_noise_is_not_ported_yet():
+    seq = _afm_sequence(
+        tpu.Register.square(2, spacing=6.0, prefix="q"),
+        2 * np.pi, -2 * np.pi, 2 * np.pi, 100, 100, 100,
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(seq, noise_model=NoiseModel(dephasing_rate=0.1))

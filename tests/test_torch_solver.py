@@ -1,0 +1,204 @@
+"""The ported solver layers against pulser_tpu on identical inputs.
+
+- ``hamiltonian_matvec`` (structured H·ψ) against the JAX real-pair
+  version in float64: max |Δ| ≤ 1e-12.
+- ``sesolve_rk4`` in the interaction picture, on the plan ``pulser_tpu``
+  builds for a short 10-atom AFM sweep: complex128 against the JAX
+  complex128 solve to max |Δ| ≤ 1e-12 (same grid and RK4 arithmetic,
+  other summation orders), and complex64 against the same JAX solve to
+  1 − F ≤ 1e-6 (float32 rounding over the sweep).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import pulser_tpu as tpu
+from pulser_tpu.emulator import TpuEmulator
+from pulser_tpu.ops import apply as jax_apply
+from pulser_tpu.ops import solver as jax_solver
+
+from pulser_tpu_torch.emulator import TorchEmulator
+from pulser_tpu_torch.ops import apply as torch_apply
+from pulser_tpu_torch.ops import solver as torch_solver
+
+torch.set_num_threads(1)
+
+
+def _afm10_sequence():
+    """A short 10-atom version of the BASELINE AFM sweep."""
+    reg = tpu.Register.rectangle(2, 5, spacing=6.0, prefix="q")
+    seq = tpu.Sequence(reg, tpu.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    omega_max = 2.0 * 2 * np.pi
+    delta_0 = -6 * 2 * np.pi
+    delta_f = 2 * 2 * np.pi
+    seq.add(
+        tpu.Pulse.ConstantDetuning(
+            tpu.RampWaveform(100, 0.0, omega_max), delta_0, 0.0
+        ),
+        "ryd",
+    )
+    seq.add(
+        tpu.Pulse.ConstantAmplitude(
+            omega_max, tpu.RampWaveform(400, delta_0, delta_f), 0.0
+        ),
+        "ryd",
+    )
+    seq.add(
+        tpu.Pulse.ConstantDetuning(
+            tpu.RampWaveform(100, omega_max, 0.0), delta_f, 0.0
+        ),
+        "ryd",
+    )
+    return seq
+
+
+def _infidelity(want, got):
+    """1 − F per evaluation time (both sides normalized: RK4 does not
+    conserve the norm exactly)."""
+    overlap = np.abs(np.sum(np.conj(want) * got, axis=1)) ** 2
+    norms = np.linalg.norm(want, axis=1) * np.linalg.norm(got, axis=1)
+    return 1 - overlap / norms**2
+
+
+@pytest.mark.parametrize("n, seed", [(4, 0), (7, 1)])
+def test_hamiltonian_matvec_matches_jax(n, seed):
+    rng = np.random.default_rng(seed)
+    psi = rng.normal(size=2**n) + 1j * rng.normal(size=2**n)
+    diag = rng.uniform(0, 50, 2**n)
+    amp = rng.normal(size=(1, n)) + 1j * rng.normal(size=(1, n))
+    det = rng.normal(size=(1, n))
+    pairs = ((1, 0, 0),)
+    want = np.asarray(
+        jax_apply.hamiltonian_matvec(
+            jnp.stack([psi.real, psi.imag]),
+            jnp.asarray(diag),
+            jnp.asarray(amp.real),
+            jnp.asarray(amp.imag),
+            jnp.asarray(det),
+            pairs,
+            2,
+            n,
+        )
+    )
+    got = torch_apply.hamiltonian_matvec(
+        torch.from_numpy(psi),
+        torch.from_numpy(diag),
+        torch.from_numpy(amp),
+        torch.from_numpy(det),
+        pairs,
+        2,
+        n,
+    ).numpy()
+    assert np.max(np.abs(got - (want[0] + 1j * want[1]))) <= 1e-12
+
+
+@pytest.mark.parametrize("n", [7, 13])
+def test_synthesized_ip_phase_matches_occupancy_masks(n):
+    """The interaction-picture phase built from the basis index equals
+    the one built from ``TorchEmulator._make_ip_occ``'s 0/1 masks."""
+    rng = np.random.default_rng(n)
+    pairs = ((1, 0, 0),)
+    ham = SimpleNamespace(dim=2, n_qudits=n, pairs=pairs)
+    occ = TorchEmulator._make_ip_occ(ham).astype(np.float64)
+    diag = rng.uniform(0, 300, 2**n)
+    cum = rng.uniform(0, 2 * np.pi, (1, n))
+    t = 0.37
+    want = np.mod(diag * t, 2 * np.pi) + np.einsum("bq,bqD->D", cum, occ)
+    phase_at = torch_solver._make_ip_phase_fn(
+        pairs, 2, n, torch.float64, torch.device("cpu")
+    )
+    got = phase_at(
+        torch.from_numpy(diag),
+        torch.tensor(t, dtype=torch.float64),
+        torch.from_numpy(cum),
+    ).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-12
+
+
+@pytest.fixture(scope="module")
+def afm10():
+    """The JAX emulator's Hamiltonian, plan and complex128 solve."""
+    emu = TpuEmulator.from_sequence(
+        _afm10_sequence(), evaluation_times=np.linspace(0, 0.6, 7)
+    )
+    emu.run()
+    plan = emu._plan_cache[1]
+    ham = emu._current_hamiltonian
+    psi0 = emu.initial_state.full()[:, 0]
+    want = jax_solver.sesolve_rk4(
+        psi0.astype(np.complex128),
+        plan,
+        ham.int_diag,
+        ham.pairs,
+        2,
+        10,
+        ip_occ=emu._make_ip_occ(ham),
+        dtype=np.complex128,
+    )
+    return plan, ham, psi0, want
+
+
+def _port_solve(afm10, dtype):
+    plan, ham, psi0, _ = afm10
+    return torch_solver.sesolve_rk4(
+        psi0,
+        plan,
+        ham.int_diag,
+        ham.pairs,
+        2,
+        10,
+        dtype=dtype,
+        ip_occ=True,
+        device="cpu",
+    )
+
+
+def test_sesolve_complex128_matches_jax(afm10):
+    want = afm10[3]
+    got = _port_solve(afm10, np.complex128)
+    assert got.shape == want.shape and got.dtype == np.complex128
+    assert np.max(np.abs(got - want)) <= 1e-12
+    assert torch_solver.last_solve_info["kind"] == "sesolve_torch_loop"
+
+
+def test_sesolve_complex64_matches_jax_complex128(afm10):
+    want = afm10[3]
+    got = _port_solve(afm10, np.complex64)
+    assert got.dtype == np.complex64
+    assert np.max(_infidelity(want, got)) <= 1e-6
+
+
+def test_kernel_route_on_cpu_matches_jax(afm10):
+    """``_sesolve_rk4_kernel`` (the kernel's plain twin on CPU tensors)
+    on the same plan: float32, so 1 − F ≤ 1e-6."""
+    plan, ham, psi0, want = afm10
+    got = torch_solver._sesolve_rk4_kernel(
+        psi0, plan, ham.int_diag, 10, np.complex64, "cpu"
+    )
+    assert torch_solver.last_solve_info["kind"] == "ip_sesolve_plain"
+    assert np.max(_infidelity(want, got)) <= 1e-6
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(ip_occ=None),
+        dict(ip_occ=True, xy_static=np.zeros((1, 10, 10))),
+        dict(ip_occ=True, state_mesh=object()),
+    ],
+    ids=["lab_frame", "xy", "mesh"],
+)
+def test_outside_the_slice_raises(afm10, kwargs):
+    plan, ham, psi0, _ = afm10
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_solver.sesolve_rk4(
+            psi0, plan, ham.int_diag, ham.pairs, 2, 10, device="cpu",
+            **kwargs,
+        )
