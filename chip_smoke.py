@@ -8,16 +8,34 @@ Run from the root of the repository, on a machine with a CUDA card and
 Phases (each one raises on failure, and the script then exits non-zero):
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the interaction-picture sesolve kernel
-   (``pulser_tpu_torch/csrc/ip_sesolve.cu``) with nvcc for ``sm_90a``.
-3. Hold the kernel against its plain PyTorch version on random inputs at
-   n = 10, 13 and 16 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
-4. Run the main path at full size: the 16-atom AFM sweep of ``bench.py``
-   through ``TorchEmulator(...).run()`` with 101 evaluation times. The
-   kernel must have been launched, and the mid-sweep and final states
+2. Build both kernels with nvcc for ``sm_90a`` (one process per source,
+   started together) and print each kernel's registers and spills: the
+   interaction-picture sesolve K1 (``pulser_tpu_torch/csrc/ip_sesolve.cu``)
+   and the row-batched quantum-jump solve K2
+   (``pulser_tpu_torch/csrc/mcwf_rows.cu``).
+3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
+   13 and 16 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
+4. Hold K2 against its plain PyTorch version on random inputs at n = 4,
+   7, 10 and 13 qubits, 8 trajectories (2 segments x 8 steps, strong
+   jumps): max |Δ| ≤ 5e-5, finite, equal jump counts.
+5. Run the noiseless main path at full size: the 16-atom AFM sweep of
+   ``bench.py`` through ``TorchEmulator(...).run()`` with 101 evaluation
+   times. K1 must have been launched, and the mid-sweep and final states
    must reach 1 − F < 1e-6 against ``tests/goldens/afm16_final.npz``.
-5. Time the kernel against its plain version on the sweep's own inputs
+   Then time K1 against its plain version on the sweep's own inputs
    (median of 3 warm solves each) and the whole warm ``run()``.
+6. Run the noisy main path at full size: the 10-atom, 100-trajectory
+   noisy run of ``bench.py`` through ``TorchEmulator(...).run()`` after
+   ``np.random.seed(1234)``. It must take the kernel route with at least
+   one K2 launch and give 1000 shots per evaluation time; the final
+   counts and the trajectory-averaged Rydberg populations must match the
+   JAX package's figures for the same seed (:data:`NOISY10_REFERENCE`),
+   and K2's states on the run's own inputs must match its plain version
+   for all trajectories but at most one whose jump record differs.
+7. Time K2, its plain version, the warm noisy ``run()``, the host
+   preparation before the kernel, the staging of its inputs and the
+   sampling epilogue (median of 3 each), and trace one warm noisy
+   ``run()`` with ``torch.profiler`` for the device's busy share.
 
 The line before the last is the kernel report, one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -45,6 +63,170 @@ KERNEL_TOL = 1e-5
 SWEEP_TOL = 1e-4
 #: Required agreement with the golden states.
 FIDELITY_TOL = 1e-6
+#: K2 against its plain version (float32, different summation orders,
+#: libm, and reductions; the phases reach ~100 rad).
+MCWF_TOL = 5e-5
+#: The noisy main path against the JAX package's figures: trajectory-
+#: averaged Rydberg populations (absolute) and the total-variation
+#: distance of the final 1000-shot count table.
+POPULATION_TOL = 1e-3
+COUNTS_TV_TOL = 0.02
+
+#: The JAX package's run of the noisy 10-atom configuration after
+#: ``np.random.seed(1234)`` (row-batched quantum-jump kernel, Pallas
+#: interpreter on a CPU, single precision), printed by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/noisy10_reference.py``:
+#: the per-atom Rydberg population at the final time, averaged over the
+#: 100 trajectories, and the final-time bitstring counts.
+NOISY10_REFERENCE = {
+    "seed": 1234,
+    "n_steps": 501,
+    "rydberg_populations": [
+        0.46465639132265646,
+        0.29826585307028236,
+        0.37574452470789965,
+        0.30506157155183666,
+        0.443851945939796,
+        0.4584876543614119,
+        0.29035249861616913,
+        0.3839335009957779,
+        0.2867389633681055,
+        0.47287679161910917
+    ],
+    "final_counts": {
+        "0000000101": 2,
+        "0000001000": 1,
+        "0000001010": 1,
+        "0000010001": 2,
+        "0000010011": 1,
+        "0000010100": 1,
+        "0000010101": 22,
+        "0000100000": 1,
+        "0000100010": 1,
+        "0000101000": 1,
+        "0000101010": 4,
+        "0000110010": 13,
+        "0000110100": 13,
+        "0001000100": 1,
+        "0001000101": 2,
+        "0001001000": 1,
+        "0001001001": 3,
+        "0001010001": 4,
+        "0001010100": 6,
+        "0001010101": 56,
+        "0001011100": 1,
+        "0001011101": 1,
+        "0001110101": 1,
+        "0010000000": 1,
+        "0010000001": 2,
+        "0010000010": 1,
+        "0010001001": 4,
+        "0010001010": 2,
+        "0010010000": 2,
+        "0010010001": 10,
+        "0010010010": 3,
+        "0010010101": 1,
+        "0010100010": 5,
+        "0010101000": 3,
+        "0010101010": 8,
+        "0010110000": 17,
+        "0010110001": 2,
+        "0010110010": 18,
+        "0010110011": 1,
+        "0010110100": 1,
+        "0011010100": 1,
+        "0011010101": 1,
+        "0011100000": 1,
+        "0011110000": 1,
+        "0011110010": 3,
+        "0100000001": 2,
+        "0100000101": 7,
+        "0100010000": 3,
+        "0100010001": 7,
+        "0100010010": 6,
+        "0100010100": 3,
+        "0100010101": 44,
+        "0100100010": 3,
+        "0100100100": 3,
+        "0100110000": 13,
+        "0100110010": 28,
+        "0100110011": 2,
+        "0100110100": 38,
+        "0100110101": 1,
+        "0100111000": 1,
+        "0100111010": 1,
+        "0101000001": 1,
+        "0101000100": 3,
+        "0101000101": 9,
+        "0101001100": 1,
+        "0101001101": 1,
+        "0101010000": 7,
+        "0101010001": 51,
+        "0101010011": 1,
+        "0101010100": 5,
+        "0101010101": 61,
+        "0101010111": 2,
+        "0101100101": 1,
+        "0101110001": 1,
+        "0101110100": 1,
+        "0101110101": 1,
+        "0111000101": 1,
+        "0111010101": 1,
+        "1000000000": 2,
+        "1000000001": 1,
+        "1000000100": 2,
+        "1000000101": 23,
+        "1000001000": 1,
+        "1000001001": 12,
+        "1000001010": 8,
+        "1000100000": 3,
+        "1000100010": 4,
+        "1000100100": 9,
+        "1000101000": 6,
+        "1000101001": 1,
+        "1000101010": 30,
+        "1000101110": 1,
+        "1000110000": 1,
+        "1000110010": 1,
+        "1001000000": 2,
+        "1001000001": 10,
+        "1001000100": 7,
+        "1001000101": 38,
+        "1001001000": 6,
+        "1001001001": 25,
+        "1001001101": 1,
+        "1001011001": 1,
+        "1001100010": 1,
+        "1001100100": 1,
+        "1001101010": 1,
+        "1010000000": 4,
+        "1010000001": 16,
+        "1010000010": 10,
+        "1010001000": 2,
+        "1010001001": 29,
+        "1010001010": 13,
+        "1010001011": 1,
+        "1010001101": 1,
+        "1010100000": 21,
+        "1010100010": 45,
+        "1010100011": 1,
+        "1010100110": 1,
+        "1010101000": 50,
+        "1010101010": 56,
+        "1010101011": 1,
+        "1010101100": 2,
+        "1010101101": 1,
+        "1010101110": 1,
+        "1010111010": 3,
+        "1011001001": 1,
+        "1011101000": 1,
+        "1011101010": 1,
+        "1100010101": 1,
+        "1100110100": 1,
+        "1110001000": 1,
+        "1110101010": 1
+    },
+}
 
 
 def _ramp(duration: int, start: float, stop: float) -> np.ndarray:
@@ -59,18 +241,17 @@ def _const(duration: int, value: float) -> np.ndarray:
     return value * np.ones(duration)
 
 
-def afm16_inputs() -> tuple:
-    """``(samples, register, device)`` of the 16-atom AFM sweep.
-
-    The configuration of ``bench.py``'s ``build_afm_sequence``: a 4x4
-    square register at 6 µm on ``MockDevice``, one global Rydberg
-    channel, a 252 ns amplitude rise at δ0 = −2π·6, a 2700 ns detuning
-    sweep to δf = 2π·2 at Ω = 2π·2 and a 252 ns fall, phase 0. Built
-    from the waveform formulas directly, since the sequence builder is
-    not ported yet.
-    """
+def _sweep_inputs(
+    register, omega: float, delta_0: float, delta_f: float,
+    t_rise: int, t_sweep: int, t_fall: int,
+) -> tuple:
+    """``(samples, register, device)`` of a ramp-sweep-ramp on
+    ``MockDevice``'s global Rydberg channel, phase 0: an amplitude rise
+    to ``omega`` at ``delta_0``, a detuning sweep to ``delta_f`` at
+    ``omega``, an amplitude fall at ``delta_f``. Built from the waveform
+    formulas directly, since the sequence builder is not ported yet."""
     import pulser_tpu_torch.math as pm
-    from pulser_tpu_torch import MockDevice, Register
+    from pulser_tpu_torch import MockDevice
     from pulser_tpu_torch.interop import _TimeSlot
     from pulser_tpu_torch.sampler.samples import (
         ChannelSamples,
@@ -78,17 +259,12 @@ def afm16_inputs() -> tuple:
         _PulseTargetSlot,
     )
 
-    omega_max = 2.0 * 2 * np.pi
-    delta_0 = -6 * 2 * np.pi
-    delta_f = 2 * 2 * np.pi
-    t_rise, t_sweep, t_fall = 252, 2700, 252
-    register = Register.square(4, spacing=6.0, prefix="q")
     qids = set(register.qubit_ids)
     amp = np.concatenate(
         [
-            _ramp(t_rise, 0.0, omega_max),
-            _const(t_sweep, omega_max),
-            _ramp(t_fall, omega_max, 0.0),
+            _ramp(t_rise, 0.0, omega),
+            _const(t_sweep, omega),
+            _ramp(t_fall, omega, 0.0),
         ]
     )
     det = np.concatenate(
@@ -116,6 +292,58 @@ def afm16_inputs() -> tuple:
         _basis_ref={"ground-rydberg": {q: ((0, 0.0),) for q in qids}},
     )
     return samples, register, MockDevice
+
+
+def afm16_inputs() -> tuple:
+    """``(samples, register, device)`` of the 16-atom AFM sweep.
+
+    The configuration of ``bench.py``'s ``build_afm_sequence``: a 4x4
+    square register at 6 µm on ``MockDevice``, one global Rydberg
+    channel, a 252 ns amplitude rise at δ0 = −2π·6, a 2700 ns detuning
+    sweep to δf = 2π·2 at Ω = 2π·2 and a 252 ns fall, phase 0.
+    """
+    from pulser_tpu_torch import Register
+
+    return _sweep_inputs(
+        Register.square(4, spacing=6.0, prefix="q"),
+        2.0 * 2 * np.pi, -6 * 2 * np.pi, 2 * 2 * np.pi, 252, 2700, 252,
+    )
+
+
+def noisy10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of the noisy run.
+
+    The configuration of ``bench.py``'s ``build_noisy_10atom`` (the
+    BASELINE's noisy leg): a 2x5 rectangle at 7 µm on ``MockDevice``, a
+    400 ns amplitude rise to Ω = 2π·1.5 at δ = −2π·4, a 1200 ns sweep to
+    δ = 2π·2 and a 400 ns fall; SPAM (prep 0.005, false positive 0.01,
+    false negative 0.02), doppler at 50 µK, amplitude noise (σ = 0.02,
+    laser waist 175 µm) and dephasing at 0.05 /µs, 100 trajectories of
+    10 samples each.
+    """
+    import warnings
+
+    from pulser_tpu_torch import NoiseModel, Register
+
+    om = 2 * np.pi * 1.5
+    inputs = _sweep_inputs(
+        Register.rectangle(2, 5, spacing=7.0, prefix="q"),
+        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400,
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # runs=
+        noise = NoiseModel(
+            state_prep_error=0.005,
+            p_false_pos=0.01,
+            p_false_neg=0.02,
+            temperature=50.0,
+            amp_sigma=0.02,
+            laser_waist=175.0,
+            dephasing_rate=0.05,
+            runs=100,
+            samples_per_run=10,
+        )
+    return inputs + (noise,)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -167,6 +395,52 @@ def random_kernel_inputs(
     return tensors, dict(n_row=n_row, n_col=n_col, seg_len=seg_len)
 
 
+#: Diagonal collapse operators of the random K2 inputs, (l00_re, l00_im,
+#: l11_re, l11_im) each: a Z-like and a strong Rydberg-decay-like channel,
+#: so that trajectories jump within a few steps.
+RANDOM_COPS = ((0.3, 0.0, -0.3, 0.0), (0.0, 0.0, 2.5, 0.5))
+
+
+def random_mcwf_inputs(
+    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8
+) -> list:
+    """Random mcwf_rows inputs, made with numpy from ``seed``, in the
+    layout of the JAX package's ``mcwf_rows_program``: 2 segments of
+    ``seg_len`` steps (the second starts with 2 padding steps). The
+    jump thresholds start near 1 so that trajectories jump early."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_seg, dim = 2, 1 << n
+    stage = (n_traj, n_seg, seg_len, 3, 1, n)
+    dts = rng.uniform(2e-3, 6e-3, (n_seg, seg_len))
+    dts[1, :2] = 0.0
+    t0 = np.cumsum(dts.reshape(-1)).reshape(n_seg, seg_len) - dts
+    t_stage = t0[..., None] + dts[..., None] * np.array([0.0, 0.5, 1.0])
+    us = rng.uniform(0.0, 1.0, (n_traj, n_seg, seg_len, 2))
+    us[..., 1] = rng.uniform(0.9, 1.0, us.shape[:-1])
+    psi0 = rng.normal(size=(2, dim))
+    psi0 /= np.linalg.norm(psi0)
+    host = [
+        rng.uniform(-6.0, 6.0, stage),
+        rng.uniform(-6.0, 6.0, stage),
+        rng.uniform(0.0, 2 * np.pi, stage),
+        t_stage,
+        dts,
+        us,
+        t0[:, -1] + dts[:, -1],
+        rng.uniform(0.0, 2 * np.pi, (n_traj, n_seg, 1, n)),
+        rng.uniform(0.9, 1.0, n_traj),
+        rng.uniform(0.0, 400.0, (n_traj, dim)),
+        psi0[0],
+        psi0[1],
+    ]
+    return [
+        torch.from_numpy(np.ascontiguousarray(h, dtype=np.float32)).to(device)
+        for h in host
+    ]
+
+
 def _median_seconds(fn, repeats: int = 3) -> float:
     import torch
 
@@ -180,6 +454,24 @@ def _median_seconds(fn, repeats: int = 3) -> float:
     return statistics.median(times)
 
 
+def _tv_distance(a: dict, b: dict) -> float:
+    """Total-variation distance of two bitstring count tables."""
+    na, nb = sum(a.values()), sum(b.values())
+    return 0.5 * sum(
+        abs(a.get(k, 0) / na - b.get(k, 0) / nb) for k in set(a) | set(b)
+    )
+
+
+def _rydberg_populations(states, n: int) -> np.ndarray:
+    """Per-atom Rydberg population averaged over trajectories, from
+    ``(B, 2, 2^n)`` real/imaginary planes (|r> is bit n-1-q == 0)."""
+    st = states.double().cpu().numpy()
+    probs = st[:, 0] ** 2 + st[:, 1] ** 2
+    idx = np.arange(probs.shape[1])
+    ryd = np.stack([((idx >> (n - 1 - q)) & 1) == 0 for q in range(n)])
+    return (probs @ ryd.T.astype(float)).mean(axis=0)
+
+
 def main() -> int:
     import torch
 
@@ -188,7 +480,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import pulser_tpu_torch.ops.kernels as K
-    from pulser_tpu_torch.emulator import TorchEmulator
+    from pulser_tpu_torch.emulator import NoisyResults, TorchEmulator
     from pulser_tpu_torch.ops import solver as S
 
     card = subprocess.run(
@@ -208,16 +500,18 @@ def main() -> int:
     )
     device = torch.device("cuda")
 
-    # 2. Build the kernel from the checkout's sources
+    # 2. Build both kernels from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    lib_path, log = K.build_ip_sesolve(verbose=True)
+    built = K.build(verbose=True)
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.2f} s -> {os.path.relpath(lib_path, _ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print(f"build: {build_s:.2f} s")
+    for name, (lib_path, log) in built.items():
+        print(f"  {name} -> {os.path.relpath(lib_path, _ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
-    # 3. The kernel against its plain version on random inputs
+    # 3. K1 against its plain version on random inputs
     for n in (10, 13, 16):
         args, kw = random_kernel_inputs(n, seed=n, device=device)
         got = K.ip_sesolve(*args, **kw)
@@ -229,7 +523,23 @@ def main() -> int:
         _check(bool(torch.isfinite(got).all()), f"finite output, n={n}")
         _check(err <= KERNEL_TOL, f"n={n}: {err:.3e} > {KERNEL_TOL}")
 
-    # 4. The main path at full size, counted
+    # 4. K2 against its plain version on random inputs
+    for n in (4, 7, 10, 13):
+        args = random_mcwf_inputs(n, seed=n, device=device)
+        got, jumps = K.mcwf_rows(*args, cops=RANDOM_COPS)
+        torch.cuda.synchronize()
+        want, jumps_p = K.mcwf_rows_reference(*args, cops=RANDOM_COPS)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(
+            f"mcwf_rows vs plain, n={n}: max|d| = {err:.3e},"
+            f" jumps {jumps.tolist()}"
+        )
+        _check(bool(torch.isfinite(got).all()), f"finite K2 output, n={n}")
+        _check(torch.equal(jumps, jumps_p), f"K2 jump counts, n={n}")
+        _check(err <= MCWF_TOL, f"K2 n={n}: {err:.3e} > {MCWF_TOL}")
+
+    # 5. The noiseless main path at full size, counted
     samples, register, mock = afm16_inputs()
     eval_times = np.linspace(0, samples.max_duration * 1e-3, 101)
     golden = np.load(_GOLDEN)
@@ -258,7 +568,6 @@ def main() -> int:
     for name, value in one_minus_f.items():
         _check(value < FIDELITY_TOL, f"{name} 1-F {value:.3e}")
 
-    # 5. Times at the sweep's own shapes, and the whole warm run
     plan = emu._plan_cache[1]
     psi0 = emu._initial_ket().astype(np.complex64)
     ham = emu._current_hamiltonian
@@ -271,13 +580,131 @@ def main() -> int:
     _check(sweep_err <= SWEEP_TOL, f"sweep: {sweep_err:.3e} > {SWEEP_TOL}")
     kernel_s = _median_seconds(lambda: K.ip_sesolve(*args, **kw))
     plain_s = _median_seconds(lambda: K.ip_sesolve_reference(*args, **kw))
-    run_s = _median_seconds(
-        lambda: emu.run().states[-1].full()
-    )
+    run_s = _median_seconds(lambda: emu.run().states[-1].full())
     print(
         f"times on {card}: ip_sesolve {kernel_s * 1e3:.3f} ms,"
         f" plain {plain_s * 1e3:.3f} ms, warm run() {run_s * 1e3:.3f} ms"
         f" ({info['n_steps']} RK4 steps, {plan.seg_dts.shape[0]} segments)"
+    )
+
+    # 6. The noisy main path at full size, counted; the solve's inputs
+    # are recorded to hold K2 against its plain version afterwards
+    samples, register, mock, noise = noisy10_inputs()
+    captured: dict = {}
+    fused = S.mcsolve_rows_codes
+
+    def record(*a, **k):
+        captured["args"] = a
+        return fused(*a, **k)
+
+    S.mcsolve_rows_codes = record
+    try:
+        np.random.seed(NOISY10_REFERENCE["seed"])
+        K.MCWF_ROWS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        noisy = TorchEmulator(
+            samples, register, mock, noise_model=noise,
+            evaluation_times="Minimal",
+        )
+        nres = noisy.run()
+        noisy_cold_s = time.perf_counter() - t0
+        mcwf_launches = K.MCWF_ROWS_LAUNCHES
+    finally:
+        S.mcsolve_rows_codes = fused
+    ninfo = dict(S.last_solve_info)
+    print(
+        f"noisy path: {ninfo}, launches={mcwf_launches},"
+        f" cold {noisy_cold_s:.3f} s"
+    )
+    _check(ninfo.get("kind") == "mcwf_rows_cuda", "K2 route taken")
+    _check(mcwf_launches > 0, "mcwf_rows launched on the noisy path")
+    _check(isinstance(nres, NoisyResults), "NoisyResults returned")
+    shots = [sum(r.bitstring_counts.values()) for r in nres]
+    _check(all(c == 1000 for c in shots), f"1000 shots per time: {shots}")
+    final_counts = dict(nres[-1].bitstring_counts)
+    tv = _tv_distance(final_counts, NOISY10_REFERENCE["final_counts"])
+
+    psi0_n, plans, diags, _, _, n_q, cops, seeds, _ = captured["args"]
+    cops_spec = S._diag_cops_spec(cops)
+    margs = S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
+    got, jumps = K.mcwf_rows(*margs, cops=cops_spec)
+    want, jumps_p = K.mcwf_rows_reference(*margs, cops=cops_spec)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(got).all()), "finite K2 states")
+    per_traj = (got - want).abs().amax(dim=(1, 2, 3))
+    odd = sorted(
+        set(torch.nonzero(jumps != jumps_p).flatten().tolist())
+        | set(torch.nonzero(per_traj > MCWF_TOL).flatten().tolist())
+    )
+    keep = torch.ones_like(per_traj, dtype=torch.bool)
+    keep[odd] = False
+    mcwf_err = float(per_traj[keep].max())
+    print(
+        f"mcwf_rows vs plain on the noisy run: max|d| = {mcwf_err:.3e}"
+        f" over {int(keep.sum())} trajectories; jump record differs for"
+        f" {odd}; jumps per trajectory: mean"
+        f" {float(jumps.float().mean()):.2f}, max {int(jumps.max())}"
+    )
+    _check(len(odd) <= 1, f"K2 vs plain differ on trajectories {odd}")
+    _check(mcwf_err <= MCWF_TOL, f"K2 noisy: {mcwf_err:.3e} > {MCWF_TOL}")
+    pops = _rydberg_populations(got[:, -1], n_q)
+    pop_err = float(
+        np.max(np.abs(pops - NOISY10_REFERENCE["rydberg_populations"]))
+    )
+    print(
+        f"vs the JAX package (seed {NOISY10_REFERENCE['seed']}):"
+        f" Rydberg populations max|d| = {pop_err:.3e},"
+        f" final counts TV = {tv:.4f}"
+    )
+    _check(pop_err <= POPULATION_TOL, f"populations {pop_err:.3e}")
+    _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
+
+    # 7. Times of the noisy path
+    mcwf_s = _median_seconds(lambda: K.mcwf_rows(*margs, cops=cops_spec))
+    mcwf_plain_s = _median_seconds(
+        lambda: K.mcwf_rows_reference(*margs, cops=cops_spec)
+    )
+    noisy_run_s = _median_seconds(noisy.run)
+    opts: dict = {}
+    noisy._validate_options(opts)  # the options run() solves with
+    prep_s = _median_seconds(lambda: noisy._lindblad_batch_prep(dict(opts)))
+    stage_s = _median_seconds(
+        lambda: S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
+    )
+    sample_spec = captured["args"][8]
+    epilogue_s = _median_seconds(
+        lambda: S._sample_codes(got, sample_spec, plans.plan.eval_map).cpu()
+    )
+    print(
+        f"times on {card}: mcwf_rows {mcwf_s * 1e3:.3f} ms,"
+        f" plain {mcwf_plain_s * 1e3:.3f} ms, warm noisy run()"
+        f" {noisy_run_s * 1e3:.3f} ms, of which host prep (trajectory"
+        f" draws, batch, plan) {prep_s * 1e3:.3f} ms, staging and uniforms"
+        f" {stage_s * 1e3:.3f} ms and the sampling epilogue with its fetch"
+        f" {epilogue_s * 1e3:.3f} ms ({ninfo['n_steps']} RK4 steps,"
+        f" {ninfo['n_traj']} trajectories)"
+    )
+    # The device's busy share of one warm noisy run()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        noisy.run()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    # Kernels and copies; the emulator's record_function ranges show as
+    # device events too and are left out
+    busy_us = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.is_user_annotation
+    )
+    print(
+        f"profiled noisy run(): {traced_s * 1e3:.3f} ms wall, device busy"
+        f" {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / traced_s:.1f}%)"
     )
 
     report = {
@@ -291,7 +718,17 @@ def main() -> int:
                 "max_abs_err": sweep_err,
                 "ms": kernel_s * 1e3,
                 "plain_ms": plain_s * 1e3,
-            }
+            },
+            {
+                "name": "mcwf_rows",
+                "route": "cuda",
+                "source": "pulser_tpu_torch/csrc/mcwf_rows.cu",
+                "replaces": "pulser_tpu/ops/pallas_kernels.py:824",
+                "launches": mcwf_launches,
+                "max_abs_err": mcwf_err,
+                "ms": mcwf_s * 1e3,
+                "plain_ms": mcwf_plain_s * 1e3,
+            },
         ]
     }
     print(json.dumps(report))

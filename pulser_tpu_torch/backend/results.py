@@ -38,6 +38,20 @@ class Results:
         self._times = {}
         self._tagmap = {}
 
+    def _store_raw(
+        self, *, uuid: uuid.UUID, tag: str, time: float, value: Any
+    ) -> None:
+        """Records one observable value at a relative time."""
+        stored_times = self._times.setdefault(uuid, [])
+        if time in stored_times:
+            raise RuntimeError(
+                f"A value is already stored for observable '{tag}'"
+                f" at time {time}."
+            )
+        self._tagmap[tag] = uuid
+        stored_times.append(time)
+        self._results.setdefault(uuid, []).append(value)
+
     def get_result_tags(self) -> list[str]:
         """Every stored result tag."""
         return list(self._tagmap.keys())

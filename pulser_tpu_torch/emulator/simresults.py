@@ -2,10 +2,10 @@
 
 Behavioral parity with reference
 ``pulser-simulation/pulser_simulation/simresults.py:38-568``, over
-dense numpy states instead of qutip objects. Only the coherent
-(noiseless) results are ported; ``NoisyResults``, the pseudo-density
-expectation path, SPAM measurement errors and plotting wait for the
-noisy leg (see ROADMAP.md).
+dense numpy states instead of qutip objects: ``CoherentResults`` and
+``NoisyResults`` with its pseudo-density expectation path. Measurement
+errors on coherent results and plotting are not ported (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,24 +14,33 @@ import collections.abc
 import typing
 from abc import ABC, abstractmethod
 from collections import Counter
+from functools import lru_cache
 from typing import Optional, TypeVar, Union, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
 
 from pulser_tpu_torch.backend.results import ResultsSequence
-from pulser_tpu_torch.emulator.qobj import Qobj
+from pulser_tpu_torch.emulator.qobj import Qobj, basis as basis_ket, tensor
 from pulser_tpu_torch.emulator.sim_result import TorchResult
+from pulser_tpu_torch.result import SampledResult
 
-ResultType = TypeVar("ResultType", bound=TorchResult)
+ResultType = TypeVar("ResultType", SampledResult, TorchResult)
+
+
+def _is_diagonal(arr: np.ndarray) -> bool:
+    return bool(np.all(arr == np.diag(np.diag(arr))))
 
 
 class SimulationResults(ABC, ResultsSequence[ResultType]):
     """Results of a simulation run of a pulse sequence.
 
-    Parent class of CoherentResults. Contains methods for studying the
-    states and extracting useful information.
+    Parent class of NoisyResults and CoherentResults. Contains methods
+    for studying the states and extracting useful information.
     """
+
+    # Use the pseudo-density matrix when calculating expectation values
+    _use_pseudo_dens: bool = False
 
     def __init__(
         self, size: int, basis_name: str, sim_times: np.ndarray
@@ -87,7 +96,7 @@ class SimulationResults(ABC, ResultsSequence[ResultType]):
             raise TypeError("`obs_list` must be a list of operators.")
 
         obs_arrs = []
-        dim = self._dim
+        dim = self._dim if not self._use_pseudo_dens else 2
         legal_shape = (dim**self._size, dim**self._size)
         for obs in obs_list:
             if not (
@@ -107,7 +116,13 @@ class SimulationResults(ABC, ResultsSequence[ResultType]):
                 obs.full() if isinstance(obs, Qobj) else obs
             )
             obs_arrs.append(obs_arr)
-        states = self.states
+            if self._use_pseudo_dens and not _is_diagonal(obs_arr):
+                raise ValueError(f"Observable {obs!r} is non-diagonal.")
+        states = (
+            [self._calc_pseudo_density(ind) for ind in range(len(self))]
+            if self._use_pseudo_dens
+            else self.states
+        )
 
         out = []
         for obs_arr in obs_arrs:
@@ -160,6 +175,97 @@ class SimulationResults(ABC, ResultsSequence[ResultType]):
                 f"Given time {t_float} is absent from simulation times"
                 + f" within tolerance {tol}."
             )
+
+    @lru_cache(maxsize=None)
+    def _calc_pseudo_density(self, t_index: int) -> Qobj:
+        """The pseudo-density matrix at a given time.
+
+        A diagonal matrix calculated from the probability of obtaining
+        each possible state after measurement.
+        """
+
+        def _proj_from_bitstring(bitstring: str) -> Qobj:
+            return tensor([self._meas_projector(int(i)) for i in bitstring])
+
+        w = self[t_index]._weights()
+        # Multiply on the Qobj side: a numpy scalar's __mul__ would
+        # absorb the Qobj into a plain ndarray
+        return cast(
+            Qobj,
+            sum(
+                _proj_from_bitstring(np.binary_repr(i, width=self._size))
+                * float(w[i])
+                for i in np.nonzero(w)[0]
+            ),
+        )
+
+    def _meas_projector(self, state_n: int) -> Qobj:
+        """The post-measurement projector for a measured 0 or 1."""
+        if self._basis_name == "ground-rydberg":
+            # 0 = |g>; 1 = |r>
+            return basis_ket(2, 1 - state_n).proj()
+        return basis_ket(2, state_n).proj()
+
+
+class NoisyResults(SimulationResults[SampledResult]):
+    """Results of a noisy simulation run of a pulse sequence.
+
+    Contains a list of Counters describing the state distribution over
+    time, as produced by a stochastic emulation run.
+    """
+
+    _use_pseudo_dens: bool = True
+
+    def __init__(
+        self,
+        run_output: typing.Sequence[SampledResult],
+        size: int,
+        basis_name: str,
+        sim_times: np.ndarray,
+        n_measures: int,
+    ) -> None:
+        """Initializes a new NoisyResults instance.
+
+        Args:
+            run_output: One Counter (as a SampledResult) for each time
+                the simulation returned a result.
+            size: The number of atoms in the register.
+            basis_name: Basis indicating the addressed atoms. Defaults
+                to 'digital' if given 'all'/'all_with_error', and strips
+                any '_with_error' suffix.
+            sim_times: Times at which the results were returned.
+            n_measures: Number of measurements used to compute this
+                result.
+        """
+        basis = basis_name.replace("_with_error", "")
+        basis_name_ = "digital" if basis == "all" else basis
+        super().__init__(size, basis_name_, sim_times)
+        self.n_measures = n_measures
+        self._results_seq = tuple(run_output)
+
+    @property
+    def states(self) -> list[Qobj]:
+        """Measured states as a list of diagonal density matrices."""
+        return [self.get_state(t) for t in self._sim_times]
+
+    @property
+    def results(self) -> list[Counter]:
+        """Probability distribution of the bitstrings."""
+        return [Counter(res.sampling_dist) for res in self]
+
+    def get_state(self, t: float, t_tol: float = 1.0e-3) -> Qobj:
+        """Gets the state at time t as a diagonal density matrix.
+
+        Note:
+            This is not the density matrix of the system, but a
+            convenient way of computing expectation values of
+            observables.
+        """
+        return self._calc_pseudo_density(self._get_index_from_time(t, t_tol))
+
+    def get_final_state(self) -> Qobj:
+        """The final state as a diagonal density matrix."""
+        return self.get_state(self._sim_times[-1])
 
 
 class CoherentResults(SimulationResults[TorchResult]):

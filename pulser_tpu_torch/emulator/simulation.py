@@ -2,16 +2,26 @@
 
 Port of ``pulser_tpu/emulator/simulation.py`` (itself behavioral parity
 with reference ``pulser-simulation/pulser_simulation/simulation.py``,
-``QutipEmulator``), for the coherent noiseless path: QuTiP's
-``sesolve`` becomes :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4` in
-the interaction picture, on a CUDA device when there is one.
+``QutipEmulator``), for two paths, on a CUDA device when there is one:
+
+- noiseless: QuTiP's ``sesolve`` becomes
+  :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4` in the interaction
+  picture;
+- noisy with shot-to-shot noise and diagonal collapse operators (SPAM,
+  doppler, amplitude, dephasing): one quantum-jump realization per noise
+  trajectory, the whole batch in one row-batched solve with the
+  measurement draws fused after it
+  (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rows_codes`), ending in
+  ``NoisyResults`` of bitstring counts.
 
 The evaluation-times semantics (Full/Minimal/array/fraction, union with
-{0, T}), the +1 duration extension, the step policy and the
-renormalization at evaluation times match the JAX package exactly, so
-both build the same plan. Noisy runs, density-matrix inputs, the
-lab-frame solve and ``from_sequence`` are not ported yet (see
-ROADMAP.md).
+{0, T}), the +1 duration extension, the step policy, the noise draws and
+the order in which the numpy global RNG is consumed match the JAX
+package exactly, so both build the same plan and a seeded run gives the
+same counts. Every other noise configuration (master equation,
+non-diagonal or no collapse operators, XY, interaction interpolation),
+density-matrix inputs, the lab-frame solve and ``from_sequence`` are
+not ported yet and raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,7 +29,10 @@ from __future__ import annotations
 import functools
 import os
 import warnings
-from typing import Any, Optional, Union, cast
+from collections import Counter
+from collections.abc import Iterator
+from enum import Enum
+from typing import Any, NamedTuple, Optional, Union, cast
 
 import numpy as np
 import torch
@@ -31,13 +44,112 @@ from pulser_tpu_torch.emulator.hamiltonian import Hamiltonian
 from pulser_tpu_torch.emulator.qobj import Qobj, tensor
 from pulser_tpu_torch.emulator.sim_result import TorchResult
 from pulser_tpu_torch.emulator.simconfig import SimConfig
-from pulser_tpu_torch.emulator.simresults import CoherentResults
-from pulser_tpu_torch.hamiltonian_data import HamiltonianData
+from pulser_tpu_torch.emulator.simresults import (
+    CoherentResults,
+    NoisyResults,
+    SimulationResults,
+)
+from pulser_tpu_torch.hamiltonian_data import (
+    HamiltonianData,
+    has_shot_to_shot_except_spam,
+)
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.ops import solver as _solver_mod
 from pulser_tpu_torch.ops.solver import build_plan
 from pulser_tpu_torch.register.base_register import BaseRegister
-from pulser_tpu_torch.sampler.samples import ChannelSamples, SequenceSamples
+from pulser_tpu_torch.result import SampledResult, _labels_of
+from pulser_tpu_torch.sampler.samples import (
+    ChannelSamples,
+    DMMSamples,
+    SequenceSamples,
+)
+
+
+class HamiltonianWithReps(NamedTuple):
+    """A Hamiltonian and the number of times it should be simulated."""
+
+    hamiltonian: Hamiltonian
+    reps: int
+
+
+class _CoeffBatch:
+    """Per-trajectory solver inputs for one batched noisy run.
+
+    Built either the generic way (one :class:`Hamiltonian` object per
+    trajectory) or — when every sample modification the active noise
+    types make is a per-(trajectory, channel, qubit) scalar — by
+    broadcasting over the noiseless coefficients
+    (:meth:`TorchEmulator._fast_coeff_batch`).
+
+    The fast path carries the coefficients as rank factorizations
+    (``amp_factors`` / ``det_factors``: profiles ``(R, nb, N, K)``,
+    coeffs ``(B, R, nb, N)`` with ``batch[b] = Σ_r coeffs[b, r] ·
+    profiles[r]``) and never materializes the dense ``(B, nb, N, K)``
+    batch on the hot path. The dense ``amp`` / ``det`` views
+    materialize lazily (via ``dense_fn``, which replays the generic
+    path's operation order) for the parity tests.
+    """
+
+    def __init__(
+        self,
+        diags: np.ndarray,
+        reps: list,
+        template: Hamiltonian,
+        last_ham: Any,
+        amp: "np.ndarray | None" = None,
+        det: "np.ndarray | None" = None,
+        det_factors: Any = None,
+        amp_factors: Any = None,
+        dense_fn: Any = None,
+    ) -> None:
+        self.diags = diags  # (T, dim) interaction diagonals
+        self.reps = reps  # repetition count per trajectory
+        self.template = template  # pairs / dims / knots / collapse
+        self.last_ham = last_ham  # () -> Hamiltonian
+        self._amp = amp  # (T, nb, N, K) complex, or lazy
+        self._det = det  # (T, nb, N, K) real, or lazy
+        self.det_factors = det_factors
+        self.amp_factors = amp_factors
+        self._dense_fn = dense_fn
+        assert (amp is not None and det is not None) or (
+            dense_fn is not None
+        ), "need dense arrays or a materializer"
+
+    def _materialize(self) -> None:
+        if self._amp is None or self._det is None:
+            self._amp, self._det = self._dense_fn()
+
+    @property
+    def amp(self) -> np.ndarray:
+        """Dense complex drive batch (lazy on the factored path)."""
+        self._materialize()
+        return self._amp
+
+    @property
+    def det(self) -> np.ndarray:
+        """Dense real detuning batch (lazy on the factored path)."""
+        self._materialize()
+        return self._det
+
+
+class _LindbladPrep(NamedTuple):
+    """Host-prep outputs of :meth:`TorchEmulator._lindblad_batch_prep`."""
+
+    batch: _CoeffBatch
+    plans: Any  # solver.BatchedPlan
+    d: int
+    n: int
+    pairs: tuple
+    collapse_mats: list
+    psi0: np.ndarray  # complex, solver dtype
+    mcwf_ip: bool
+
+
+def _has_stochastic_noise(noise_model: NoiseModel) -> bool:
+    return has_shot_to_shot_except_spam(noise_model) or (
+        "SPAM" in noise_model.noise_types
+        and noise_model.state_prep_error != 0
+    )
 
 
 def _quantized_step(base_step: float, stability_cap: float) -> float:
@@ -62,6 +174,22 @@ def _default_cdtype() -> torch.dtype:
     )
 
 
+class Solver(str, Enum):
+    """Solver selection.
+
+    If the noise model has no effective noise, the Schrödinger solver is
+    used (this setting is ignored). With effective noise:
+        - ``DEFAULT``: quantum-jump Monte-Carlo under stochastic noise,
+          master equation otherwise (the reference's auto-selection),
+        - ``MESOLVER``: master-equation solver (not ported yet),
+        - ``MCSOLVER``: quantum-jump Monte-Carlo (MCWF) solver.
+    """
+
+    DEFAULT = "default"
+    MESOLVER = "MasterEquation"
+    MCSOLVER = "MonteCarlo"
+
+
 class TorchEmulator:
     r"""Emulator of a sampled pulse sequence using PyTorch solvers.
 
@@ -76,8 +204,12 @@ class TorchEmulator:
         config: (Deprecated) SimConfig; use ``noise_model``.
         evaluation_times: "Full", "Minimal", an array of times (in µs)
             or a float sampling fraction.
-        noise_model: The noise model for the simulation. Only a model
-            without effective noise is supported so far.
+        noise_model: The noise model for the simulation. Noise is
+            ported for the quantum-jump path only: shot-to-shot noise
+            with diagonal collapse operators (see the module docstring).
+        solver: Solver selection (see :class:`Solver`).
+        n_trajectories: The number of noise trajectories to average over
+            when the emulation includes stochastic noise.
         torch_device: The torch device the solver runs on (default: the
             first CUDA device when there is one, else the CPU).
     """
@@ -91,6 +223,8 @@ class TorchEmulator:
         config: Optional[SimConfig] = None,
         evaluation_times: Union[float, str, ArrayLike] = "Full",
         noise_model: NoiseModel | None = None,
+        solver: Solver = Solver.DEFAULT,
+        n_trajectories: int | None = None,
         torch_device: Union[str, torch.device, None] = None,
     ) -> None:
         """Instantiates a TorchEmulator object."""
@@ -105,6 +239,7 @@ class TorchEmulator:
         device.validate_register(register)
         self._register = register
         self._torch_device = _solver_mod._resolve_device(torch_device)
+        self.solver = Solver(solver)
         # Smallest quantized step chosen so far, per solver context —
         # see _sticky_quantized_step
         self._sticky_steps: dict[str, float] = {}
@@ -129,6 +264,7 @@ class TorchEmulator:
         self.samples_obj = sampled_seq.extend_duration(
             self._tot_duration + 1
         )
+        self._n_trajectories = n_trajectories
 
         if not (0 < sampling_rate <= 1.0):
             raise ValueError(
@@ -159,23 +295,16 @@ class TorchEmulator:
             noise_model = config.to_noise_model()
         if not noise_model:
             noise_model = NoiseModel()
-        if noise_model.noise_types:
-            raise NotImplementedError(
-                "Noisy emulation is not ported yet (ROADMAP.md Queue 1,"
-                " 'batched plans and MCWF' and 'mesolve')."
-            )
 
+        self._noise_trajectories_used = False
         self._hamiltonian_data = HamiltonianData(
-            self.samples_obj, register, device, noise_model, 1
+            self.samples_obj,
+            register,
+            device,
+            noise_model,
+            self._get_n_trajectories(noise_model, check_value=True),
         )
-        traj, samples, _ = next(self._hamiltonian_data.noisy_samples)
-        self._current_hamiltonian = Hamiltonian(
-            samples,
-            traj,
-            self._hamiltonian_data.basis_data,
-            self._hamiltonian_data.lindblad_data,
-            self._sampling_rate,
-        )
+        self._current_hamiltonian = next(self._hamiltonians).hamiltonian
         self._eval_times_array: np.ndarray
         self.set_evaluation_times(evaluation_times)
 
@@ -186,6 +315,380 @@ class TorchEmulator:
         else:
             self._meas_basis = self.basis_name.replace("_with_error", "")
         self.set_initial_state("all-ground")
+        self._check_noise_ported()
+
+    def _get_n_trajectories(
+        self, noise_model: NoiseModel, check_value: bool
+    ) -> int | None:
+        n_trajectories = (
+            self._n_trajectories
+            if self._n_trajectories is not None
+            else noise_model.runs
+        )
+        if (
+            check_value
+            and _has_stochastic_noise(noise_model)
+            and n_trajectories is None
+        ):
+            raise ValueError(
+                "'n_trajectories' must be defined when the NoiseModel"
+                " contains stochastic noise, which is the case for the"
+                f" given noise model: {noise_model!r}"
+            )
+        return n_trajectories
+
+    @property
+    def n_trajectories(self) -> int | None:
+        """The number of trajectories to average over."""
+        return self._get_n_trajectories(self.noise_model, check_value=False)
+
+    def _noise_refusal(self) -> str | None:
+        """Why this noise configuration is outside the ported paths, or
+        None when it is inside them.
+
+        Reads only the current trajectory's Hamiltonian, never the
+        numpy global RNG, so it cannot shift a seeded run's draws.
+        """
+        nm = self.noise_model
+        if not nm.noise_types:
+            return None
+        if not _has_stochastic_noise(nm):
+            return (
+                "noise without shot-to-shot randomness runs the master"
+                " equation (ROADMAP.md Queue 1, 'mesolve')"
+            )
+        hd = self._hamiltonian_data
+        ham = self._current_hamiltonian
+        lindblad = hd.lindblad_data
+        if not lindblad.local_collapse_ops:
+            return (
+                "noisy runs without collapse operators need the batched"
+                " sesolve (ROADMAP.md Queue 1, 'batched K1')"
+            )
+        if lindblad.depolarizing_pauli_2ds or (
+            _solver_mod._diag_cops_spec(ham._local_collapse_mats) is None
+        ):
+            return (
+                "collapse operators that are not all diagonal need the"
+                " general-collapse MCWF kernel _mcwf_kernel (ROADMAP.md"
+                " Queue 2, K3)"
+            )
+        if ham.xy_mat is not None or ham.int_w is not None:
+            return (
+                "XY mode and interaction interpolation need the lab-frame"
+                " solve (ROADMAP.md Queue 1, 'lab-frame, XY and int_w"
+                " sesolve')"
+            )
+        if self.solver == Solver.MESOLVER or not self.initial_state.isket:
+            return (
+                "the master-equation solver and density-matrix initial"
+                " states are ROADMAP.md Queue 1, 'mesolve'"
+            )
+        if (
+            hd.basis_data.dim != 2
+            or self._meas_basis != "ground-rydberg"
+            or self._meas_basis not in self.basis_name
+        ):
+            return (
+                "noisy runs are ported for the ground-rydberg basis only"
+                " (ROADMAP.md Queue 1, 'lab-frame, XY and qudit sesolve')"
+            )
+        n = hd.n_qudits
+        if not 2 <= n <= _solver_mod.ROWS_MAX_QUBITS:
+            return (
+                f"the row-batched quantum-jump solve takes 2 to"
+                f" {_solver_mod.ROWS_MAX_QUBITS} atoms, not {n} (larger"
+                " registers: ROADMAP.md Queue 1, 'backend, JSON, parallel"
+                " and serving')"
+            )
+        return None
+
+    def _check_noise_ported(self) -> None:
+        reason = self._noise_refusal()
+        if reason is not None:
+            raise NotImplementedError(f"Not ported: {reason}.")
+
+    @property
+    def _hamiltonians(self) -> Iterator[HamiltonianWithReps]:
+        for traj, noisy_samples, reps in (
+            self._hamiltonian_data.noisy_samples
+        ):
+            yield HamiltonianWithReps(
+                Hamiltonian(
+                    noisy_samples,
+                    traj,
+                    self._hamiltonian_data.basis_data,
+                    self._hamiltonian_data.lindblad_data,
+                    self._sampling_rate,
+                ),
+                reps,
+            )
+
+    @property
+    def _noiseless_hamiltonian(self) -> Hamiltonian:
+        """The noiseless Hamiltonian, built once (its HamiltonianData
+        draws from the numpy global RNG where the JAX package's does)."""
+        ham = getattr(self, "_noiseless_ham_cache", None)
+        if ham is None:
+            noiseless_data = HamiltonianData(
+                self.samples_obj,
+                self._register,
+                self.device,
+                NoiseModel(),
+                n_trajectories=1,
+            )
+            ham = Hamiltonian(
+                noiseless_data.samples,
+                noiseless_data.noise_trajectories[0].trajectory,
+                noiseless_data.basis_data,
+                noiseless_data.lindblad_data,
+                self._sampling_rate,
+            )
+            self._noiseless_ham_cache = ham
+        return ham
+
+    def _one_trajectory_hamiltonian(self, traj: Any) -> Hamiltonian:
+        """The full (generic-path) Hamiltonian of ONE trajectory."""
+        hd = self._hamiltonian_data
+        return Hamiltonian(
+            hd._sample_with_trajectory(traj),
+            traj,
+            hd.basis_data,
+            hd.lindblad_data,
+            self._sampling_rate,
+        )
+
+    def _noisy_coeff_batch(self) -> _CoeffBatch:
+        """Per-trajectory coefficient batch for the batched runner.
+
+        Prefers the vectorized fast path; falls back to building one
+        Hamiltonian object per trajectory when the noise configuration
+        modifies samples in a way the broadcast cannot express.
+        """
+        trajs = list(self._hamiltonian_data.noise_trajectories)
+        fast = self._fast_coeff_batch(trajs)
+        if fast is not None:
+            return fast
+        hams = list(self._hamiltonians)
+        return _CoeffBatch(
+            amp=np.stack([h.hamiltonian.amp_coeffs for h in hams]),
+            det=np.stack([h.hamiltonian.det_coeffs for h in hams]),
+            diags=np.stack([h.hamiltonian.int_diag for h in hams]),
+            reps=[h.reps for h in hams],
+            template=hams[0].hamiltonian,
+            last_ham=lambda: hams[-1].hamiltonian,
+        )
+
+    def _fast_coeff_batch(self, trajs: list) -> "_CoeffBatch | None":
+        """Vectorized per-trajectory coefficients, or None.
+
+        When every sample modification the active noise types make is a
+        per-(trajectory, channel, qubit) scalar scale (amplitude sigma,
+        finite beam waist, badly-prepared atoms) or a slot-masked
+        constant detuning offset (doppler), the whole batch is a
+        broadcast over the noiseless coefficient arrays instead of one
+        Hamiltonian per trajectory. Ineligible (returns None):
+        time-dependent detuning noise, DMM noise, XY mode, interaction
+        interpolation, several channels driving one basis. The noisy
+        modifications replay the generic path's operation order, so the
+        two agree to the last bit.
+        """
+        nm = self.noise_model
+        ntypes = set(nm.noise_types)
+        if "detuning" in ntypes:
+            return None
+        hd = self._hamiltonian_data
+        samples = hd.samples
+        if any(
+            isinstance(cs, DMMSamples)
+            for cs in samples.channel_samples.values()
+        ):
+            return None
+        ch_objs = samples._ch_objs
+        basis_ch: dict[str, str] = {}
+        for ch, obj in ch_objs.items():
+            if obj.basis in basis_ch:
+                return None  # several channels per basis: fall back
+            basis_ch[obj.basis] = ch
+        if not trajs:
+            return None
+        # Template: noiseless samples, the real basis/lindblad data
+        # (collapse operators are trajectory-independent), any
+        # trajectory for the constructor's interaction inputs (its
+        # int_diag is recomputed per trajectory below).
+        template = Hamiltonian(
+            samples,
+            trajs[0].trajectory,
+            hd.basis_data,
+            hd.lindblad_data,
+            self._sampling_rate,
+        )
+        if template.xy_mat is not None or template.int_w is not None:
+            return None
+
+        n = template.n_qudits
+        dim = template.dim**n
+        nb = len(template.bases)
+        n_traj = len(trajs)
+        qid_order = list(template._qid_index)
+
+        # Raw per-(basis, qubit) sample rows in knot space; they are
+        # trajectory-independent, so repeat run() calls reuse them.
+        use_doppler = "doppler" in ntypes
+        raw_key = (
+            id(self.samples_obj),
+            self._sampling_rate,
+            template._duration,
+            tuple(template.bases),
+            use_doppler,
+        )
+        cached_raw = getattr(self, "_fast_raw_rows", None)
+        if cached_raw is not None and cached_raw[0] == raw_key:
+            _, amp_raw, ph_exp, det_raw, mask_k = cached_raw
+        else:
+            nested = samples.to_nested_dict(all_local=True)
+            amp_raw = np.zeros((nb, n, template._duration))
+            ph_raw = np.zeros((nb, n, template._duration))
+            det_raw = np.zeros((nb, n, template._duration))
+            for bi, basis in enumerate(template.bases):
+                for qid, qs in nested["Local"].get(basis, {}).items():
+                    qi = template._qid_index[qid]
+                    amp_raw[bi, qi] = qs["amp"]
+                    ph_raw[bi, qi] = qs["phase"]
+                    det_raw[bi, qi] = qs["det"]
+            amp_raw = template._adapt_last_axis(amp_raw)
+            ph_raw = template._adapt_last_axis(ph_raw)
+            det_raw = template._adapt_last_axis(det_raw)
+            ph_exp = np.exp(-1j * ph_raw[None])
+
+            # Slot-support masks per (basis, qubit) in knot space:
+            # doppler offsets apply only where the channel addresses
+            # the qubit (matches _apply_slot_noise's time window).
+            mask_k = None
+            if use_doppler:
+                mask_t = np.zeros((nb, n, template._duration))
+                for bi, basis in enumerate(template.bases):
+                    ch = basis_ch.get(basis)
+                    if ch is None:
+                        continue
+                    cs = samples.channel_samples[ch]
+                    for slot in cs.slots:
+                        for qid in slot.targets:
+                            qi = template._qid_index[qid]
+                            mask_t[bi, qi, slot.ti : slot.tf] = 1.0
+                mask_k = template._adapt_last_axis(mask_t)
+            self._fast_raw_rows = (raw_key, amp_raw, ph_exp, det_raw, mask_k)
+
+        use_amp = "amplitude" in ntypes
+        waist = nm.laser_waist
+        amp_scale = np.ones((n_traj, nb, n))
+        good = np.ones((n_traj, n))
+        dopp = np.zeros((n_traj, n))
+        diags = np.empty((n_traj, dim))
+        no_int = "digital" in template.basis_data.basis_name or n == 1
+        # Absent register noise, every trajectory carries the same
+        # register object: the per-channel waist profile is computed
+        # once per batch.
+        waist_memo: dict = {}
+
+        def waist_frac(reg: Any, ch: str) -> np.ndarray:
+            key = (id(reg), ch)
+            hit = waist_memo.get(key)
+            if hit is None:
+                hit = waist_memo[key] = self._waist_fractions(
+                    reg, ch_objs[ch].propagation_dir, waist
+                )
+            return hit
+
+        for t, (traj, _) in enumerate(trajs):
+            if any(traj.bad_atoms.values()):
+                good[t] = [
+                    0.0 if traj.bad_atoms[q] else 1.0 for q in qid_order
+                ]
+            if use_doppler:
+                dopp[t] = [traj.doppler_detune[q] for q in qid_order]
+            if use_amp:
+                for bi, basis in enumerate(template.bases):
+                    ch = basis_ch.get(basis)
+                    if ch is None:
+                        continue
+                    frac = traj.amp_fluctuations.get(ch, 1.0)
+                    amp_scale[t, bi, :] = frac
+                    if (
+                        waist is not None
+                        and ch_objs[ch].addressing == "Global"
+                    ):
+                        amp_scale[t, bi, :] *= waist_frac(traj.register, ch)
+            imat = traj.interaction_matrix.as_array(detach=True)
+            eff = n - sum(traj.bad_atoms.values())
+            if not no_int and eff > 1:
+                diags[t] = template._interaction_diag(imat[-1], "r", set())
+            else:
+                diags[t] = 0.0
+
+        # Rank factorizations — the dense (B, nb, n, K) batches never
+        # materialize on the hot path:
+        #   amp_b[t]  = (amp_scale[t]·good[t]) · (0.5·amp_raw·e^{-iφ})
+        #   det_b[t]  = good[t]·base + (dopp[t]·good[t])·mask
+        # (base = det_raw with the 0.5-then-H+H†-doubling applied).
+        amp_profile = (0.5 * amp_raw) * ph_exp[0]
+        amp_coeffs = amp_scale * good[:, None, :]
+        amp_factors = (amp_profile[None], amp_coeffs[:, None])
+        profiles = [(0.5 * det_raw) * 2.0]
+        coeff_rows = [np.broadcast_to(good[:, None, :], (n_traj, nb, n))]
+        if use_doppler:
+            profiles.append((0.5 * mask_k) * 2.0)
+            coeff_rows.append(
+                np.broadcast_to((dopp * good)[:, None, :], (n_traj, nb, n))
+            )
+        det_factors = (np.stack(profiles), np.stack(coeff_rows, axis=1))
+
+        def dense_fn() -> tuple[np.ndarray, np.ndarray]:
+            # The generic path's operation order: amp scales in the
+            # "time" domain, then 0.5·amp·e^{-iφ}; det adds the masked
+            # doppler offset, bad atoms zero, then 0.5·det and the
+            # H+H† doubling.
+            amp_t = amp_raw[None] * amp_scale[..., None]
+            amp_t = amp_t * good[:, None, :, None]
+            amp_b = (0.5 * amp_t) * ph_exp
+            det_t = det_raw[None] + (
+                dopp[:, None, :, None] * mask_k[None] if use_doppler else 0.0
+            )
+            det_t = det_t * good[:, None, :, None]
+            det_b = (0.5 * det_t) * 2.0
+            return amp_b, det_b
+
+        last_traj = trajs[-1].trajectory
+        return _CoeffBatch(
+            diags=diags,
+            reps=[r for _, r in trajs],
+            template=template,
+            last_ham=functools.partial(
+                self._one_trajectory_hamiltonian, last_traj
+            ),
+            det_factors=det_factors,
+            amp_factors=amp_factors,
+            dense_fn=dense_fn,
+        )
+
+    @staticmethod
+    def _waist_fractions(
+        register: BaseRegister,
+        propagation_dir: "tuple | None",
+        laser_waist: float,
+    ) -> np.ndarray:
+        """exp(−(r/w)²) per qubit, r ⊥ to the beam axis (defaults to
+        y) — the vectorized twin of
+        ``HamiltonianData._finite_waist_amp_fraction``."""
+        coords = np.stack(
+            [np.asarray(pos.as_array()) for pos in register.qubits.values()]
+        )
+        p = np.zeros((coords.shape[0], 3))
+        p[:, : coords.shape[1]] = coords
+        axis = np.asarray(propagation_dir or (0.0, 1.0, 0.0), dtype=float)
+        along = p @ axis / np.linalg.norm(axis)
+        r_sq = np.maximum(np.einsum("ij,ij->i", p, p) - along**2, 0.0)
+        return np.exp(-r_sq / laser_waist**2)
 
     @property
     def device(self) -> BaseDevice:
@@ -195,6 +698,9 @@ class TorchEmulator:
     @property
     def sampling_times(self) -> np.ndarray:
         """The times at which the hamiltonian is sampled."""
+        if self.noise_model.noise_types:
+            # As in the JAX package (and with its RNG draw)
+            return self._noiseless_hamiltonian.sampling_times
         return self._current_hamiltonian.sampling_times
 
     @property
@@ -434,8 +940,79 @@ class TorchEmulator:
         return fine_step, False
 
     @staticmethod
+    def _factored_policy(
+        batch: "_CoeffBatch", knots: np.ndarray
+    ) -> "tuple[np.ndarray, np.ndarray, np.ndarray | None]":
+        """Step-policy inputs straight from the rank factors.
+
+        Computes, without materializing the dense ``(B, nb, n, K)``
+        batch, exactly the values of the dense formulas:
+
+        - per-trajectory amp stiffness ``Σ_bi 2·max_{q,k} |amp|``,
+        - per-trajectory det stiffness ``Σ_bi max_{q,k} |det|``,
+        - the :meth:`_sharp_knots` jump marks (union over trajectories
+          with per-trajectory thresholds).
+
+        The amp batch is rank-1 with a real per-trajectory coefficient,
+        so ``|amp_t| = |c_t|·|profile|`` and ``d²`` of either real
+        component is ``c_t·d²(component)``; the rank-R detuning rows are
+        recombined per ``(basis, qubit)`` profile row.
+
+        Returns ``(amp_stiff (B,), det_stiff (B,), sharp_times)``.
+        """
+        ap, ac = (np.asarray(x) for x in batch.amp_factors)
+        dp, dc = (np.asarray(x) for x in batch.det_factors)
+        assert ap.shape[0] == 1 and ac.shape[1] == 1
+        B, _, nb, n = ac.shape
+        K = ap.shape[-1]
+        a_abs = np.abs(ac[:, 0])  # (B, nb, n)
+
+        # Signed components: |d²(c·comp)| = |c|·|d² comp| needs the
+        # second difference of the signed profile
+        amp_components = [ap[0].real, ap[0].imag]
+        prof_abs = np.abs(ap[0])  # (nb, n, K) |complex|
+        amp_stiff = 2.0 * np.sum(
+            (a_abs * prof_abs.max(axis=-1)[None]).max(axis=2), axis=1
+        )
+
+        det_rowmax = np.empty((B, nb, n))
+        det_d2: list = []
+        want_marks = len(knots) >= 3 and K == len(knots)
+        for bi in range(nb):
+            for q in range(n):
+                rows = dc[:, :, bi, q] @ dp[:, bi, q, :]  # (B, K)
+                det_rowmax[:, bi, q] = np.abs(rows).max(axis=1)
+                if want_marks:
+                    det_d2.append(np.abs(np.diff(rows, n=2, axis=1)))
+        det_stiff = np.sum(det_rowmax.max(axis=2), axis=1)
+
+        if not want_marks:
+            return amp_stiff, det_stiff, None
+        marks = np.zeros(K - 2, dtype=bool)
+        # amp marks, real and imaginary components separately
+        for comp in amp_components:
+            thresh = 0.05 * (
+                (a_abs * np.abs(comp).max(axis=-1)[None]).max(axis=(1, 2))
+            )  # (B,)
+            d2p = np.abs(np.diff(comp, n=2, axis=-1))  # (nb, n, K-2)
+            # max_t (|c_t| / thresh_t) per (bi, q); trajectories with
+            # zero threshold have an all-zero component => no marks
+            ok = thresh > 0
+            if not ok.any():
+                continue
+            m_bq = (a_abs[ok] / thresh[ok, None, None]).max(axis=0)
+            marks |= (d2p * m_bq[..., None] > 1.0).any(axis=(0, 1))
+        # det marks: per-trajectory threshold over the whole det array
+        thresh_d = 0.05 * det_rowmax.max(axis=(1, 2))  # (B,)
+        for d2 in det_d2:
+            marks |= (d2 > thresh_d[:, None]).any(axis=0)
+        times = np.asarray(knots)[1:-1][marks]
+        return amp_stiff, det_stiff, (times if len(times) else None)
+
+    @staticmethod
     def _sharp_knots(
-        hamiltonians: "list[Hamiltonian]", knots: np.ndarray
+        hamiltonians: "list[Hamiltonian] | _CoeffBatch",
+        knots: np.ndarray,
     ) -> "np.ndarray | None":
         """Knot times where a coefficient's slope jumps sharply.
 
@@ -448,19 +1025,40 @@ class TorchEmulator:
         if len(knots) < 3:
             return None
         marks = np.zeros(len(knots) - 2, dtype=bool)
-        for ham in hamiltonians:
-            for arr in (ham.amp_coeffs, ham.det_coeffs):
+
+        def mark(comp: np.ndarray, per_traj: bool) -> None:
+            """comp: (..., K) real; per_traj scales on axis 0."""
+            nonlocal marks
+            if per_traj:
+                scale = np.max(
+                    np.abs(comp), axis=tuple(range(1, comp.ndim))
+                )
+                thresh = 0.05 * scale.reshape((-1,) + (1,) * (comp.ndim - 1))
+            else:
+                thresh = 0.05 * float(np.max(np.abs(comp)))
+                if thresh == 0.0:
+                    return
+            d2 = np.abs(np.diff(comp, n=2, axis=-1))
+            marks |= (d2 > thresh).any(axis=tuple(range(d2.ndim - 1)))
+
+        if isinstance(hamiltonians, _CoeffBatch):
+            # Stacked form: one vectorized pass over the whole batch (a
+            # zero-scale trajectory row is all zeros, so its d2 > 0
+            # comparison is vacuously false)
+            for arr in (hamiltonians.amp, hamiltonians.det):
                 arr = np.asarray(arr)
                 if arr.shape[-1] != len(knots):
                     continue
-                for comp in (arr.real, arr.imag):
-                    thresh = 0.05 * float(np.max(np.abs(comp)))
-                    if thresh == 0.0:
+                mark(arr.real, per_traj=True)
+                mark(arr.imag, per_traj=True)
+        else:
+            for ham in hamiltonians:
+                for arr in (ham.amp_coeffs, ham.det_coeffs):
+                    arr = np.asarray(arr)
+                    if arr.shape[-1] != len(knots):
                         continue
-                    d2 = np.abs(np.diff(comp, n=2, axis=-1))
-                    marks |= (d2 > thresh).any(
-                        axis=tuple(range(d2.ndim - 1))
-                    )
+                    mark(arr.real, per_traj=False)
+                    mark(arr.imag, per_traj=False)
         times = np.asarray(knots)[1:-1][marks]
         return times if len(times) else None
 
@@ -632,22 +1230,289 @@ class TorchEmulator:
             / 1000,
         )
 
-    def run(self, progress_bar: bool = False, **options: Any) -> CoherentResults:
+    def run(
+        self,
+        progress_bar: bool = False,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> SimulationResults:
         """Simulates the sequence.
 
         Args:
             progress_bar: Kept for API parity (the solver has no
                 incremental progress to report).
+            print_progress: Whether to print which noise trajectories
+                are being emulated.
             options: Solver options; `max_step` (µs) caps the
                 integration step.
 
         Returns:
-            The states at the evaluation times, as CoherentResults.
+            NoisyResults (bitstring counts at each evaluation time) when
+            the noise is stochastic, CoherentResults otherwise.
         """
+        self._validate_options(options)
         if not (progress_bar is True or progress_bar is False or progress_bar is None):
             raise ValueError("`progress_bar` must be a bool.")
-        self._validate_options(options)
-        return self._run_solver(**options)
+        self._check_noise_ported()
+        if not _has_stochastic_noise(self.noise_model):
+            if print_progress:
+                print("Emulating Trajectory 1/1")
+            return self._run_solver(**options)
+
+        # The fused quantum-jump route: the measurement draws run on the
+        # device after the solve and only sampled indices return. The
+        # gate builds the noiseless Hamiltonian, whose one draw from the
+        # numpy global RNG comes here in the JAX package too.
+        if not self._can_batch_lindblad():
+            raise NotImplementedError(
+                "Not ported: noisy runs outside the batched quantum-jump"
+                " solve (ROADMAP.md Queue 1, 'mesolve')."
+            )
+        total_count = self._counts_rows_fused(
+            print_progress=print_progress, **options
+        )
+        n_measures = (
+            cast(int, self.n_trajectories) * self.noise_model.samples_per_run
+        )
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=DeprecationWarning)
+            results = [
+                SampledResult(
+                    tuple(self._hamiltonian_data.register.qubits),
+                    self._meas_basis,
+                    total_count[ind],
+                    evaluation_time=t / (self._tot_duration * 1e-3),
+                )
+                for ind, t in enumerate(self._eval_times_array)
+            ]
+        return NoisyResults(
+            results,
+            self._hamiltonian_data.n_qudits,
+            self.basis_name,
+            self._eval_times_array,
+            n_measures,
+        )
+
+    def _refresh_trajectories(self) -> None:
+        """Draws fresh noise trajectories for repeated run() calls."""
+        if self._noise_trajectories_used:
+            noise_model = self._hamiltonian_data.noise_model
+            self._hamiltonian_data = HamiltonianData(
+                self.samples_obj,
+                self._register,
+                self.device,
+                noise_model,
+                self._get_n_trajectories(noise_model, check_value=True),
+            )
+        self._noise_trajectories_used = True
+
+    def _can_batch_lindblad(self) -> bool:
+        """Whether dissipative noise trajectories can batch on-device:
+        collapse operators, no depolarizing, no XY or interaction
+        interpolation, a ket initial state."""
+        ham0 = self._noiseless_hamiltonian
+        lindblad = self._hamiltonian_data.lindblad_data
+        return (
+            len(lindblad.local_collapse_ops) > 0
+            and not lindblad.depolarizing_pauli_2ds
+            and ham0.xy_mat is None
+            and ham0.int_w is None
+            and self.initial_state.isket
+        )
+
+    def _lindblad_solver_choice(self) -> bool:
+        """True when the quantum-jump solver handles Lindblad terms:
+        MCSOLVER, or DEFAULT under stochastic noise (the reference's
+        auto-selection)."""
+        return self.solver == Solver.MCSOLVER or (
+            self.solver == Solver.DEFAULT
+            and _has_stochastic_noise(self.noise_model)
+        )
+
+    def _lindblad_batch_prep(self, options: Any) -> "_LindbladPrep":
+        """Host prep for the batched quantum-jump run.
+
+        Draws fresh noise trajectories, builds the per-trajectory
+        coefficient batch and the shared integration plan, and resolves
+        the interaction-picture policy. On the factored fast path the
+        stiffness and the breakpoint marks come straight from the
+        profile rows; the dense batch never materializes.
+        """
+        self._refresh_trajectories()
+        batch = self._noisy_coeff_batch()
+        first = batch.template
+        d, n = first.dim, first.n_qudits
+        knots = first.sampling_times
+        # Shared step cap across trajectories: full (lab-frame)
+        # stiffness
+        factored = (
+            batch.amp_factors is not None and batch.det_factors is not None
+        )
+        sharp_times: Any = None
+        diag_stiff = np.max(
+            np.abs(batch.diags.reshape(len(batch.reps), -1)), axis=1
+        )
+        if factored:
+            amp_stiff, det_stiff, sharp_times = self._factored_policy(
+                batch, knots
+            )
+        else:
+            amp_stiff = np.sum(
+                2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1
+            )
+            det_stiff = np.sum(np.max(np.abs(batch.det), axis=(2, 3)), axis=1)
+        lambda_max = float(np.max(amp_stiff + diag_stiff + det_stiff))
+        base_step = min(
+            float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
+            1e-3,
+        )
+        # 1.3 margin: noise draws stay inside one power-of-two step
+        max_step = self._sticky_quantized_step(
+            "lindblad_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
+        )
+        if "max_step" in options and options["max_step"]:
+            max_step = min(max_step, float(options["max_step"]))
+        # The quantum-jump solve integrates in the interaction picture
+        # (eligible collapse ops) and then coarsens its step. The policy
+        # reads the NOISELESS Hamiltonian, as the JAX package does.
+        first_mats = first._local_collapse_mats
+        use_mcwf = self._lindblad_solver_choice() and self.initial_state.isket
+        mcwf_ip = (
+            use_mcwf
+            and first.xy_mat is None
+            and first.int_w is None
+            and _solver_mod.mcwf_ip_eligible(first_mats)
+        )
+        coarsen = False
+        if mcwf_ip:
+            ham0 = self._noiseless_hamiltonian
+            lam_drive = float(
+                np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+            )
+            max_step, coarsen = self._coarse_ip_step(
+                "mcwf_coarse", max_step, lam_drive, [ham0], options,
+                margin=1.3,
+            )
+            mcwf_ip = coarsen
+        # One plan for the whole batch; the drives and the exact phase
+        # integrals are staged on the device from the raw knot values
+        if factored:
+            coeffs_for_plan = {
+                "amp": _solver_mod.RankFactors(*batch.amp_factors),
+                "det": _solver_mod.RankFactors(*batch.det_factors),
+            }
+        else:
+            coeffs_for_plan = {"amp": batch.amp, "det": batch.det}
+        with torch.profiler.record_function("emulator.build_plan_batched"):
+            plans = _solver_mod.build_plan_batched(
+                knots,
+                coeffs_for_plan,
+                self._eval_times_array,
+                max_step=max_step,
+                host_stage=False,
+                coarsen=coarsen,
+                breakpoints=(
+                    (
+                        sharp_times
+                        if factored
+                        else self._sharp_knots(batch, knots)
+                    )
+                    if coarsen
+                    else None
+                ),
+            )
+        return _LindbladPrep(
+            batch=batch,
+            plans=plans,
+            d=d,
+            n=n,
+            pairs=first.pairs,
+            collapse_mats=first._local_collapse_mats,
+            psi0=np.asarray(
+                self._initial_ket(),
+                dtype=_solver_mod._numpy_dtype(_default_cdtype()),
+            ),
+            mcwf_ip=mcwf_ip,
+        )
+
+    def _counts_rows_fused(
+        self, print_progress: bool = False, **options: Any
+    ) -> np.ndarray:
+        """Per-eval-time bitstring Counters with the measurement draws
+        fused after the quantum-jump solve.
+
+        The numpy global RNG is consumed in the JAX package's order:
+        the noise trajectories (drawn at construction, or redrawn for a
+        repeated run), the noiseless Hamiltonian's draw, one seed per
+        trajectory, one uniform per measurement sample
+        (trajectory-major, eval-time-minor), then the SPAM flip
+        uniforms.
+        """
+        p = self._lindblad_batch_prep(options)
+        if print_progress:
+            print(
+                f"Emulating Trajectories [1 - {self.n_trajectories}]"
+                f"/{self.n_trajectories} (batched, dissipative)"
+            )
+        d, n = p.d, p.n
+        hd = self._hamiltonian_data
+        seeds = [int(np.random.randint(2**31)) for _ in p.batch.reps]
+        eval_ts = self._eval_times_array
+        n_times = len(eval_ts)
+        spr = self.noise_model.samples_per_run
+        reps_arr = np.asarray(p.batch.reps, dtype=np.int64)
+        # Per-(trajectory, eval-time) entries, trajectory-major
+        ns = np.repeat(reps_arr * spr, n_times)  # (n_entries,)
+        n_entries = len(ns)
+        row_traj = np.repeat(np.arange(len(reps_arr), dtype=np.int64), n_times)
+        row_ti = np.tile(np.arange(n_times, dtype=np.int64), len(reps_arr))
+        rnd = np.random.rand(int(ns.sum()))
+        # Row-padded draws: one (n_entries, dim) cumsum gather and
+        # (n_entries, m) searches on the device
+        m = int(ns.max()) if n_entries else 0
+        valid = np.arange(m)[None, :] < ns[:, None]
+        u_pad = np.full((n_entries, m), 0.5)
+        u_pad[valid] = rnd
+
+        with torch.profiler.record_function("emulator.mcsolve_rows"):
+            codes_pad = _solver_mod.mcsolve_rows_codes(
+                p.psi0,
+                p.plans,
+                p.batch.diags,
+                p.pairs,
+                d,
+                n,
+                p.collapse_mats,
+                seeds,
+                (u_pad, row_traj, row_ti),
+                dtype=p.psi0.dtype,
+                ip=p.mcwf_ip,
+                device=self._torch_device,
+            )
+        # Device draws return STATE indices; the ground-rydberg
+        # bitstring order is their reversal
+        codes = (d**n - 1) - np.asarray(codes_pad, dtype=np.int64)[valid]
+        self._current_hamiltonian = p.batch.last_ham()
+
+        width = hd.n_qudits
+        bit_pos = np.arange(width - 1, -1, -1)
+        bits = (codes[:, None] >> bit_pos) & 1
+        nm = self.noise_model
+        if "SPAM" in nm.noise_types and (
+            nm.p_false_pos != 0.0 or nm.p_false_neg != 0.0
+        ):
+            flip_probs = np.where(bits == 1, nm.p_false_neg, nm.p_false_pos)
+            flips = np.random.uniform(size=bits.shape) < flip_probs
+            bits = bits ^ flips
+        out_codes = bits @ (1 << bit_pos)
+        total_count = np.array([Counter() for _ in eval_ts])
+        draw_ti = np.repeat(row_ti, ns)
+        combo = (draw_ti << width) + out_codes
+        vals, cnts = np.unique(combo, return_counts=True)
+        labels = _labels_of(vals & ((1 << width) - 1), width)
+        for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
+            total_count[v][lab] += c
+        return total_count
 
 
 # Drop-in alias matching the reference class name

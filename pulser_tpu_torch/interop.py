@@ -1,4 +1,5 @@
-"""Carries sampled sequences, registers and devices across from pulser_tpu.
+"""Carries sampled sequences, registers, devices and noise models across
+from pulser_tpu.
 
 The sequence builder and the sampler are not ported yet, so the port's
 inputs are built with the JAX package and rebuilt here as the port's own
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import importlib
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -28,6 +30,7 @@ import numpy as np
 import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.channels.eom import RydbergBeam
 from pulser_tpu_torch.devices._device_datacls import BaseDevice
+from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.register import Register
 from pulser_tpu_torch.register.weight_maps import DetuningMap
 from pulser_tpu_torch.sampler.samples import SequenceSamples
@@ -147,3 +150,16 @@ def from_jax_device(device: Any) -> BaseDevice:
     if custom_xy is not None:
         object.__setattr__(ported, "_custom_interaction_coeff_xy", custom_xy)
     return ported
+
+
+def from_jax_noise_model(noise_model: Any) -> NoiseModel:
+    """The port's NoiseModel with the same parameters.
+
+    The parameters are carried across as they are stored (the deprecated
+    ``runs`` included), so the rebuilt model has the same noise types;
+    the warnings the constructor gives for them were already given when
+    the original was made.
+    """
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return _convert(noise_model)

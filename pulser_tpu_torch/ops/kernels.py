@@ -1,16 +1,20 @@
 """Hand-written CUDA kernels and their plain PyTorch versions.
 
-``ip_sesolve`` replaces the TPU kernel ``_ip_sesolve_kernel`` of
-``pulser_tpu/ops/pallas_kernels.py``: a fused interaction-picture RK4
-sesolve over the evaluation segments of a plan (d=2, one ground-rydberg
-basis). Its CUDA source is ``pulser_tpu_torch/csrc/ip_sesolve.cu``, which
-says what bounds it on the card and how the design answers that.
+- ``ip_sesolve`` replaces the TPU kernel ``_ip_sesolve_kernel`` of
+  ``pulser_tpu/ops/pallas_kernels.py``: a fused interaction-picture RK4
+  sesolve over the evaluation segments of a plan (d=2, one
+  ground-rydberg basis). Source: ``pulser_tpu_torch/csrc/ip_sesolve.cu``.
+- ``mcwf_rows`` replaces the TPU kernel ``_mcwf_rows_kernel`` of the same
+  file: the row-batched interaction-picture quantum-jump solve with
+  diagonal collapse operators. Source:
+  ``pulser_tpu_torch/csrc/mcwf_rows.cu``.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` on first use into
-the package's ``build/`` directory (keyed by a hash of the source) and
-loaded with ctypes. A wrapper given CPU tensors runs the plain PyTorch
-version of the same function; given CUDA tensors it launches the kernel
-or raises.
+Each source says what bounds its kernel on the card and how the design
+answers that. Each is compiled with ``nvcc`` for ``sm_90a`` on first use
+into the package's ``build/`` directory (keyed by a hash of the source)
+and loaded with ctypes. A wrapper given CPU tensors runs the plain
+PyTorch version of the same function; given CUDA tensors it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,14 +30,20 @@ import numpy as np
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "ip_sesolve.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
+#: The CUDA sources, by kernel name.
+SOURCES = {
+    name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    for name in ("ip_sesolve", "mcwf_rows")
+}
 
 #: Calls of the CUDA entry point ``ip_sesolve_run`` (each call launches
 #: the stage and emit kernels of one whole solve).
 IP_SESOLVE_LAUNCHES = 0
+#: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
+MCWF_ROWS_LAUNCHES = 0
 
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -48,58 +58,88 @@ def _nvcc() -> str:
     return found
 
 
-def build_ip_sesolve(verbose: bool = False) -> tuple[str, str]:
-    """Compiles ``csrc/ip_sesolve.cu`` unless its library exists.
+def _lib_path(name: str) -> str:
+    """Where the library of kernel ``name`` is built: keyed by a hash of
+    its source, so an edited source builds anew."""
+    with open(SOURCES[name], "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build(
+    names: tuple[str, ...] | None = None, verbose: bool = False
+) -> dict[str, tuple[str, str]]:
+    """Compiles the kernels' sources whose libraries do not exist yet.
+
+    One ``nvcc`` process per source, all started together.
 
     Args:
+        names: Kernels to build (default: all of :data:`SOURCES`).
         verbose: Ask ``ptxas`` for each kernel's registers and spills.
 
     Returns:
-        ``(library path, compiler output)``; the output is empty when
-        the library was already built.
+        ``{name: (library path, compiler output)}``; the output is empty
+        for a library that was already built.
     """
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"libip_sesolve_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path, ""
+    names = tuple(SOURCES) if names is None else tuple(names)
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(),
-        "-gencode",
-        "arch=compute_90a,code=sm_90a",
-        "-std=c++17",
-        "-O3",
-        "-shared",
-        "-Xcompiler",
-        "-fPIC",
-        "-o",
-        tmp,
-        _SRC,
-    ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+    out: dict[str, tuple[str, str]] = {}
+    running = []
+    for name in names:
+        lib_path = _lib_path(name)
+        if os.path.exists(lib_path):
+            out[name] = (lib_path, "")
+            continue
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [
+            _nvcc(),
+            "-gencode",
+            "arch=compute_90a,code=sm_90a",
+            "-std=c++17",
+            "-O3",
+            "-shared",
+            "-Xcompiler",
+            "-fPIC",
+            "-o",
+            tmp,
+            SOURCES[name],
+        ]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+        running.append((name, lib_path, tmp, proc))
+    failed = []
+    for name, lib_path, tmp, proc in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{stderr}")
+            continue
+        os.replace(tmp, lib_path)
+        out[name] = (lib_path, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def _load() -> ctypes.CDLL:
-    """Builds (on first use) and loads the kernel library."""
-    global _lib
-    if _lib is None:
-        path, _ = build_ip_sesolve()
+def _load(name: str) -> ctypes.CDLL:
+    """Builds (on first use) and loads the library of kernel ``name``."""
+    lib = _libs.get(name)
+    if lib is None:
+        (path, _), = build((name,)).values()
         lib = ctypes.CDLL(path)
-        p = ctypes.c_void_p
-        lib.ip_sesolve_run.restype = ctypes.c_int
-        lib.ip_sesolve_run.argtypes = [p] * 14 + [ctypes.c_int] * 3 + [p]
-        _lib = lib
-    return _lib
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "ip_sesolve":
+            lib.ip_sesolve_run.restype = i
+            lib.ip_sesolve_run.argtypes = [p] * 14 + [i] * 3 + [p]
+        else:
+            lib.mcwf_rows_scratch_floats.restype = ctypes.c_long
+            lib.mcwf_rows_scratch_floats.argtypes = [i, i]
+            lib.mcwf_rows_run.restype = i
+            lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
+        _libs[name] = lib
+    return lib
 
 
 def _check_inputs(
@@ -107,8 +147,8 @@ def _check_inputs(
     shapes: dict[str, tuple[int, ...]],
 ) -> None:
     """Raises unless every tensor is f32, contiguous, of the given shape
-    and on the same device."""
-    device = tensors["a_re"].device
+    and on the same device as the first."""
+    device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, not {t.dtype}.")
@@ -205,7 +245,7 @@ def ip_sesolve(
         ),
     )
     h_host = _host_steps(seg_dts, seg_dts_host)
-    lib = _load()
+    lib = _load("ip_sesolve")
     dim = rows * cols
     dev = a_re.device
     out = torch.empty((n_seg, 2, rows, cols), dtype=torch.float32, device=dev)
@@ -301,3 +341,258 @@ def ip_sesolve_reference(
         out[s, 1] = lab.imag
     return out.reshape(n_seg, 2, 1 << n_row, 1 << n_col)
 
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float."""
+    return float(np.float32(x))
+
+
+def _cop_table(cops: tuple) -> tuple[np.ndarray, float, float]:
+    """Per-operator rows ``(l00_re, l00_im, l11_re, l11_im, |l00|², |l11|²)``
+    and the two diagonal entries ``g00, g11`` of ``Σ_k L_k†L_k``, formed
+    in float64 as the JAX kernel forms them, then cast to float32."""
+    rows = [
+        (l00r, l00i, l11r, l11i, l00r * l00r + l00i * l00i,
+         l11r * l11r + l11i * l11i)
+        for l00r, l00i, l11r, l11i in cops
+    ]
+    g00 = sum(r[4] for r in rows)
+    g11 = sum(r[5] for r in rows)
+    return np.asarray(rows, dtype=np.float32).reshape(-1, 6), g00, g11
+
+
+def _mcwf_rows_shapes(
+    n_traj: int, n_seg: int, seg_len: int, n: int
+) -> dict[str, tuple[int, ...]]:
+    stage = (n_traj, n_seg, seg_len, 3, 1, n)
+    dim = 1 << n
+    return dict(
+        a_re=stage, a_im=stage, cum_mod=stage,
+        t_stage=(n_seg, seg_len, 3), seg_dts=(n_seg, seg_len),
+        us=(n_traj, n_seg, seg_len, 2), eval_t=(n_seg,),
+        eval_cum_mod=(n_traj, n_seg, 1, n), r0=(n_traj,),
+        diags=(n_traj, dim), psi0_re=(dim,), psi0_im=(dim,),
+    )
+
+
+def mcwf_rows(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    cum_mod: torch.Tensor,
+    t_stage: torch.Tensor,
+    seg_dts: torch.Tensor,
+    us: torch.Tensor,
+    eval_t: torch.Tensor,
+    eval_cum_mod: torch.Tensor,
+    r0: torch.Tensor,
+    diags: torch.Tensor,
+    psi0_re: torch.Tensor,
+    psi0_im: torch.Tensor,
+    *,
+    cops: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-batched interaction-picture MCWF solve (d=2, one basis, f32).
+
+    The inputs are those of the JAX package's ``mcwf_rows_program``
+    (B trajectories, S segments of L steps, n qubits, dim = 2^n).
+
+    Args:
+        a_re/a_im: ``(B, S, L, 3, 1, n)`` per-trajectory drive stages.
+        cum_mod: ``(B, S, L, 3, 1, n)`` pre-negated ``∫det mod 2π``.
+        t_stage: ``(S, L, 3)`` stage times (shared).
+        seg_dts: ``(S, L)`` step sizes (shared; 0 = padding).
+        us: ``(B, S, L, 2)`` per-step uniforms (channel selector, next
+            threshold).
+        eval_t: ``(S,)`` evaluation times.
+        eval_cum_mod: ``(B, S, 1, n)`` eval-time phase integrals.
+        r0: ``(B,)`` initial jump thresholds.
+        diags: ``(B, dim)`` interaction diagonals.
+        psi0_re/psi0_im: ``(dim,)`` shared initial state.
+        cops: Diagonal collapse operators, ``(l00_re, l00_im, l11_re,
+            l11_im)`` each (at most 8).
+
+    Returns:
+        ``(states, jumps)``: ``(B, S, 2, dim)`` float32 normalized
+        lab-frame states after each segment (real and imaginary
+        planes), and the ``(B,)`` int32 number of jumps of each
+        trajectory.
+    """
+    if a_re.device.type == "cpu":
+        return mcwf_rows_reference(
+            a_re, a_im, cum_mod, t_stage, seg_dts, us, eval_t,
+            eval_cum_mod, r0, diags, psi0_re, psi0_im, cops=cops,
+        )
+    if a_re.device.type != "cuda":
+        raise ValueError(f"Unsupported device {a_re.device}.")
+    n_traj, n_seg, seg_len = a_re.shape[:3]
+    n = a_re.shape[-1]
+    if not 1 <= n <= 13 or not 1 <= len(cops) <= 8:
+        raise ValueError(
+            f"mcwf_rows takes 1 <= n <= 13 and 1 to 8 collapse operators,"
+            f" not n={n} and {len(cops)}."
+        )
+    tensors = dict(
+        a_re=a_re, a_im=a_im, cum_mod=cum_mod, t_stage=t_stage,
+        seg_dts=seg_dts, us=us, eval_t=eval_t, eval_cum_mod=eval_cum_mod,
+        r0=r0, diags=diags, psi0_re=psi0_re, psi0_im=psi0_im,
+    )
+    _check_inputs(tensors, _mcwf_rows_shapes(n_traj, n_seg, seg_len, n))
+    lib = _load("mcwf_rows")
+    dev = a_re.device
+    dim = 1 << n
+    table, g00, g11 = _cop_table(cops)
+    cop_t = torch.from_numpy(table).to(dev)
+    out = torch.empty((n_traj, n_seg, 2, dim), dtype=torch.float32, device=dev)
+    jumps = torch.empty((n_traj,), dtype=torch.int32, device=dev)
+    n_scratch = int(lib.mcwf_rows_scratch_floats(n, n_traj))
+    scratch = (
+        torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+        if n_scratch
+        else None
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mcwf_rows_run(
+        *(t.data_ptr() for t in tensors.values()),
+        cop_t.data_ptr(), out.data_ptr(), jumps.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        n_traj, n_seg, seg_len, n, len(cops), g00, g11, stream,
+    )
+    global MCWF_ROWS_LAUNCHES
+    MCWF_ROWS_LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"mcwf_rows_run failed: CUDA error {err}.")
+    return out, jumps
+
+
+def mcwf_rows_reference(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    cum_mod: torch.Tensor,
+    t_stage: torch.Tensor,
+    seg_dts: torch.Tensor,
+    us: torch.Tensor,
+    eval_t: torch.Tensor,
+    eval_cum_mod: torch.Tensor,
+    r0: torch.Tensor,
+    diags: torch.Tensor,
+    psi0_re: torch.Tensor,
+    psi0_im: torch.Tensor,
+    *,
+    cops: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mcwf_rows` (same arguments).
+
+    Runs on the inputs' device in float32 real/imaginary pairs, with the
+    JAX kernel's operation order, vectorized over the trajectories. The
+    step loop runs in Python on the host copy of ``seg_dts`` and skips
+    the padding steps; jumps are applied with masks, so the loop never
+    waits for the device.
+    """
+    n_traj, n_seg, seg_len = a_re.shape[:3]
+    n = a_re.shape[-1]
+    dim = 1 << n
+    dev = a_re.device
+    f32 = torch.float32
+    h_host = seg_dts.cpu().numpy().astype(np.float32)
+    idx = torch.arange(dim, device=dev)
+    shifts = torch.arange(n - 1, -1, -1, device=dev)  # qubit q: bit n-1-q
+    bits = ((idx[None, :] >> shifts[:, None]) & 1).to(f32)  # (n, dim)
+    partners = idx[None, :] ^ (1 << shifts)[:, None]  # (n, dim)
+    sign = 2.0 * bits - 1.0
+    pop = bits.sum(0)
+    table, g00, g11 = _cop_table(cops)
+    g_d = _f32(g00) * (float(n) - pop) + _f32(g11) * pop
+    cop = torch.from_numpy(table).to(dev)  # (K, 6)
+    a_w = (0.0, 0.5, 0.5, 1.0)
+    b_w = tuple(_f32(w) for w in (1 / 6, 1 / 3, 1 / 3, 1 / 6))
+    two_pi = 2 * math.pi
+
+    def phase(t: torch.Tensor, cum_row: torch.Tensor) -> torch.Tensor:
+        """Φ = (diag·t mod 2π) + Σ_q cum_q·(1 − bit_q), summed in order."""
+        ph = torch.remainder(diags * t, two_pi)
+        for q in range(n):
+            ph = ph + cum_row[:, q : q + 1] * (1.0 - bits[q])
+        return ph
+
+    pr = psi0_re.expand(n_traj, dim).clone()
+    pi = psi0_im.expand(n_traj, dim).clone()
+    r = r0.clone()
+    jumps = torch.zeros((n_traj,), dtype=torch.int32, device=dev)
+    out = torch.empty((n_traj, n_seg, 2, dim), dtype=f32, device=dev)
+    sel_ids = torch.arange(len(cops) * n, device=dev)
+    for s in range(n_seg):
+        for i in range(seg_len):
+            h = float(h_host[s, i])
+            if h == 0.0:
+                continue  # start padding of a short segment
+            k_r = k_i = acc_r = acc_i = None
+            for j in range(4):
+                sidx = (j + 1) >> 1
+                ha = h * a_w[j]
+                xr = pr if j == 0 else pr + ha * k_r
+                xi = pi if j == 0 else pi + ha * k_i
+                ph = phase(t_stage[s, i, sidx], cum_mod[:, s, i, sidx, 0])
+                c, sn = torch.cos(ph), torch.sin(ph)
+                wr = c * xr + sn * xi  # w = e^{-iΦ} x
+                wi = c * xi - sn * xr
+                ar = a_re[:, s, i, sidx, 0]
+                ai = a_im[:, s, i, sidx, 0]
+                yr = torch.zeros_like(pr)
+                yi = torch.zeros_like(pi)
+                for q in range(n):
+                    fr = wr[:, partners[q]]
+                    fi = wi[:, partners[q]]
+                    arq = ar[:, q : q + 1]
+                    aiq = ai[:, q : q + 1] * sign[q]
+                    yr = yr + arq * fr - aiq * fi
+                    yi = yi + arq * fi + aiq * fr
+                # k = -i e^{+iΦ} y − ½ g ⊙ x
+                k_r = c * yi + sn * yr - 0.5 * g_d * xr
+                k_i = sn * yi - c * yr - 0.5 * g_d * xi
+                acc_r = b_w[j] * k_r if j == 0 else acc_r + b_w[j] * k_r
+                acc_i = b_w[j] * k_i if j == 0 else acc_i + b_w[j] * k_i
+            pr = pr + h * acc_r
+            pi = pi + h * acc_i
+
+            # Quantum jumps: channel (k outer, q inner) searchsorted-left
+            p2 = pr * pr + pi * pi
+            norm2 = p2.sum(1)
+            p1 = p2 @ bits.T  # (B, n)
+            p0 = p2 @ (1.0 - bits).T
+            weights = (
+                cop[None, :, 4:5] * p0[:, None] + cop[None, :, 5:6] * p1[:, None]
+            ).reshape(n_traj, -1)
+            cum_w = torch.cumsum(weights, 1)
+            prev = torch.cat([torch.zeros_like(cum_w[:, :1]), cum_w[:, :-1]], 1)
+            u = us[:, s, i, 0:1] * cum_w[:, -1:]
+            hit = (u <= cum_w) & ((sel_ids == 0) | (u > prev))
+            has_hit = hit.any(1)
+            sel = torch.argmax(hit.to(torch.int8), 1)
+            w_sel = torch.where(
+                has_hit, weights.gather(1, sel[:, None])[:, 0], 0.0
+            )
+            inv = torch.rsqrt(torch.clamp(w_sel, min=1e-30))[:, None]
+            one = bits[sel % n]  # (B, dim) bits of the chosen qubit
+            row = cop[sel // n]
+            c_re = row[:, 0:1] * (1.0 - one) + row[:, 2:3] * one
+            c_im = row[:, 1:2] * (1.0 - one) + row[:, 3:4] * one
+            hit_f = has_hit.to(f32)[:, None]
+            jr = hit_f * (c_re * pr - c_im * pi) * inv
+            ji = hit_f * (c_re * pi + c_im * pr) * inv
+            jump = norm2 <= r
+            pr = torch.where(jump[:, None], jr, pr)
+            pi = torch.where(jump[:, None], ji, pi)
+            r = torch.where(jump, us[:, s, i, 1], r)
+            jumps += jump.to(torch.int32)
+        # Emit normalized, rotated to the lab frame
+        inv_n = torch.rsqrt(
+            torch.clamp((pr * pr + pi * pi).sum(1, keepdim=True), min=1e-30)
+        )
+        pr_n = pr * inv_n
+        pi_n = pi * inv_n
+        ph = phase(eval_t[s], eval_cum_mod[:, s, 0])
+        c, sn = torch.cos(ph), torch.sin(ph)
+        out[:, s, 0] = c * pr_n + sn * pi_n
+        out[:, s, 1] = c * pi_n - sn * pr_n
+    return out, jumps

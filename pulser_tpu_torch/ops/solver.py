@@ -854,3 +854,623 @@ def _sesolve_rk4_kernel(
         return DeviceStateBatch(out, plan.eval_map, to_complex)
     out_np = out.cpu().numpy()[plan.eval_map]
     return np.stack([to_complex(h) for h in out_np])
+
+
+# -- Batched plans and the row-batched quantum-jump solve -----------------
+
+
+class RankFactors:
+    """Rank-``R`` factorization of a trajectory coefficient batch.
+
+    ``batch[b] = Σ_r coeffs[b, r] · profiles[r]`` with ``profiles`` of
+    shape ``(R, nb, n, K)`` and ``coeffs`` of shape ``(B, R, nb, n)``.
+    Noise perturbations are linear combinations of a few shared time
+    profiles (the noiseless drive, the doppler slot mask), so staging
+    gathers run on the ``R·nb·n`` profile rows instead of the ``B·nb·n``
+    batch rows.
+    """
+
+    def __init__(self, profiles: Any, coeffs: Any) -> None:
+        self.profiles = profiles
+        self.coeffs = coeffs
+
+
+@dataclasses.dataclass
+class BatchedPlan:
+    """One plan for a whole trajectory batch.
+
+    Every noise trajectory shares the integration grid (only coefficient
+    *values* differ), so the grid and its segmentation are built once.
+    """
+
+    plan: EvolutionPlan
+    n_traj: int
+    #: The raw ``(B, ..., n_knots)`` coefficient batch (or
+    #: :class:`RankFactors`), staged on the device by the solvers.
+    raw_coeffs: dict[str, Any] | None = None
+
+    def seg_stage_b(self, name: str) -> np.ndarray:
+        """``(B, n_seg, L, 3, ...)`` staged values for ``name``."""
+        # In the underlying plan the batch rides at axis 3
+        return np.moveaxis(self.plan.seg_stage(name), 3, 0)
+
+    def seg_knots(self) -> tuple[np.ndarray, ...]:
+        """``(idx0, idx1, frac)`` in the (n_seg, L, 3) layout."""
+        assert self.plan.stage_knots is not None
+        return tuple(a[self.plan.seg_map] for a in self.plan.stage_knots)
+
+    @property
+    def eval_det_cum_b(self) -> np.ndarray:
+        """``(B, n_eval, n_bases, n)`` detuning integrals."""
+        assert self.plan.eval_det_cum is not None
+        return np.moveaxis(self.plan.eval_det_cum, 1, 0)
+
+
+def build_plan_batched(
+    knots: np.ndarray,
+    coeffs_batch: dict[str, Any],
+    eval_times: np.ndarray,
+    max_step: float | None = None,
+    host_stage: bool = True,
+    coarsen: bool = False,
+    breakpoints: "np.ndarray | None" = None,
+) -> BatchedPlan:
+    """Builds one :class:`BatchedPlan` for stacked coefficients.
+
+    Args:
+        knots: Shared ``(n_knots,)`` coefficient sample times.
+        coeffs_batch: Name -> ``(B, ..., n_knots)`` stacked
+            per-trajectory coefficients, or :class:`RankFactors`.
+        eval_times: Shared evaluation times.
+        max_step, host_stage, coarsen, breakpoints: See
+            :func:`build_plan`.
+    """
+    lead = next(iter(coeffs_batch.values()))
+    n_traj = (
+        lead.coeffs.shape[0]
+        if isinstance(lead, RankFactors)
+        else lead.shape[0]
+    )
+    plan = build_plan(
+        knots,
+        coeffs_batch,
+        eval_times,
+        max_step=max_step,
+        host_stage=host_stage,
+        coarsen=coarsen,
+        breakpoints=breakpoints,
+    )
+    return BatchedPlan(plan=plan, n_traj=n_traj, raw_coeffs=dict(coeffs_batch))
+
+
+def _raw_drive_leaves(plans: BatchedPlan, rdtype: Any) -> tuple:
+    """Stageable ``(amp_re, amp_im, det)`` leaves from raw coefficients:
+    :class:`RankFactors` split into real/imaginary factor pairs, plain
+    arrays into their real and imaginary parts."""
+    np_r = np.dtype(rdtype)
+    raw_amp = plans.raw_coeffs["amp"]
+    if isinstance(raw_amp, RankFactors):
+        prof = np.asarray(raw_amp.profiles)
+        coeffs = np.asarray(raw_amp.coeffs, np_r)
+        amp_re = RankFactors(prof.real.astype(np_r), coeffs)
+        amp_im = RankFactors(prof.imag.astype(np_r), coeffs)
+    else:
+        arr = np.asarray(raw_amp)
+        amp_re = arr.real.astype(np_r)
+        amp_im = arr.imag.astype(np_r)
+    det = _det_rank_leaf(plans, plans.raw_coeffs["det"], np_r)
+    return amp_re, amp_im, det
+
+
+def _det_rank_leaf(plans: BatchedPlan, raw_det: Any, np_r: Any) -> Any:
+    """The detuning leaf for :func:`_stage_cum_on_device`: the real part
+    of a :class:`RankFactors` batch or of a plain array."""
+    if isinstance(raw_det, RankFactors):
+        return RankFactors(
+            np.asarray(raw_det.profiles).real.astype(np_r),
+            np.asarray(raw_det.coeffs, np_r),
+        )
+    return np.asarray(raw_det).real.astype(np_r)
+
+
+def _raw_cum_inputs(plans: BatchedPlan, rdtype: Any) -> tuple[Any, ...]:
+    """Host-side prep for :func:`_stage_cum_on_device`.
+
+    Only small index/fraction arrays are computed here (the raw knot
+    values and a handful of per-eval-time scalars); everything
+    proportional to the step count is staged on the device.
+    """
+    plan = plans.plan
+    knots = np.asarray(plan.knots)
+    seg_w = np.diff(knots)
+    idx0, idx1, frac = plans.seg_knots()  # (n_seg, L, 3)
+    dt_in = frac * seg_w[idx0]
+    # Eval-time segment lookup, matching _integ_at's clip semantics
+    times = np.asarray(plan.eval_times)
+    eidx = np.clip(
+        np.searchsorted(knots, times, side="right") - 1, 0, len(knots) - 2
+    )
+    ev_dt = np.clip(times - knots[eidx], 0.0, None)
+    ev_dt_in = np.minimum(ev_dt, seg_w[eidx])
+    ev_frac = ev_dt_in / seg_w[eidx]
+    ev_dt_out = np.clip(ev_dt - seg_w[eidx], 0.0, None)
+    np_r = np.dtype(rdtype)
+    return (
+        _det_rank_leaf(plans, plans.raw_coeffs["det"], np_r),
+        np.asarray(seg_w, dtype=np_r),
+        np.asarray(idx0),
+        np.asarray(idx1),
+        np.asarray(dt_in, dtype=np_r),
+        np.asarray(frac, dtype=np_r),
+        np.asarray(eidx),
+        np.asarray(ev_dt_in, dtype=np_r),
+        np.asarray(ev_frac, dtype=np_r),
+        np.asarray(ev_dt_out, dtype=np_r),
+    )
+
+
+def _on_device(x: Any, device: Any, dtype: torch.dtype | None = None) -> Any:
+    """A numpy leaf (or the leaves of a :class:`RankFactors`) as tensors
+    on ``device``; integer arrays become int64 indices."""
+    if isinstance(x, RankFactors):
+        return RankFactors(
+            _on_device(x.profiles, device, dtype),
+            _on_device(x.coeffs, device, dtype),
+        )
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    arr = np.asarray(x)
+    if np.issubdtype(arr.dtype, np.integer):
+        return torch.from_numpy(arr.astype(np.int64)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _stage_cum_on_device(
+    raw_det: Any,
+    seg_w: torch.Tensor,
+    idx0: torch.Tensor,
+    idx1: torch.Tensor,
+    dt_in: torch.Tensor,
+    frac: torch.Tensor,
+    eidx: torch.Tensor,
+    ev_dt_in: torch.Tensor,
+    ev_frac: torch.Tensor,
+    ev_dt_out: torch.Tensor,
+    acc_dtype: torch.dtype = torch.float64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact detuning phase integrals, staged on the inputs' device.
+
+    ``∫₀ᵗ det`` for piecewise-linear ``det`` is a knot-cumsum plus a
+    local quadratic correction; per stage time ``t`` in knot segment
+    ``idx0``: ``I = cum[idx0] + dt_in·(c0 + ½·frac·(c1 − c0))``. The
+    eval-time integrals ride the same cumsum (``eidx``/``ev_*`` as in
+    ``_integ_at``, with constant extrapolation past the last knot).
+
+    The integrals, their per-trajectory combination and the reduction
+    mod 2π run in ``acc_dtype`` (float64 by default: a float32 cumsum
+    over thousands of knots accumulates phase error, and its rounding
+    depends on the device's summation order) and are cast to the
+    inputs' dtype at the end.
+
+    Args:
+        raw_det: ``(B, nb, n, K)`` real detunings or a
+            :class:`RankFactors` of them (the profile rows are
+            integrated once, then combined per trajectory).
+        seg_w .. ev_dt_out: The device tensors of
+            :func:`_raw_cum_inputs`.
+        acc_dtype: Working precision.
+
+    Returns:
+        ``(B, n_seg, L, 3, nb, n)`` stage integrals and ``(B, m, nb,
+        n)`` eval-time integrals, pre-negated mod 2π.
+    """
+    out_dtype = seg_w.dtype
+    two_pi = 2 * math.pi
+
+    def c(x: torch.Tensor) -> torch.Tensor:
+        return x.to(acc_dtype)
+
+    def integrals(det: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Raw (un-negated) stage and eval integrals of ``det``."""
+        det = c(det)
+        inc = 0.5 * (det[..., 1:] + det[..., :-1]) * c(seg_w)
+        cum = torch.cat(
+            [torch.zeros_like(det[..., :1]), torch.cumsum(inc, dim=-1)], -1
+        )
+        c0 = det[..., idx0]  # (..., n_seg, L, 3)
+        c1 = det[..., idx1]
+        i_val = cum[..., idx0] + c(dt_in) * (c0 + 0.5 * c(frac) * (c1 - c0))
+        c0e = det[..., eidx]  # (..., m)
+        c1e = det[..., eidx + 1]
+        ev = (
+            cum[..., eidx]
+            + c(ev_dt_in) * (c0e + 0.5 * c(ev_frac) * (c1e - c0e))
+            + c1e * c(ev_dt_out)
+        )
+        return i_val, ev
+
+    if isinstance(raw_det, RankFactors):
+        i_prof, ev_prof = integrals(raw_det.profiles)
+        coeffs = c(raw_det.coeffs)  # (B, R, nb, n)
+        i_val = torch.einsum("trjq,rjqslk->tjqslk", coeffs, i_prof)
+        ev = torch.einsum("trjq,rjqm->tjqm", coeffs, ev_prof)
+    else:
+        i_val, ev = integrals(raw_det)
+    out = torch.remainder(-i_val, two_pi).to(out_dtype)
+    ev_out = torch.movedim(torch.remainder(-ev, two_pi), -1, 1).to(out_dtype)
+    return torch.movedim(out, (-3, -2, -1), (1, 2, 3)).contiguous(), (
+        ev_out.contiguous()
+    )
+
+
+def _stage_on_device(
+    raw: Any,
+    idx0: torch.Tensor,
+    idx1: torch.Tensor,
+    frac: torch.Tensor,
+) -> torch.Tensor:
+    """Stages raw ``(B, ..., K)`` coefficients on their device.
+
+    Returns the ``(B, n_seg, L, 3, ...)`` RK4 stage values via two knot
+    gathers and a lerp. A :class:`RankFactors` stages its shared profile
+    rows and expands per trajectory after the gather, so the gather
+    cost never scales with the batch.
+    """
+    if isinstance(raw, RankFactors):
+        g0 = raw.profiles[..., idx0]  # (R, ..., n_seg, L, 3)
+        g1 = raw.profiles[..., idx1]
+        st = torch.einsum(
+            "trjq,rjqslk->tjqslk", raw.coeffs, g0 * (1 - frac) + g1 * frac
+        )
+    else:
+        g0 = raw[..., idx0]  # (B, ..., n_seg, L, 3)
+        g1 = raw[..., idx1]
+        st = g0 * (1 - frac) + g1 * frac
+    return torch.movedim(st, (-3, -2, -1), (1, 2, 3)).contiguous()
+
+
+def mcwf_ip_eligible(collapse_ops: "list[np.ndarray]") -> bool:
+    """Whether MCWF can integrate in the interaction picture.
+
+    The IP rotor is diagonal, so the unravelling is frame-invariant
+    exactly when every collapse operator is either diagonal (commutes
+    with the rotor) or a single matrix unit ``|a⟩⟨b|`` (rotor
+    conjugation is a global phase on the post-jump state).
+    """
+    for c in collapse_ops:
+        c = np.asarray(c)
+        off = c - np.diag(np.diag(c))
+        if not np.any(off):
+            continue
+        if np.count_nonzero(c) == 1:
+            continue
+        return False
+    return True
+
+
+def _diag_cops_spec(
+    collapse_ops: list[np.ndarray],
+) -> "tuple[tuple[float, float, float, float], ...] | None":
+    """Flattens diagonal 2x2 collapse ops, or None if any is not."""
+    spec = []
+    for c_np in collapse_ops:
+        c = np.asarray(c_np, dtype=np.complex128)
+        if c.shape != (2, 2) or c[0, 1] != 0 or c[1, 0] != 0:
+            return None
+        spec.append(
+            (
+                float(c[0, 0].real),
+                float(c[0, 0].imag),
+                float(c[1, 1].real),
+                float(c[1, 1].imag),
+            )
+        )
+    return tuple(spec)
+
+
+#: Largest register the row-batched quantum-jump solve takes: the bound
+#: the JAX package's TPU block ladder admits.
+ROWS_MAX_QUBITS = 13
+
+
+def _rows_refusal(
+    plans: Any,
+    ip: bool,
+    cops_spec: "tuple | None",
+    d: int,
+    n: int,
+    pairs: tuple,
+    rdtype: Any,
+) -> str | None:
+    """Why the row-batched quantum-jump solve cannot take this
+    configuration, or None when it can.
+
+    The gate: a :class:`BatchedPlan`, the interaction-picture grid,
+    qubits (d=2) with one ground-rydberg drive basis, float32, at least
+    one collapse operator, all diagonal, and 2 ≤ n ≤ 13.
+    """
+    if not isinstance(plans, BatchedPlan):
+        return "the quantum-jump solve takes a BatchedPlan"
+    if not cops_spec:
+        return (
+            "collapse operators that are not all diagonal (or none) need"
+            " the general-collapse MCWF kernel _mcwf_kernel (ROADMAP.md"
+            " Queue 2, K3)"
+            if cops_spec is None
+            else "noisy runs without collapse operators need the batched"
+            " sesolve (ROADMAP.md Queue 1, 'batched K1')"
+        )
+    if not ip:
+        return (
+            "the lab-frame quantum-jump solve (no interaction-picture"
+            " grid) is not ported (ROADMAP.md Queue 2, K3)"
+        )
+    raw_amp = (plans.raw_coeffs or {}).get("amp")
+    nb = (
+        int(raw_amp.profiles.shape[1])
+        if isinstance(raw_amp, RankFactors)
+        else int(np.asarray(raw_amp).shape[1])
+        if raw_amp is not None
+        else 0
+    )
+    if d != 2 or nb != 1 or tuple(pairs) != ((1, 0, 0),):
+        return (
+            "only one ground-rydberg basis (d=2) is ported; qudits and"
+            " several bases are ROADMAP.md Queue 1, 'lab-frame, XY and"
+            " qudit sesolve'"
+        )
+    if np.dtype(rdtype) != np.float32:
+        return "the quantum-jump solve runs in single precision only"
+    if not 2 <= n <= ROWS_MAX_QUBITS:
+        return (
+            f"the row-batched quantum-jump solve takes 2 <= n <="
+            f" {ROWS_MAX_QUBITS} qubits, not {n}"
+        )
+    return None
+
+
+def _mcwf_uniforms(
+    seeds: list[int], seg_shape: tuple[int, int]
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pre-draws ``(r0 (B,), us (B, S, L, 2))`` float32 per trajectory.
+
+    Trajectory ``b`` uses the JAX package's key derivation
+    (``split(PRNGKey(seed), 1)[0]``, then ``split(key, 3)``: the second
+    key draws the initial threshold, the third the per-step uniforms),
+    bit for bit (:mod:`pulser_tpu_torch.ops.random`).
+    """
+    from pulser_tpu_torch.ops import random as prng
+
+    key = prng.split(prng.PRNGKey(np.asarray(seeds, dtype=np.int64)), 1)
+    keys = prng.split(key[:, 0], 3)  # (B, 3, 2)
+    r0 = prng.uniform(keys[:, 1])
+    us = prng.uniform(keys[:, 2], tuple(int(x) for x in seg_shape) + (2,))
+    return r0, us
+
+
+def rows_kernel_inputs(
+    psi0_np: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
+    seeds: list[int],
+    device: Any,
+) -> list[torch.Tensor]:
+    """The tensors :func:`~pulser_tpu_torch.ops.kernels.mcwf_rows` takes
+    for one noisy batch: drives and phase integrals staged on ``device``
+    from the raw knot coefficients, the shared grid, the trajectories'
+    uniforms, diagonals and the initial state (float32)."""
+    dev = torch.device(device)
+    f32 = torch.float32
+    base = plans.plan
+    n_seg, seg_len = base.seg_dts.shape
+    if plans.raw_coeffs is None or base.stage_knots is None:
+        raise NotImplementedError(
+            "Not ported: the quantum-jump solve stages raw knot"
+            " coefficients (build the plan with build_plan_batched)."
+        )
+    amp_re_leaf, amp_im_leaf, _ = _raw_drive_leaves(plans, np.float32)
+    cum_in = [_on_device(x, dev) for x in _raw_cum_inputs(plans, np.float32)]
+    idx0, idx1, frac = cum_in[2], cum_in[3], cum_in[5]
+    amp_re = _stage_on_device(_on_device(amp_re_leaf, dev), idx0, idx1, frac)
+    amp_im = _stage_on_device(_on_device(amp_im_leaf, dev), idx0, idx1, frac)
+    cum_b, ev_cum_b = _stage_cum_on_device(*cum_in)
+    r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
+
+    def to_dev(host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
+
+    return [
+        amp_re,
+        amp_im,
+        cum_b,
+        to_dev(base.seg_stage("t_stage")),
+        to_dev(base.seg_dts),
+        to_dev(us),
+        to_dev(base.eval_times - base.grid[0]),
+        ev_cum_b.to(f32),
+        to_dev(r0),
+        to_dev(np.asarray(diags).real),
+        to_dev(psi0_np.real),
+        to_dev(psi0_np.imag),
+    ]
+
+
+def _sample_codes(
+    states: torch.Tensor, sample_spec: tuple, eval_map: np.ndarray
+) -> torch.Tensor:
+    """The on-device measurement draws after the solve.
+
+    Probabilities of each (trajectory, segment) state, their float32
+    cumsum, one gathered row per entry, and a searchsorted-left of
+    ``u · total`` (the total scaling keeps the draw exact under cumsum
+    rounding).
+
+    Args:
+        states: ``(B, S, 2, dim)`` solver output.
+        sample_spec: ``(samp_u, row_traj, row_ti)``: ``(n_entries, m)``
+            uniforms, and each entry's trajectory and (requested)
+            evaluation-time index.
+        eval_map: The plan's evaluation-time -> segment map.
+
+    Returns:
+        ``(n_entries, m)`` sampled STATE indices (int64, on the device).
+    """
+    samp_u, row_traj, row_ti = sample_spec
+    dev = states.device
+    row_idx = np.asarray(row_traj, np.int64) * states.shape[1] + np.asarray(
+        eval_map, np.int64
+    )[np.asarray(row_ti, np.int64)]
+    p = states[:, :, 0] ** 2 + states[:, :, 1] ** 2
+    cum = torch.cumsum(p.reshape(-1, p.shape[-1]), dim=-1)
+    rows_g = cum[torch.from_numpy(row_idx).to(dev)]
+    u = torch.from_numpy(np.asarray(samp_u, np.float32)).to(dev)
+    return torch.searchsorted(rows_g, u * rows_g[:, -1:], right=False)
+
+
+def _mcsolve_rows_kernel(
+    psi0_np: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
+    n: int,
+    cops_spec: tuple,
+    seeds: list[int],
+    cdtype: Any,
+    device: Any,
+    sample_spec: "tuple | None" = None,
+) -> np.ndarray:
+    """Runs the row-batched quantum-jump solve
+    (:func:`~pulser_tpu_torch.ops.kernels.mcwf_rows`).
+
+    With ``sample_spec = (samp_u, row_traj, row_ti)`` the measurement
+    draws run on the device after the solve and only the sampled STATE
+    indices return; ``row_ti`` indexes the plan's (requested) evaluation
+    times (the unique-segment mapping ``eval_map`` is applied here).
+
+    Returns:
+        ``(n_entries, m)`` int64 state indices with ``sample_spec``,
+        else ``(B, n_eval, dim)`` complex states.
+    """
+    from pulser_tpu_torch.ops.kernels import mcwf_rows
+
+    dev = torch.device(device)
+    base = plans.plan
+    args = rows_kernel_inputs(psi0_np, plans, diags, seeds, dev)
+    states, _ = mcwf_rows(*args, cops=cops_spec)
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind="mcwf_rows_cuda" if dev.type == "cuda" else "mcwf_rows_torch",
+        dim=1 << n,
+        n=n,
+        n_traj=plans.n_traj,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+        n_cops=len(cops_spec),
+        sampled=sample_spec is not None,
+    )
+    if sample_spec is not None:
+        return _sample_codes(states, sample_spec, base.eval_map).cpu().numpy()
+    host = states.cpu().numpy()[:, base.eval_map]  # (B, n_eval, 2, dim)
+    return (host[:, :, 0] + 1j * host[:, :, 1]).astype(cdtype)
+
+
+def _mcsolve_rows(
+    psi0: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    seeds: list[int],
+    dtype: Any,
+    ip: bool,
+    device: Any,
+    sample_spec: "tuple | None",
+) -> np.ndarray:
+    """Gates the configuration, then runs :func:`_mcsolve_rows_kernel`."""
+    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    cops_spec = _diag_cops_spec(collapse_ops)
+    reason = _rows_refusal(plans, ip, cops_spec, d, n, pairs, rdtype)
+    if reason is not None:
+        raise NotImplementedError(f"Not ported: {reason}.")
+    return _mcsolve_rows_kernel(
+        np.asarray(psi0, dtype=cdtype),
+        plans,
+        diags,
+        n,
+        cops_spec,
+        seeds,
+        cdtype,
+        _resolve_device(device),
+        sample_spec=sample_spec,
+    )
+
+
+def mcsolve_rows_codes(
+    psi0: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    seeds: list[int],
+    sample_spec: tuple,
+    dtype: Any = None,
+    ip: bool = False,
+    device: Any = None,
+) -> np.ndarray:
+    """Fused quantum-jump solve + on-device measurement draws.
+
+    The noisy-emulation endgame is bitstring counts: the draws run on
+    the device against the freshly computed state probabilities and only
+    the sampled STATE indices return (see :func:`_mcsolve_rows_kernel`).
+
+    Args:
+        sample_spec: ``(samp_u, row_traj, row_ti)`` — per-draw uniforms,
+            trajectory index and (requested) evaluation-time index.
+        device: The torch device (default: the first CUDA device when
+            there is one, else the CPU).
+
+    Returns:
+        ``(n_entries, m)`` int64 state indices.
+
+    Raises:
+        NotImplementedError: The configuration is outside the ported
+            row-batched solve (the message names the ROADMAP item).
+    """
+    return _mcsolve_rows(
+        psi0, plans, diags, pairs, d, n, collapse_ops, seeds, dtype, ip,
+        device, sample_spec,
+    )
+
+
+def mcsolve_rk4_batched(
+    psi0: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    seeds: list[int],
+    dtype: Any = None,
+    ip: bool = False,
+    device: Any = None,
+) -> np.ndarray:
+    """One quantum-jump realization per noise trajectory, batched.
+
+    Trajectory ``i`` draws from ``seeds[i]`` with the JAX package's key
+    derivation, so seeded runs match it trajectory for trajectory. Only
+    the row-batched interaction-picture solve with diagonal collapse
+    operators is ported; every other configuration raises
+    ``NotImplementedError`` naming its ROADMAP item.
+
+    Returns:
+        ``(n_traj, n_eval, dim)`` complex states.
+    """
+    return _mcsolve_rows(
+        psi0, plans, diags, pairs, d, n, collapse_ops, seeds, dtype, ip,
+        device, None,
+    )

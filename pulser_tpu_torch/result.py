@@ -1,12 +1,13 @@
-"""The measurement-result base class of the coherent emulator.
+"""Legacy measurement-result containers.
 
 API parity with the reference ``pulser-core/pulser/result.py`` (the
-deprecated ``Result`` kept for the legacy emulator pipeline), trimmed to
-what :class:`~pulser_tpu_torch.emulator.sim_result.TorchResult` needs.
+deprecated ``Result``/``SampledResult`` pair kept for the legacy
+emulator pipeline); plotting and the observable classes are not ported.
 """
 
 from __future__ import annotations
 
+import uuid
 import warnings
 from abc import ABC, abstractmethod
 from collections import Counter
@@ -17,12 +18,33 @@ import numpy as np
 
 import pulser_tpu_torch.backend.results as backend_results
 
-__all__ = ["Result"]
+__all__ = ["Result", "SampledResult"]
 
 
 def _labels_of(indices: np.ndarray, width: int) -> list[str]:
     """Basis-state indices -> zero-padded bitstring labels."""
     return [format(int(i), f"0{width}b") for i in indices]
+
+
+def _counts_to_weights(counts: dict[str, int], width: int) -> np.ndarray:
+    """Normalized weight vector over all 2**width basis states."""
+    weights = np.zeros(2**width)
+    if counts:
+        idx = np.array([int(b, 2) for b in counts], dtype=np.int64)
+        vals = np.fromiter(counts.values(), dtype=float, count=len(counts))
+        np.add.at(weights, idx, vals)
+    total = weights.sum()
+    return weights / total if total else weights
+
+
+def _binomial_sem(p: float, n: int) -> float:
+    """Standard error of the mean of a Bernoulli rate estimate."""
+    return float(np.sqrt(p * (1 - p) / n))
+
+
+# A fixed observable UUID makes two SampledResults with equal counts
+# compare equal (the auto-generated per-instance UUID would not).
+_SHARED_BITSTRINGS_UUID = uuid.UUID(int=0)
 
 
 def _support(weights: np.ndarray, width: int) -> dict[str, float]:
@@ -103,3 +125,52 @@ class Result(ABC, backend_results.Results):
 
     def __str__(self) -> str:
         return self.__repr__()
+
+
+@dataclass
+class SampledResult(Result):
+    """A run's outcome, given as measured-bitstring counts.
+
+    Args:
+        atom_order: Which atom each bitstring position refers to.
+        meas_basis: The measurement basis.
+        bitstring_counts: How many times each bitstring came up.
+        evaluation_time: The relative sampling time, in [0, 1].
+    """
+
+    bitstring_counts: dict[str, int]
+    evaluation_time: float = 1.0
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.n_samples = sum(self.bitstring_counts.values())
+        self._store_raw(
+            uuid=_SHARED_BITSTRINGS_UUID,
+            tag="bitstrings",
+            time=self.evaluation_time,
+            value=Counter(self.bitstring_counts),
+        )
+
+    def _weights(self) -> np.ndarray:
+        return _counts_to_weights(self.bitstring_counts, self._size)
+
+    @property
+    def sampling_errors(self) -> dict[str, float]:
+        """Standard error of the mean of each bitstring's rate."""
+        return {
+            bitstr: _binomial_sem(p, self.n_samples)
+            for bitstr, p in self.sampling_dist.items()
+        }
+
+    def get_samples(self, n_samples: int) -> Counter[str]:
+        """Resamples from the distribution derived from the counts.
+
+        Warning:
+            To get the actual samples, read ``bitstring_counts``.
+        """
+        warnings.warn(
+            "'SampledResult.get_samples()' resamples a sampling"
+            " distribution derived from the original 'bitstring_counts'.",
+            stacklevel=2,
+        )
+        return super().get_samples(n_samples)

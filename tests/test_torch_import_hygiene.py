@@ -38,6 +38,8 @@ def _foreign_modules(statements: str) -> list[str]:
         "import pulser_tpu_torch.emulator",
         "import pulser_tpu_torch.ops.kernels, pulser_tpu_torch.interop",
         "import chip_smoke; chip_smoke.afm16_inputs()",
+        "import pulser_tpu_torch.ops.random, pulser_tpu_torch.ops.solver",
+        "import chip_smoke; chip_smoke.noisy10_inputs()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch twin, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without a card. This file imports
 neither JAX nor ``pulser_tpu``, so it also runs on a machine that has
@@ -19,6 +19,8 @@ torch.set_num_threads(1)
 
 #: Both run in float32 with different summation orders and libm.
 TOL = 1e-5
+#: K2 (float32, block reductions, phases of ~100 rad).
+MCWF_TOL = 5e-5
 
 
 @pytest.fixture
@@ -46,3 +48,29 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
     args[0] = args[0].double()
     with pytest.raises(TypeError, match="float32"):
         K.ip_sesolve(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 7, 10, 13])
+def test_cuda_mcwf_rows_matches_plain_twin(cuda, n):
+    args = chip_smoke.random_mcwf_inputs(n, n, cuda)
+    cops = chip_smoke.RANDOM_COPS
+    before = K.MCWF_ROWS_LAUNCHES
+    got, jumps = K.mcwf_rows(*args, cops=cops)
+    torch.cuda.synchronize()
+    assert K.MCWF_ROWS_LAUNCHES == before + 1
+    want, jumps_p = K.mcwf_rows_reference(*args, cops=cops)
+    assert bool(torch.isfinite(got).all())
+    assert int(jumps.min()) >= 1 and torch.equal(jumps, jumps_p)
+    assert float((got - want).abs().max()) <= MCWF_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_mcwf_rows_rejects_bad_inputs(cuda):
+    args = chip_smoke.random_mcwf_inputs(5, 0, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        K.mcwf_rows(*args[:5], args[5][:, :1].contiguous(), *args[6:],
+                    cops=chip_smoke.RANDOM_COPS)
+    args[9] = args[9].cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        K.mcwf_rows(*args, cops=chip_smoke.RANDOM_COPS)

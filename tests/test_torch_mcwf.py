@@ -1,0 +1,374 @@
+"""The port's quantum-jump layers against pulser_tpu on identical inputs.
+
+- Staging: ``_stage_on_device`` / ``_stage_cum_on_device`` on plain
+  coefficient batches and on :class:`RankFactors`, against the JAX
+  functions on the same float32 inputs: max |Δ| ≤ 1e-6 (phases compared
+  on the circle; the port integrates the phases in float64, and is held
+  against the JAX function run in float64), and ≤ 4e-6 when both
+  integrate in float32.
+- K2: the plain twin ``mcwf_rows_reference`` (what the ``mcwf_rows``
+  wrapper runs on CPU tensors) against the JAX package's Pallas kernel
+  ``mcwf_rows_program`` in interpret mode, trajectory for trajectory:
+  max |Δ| ≤ 5e-5 and final 1 − F ≤ 1e-6, on random inputs where jumps
+  certainly fire and through the whole batched solve
+  (``mcsolve_rk4_batched``) on both sides.
+- Fused codes: the sampled state indices of ``mcsolve_rows_codes`` equal
+  the JAX ones for every draw farther than 1e-5 from a bin edge.
+
+The JAX rows path engages only in single precision, so every JAX call
+here runs with x64 switched off (the suite's conftest switches it on).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from pulser_tpu.ops import solver as jax_solver
+from pulser_tpu.ops.pallas_kernels import mcwf_rows_program
+
+import chip_smoke
+import pulser_tpu_torch.ops.kernels as K
+from pulser_tpu_torch.ops import solver as torch_solver
+
+torch.set_num_threads(1)
+
+#: K2's twin against the Pallas kernel: float32 both, other orders.
+STATE_TOL = 5e-5
+FIDELITY_TOL = 1e-6
+STAGE_TOL = 1e-6
+#: Both integrating in float32: XLA's cumsum and einsum associate
+#: differently from torch's, a few ulps of the unreduced integral
+#: (|∫det| < 16 here, ulp 9.5e-7).
+STAGE_F32_TOL = 4e-6
+#: Draws whose u·total lies within this of a cumsum edge may differ.
+EDGE_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _jax_f32():
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+@pytest.fixture
+def rows_interpret(monkeypatch):
+    """The JAX rows kernel in interpret mode (no Mosaic on the CPU)."""
+    monkeypatch.setenv("PULSER_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PULSER_TPU_MCWF_ROWS", "1")
+
+
+def _coeffs(rng, n, n_traj, knots_count=41):
+    """The drive and detuning batches of ``tests/test_mcwf_rows.py``."""
+    knots = np.linspace(0.0, 2.0, knots_count)
+    amp = np.stack(
+        [
+            (0.5 * (1.5 + 0.1 * rng.standard_normal((1, n, 1))))
+            * np.exp(1j * 0.3 * rng.standard_normal((1, n, knots_count)))
+            * np.sin(np.pi * knots / 2.0) ** 2
+            for _ in range(n_traj)
+        ]
+    )
+    det = np.stack(
+        [
+            2.0 * rng.standard_normal((1, n, 1)) * np.ones((1, n, knots_count))
+            + np.linspace(-3, 3, knots_count)
+            for _ in range(n_traj)
+        ]
+    )
+    return knots, amp, det
+
+
+def _factored(rng, n, n_traj, knots_count=41):
+    """A rank-2 batch as the emulator's fast path makes it: a shared
+    drive and detuning profile, a masked offset profile, and per-
+    (trajectory, qubit) coefficients."""
+    knots = np.linspace(0.0, 2.0, knots_count)
+    amp_prof = (
+        0.75
+        * np.exp(1j * 0.3 * rng.standard_normal((1, 1, n, knots_count)))
+        * np.sin(np.pi * knots / 2.0) ** 2
+    )
+    amp_coef = 1.0 + 0.05 * rng.standard_normal((n_traj, 1, 1, n))
+    mask = (knots > 0.3).astype(float) * np.ones((1, n, 1))
+    det_prof = np.stack(
+        [np.linspace(-3, 3, knots_count) * np.ones((1, n, 1)), mask]
+    )
+    det_coef = np.stack(
+        [np.ones((n_traj, 1, n)), 2.0 * rng.standard_normal((n_traj, 1, n))],
+        axis=1,
+    )
+    return knots, (amp_prof, amp_coef), (det_prof, det_coef)
+
+
+def _plans(knots, amp, det, factored=False, max_step=4e-3):
+    """The same batched plan in both packages."""
+    out = []
+    for mod in (jax_solver, torch_solver):
+        coeffs = (
+            {"amp": mod.RankFactors(*amp), "det": mod.RankFactors(*det)}
+            if factored
+            else {"amp": amp, "det": det}
+        )
+        out.append(
+            mod.build_plan_batched(
+                knots,
+                coeffs,
+                np.array([0.0, 1.0, 2.0]),
+                max_step=max_step,
+                host_stage=False,
+            )
+        )
+    return out
+
+
+def _circ(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return np.minimum(d, 2 * np.pi - d)
+
+
+def _to_jax(x):
+    if isinstance(x, torch_solver.RankFactors):
+        return jax_solver.RankFactors(_to_jax(x.profiles), _to_jax(x.coeffs))
+    return jnp.asarray(x)
+
+
+@pytest.mark.parametrize("acc", ["float32", "float64"])
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("n, seed", [(4, 0), (6, 1)])
+def test_staging_matches_jax(n, seed, factored, acc):
+    """``acc="float32"`` integrates the phases in single precision, as
+    the JAX package does; ``"float64"`` (the port's default) integrates
+    the same float32 inputs in double precision and rounds the result,
+    and is held against the JAX function run in double precision."""
+    rng = np.random.default_rng(seed)
+    if factored:
+        knots, amp, det = _factored(rng, n, 5)
+    else:
+        knots, amp, det = _coeffs(rng, n, 5)
+    jplans, tplans = _plans(knots, amp, det, factored)
+    # The port's host prep is the JAX one (the detuning leaf aside,
+    # which JAX may ship affine-compressed)
+    cin = torch_solver._raw_cum_inputs(tplans, np.float32)
+    for got, want in zip(
+        cin[1:], jax_solver._raw_cum_inputs(jplans, np.float32)[1:]
+    ):
+        assert np.array_equal(got, want)
+    leaves = torch_solver._raw_drive_leaves(tplans, np.float32)
+    jax_prec = _jax_f32() if acc == "float32" else contextlib.nullcontext()
+    with jax_prec:
+        jcin = (_to_jax(cin[0]),) + tuple(jnp.asarray(x) for x in cin[1:])
+        if acc == "float64":
+            jcin = jax.tree_util.tree_map(
+                lambda x: x.astype(jnp.float64)
+                if x.dtype == jnp.float32
+                else x,
+                jcin,
+            )
+        want_cum, want_ev = jax_solver._stage_cum_on_device(*jcin)
+    with _jax_f32():
+        want_amp = [
+            np.asarray(
+                jax_solver._stage_on_device(
+                    _to_jax(leaf),
+                    jnp.asarray(cin[2]),
+                    jnp.asarray(cin[3]),
+                    jnp.asarray(cin[5]),
+                )
+            )
+            for leaf in leaves[:2]
+        ]
+    tcin = [torch_solver._on_device(x, "cpu") for x in cin]
+    got_cum, got_ev = torch_solver._stage_cum_on_device(
+        *tcin, acc_dtype=getattr(torch, acc)
+    )
+    assert got_cum.dtype == got_ev.dtype == torch.float32
+    assert got_cum.shape == want_cum.shape and got_ev.shape == want_ev.shape
+    tol = STAGE_TOL if acc == "float64" else STAGE_F32_TOL
+    assert _circ(got_cum, want_cum).max() <= tol
+    assert _circ(got_ev, want_ev).max() <= tol
+    for leaf, want in zip(leaves[:2], want_amp):
+        got = torch_solver._stage_on_device(
+            torch_solver._on_device(leaf, "cpu"), tcin[2], tcin[3], tcin[5]
+        )
+        assert got.shape == want.shape
+        assert np.abs(got.numpy() - want).max() <= STAGE_TOL
+
+
+def _pallas_states(args, cops):
+    """The JAX Pallas kernel (interpret) on the twin's inputs, as
+    ``(B, S, 2, dim)``."""
+    n = args[0].shape[-1]
+    n_traj, n_seg = args[0].shape[0], args[4].shape[0]
+    n_col = min(7, n - 1)
+    with _jax_f32():
+        out = mcwf_rows_program(
+            *(jnp.asarray(a.numpy()) for a in args),
+            n_row=n - n_col,
+            n_col=n_col,
+            cops=cops,
+            chunk=args[4].shape[1],
+            tb=8,
+            interpret=True,
+        )
+        out = np.asarray(out)  # (S, 2, R, T, C)
+    out = np.transpose(out, (3, 0, 1, 2, 4))[:n_traj]
+    return out.reshape(n_traj, n_seg, 2, 1 << n)
+
+
+def _final_infidelity(got, want):
+    a = want[:, -1, 0] + 1j * want[:, -1, 1]
+    b = got[:, -1, 0] + 1j * got[:, -1, 1]
+    ov = np.abs(np.sum(np.conj(a) * b, axis=1)) ** 2
+    return 1 - ov / (
+        np.linalg.norm(a, axis=1) ** 2 * np.linalg.norm(b, axis=1) ** 2
+    )
+
+
+@pytest.mark.parametrize(
+    "n, seed, cops",
+    [
+        (5, 0, chip_smoke.RANDOM_COPS),
+        (6, 1, chip_smoke.RANDOM_COPS[1:]),
+        (4, 2, chip_smoke.RANDOM_COPS),
+    ],
+)
+def test_k2_twin_matches_pallas_with_jumps(n, seed, cops):
+    """Random inputs whose thresholds start near 1 under a strong decay
+    channel: every trajectory jumps, several times."""
+    args = chip_smoke.random_mcwf_inputs(n, seed, "cpu")
+    before = K.MCWF_ROWS_LAUNCHES
+    got, jumps = K.mcwf_rows(*args, cops=cops)
+    assert K.MCWF_ROWS_LAUNCHES == before  # CPU tensors: the plain twin
+    assert got.shape == (8, 2, 2, 1 << n) and got.dtype == torch.float32
+    assert int(jumps.min()) >= 1
+    want = _pallas_states(args, cops)
+    got = got.numpy()
+    assert np.abs(got - want).max() <= STATE_TOL
+    assert _final_infidelity(got, want).max() <= FIDELITY_TOL
+
+
+def _batched_case(n, n_traj, gammas, seed):
+    rng = np.random.default_rng(seed)
+    dim = 1 << n
+    knots, amp, det = _coeffs(rng, n, n_traj)
+    jplans, tplans = _plans(knots, amp, det)
+    diags = np.stack([rng.uniform(0, 5, dim) for _ in range(n_traj)])
+    cops = [
+        np.sqrt(g) * np.diag(d).astype(complex)
+        for g, d in zip(gammas, ([1.0, -1.0], [0.0, 1.0]))
+    ]
+    psi0 = np.zeros(dim, np.complex64)
+    psi0[-1] = 1.0
+    common = dict(
+        pairs=((1, 0, 0),),
+        d=2,
+        n=n,
+        collapse_ops=cops,
+        seeds=[11 * (t + 1) + seed for t in range(n_traj)],
+        dtype=np.complex64,
+        ip=True,
+    )
+    return jplans, tplans, diags, psi0, common
+
+
+@pytest.mark.parametrize(
+    "n, gammas, seed",
+    [(5, (0.05,), 7), (6, (0.05,), 8), (5, (0.25, 0.15), 3), (6, (2.0, 3.0), 4)],
+)
+def test_batched_solve_matches_pallas(rows_interpret, n, gammas, seed):
+    n_traj = 5
+    jplans, tplans, diags, psi0, common = _batched_case(n, n_traj, gammas, seed)
+    with _jax_f32():
+        want = jax_solver.mcsolve_rk4_batched(
+            psi0, jplans, diags, mesh=None, **common
+        )
+    assert jax_solver.last_solve_info["kind"] == "mcwf_rows_pallas"
+    got = torch_solver.mcsolve_rk4_batched(
+        psi0, tplans, diags, device="cpu", **common
+    )
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_rows_torch"
+    assert info["n_steps"] == jax_solver.last_solve_info["n_steps"]
+    assert got.shape == want.shape == (n_traj, 3, 1 << n)
+    assert np.abs(got - want).max() <= STATE_TOL
+    for t in range(n_traj):
+        fid = abs(np.vdot(want[t, -1], got[t, -1])) ** 2
+        assert fid >= 1 - FIDELITY_TOL
+    if max(gammas) >= 1.0:
+        # The strong-decay case: jumps certainly fire
+        args = torch_solver.rows_kernel_inputs(
+            psi0, tplans, diags, common["seeds"], "cpu"
+        )
+        _, jumps = K.mcwf_rows_reference(
+            *args, cops=torch_solver._diag_cops_spec(common["collapse_ops"])
+        )
+        assert int(jumps.sum()) > 0
+
+
+def test_fused_codes_match_pallas_away_from_edges(rows_interpret):
+    n, n_traj, spr = 5, 6, 40
+    jplans, tplans, diags, psi0, common = _batched_case(n, n_traj, (0.3,), 5)
+    rng = np.random.default_rng(9)
+    n_times = 3
+    row_traj = np.repeat(np.arange(n_traj), n_times)
+    row_ti = np.tile(np.arange(n_times), n_traj)
+    samp_u = rng.uniform(size=(n_traj * n_times, spr))
+    spec = (samp_u, row_traj, row_ti)
+    with _jax_f32():
+        want = jax_solver.mcsolve_rows_codes(
+            psi0, jplans, diags, sample_spec=spec, mesh=None, **common
+        )
+    assert want is not None
+    got = torch_solver.mcsolve_rows_codes(
+        psi0, tplans, diags, sample_spec=spec, device="cpu", **common
+    )
+    assert torch_solver.last_solve_info["sampled"]
+    assert got.shape == want.shape == samp_u.shape
+    # Distance of each draw from its row's nearest cumsum edge
+    states = torch_solver.mcsolve_rk4_batched(
+        psi0, tplans, diags, device="cpu", **common
+    )
+    p = np.abs(states.astype(np.complex64)) ** 2
+    cum = np.cumsum(p, axis=-1, dtype=np.float32)[row_traj, row_ti]
+    v = samp_u.astype(np.float32) * cum[:, -1:]
+    edge = np.min(np.abs(v[:, :, None] - cum[:, None, :]), axis=-1)
+    far = edge > EDGE_TOL
+    assert far.mean() > 0.95
+    assert np.array_equal(got[far], np.asarray(want)[far])
+    near = np.argwhere(~far)
+    print(f"{len(near)} draws within {EDGE_TOL} of a bin edge: {near.tolist()}")
+
+
+@pytest.mark.parametrize(
+    "change, match",
+    [
+        (dict(collapse_ops=[]), "batched K1"),
+        (
+            dict(collapse_ops=[0.3 * np.array([[0, 1], [1, 0]], complex)]),
+            "K3",
+        ),
+        (dict(ip=False), "lab-frame"),
+        (dict(dtype=np.complex128), "single precision"),
+        (dict(d=3), "qudits"),
+    ],
+)
+def test_solver_refuses_outside_the_gate(change, match):
+    _, tplans, diags, psi0, common = _batched_case(4, 2, (0.1,), 0)
+    common.update(change)
+    with pytest.raises(NotImplementedError, match=match):
+        torch_solver.mcsolve_rk4_batched(
+            psi0, tplans, diags, device="cpu", **common
+        )
+    with pytest.raises(NotImplementedError, match=match):
+        torch_solver.mcsolve_rows_codes(
+            psi0, tplans, diags, sample_spec=None, device="cpu", **common
+        )

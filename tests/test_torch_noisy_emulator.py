@@ -1,0 +1,294 @@
+"""The port's noisy quantum-jump path end to end, against pulser_tpu.
+
+A 4-atom sequence under SPAM, doppler, amplitude (with laser waist) and
+dephasing noise runs in both packages after ``np.random.seed(77)``:
+``pulser_tpu`` through ``TpuEmulator.from_sequence`` with its rows
+kernel in interpret mode, the port through ``TorchEmulator`` on inputs
+carried across with :mod:`pulser_tpu_torch.interop`. The numpy global
+RNG is consumed in the same order by both, so:
+
+- the coefficient batch of the fast path (rank factors, diagonals,
+  repetitions) and the step-policy inputs derived from it are bit-equal;
+- both return ``NoisyResults`` at the same evaluation times, and the
+  bitstring counts are equal at every evaluation time, up to the draws
+  that lie within 1e-5 of a cumsum bin edge (each may move one count).
+
+Configurations outside the ported slice raise ``NotImplementedError``
+naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import pulser_tpu as tpu
+from pulser_tpu.emulator import TpuEmulator
+from pulser_tpu.ops import solver as jax_solver
+
+from pulser_tpu_torch.emulator import NoisyResults, Solver, TorchEmulator
+from pulser_tpu_torch.interop import (
+    from_jax_device,
+    from_jax_noise_model,
+    from_jax_register,
+    from_jax_samples,
+)
+from pulser_tpu_torch.ops import solver as torch_solver
+from pulser_tpu_torch.result import SampledResult
+
+torch.set_num_threads(1)
+
+SEED = 77
+EDGE_TOL = 1e-5
+NOISE = dict(
+    dephasing_rate=0.08,
+    amp_sigma=0.02,
+    temperature=40,
+    laser_waist=175,
+    state_prep_error=0.05,
+    p_false_pos=0.01,
+    p_false_neg=0.02,
+    runs=6,
+    samples_per_run=4,
+)
+
+
+@pytest.fixture
+def jax_rows(monkeypatch):
+    """The JAX package on its single-chip rows kernel (interpret mode),
+    in single precision."""
+    monkeypatch.setenv("PULSER_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PULSER_TPU_MCWF_ROWS", "1")
+    monkeypatch.setenv("PULSER_TPU_DISABLE_SHARDING", "1")
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def _sequence(local=False):
+    """A 2x2 register under a global Rydberg pulse; with ``local``, a
+    second (local) Rydberg channel on the same basis, which takes the
+    emulator's generic coefficient batch instead of the factored one."""
+    reg = tpu.Register.rectangle(2, 2, spacing=7.0, prefix="q")
+    seq = tpu.Sequence(reg, tpu.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(tpu.Pulse.ConstantPulse(400, 2 * np.pi, -1.0, 0.0), "ryd")
+    if local:
+        seq.declare_channel("loc", "rydberg_local", initial_target="q0")
+        seq.add(tpu.Pulse.ConstantPulse(200, 1.0, 0.5, 0.0), "loc")
+    return seq
+
+
+def _noise(**params):
+    """A ``pulser_tpu.NoiseModel`` (default: :data:`NOISE`); ``runs``
+    is deprecated but is how these configurations set the trajectory
+    count."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return tpu.NoiseModel(**(params or NOISE))
+
+
+def _jax_emulator(seq, noise, **kw):
+    return TpuEmulator.from_sequence(
+        seq, noise_model=noise, evaluation_times="Minimal", **kw
+    )
+
+
+def _port_emulator(seq, noise, **kw):
+    return TorchEmulator(
+        from_jax_samples(tpu.sampler.sample(seq)),
+        from_jax_register(seq.register),
+        from_jax_device(seq.device),
+        noise_model=from_jax_noise_model(noise),
+        evaluation_times="Minimal",
+        torch_device="cpu",
+        **kw,
+    )
+
+
+def _both(seq, noise):
+    np.random.seed(SEED)
+    jemu = _jax_emulator(seq, noise)
+    np.random.seed(SEED)
+    temu = _port_emulator(seq, noise)
+    return jemu, temu
+
+
+def _near_edge_draws(args, spec):
+    """How many of the fused solve's draws lie within EDGE_TOL of a
+    cumsum bin edge of their (trajectory, time) row."""
+    psi0, plans, diags, pairs, d, n, cops, seeds = args[:8]
+    states = torch_solver.mcsolve_rk4_batched(
+        psi0, plans, diags, pairs, d, n, cops, seeds, dtype=psi0.dtype,
+        ip=True, device="cpu",
+    )
+    samp_u, row_traj, row_ti = spec
+    p = np.abs(states) ** 2
+    cum = np.cumsum(p, axis=-1, dtype=np.float32)[row_traj, row_ti]
+    v = np.asarray(samp_u, np.float32) * cum[:, -1:]
+    edge = np.min(np.abs(v[:, :, None] - cum[:, None, :]), axis=-1)
+    return int(np.count_nonzero(edge <= EDGE_TOL))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_noisy_run_matches_pulser_tpu(jax_rows, monkeypatch, local):
+    seq, noise = _sequence(local), _noise()
+    np.random.seed(SEED)
+    jres = _jax_emulator(seq, noise).run()
+    assert jax_solver.last_solve_info["kind"] == "mcwf_rows_pallas"
+    jax_after = np.random.rand()
+
+    captured = {}
+    fused = torch_solver.mcsolve_rows_codes
+
+    def record(*args, **kwargs):
+        captured["args"], captured["spec"] = args, args[8]
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(torch_solver, "mcsolve_rows_codes", record)
+    np.random.seed(SEED)
+    temu = _port_emulator(seq, noise)
+    factored = temu._fast_coeff_batch(
+        list(temu._hamiltonian_data.noise_trajectories)
+    )
+    assert (factored is None) == local
+    tres = temu.run()
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_rows_torch" and info["sampled"]
+    assert info["n_steps"] == jax_solver.last_solve_info["n_steps"]
+    # The global RNG was consumed in the same order and amount
+    assert np.random.rand() == jax_after
+
+    assert isinstance(tres, NoisyResults)
+    assert type(tres).__name__ == type(jres).__name__
+    assert np.array_equal(tres._sim_times, jres._sim_times)
+    assert tres.n_measures == jres.n_measures == 24
+    near = _near_edge_draws(captured["args"], captured["spec"])
+    moved = 0
+    for t_res, j_res in zip(tres, jres):
+        assert isinstance(t_res, SampledResult)
+        assert t_res.evaluation_time == j_res.evaluation_time
+        tc, jc = t_res.bitstring_counts, j_res.bitstring_counts
+        assert sum(tc.values()) == sum(jc.values()) == 24
+        moved += sum(
+            abs(tc.get(k, 0) - jc.get(k, 0)) for k in set(tc) | set(jc)
+        )
+    print(f"{near} draws within {EDGE_TOL} of a bin edge")
+    assert moved <= 2 * near
+
+
+def test_results_api_matches_pulser_tpu(jax_rows):
+    seq, noise = _sequence(), _noise()
+    np.random.seed(SEED)
+    jres = _jax_emulator(seq, noise).run()
+    np.random.seed(SEED)
+    tres = _port_emulator(seq, noise).run()
+    assert tres.results == jres.results
+    want = np.asarray(jres.get_final_state().full())
+    assert np.allclose(tres.get_final_state().full(), want, atol=1e-12)
+    n_r = tpu.emulator.qobj.basis(2, 0).proj()
+    obs = tpu.emulator.qobj.tensor([n_r] + [tpu.emulator.qobj.qeye(2)] * 3)
+    want_ev = np.asarray(jres.expect([obs.full()])[0])
+    got_ev = np.asarray(tres.expect([np.asarray(obs.full())])[0])
+    assert np.allclose(got_ev, want_ev, atol=1e-12)
+
+
+def test_fast_coeff_batch_and_policy_are_bit_equal(jax_rows):
+    seq, noise = _sequence(), _noise()
+    jemu, temu = _both(seq, noise)
+    jb = jemu._fast_coeff_batch(
+        list(jemu._hamiltonian_data.noise_trajectories)
+    )
+    tb = temu._fast_coeff_batch(
+        list(temu._hamiltonian_data.noise_trajectories)
+    )
+    assert jb is not None and tb is not None
+    assert tb.reps == jb.reps
+    assert np.array_equal(tb.diags, np.asarray(jb.diags))
+    for got, want in zip(
+        tb.amp_factors + tb.det_factors, jb.amp_factors + jb.det_factors
+    ):
+        assert np.array_equal(np.asarray(got), np.asarray(want))
+    knots = np.asarray(jb.template.sampling_times)
+    assert np.array_equal(tb.template.sampling_times, knots)
+    for got, want in zip(
+        temu._factored_policy(tb, knots), jemu._factored_policy(jb, knots)
+    ):
+        if want is None:
+            assert got is None
+        else:
+            assert np.array_equal(got, np.asarray(want))
+    # The dense views and the batch branch of _sharp_knots
+    assert np.array_equal(tb.amp, np.asarray(jb.amp))
+    assert np.array_equal(tb.det, np.asarray(jb.det))
+    got = temu._sharp_knots(tb, knots)
+    want = jemu._sharp_knots(jb, knots)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert np.array_equal(got, np.asarray(want))
+
+
+def test_repeated_runs_redraw_trajectories(jax_rows):
+    """A second run() draws fresh noise trajectories in both packages,
+    from the same point of the RNG stream."""
+    seq, noise = _sequence(), _noise()
+    jemu, temu = _both(seq, noise)
+    np.random.seed(5)
+    jemu.run()
+    j2 = jemu.run()
+    j_after = np.random.rand()
+    np.random.seed(5)
+    temu.run()
+    t2 = temu.run()
+    assert np.random.rand() == j_after
+    assert [r.n_samples for r in t2] == [r.n_samples for r in j2] == [24, 24]
+
+
+def test_n_trajectories_and_solver_options():
+    seq = _sequence()
+    noise = _noise()
+    np.random.seed(SEED)
+    emu = _port_emulator(seq, noise, n_trajectories=3)
+    assert emu.n_trajectories == 3
+    assert emu.solver == Solver.DEFAULT
+    np.random.seed(SEED)
+    emu = _port_emulator(seq, noise, solver=Solver.MCSOLVER)
+    assert emu.n_trajectories == 6
+    assert emu.solver == Solver.MCSOLVER
+
+
+@pytest.mark.parametrize(
+    "params, types, match",
+    [
+        # SPAM and doppler only: no collapse operators
+        (
+            dict(state_prep_error=0.05, p_false_pos=0.01, temperature=40),
+            {"SPAM", "doppler"},
+            "batched K1",
+        ),
+        # depolarizing: non-diagonal collapse operators
+        (
+            dict(depolarizing_rate=0.1, temperature=40),
+            {"depolarizing", "doppler"},
+            "_mcwf_kernel",
+        ),
+    ],
+)
+def test_configurations_outside_the_slice_raise(params, types, match):
+    noise = _noise(**params, runs=6, samples_per_run=4)
+    assert set(noise.noise_types) == types
+    np.random.seed(SEED)
+    with pytest.raises(NotImplementedError, match=match):
+        _port_emulator(_sequence(), noise)
+
+
+def test_master_equation_solver_raises():
+    np.random.seed(SEED)
+    with pytest.raises(NotImplementedError, match="mesolve"):
+        _port_emulator(_sequence(), _noise(), solver=Solver.MESOLVER)
