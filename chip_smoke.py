@@ -5,26 +5,31 @@ Run from the root of the repository, on a machine with a CUDA card and
 
     python3 chip_smoke.py
 
-Phases (each one raises on failure, and the script then exits non-zero):
+Phases (each one raises on failure, and the script then exits non-zero;
+each main path runs with every launch counter set to 0 just before it
+and read just after):
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build both kernels with nvcc for ``sm_90a`` (one process per source,
-   started together) and print each kernel's registers and spills: the
-   interaction-picture sesolve K1 (``pulser_tpu_torch/csrc/ip_sesolve.cu``)
-   and the row-batched quantum-jump solve K2
-   (``pulser_tpu_torch/csrc/mcwf_rows.cu``).
+2. Build the three kernels with nvcc for ``sm_90a`` (one process per
+   source, started together) and print each kernel's registers and
+   spills: the interaction-picture sesolve K1
+   (``pulser_tpu_torch/csrc/ip_sesolve.cu``), the row-batched quantum-jump
+   solve K2 (``mcwf_rows.cu``) and the lab-frame quantum-jump solve with
+   general collapse operators K3 (``mcwf.cu``).
 3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
    13 and 16 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
 4. Hold K2 against its plain PyTorch version on random inputs at n = 4,
    7, 10 and 13 qubits, 8 trajectories (2 segments x 8 steps, strong
    jumps): max |Δ| ≤ 5e-5, finite, equal jump counts.
-5. Run the noiseless main path at full size: the 16-atom AFM sweep of
+5. The same for K3 at n = 4, 7, 10 and 13 under strong general collapse
+   operators whose G = Σ L†L has a non-zero off-diagonal.
+6. Run the noiseless main path at full size: the 16-atom AFM sweep of
    ``bench.py`` through ``TorchEmulator(...).run()`` with 101 evaluation
    times. K1 must have been launched, and the mid-sweep and final states
    must reach 1 − F < 1e-6 against ``tests/goldens/afm16_final.npz``.
    Then time K1 against its plain version on the sweep's own inputs
    (median of 3 warm solves each) and the whole warm ``run()``.
-6. Run the noisy main path at full size: the 10-atom, 100-trajectory
+7. Run the noisy main path at full size: the 10-atom, 100-trajectory
    noisy run of ``bench.py`` through ``TorchEmulator(...).run()`` after
    ``np.random.seed(1234)``. It must take the kernel route with at least
    one K2 launch and give 1000 shots per evaluation time; the final
@@ -32,10 +37,30 @@ Phases (each one raises on failure, and the script then exits non-zero):
    JAX package's figures for the same seed (:data:`NOISY10_REFERENCE`),
    and K2's states on the run's own inputs must match its plain version
    for all trajectories but at most one whose jump record differs.
-7. Time K2, its plain version, the warm noisy ``run()``, the host
-   preparation before the kernel, the staging of its inputs and the
-   sampling epilogue (median of 3 each), and trace one warm noisy
-   ``run()`` with ``torch.profiler`` for the device's busy share.
+8. Time K2 (median of 3), its plain version (once), the warm noisy
+   ``run()``, the host preparation before the kernel, the staging of its
+   inputs and the sampling epilogue (median of 3 each), and trace one
+   warm noisy ``run()`` with ``torch.profiler`` for the device's busy
+   share.
+9. Run PAULI10, the lab-frame main path, at full size: the noisy 10-atom
+   run plus the effective-noise Pauli channel (:func:`pauli10_inputs`),
+   after ``np.random.seed(1234)``. It must take K3 (``kind ==
+   "mcwf_cuda"``, at least one launch), give 1000 shots per evaluation
+   time, and match the JAX package's figures for the same seed
+   (``tests/goldens/noisy10_pauli_reference.json``): the per-trajectory
+   final Rydberg populations within 1e-3 for all trajectories but at
+   most one, the final counts within a total-variation distance of 0.02.
+   K3's states on the run's own inputs must match its plain version for
+   all trajectories but at most one whose jump record differs.
+10. Time K3 (median of 3), its plain version (once), the warm PAULI10
+    ``run()``, its host preparation, staging and host sampling, and
+    trace one warm PAULI10 ``run()`` for the device's busy share.
+
+Each kernel's line in the report gives its launches on its main path,
+its error against its plain version there, its time and the plain
+version's, and its bound: the larger of the float32 operations its
+algorithm needs on this run's inputs over the H100's published float32
+peak and the bytes of its inputs and outputs over the memory rate.
 
 The line before the last is the kernel report, one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -54,6 +79,14 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 _GOLDEN = os.path.join(_ROOT, "tests", "goldens", "afm16_final.npz")
+#: The JAX package's PAULI10 figures for seed 1234, printed by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/noisy10_pauli_reference.py``
+#: (its vmapped XLA lab-frame scan on a CPU, single precision): the step
+#: count, the per-trajectory final Rydberg population of each atom and
+#: the final-time bitstring counts.
+_PAULI10_GOLDEN = os.path.join(
+    _ROOT, "tests", "goldens", "noisy10_pauli_reference.json"
+)
 
 #: Tolerance of the kernel against its plain version on random inputs:
 #: both run in float32 with different summation orders and libm.
@@ -310,17 +343,30 @@ def afm16_inputs() -> tuple:
     )
 
 
-def noisy10_inputs() -> tuple:
-    """``(samples, register, device, noise_model)`` of the noisy run.
+#: The noise of the noisy 10-atom run (``bench.py::build_noisy_10atom``).
+_NOISY10_NOISE = dict(
+    state_prep_error=0.005,
+    p_false_pos=0.01,
+    p_false_neg=0.02,
+    temperature=50.0,
+    amp_sigma=0.02,
+    laser_waist=175.0,
+    dephasing_rate=0.05,
+    runs=100,
+    samples_per_run=10,
+)
+#: Pulser's effective-noise Pauli channel: X, Y, Z at 0.0125 /µs each
+#: (the Lindblad content of a 0.05 /µs depolarizing rate), in the
+#: ground-rydberg basis order (|r> first).
+PAULI_RATE = 0.0125
+PAULIS = (
+    ((0, 1), (1, 0)),
+    ((0, -1j), (1j, 0)),
+    ((1, 0), (0, -1)),
+)
 
-    The configuration of ``bench.py``'s ``build_noisy_10atom`` (the
-    BASELINE's noisy leg): a 2x5 rectangle at 7 µm on ``MockDevice``, a
-    400 ns amplitude rise to Ω = 2π·1.5 at δ = −2π·4, a 1200 ns sweep to
-    δ = 2π·2 and a 400 ns fall; SPAM (prep 0.005, false positive 0.01,
-    false negative 0.02), doppler at 50 µK, amplitude noise (σ = 0.02,
-    laser waist 175 µm) and dephasing at 0.05 /µs, 100 trajectories of
-    10 samples each.
-    """
+
+def _noisy10(**extra) -> tuple:
     import warnings
 
     from pulser_tpu_torch import NoiseModel, Register
@@ -332,18 +378,34 @@ def noisy10_inputs() -> tuple:
     )
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)  # runs=
-        noise = NoiseModel(
-            state_prep_error=0.005,
-            p_false_pos=0.01,
-            p_false_neg=0.02,
-            temperature=50.0,
-            amp_sigma=0.02,
-            laser_waist=175.0,
-            dephasing_rate=0.05,
-            runs=100,
-            samples_per_run=10,
-        )
+        noise = NoiseModel(**_NOISY10_NOISE, **extra)
     return inputs + (noise,)
+
+
+def noisy10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of the noisy run.
+
+    The configuration of ``bench.py``'s ``build_noisy_10atom`` (the
+    BASELINE's noisy leg): a 2x5 rectangle at 7 µm on ``MockDevice``, a
+    400 ns amplitude rise to Ω = 2π·1.5 at δ = −2π·4, a 1200 ns sweep to
+    δ = 2π·2 and a 400 ns fall; SPAM (prep 0.005, false positive 0.01,
+    false negative 0.02), doppler at 50 µK, amplitude noise (σ = 0.02,
+    laser waist 175 µm) and dephasing at 0.05 /µs, 100 trajectories of
+    10 samples each.
+    """
+    return _noisy10()
+
+
+def pauli10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of the PAULI10 run:
+    the noisy 10-atom run of :func:`noisy10_inputs` plus the effective-
+    noise Pauli channel (:data:`PAULIS` at :data:`PAULI_RATE` each). Its
+    collapse operators are not diagonal, so the quantum-jump solve runs
+    in the lab frame, 4000 RK4 steps."""
+    return _noisy10(
+        eff_noise_rates=[PAULI_RATE] * 3,
+        eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
+    )
 
 
 def _check(ok: bool, what: str) -> None:
@@ -441,6 +503,62 @@ def random_mcwf_inputs(
     ]
 
 
+#: General collapse operators of the random K3 inputs, as 2×2 complex
+#: matrices: a strong complex operator whose G = Σ L†L has a non-zero
+#: off-diagonal, and a Pauli-X-like flip, so that trajectories jump within
+#: a few steps and the non-Hermitian flip entries carry G[1, 0].
+RANDOM_GENERAL_COPS = (
+    ((0.4, 1.1 + 0.5j), (0.3 - 0.6j, -0.2 + 0.3j)),
+    ((0.0, 0.7), (0.7, 0.0)),
+)
+
+
+def random_k3_inputs(
+    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8
+) -> tuple:
+    """Random K3 inputs, made with numpy from ``seed``, in the layout of
+    the JAX package's ``_mcwf_jit``: ``n_traj`` trajectories of 2
+    segments of ``seg_len`` steps (the second starts with 2 padding
+    steps), under :data:`RANDOM_GENERAL_COPS`. The jump thresholds start
+    near 1 so that trajectories jump early. Returns ``(tensors,
+    keywords)``."""
+    import torch
+
+    from pulser_tpu_torch.ops.solver import _general_cops_spec
+
+    rng = np.random.default_rng(seed)
+    n_seg, n_col = 2, min(7, n - 1)
+    n_row = n - n_col
+    rows, cols = 1 << n_row, 1 << n_col
+    stage = (n_traj * n_seg, seg_len, 3, n)
+    dts = rng.uniform(2e-3, 6e-3, (n_seg, seg_len))
+    dts[1, :2] = 0.0
+    us = rng.uniform(0.0, 1.0, (n_traj * n_seg, seg_len, 2))
+    us[..., 1] = rng.uniform(0.9, 1.0, us.shape[:-1])
+    psi0 = rng.normal(size=(2, rows, cols))
+    psi0 /= np.linalg.norm(psi0)
+    host = [
+        rng.uniform(-6.0, 6.0, stage),
+        rng.uniform(-6.0, 6.0, stage),
+        rng.uniform(-40.0, 40.0, stage),
+        np.tile(dts[..., None], (n_traj, 1, 1)),
+        us,
+        rng.uniform(0.9, 1.0, (n_traj, 1)),
+        rng.uniform(0.0, 400.0, (n_traj, rows, cols)),
+        psi0[0],
+        psi0[1],
+    ]
+    tensors = [
+        torch.from_numpy(np.ascontiguousarray(h, dtype=np.float32)).to(device)
+        for h in host
+    ]
+    kw = dict(
+        n_row=n_row, n_col=n_col, seg_len=seg_len, segs_per_traj=n_seg,
+        **_general_cops_spec(RANDOM_GENERAL_COPS),
+    )
+    return tensors, kw
+
+
 def _median_seconds(fn, repeats: int = 3) -> float:
     import torch
 
@@ -462,56 +580,123 @@ def _tv_distance(a: dict, b: dict) -> float:
     )
 
 
-def _rydberg_populations(states, n: int) -> np.ndarray:
-    """Per-atom Rydberg population averaged over trajectories, from
-    ``(B, 2, 2^n)`` real/imaginary planes (|r> is bit n-1-q == 0)."""
-    st = states.double().cpu().numpy()
-    probs = st[:, 0] ** 2 + st[:, 1] ** 2
+def _rydberg_populations(probs: np.ndarray, n: int) -> np.ndarray:
+    """Per-trajectory Rydberg population of each atom, ``(B, n)``, from
+    ``(B, 2^n)`` probabilities (|r> is bit n-1-q == 0)."""
     idx = np.arange(probs.shape[1])
     ryd = np.stack([((idx >> (n - 1 - q)) & 1) == 0 for q in range(n)])
-    return (probs @ ryd.T.astype(float)).mean(axis=0)
+    return probs @ ryd.T.astype(float)
 
 
-def main() -> int:
-    import torch
+def _plane_probs(states) -> np.ndarray:
+    """``(B, 2^n)`` probabilities of ``(B, 2, 2^n)`` real/imaginary
+    planes."""
+    st = states.double().cpu().numpy()
+    return st[:, 0] ** 2 + st[:, 1] ** 2
 
-    # 1. The card
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    import pulser_tpu_torch.ops.kernels as K
-    from pulser_tpu_torch.emulator import NoisyResults, TorchEmulator
-    from pulser_tpu_torch.ops import solver as S
 
-    card = subprocess.run(
-        [
-            "nvidia-smi",
-            "--query-gpu=name,power.limit",
-            "--format=csv,noheader",
-        ],
-        capture_output=True,
-        text=True,
-        check=True,
-    ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    print(
-        "torch", torch.__version__, "cuda", torch.version.cuda,
-        "python", sys.version.split()[0], flush=True,
+#: Launch counters of the wrappers in ``pulser_tpu_torch.ops.kernels``.
+_COUNTERS = {
+    "ip_sesolve": "IP_SESOLVE_LAUNCHES",
+    "mcwf_rows": "MCWF_ROWS_LAUNCHES",
+    "mcwf": "MCWF_LAUNCHES",
+}
+
+
+def _reset_launches(K) -> None:
+    for attr in _COUNTERS.values():
+        setattr(K, attr, 0)
+
+
+def _launches(K) -> dict:
+    return {name: getattr(K, attr) for name, attr in _COUNTERS.items()}
+
+
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W):
+#: float32 outside the tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def _ops_per_amp_stage(kernel: str, n: int) -> int:
+    """The float32 operations one RK4 stage needs per amplitude, counting
+    a sin or cos as one: each stage gathers n flip partners (a complex
+    multiply-add, 8 operations each, plus the detuning projector's n
+    conditional adds in the lab frame) and updates the stage input and
+    the accumulator (8). The interaction-picture kernels add the rotor
+    (phase n + 3, sin and cos, two complex rotations: n + 17); K2 adds the
+    decay −½g·x (7); K3 adds the lab-frame diagonal with its imaginary
+    part (13)."""
+    return {
+        "ip_sesolve": 9 * n + 25,
+        "mcwf_rows": 9 * n + 32,
+        "mcwf": 9 * n + 21,
+    }[kernel]
+
+
+def _bound(flops: float, n_bytes: float) -> tuple[float, str]:
+    """The least time in ms the card could take for the work: the larger
+    of the operations over the float32 peak and the bytes (each input
+    read once, each output written once) over the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes"
     )
-    device = torch.device("cuda")
 
-    # 2. Build both kernels from the checkout's sources, in parallel
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _device_busy(fn) -> tuple[float, float]:
+    """Wall seconds of one traced call of ``fn`` and the device's busy
+    milliseconds in it (kernels and copies; the emulator's
+    record_function ranges show as device events too and are left
+    out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    busy_us = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not e.is_user_annotation
+    )
+    return wall_s, busy_us / 1e3
+
+
+def _print_busy(what: str, wall_s: float, busy_ms: float) -> None:
+    print(
+        f"profiled {what}: {wall_s * 1e3:.3f} ms wall, device busy"
+        f" {busy_ms:.3f} ms ({100 * busy_ms / 1e3 / wall_s:.1f}%)"
+    )
+
+
+def _build(K) -> None:
+    """Builds every kernel from the checkout's sources, in parallel, and
+    prints each kernel's registers and spills."""
     t0 = time.perf_counter()
     built = K.build(verbose=True)
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.2f} s")
+    print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, (lib_path, log) in built.items():
         print(f"  {name} -> {os.path.relpath(lib_path, _ROOT)}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
 
-    # 3. K1 against its plain version on random inputs
+
+def _random_inputs_phase(K, device) -> None:
+    """Each kernel against its plain version on random inputs."""
+    import torch
+
     for n in (10, 13, 16):
         args, kw = random_kernel_inputs(n, seed=n, device=device)
         got = K.ip_sesolve(*args, **kw)
@@ -522,8 +707,6 @@ def main() -> int:
         print(f"ip_sesolve vs plain, n={n}: max|d| = {err:.3e}")
         _check(bool(torch.isfinite(got).all()), f"finite output, n={n}")
         _check(err <= KERNEL_TOL, f"n={n}: {err:.3e} > {KERNEL_TOL}")
-
-    # 4. K2 against its plain version on random inputs
     for n in (4, 7, 10, 13):
         args = random_mcwf_inputs(n, seed=n, device=device)
         got, jumps = K.mcwf_rows(*args, cops=RANDOM_COPS)
@@ -538,12 +721,33 @@ def main() -> int:
         _check(bool(torch.isfinite(got).all()), f"finite K2 output, n={n}")
         _check(torch.equal(jumps, jumps_p), f"K2 jump counts, n={n}")
         _check(err <= MCWF_TOL, f"K2 n={n}: {err:.3e} > {MCWF_TOL}")
+    for n in (4, 7, 10, 13):
+        args, kw = random_k3_inputs(n, seed=n, device=device)
+        got, jumps = K.mcwf(*args, **kw)
+        torch.cuda.synchronize()
+        want, jumps_p = K.mcwf_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(
+            f"mcwf vs plain, n={n}: max|d| = {err:.3e},"
+            f" jumps {jumps.tolist()}"
+        )
+        _check(bool(torch.isfinite(got).all()), f"finite K3 output, n={n}")
+        _check(torch.equal(jumps, jumps_p), f"K3 jump counts, n={n}")
+        _check(err <= MCWF_TOL, f"K3 n={n}: {err:.3e} > {MCWF_TOL}")
 
-    # 5. The noiseless main path at full size, counted
+
+def _afm16_path(K, S, device, card: str) -> dict:
+    """The noiseless main path at full size, counted, then K1 against its
+    plain version on the sweep's own inputs, and the times."""
+    import torch
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+
     samples, register, mock = afm16_inputs()
     eval_times = np.linspace(0, samples.max_duration * 1e-3, 101)
     golden = np.load(_GOLDEN)
-    K.IP_SESOLVE_LAUNCHES = 0
+    _reset_launches(K)
     t0 = time.perf_counter()
     emu = TorchEmulator(
         samples, register, mock, evaluation_times=eval_times
@@ -552,7 +756,7 @@ def main() -> int:
     mid = res.states[50].full()[:, 0]
     fin = res.states[-1].full()[:, 0]
     cold_s = time.perf_counter() - t0
-    launches = K.IP_SESOLVE_LAUNCHES
+    launches = _launches(K)["ip_sesolve"]
     info = dict(S.last_solve_info)
     print(f"main path: {info}, launches={launches}, cold {cold_s:.3f} s")
     _check(info.get("kind") == "ip_sesolve_cuda", "kernel route taken")
@@ -581,50 +785,107 @@ def main() -> int:
     kernel_s = _median_seconds(lambda: K.ip_sesolve(*args, **kw))
     plain_s = _median_seconds(lambda: K.ip_sesolve_reference(*args, **kw))
     run_s = _median_seconds(lambda: emu.run().states[-1].full())
+    n, dim = 16, 1 << 16
+    bound_ms, bound_by = _bound(
+        info["n_steps"] * 4 * dim * _ops_per_amp_stage("ip_sesolve", n),
+        _nbytes(*args, got),
+    )
     print(
         f"times on {card}: ip_sesolve {kernel_s * 1e3:.3f} ms,"
         f" plain {plain_s * 1e3:.3f} ms, warm run() {run_s * 1e3:.3f} ms"
-        f" ({info['n_steps']} RK4 steps, {plan.seg_dts.shape[0]} segments)"
+        f" ({info['n_steps']} RK4 steps, {plan.seg_dts.shape[0]} segments);"
+        f" bound {bound_ms:.3f} ms ({bound_by})"
     )
+    return {
+        "name": "ip_sesolve",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/ip_sesolve.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
+        "launches": launches,
+        "max_abs_err": sweep_err,
+        "ms": kernel_s * 1e3,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
-    # 6. The noisy main path at full size, counted; the solve's inputs
-    # are recorded to hold K2 against its plain version afterwards
-    samples, register, mock, noise = noisy10_inputs()
+
+def _run_noisy(K, inputs, seed: int, solver_fn: str, S) -> tuple:
+    """One seeded noisy ``run()`` through ``TorchEmulator``, counted, with
+    the call of ``S.<solver_fn>`` recorded: ``(emulator, results,
+    launches, cold seconds, {"args", "kwargs", "out"})``."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    samples, register, mock, noise = inputs
     captured: dict = {}
-    fused = S.mcsolve_rows_codes
+    solve = getattr(S, solver_fn)
 
     def record(*a, **k):
-        captured["args"] = a
-        return fused(*a, **k)
+        captured["args"], captured["kwargs"] = a, k
+        captured["out"] = solve(*a, **k)
+        return captured["out"]
 
-    S.mcsolve_rows_codes = record
+    setattr(S, solver_fn, record)
     try:
-        np.random.seed(NOISY10_REFERENCE["seed"])
-        K.MCWF_ROWS_LAUNCHES = 0
+        np.random.seed(seed)
+        _reset_launches(K)
         t0 = time.perf_counter()
-        noisy = TorchEmulator(
+        emu = TorchEmulator(
             samples, register, mock, noise_model=noise,
             evaluation_times="Minimal",
         )
-        nres = noisy.run()
-        noisy_cold_s = time.perf_counter() - t0
-        mcwf_launches = K.MCWF_ROWS_LAUNCHES
+        res = emu.run()
+        cold_s = time.perf_counter() - t0
+        launches = _launches(K)
     finally:
-        S.mcsolve_rows_codes = fused
+        setattr(S, solver_fn, solve)
+    return emu, res, launches, cold_s, captured
+
+
+def _check_shots(res) -> None:
+    from pulser_tpu_torch.emulator import NoisyResults
+
+    _check(isinstance(res, NoisyResults), "NoisyResults returned")
+    shots = [sum(r.bitstring_counts.values()) for r in res]
+    _check(all(c == 1000 for c in shots), f"1000 shots per time: {shots}")
+
+
+def _odd_trajectories(per_traj, jumps, jumps_p, tol: float) -> list:
+    """Trajectories whose jump record or states differ beyond ``tol``."""
+    import torch
+
+    return sorted(
+        set(torch.nonzero(jumps != jumps_p).flatten().tolist())
+        | set(torch.nonzero(per_traj > tol).flatten().tolist())
+    )
+
+
+def _noisy10_path(K, S, device, card: str) -> dict:
+    """The noisy main path at full size (K2), against the JAX package's
+    figures, then K2 against its plain version on the run's own inputs,
+    the times and the device's busy share."""
+    import torch
+
+    noisy, nres, launches, cold_s, captured = _run_noisy(
+        K, noisy10_inputs(), NOISY10_REFERENCE["seed"], "mcsolve_rows_codes",
+        S,
+    )
+    mcwf_launches = launches["mcwf_rows"]
     ninfo = dict(S.last_solve_info)
     print(
         f"noisy path: {ninfo}, launches={mcwf_launches},"
-        f" cold {noisy_cold_s:.3f} s"
+        f" cold {cold_s:.3f} s"
     )
     _check(ninfo.get("kind") == "mcwf_rows_cuda", "K2 route taken")
     _check(mcwf_launches > 0, "mcwf_rows launched on the noisy path")
-    _check(isinstance(nres, NoisyResults), "NoisyResults returned")
-    shots = [sum(r.bitstring_counts.values()) for r in nres]
-    _check(all(c == 1000 for c in shots), f"1000 shots per time: {shots}")
+    _check_shots(nres)
     final_counts = dict(nres[-1].bitstring_counts)
     tv = _tv_distance(final_counts, NOISY10_REFERENCE["final_counts"])
 
-    psi0_n, plans, diags, _, _, n_q, cops, seeds, _ = captured["args"]
+    psi0_n, plans, diags, _, _, n_q, cops, seeds, sample_spec = captured[
+        "args"
+    ]
     cops_spec = S._diag_cops_spec(cops)
     margs = S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
     got, jumps = K.mcwf_rows(*margs, cops=cops_spec)
@@ -632,10 +893,7 @@ def main() -> int:
     torch.cuda.synchronize()
     _check(bool(torch.isfinite(got).all()), "finite K2 states")
     per_traj = (got - want).abs().amax(dim=(1, 2, 3))
-    odd = sorted(
-        set(torch.nonzero(jumps != jumps_p).flatten().tolist())
-        | set(torch.nonzero(per_traj > MCWF_TOL).flatten().tolist())
-    )
+    odd = _odd_trajectories(per_traj, jumps, jumps_p, MCWF_TOL)
     keep = torch.ones_like(per_traj, dtype=torch.bool)
     keep[odd] = False
     mcwf_err = float(per_traj[keep].max())
@@ -647,7 +905,7 @@ def main() -> int:
     )
     _check(len(odd) <= 1, f"K2 vs plain differ on trajectories {odd}")
     _check(mcwf_err <= MCWF_TOL, f"K2 noisy: {mcwf_err:.3e} > {MCWF_TOL}")
-    pops = _rydberg_populations(got[:, -1], n_q)
+    pops = _rydberg_populations(_plane_probs(got[:, -1]), n_q).mean(axis=0)
     pop_err = float(
         np.max(np.abs(pops - NOISY10_REFERENCE["rydberg_populations"]))
     )
@@ -659,11 +917,11 @@ def main() -> int:
     _check(pop_err <= POPULATION_TOL, f"populations {pop_err:.3e}")
     _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
 
-    # 7. Times of the noisy path
     mcwf_s = _median_seconds(lambda: K.mcwf_rows(*margs, cops=cops_spec))
-    mcwf_plain_s = _median_seconds(
-        lambda: K.mcwf_rows_reference(*margs, cops=cops_spec)
-    )
+    t0 = time.perf_counter()
+    K.mcwf_rows_reference(*margs, cops=cops_spec)
+    torch.cuda.synchronize()
+    mcwf_plain_s = time.perf_counter() - t0
     noisy_run_s = _median_seconds(noisy.run)
     opts: dict = {}
     noisy._validate_options(opts)  # the options run() solves with
@@ -671,64 +929,192 @@ def main() -> int:
     stage_s = _median_seconds(
         lambda: S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
     )
-    sample_spec = captured["args"][8]
     epilogue_s = _median_seconds(
         lambda: S._sample_codes(got, sample_spec, plans.plan.eval_map).cpu()
     )
+    n_traj, dim = plans.n_traj, 1 << n_q
+    bound_ms, bound_by = _bound(
+        n_traj * ninfo["n_steps"] * 4 * dim
+        * _ops_per_amp_stage("mcwf_rows", n_q)
+        + int(jumps.sum()) * dim * (2 * n_q + 9),
+        _nbytes(*margs, got, jumps),
+    )
     print(
         f"times on {card}: mcwf_rows {mcwf_s * 1e3:.3f} ms,"
-        f" plain {mcwf_plain_s * 1e3:.3f} ms, warm noisy run()"
+        f" plain (once) {mcwf_plain_s * 1e3:.3f} ms, warm noisy run()"
         f" {noisy_run_s * 1e3:.3f} ms, of which host prep (trajectory"
         f" draws, batch, plan) {prep_s * 1e3:.3f} ms, staging and uniforms"
         f" {stage_s * 1e3:.3f} ms and the sampling epilogue with its fetch"
         f" {epilogue_s * 1e3:.3f} ms ({ninfo['n_steps']} RK4 steps,"
-        f" {ninfo['n_traj']} trajectories)"
+        f" {ninfo['n_traj']} trajectories); bound {bound_ms:.3f} ms"
+        f" ({bound_by})"
     )
-    # The device's busy share of one warm noisy run()
-    from torch.profiler import ProfilerActivity, profile
+    _print_busy("noisy run()", *_device_busy(noisy.run))
+    return {
+        "name": "mcwf_rows",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/mcwf_rows.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:824",
+        "launches": mcwf_launches,
+        "max_abs_err": mcwf_err,
+        "ms": mcwf_s * 1e3,
+        "plain_ms": mcwf_plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        noisy.run()
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    # Kernels and copies; the emulator's record_function ranges show as
-    # device events too and are left out
-    busy_us = sum(
-        e.self_device_time_total
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.is_user_annotation
+
+def _pauli10_path(K, S, device, card: str) -> dict:
+    """The lab-frame quantum-jump main path at full size (K3): PAULI10
+    against the JAX package's figures, then K3 against its plain version
+    on the run's own inputs, the times and the device's busy share."""
+    import torch
+
+    from pulser_tpu_torch.emulator.simulation import _host_sample_codes
+
+    with open(_PAULI10_GOLDEN) as f:
+        ref = json.load(f)
+    pauli, pres, launches, cold_s, captured = _run_noisy(
+        K, pauli10_inputs(), ref["seed"], "mcsolve_rk4_batched", S
+    )
+    k3_launches = launches["mcwf"]
+    pinfo = dict(S.last_solve_info)
+    print(
+        f"PAULI10 path: {pinfo}, launches={launches}, cold {cold_s:.3f} s"
+    )
+    _check(pinfo.get("kind") == "mcwf_cuda", "K3 route taken")
+    _check(k3_launches > 0, "mcwf launched on the PAULI10 path")
+    _check(pinfo["n_steps"] == ref["n_steps"], f"steps {pinfo['n_steps']}")
+    _check_shots(pres)
+    tv = _tv_distance(
+        dict(pres[-1].bitstring_counts), ref["final_counts"]
+    )
+    states = captured["out"]  # (B, n_eval, dim) complex64
+    _check(bool(np.isfinite(states).all()), "finite PAULI10 states")
+    n_q = pinfo["n"]
+    pops = _rydberg_populations(
+        np.abs(states[:, -1].astype(np.complex128)) ** 2, n_q
+    )
+    pop_d = np.max(np.abs(pops - np.asarray(ref["rydberg_populations"])), 1)
+    far = np.flatnonzero(pop_d > POPULATION_TOL).tolist()
+    pop_err = float(np.delete(pop_d, far).max())
+    print(
+        f"vs the JAX package (seed {ref['seed']}): per-trajectory Rydberg"
+        f" populations max|d| = {pop_err:.3e} beyond {far} (those"
+        f" {[float(pop_d[t]) for t in far]}), final counts TV = {tv:.4f}"
+    )
+    _check(len(far) <= 1, f"populations differ on trajectories {far}")
+    _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
+
+    psi0_p, plans, diags, _, _, _, cops, seeds = captured["args"]
+    margs, mkw = S.mcwf_kernel_inputs(
+        psi0_p, plans, diags, cops, seeds, device
+    )
+    got, jumps = K.mcwf(*margs, **mkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, jumps_p = K.mcwf_reference(*margs, **mkw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(bool(torch.isfinite(got).all()), "finite K3 states")
+    per_traj = (got - want).abs().amax(dim=(1, 2, 3))
+    odd = _odd_trajectories(per_traj, jumps, jumps_p, MCWF_TOL)
+    keep = torch.ones_like(per_traj, dtype=torch.bool)
+    keep[odd] = False
+    k3_err = float(per_traj[keep].max())
+    print(
+        f"mcwf vs plain on the PAULI10 run: max|d| = {k3_err:.3e} over"
+        f" {int(keep.sum())} trajectories; jump record differs for {odd};"
+        f" jumps per trajectory: mean {float(jumps.float().mean()):.2f},"
+        f" max {int(jumps.max())}"
+    )
+    _check(len(odd) <= 1, f"K3 vs plain differ on trajectories {odd}")
+    _check(k3_err <= MCWF_TOL, f"K3 PAULI10: {k3_err:.3e} > {MCWF_TOL}")
+
+    k3_s = _median_seconds(lambda: K.mcwf(*margs, **mkw))
+    run_s = _median_seconds(pauli.run)
+    opts: dict = {}
+    pauli._validate_options(opts)  # the options run() solves with
+    prep_s = _median_seconds(lambda: pauli._lindblad_batch_prep(dict(opts)))
+    stage_s = _median_seconds(
+        lambda: S.mcwf_kernel_inputs(psi0_p, plans, diags, cops, seeds, device)
+    )
+    # The draws of one run: samples_per_run per (trajectory, time) entry
+    # (PAULI10's continuous noise draws repeat no trajectory)
+    ns = np.full(
+        states.shape[0] * states.shape[1], pauli.noise_model.samples_per_run
+    )
+    rnd = np.random.default_rng(0).random(int(ns.sum()))
+    t0 = time.perf_counter()
+    _host_sample_codes(states, ns, rnd)
+    sampling_s = time.perf_counter() - t0
+    n_traj, dim = plans.n_traj, 1 << n_q
+    n_cops = len(mkw["cops"])
+    bound_ms, bound_by = _bound(
+        n_traj * pinfo["n_steps"] * 4 * dim * _ops_per_amp_stage("mcwf", n_q)
+        + int(jumps.sum()) * dim * (20 * n_cops * n_q + 12),
+        _nbytes(*margs, got, jumps),
     )
     print(
-        f"profiled noisy run(): {traced_s * 1e3:.3f} ms wall, device busy"
-        f" {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / traced_s:.1f}%)"
+        f"times on {card}: mcwf {k3_s * 1e3:.3f} ms, plain (once)"
+        f" {plain_s * 1e3:.3f} ms, warm PAULI10 run() {run_s * 1e3:.3f} ms,"
+        f" of which host prep (trajectory draws, batch, plan)"
+        f" {prep_s * 1e3:.3f} ms, staging and uniforms"
+        f" {stage_s * 1e3:.3f} ms, host sampling {sampling_s * 1e3:.3f} ms"
+        f" ({pinfo['n_steps']} RK4 steps, {n_traj} trajectories, {n_cops}"
+        f" collapse operators); bound {bound_ms:.3f} ms ({bound_by})"
     )
+    _print_busy("PAULI10 run()", *_device_busy(pauli.run))
+    return {
+        "name": "mcwf",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/mcwf.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:412",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_s * 1e3,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
+
+def main() -> int:
+    import torch
+
+    # 1. The card
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import pulser_tpu_torch.ops.kernels as K
+    from pulser_tpu_torch.ops import solver as S
+
+    card = subprocess.run(
+        [
+            "nvidia-smi",
+            "--query-gpu=name,power.limit",
+            "--format=csv,noheader",
+        ],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(
+        "torch", torch.__version__, "cuda", torch.version.cuda,
+        "python", sys.version.split()[0], flush=True,
+    )
+    device = torch.device("cuda")
+
+    _build(K)  # 2
+    _random_inputs_phase(K, device)  # 3-5
     report = {
         "kernels": [
-            {
-                "name": "ip_sesolve",
-                "route": "cuda",
-                "source": "pulser_tpu_torch/csrc/ip_sesolve.cu",
-                "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
-                "launches": launches,
-                "max_abs_err": sweep_err,
-                "ms": kernel_s * 1e3,
-                "plain_ms": plain_s * 1e3,
-            },
-            {
-                "name": "mcwf_rows",
-                "route": "cuda",
-                "source": "pulser_tpu_torch/csrc/mcwf_rows.cu",
-                "replaces": "pulser_tpu/ops/pallas_kernels.py:824",
-                "launches": mcwf_launches,
-                "max_abs_err": mcwf_err,
-                "ms": mcwf_s * 1e3,
-                "plain_ms": mcwf_plain_s * 1e3,
-            },
+            _afm16_path(K, S, device, card),  # 6
+            _noisy10_path(K, S, device, card),  # 7-8
+            _pauli10_path(K, S, device, card),  # 9-10
         ]
     }
     print(json.dumps(report))

@@ -2,26 +2,33 @@
 
 Port of ``pulser_tpu/emulator/simulation.py`` (itself behavioral parity
 with reference ``pulser-simulation/pulser_simulation/simulation.py``,
-``QutipEmulator``), for two paths, on a CUDA device when there is one:
+``QutipEmulator``), for two paths, on a CUDA device unless the CPU is
+asked for:
 
 - noiseless: QuTiP's ``sesolve`` becomes
   :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4` in the interaction
   picture;
-- noisy with shot-to-shot noise and diagonal collapse operators (SPAM,
-  doppler, amplitude, dephasing): one quantum-jump realization per noise
-  trajectory, the whole batch in one row-batched solve with the
-  measurement draws fused after it
-  (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rows_codes`), ending in
-  ``NoisyResults`` of bitstring counts.
+- noisy with shot-to-shot noise and collapse operators: one quantum-jump
+  realization per noise trajectory, the whole batch in one solve, ending
+  in ``NoisyResults`` of bitstring counts. With diagonal collapse
+  operators (SPAM, doppler, amplitude, dephasing) on the interaction-
+  picture grid, the row-batched solve runs with the measurement draws
+  fused after it (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rows_codes`);
+  with general ones (the effective-noise Pauli channel, for instance) the
+  lab-frame solve returns the states
+  (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rk4_batched`) and the
+  draws run on the host.
 
 The evaluation-times semantics (Full/Minimal/array/fraction, union with
 {0, T}), the +1 duration extension, the step policy, the noise draws and
 the order in which the numpy global RNG is consumed match the JAX
 package exactly, so both build the same plan and a seeded run gives the
-same counts. Every other noise configuration (master equation,
-non-diagonal or no collapse operators, XY, interaction interpolation),
-density-matrix inputs, the lab-frame solve and ``from_sequence`` are
-not ported yet and raise ``NotImplementedError`` (see ROADMAP.md).
+same counts. Every other noise configuration (master equation, no
+collapse operators, depolarizing, relaxation and other single-matrix-
+unit operators on the interaction-picture grid, XY, interaction
+interpolation), density-matrix inputs, the lab-frame sesolve and
+``from_sequence`` are not ported yet and raise ``NotImplementedError``
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -206,12 +213,14 @@ class TorchEmulator:
             or a float sampling fraction.
         noise_model: The noise model for the simulation. Noise is
             ported for the quantum-jump path only: shot-to-shot noise
-            with diagonal collapse operators (see the module docstring).
+            with diagonal collapse operators, or with general ones on
+            the lab-frame grid (see the module docstring).
         solver: Solver selection (see :class:`Solver`).
         n_trajectories: The number of noise trajectories to average over
             when the emulation includes stochastic noise.
         torch_device: The torch device the solver runs on (default: the
-            first CUDA device when there is one, else the CPU).
+            first CUDA device; without one the constructor raises, and
+            ``"cpu"`` must be asked for).
     """
 
     def __init__(
@@ -365,13 +374,21 @@ class TorchEmulator:
                 "noisy runs without collapse operators need the batched"
                 " sesolve (ROADMAP.md Queue 1, 'batched K1')"
             )
-        if lindblad.depolarizing_pauli_2ds or (
-            _solver_mod._diag_cops_spec(ham._local_collapse_mats) is None
-        ):
+        if lindblad.depolarizing_pauli_2ds:
             return (
-                "collapse operators that are not all diagonal need the"
-                " general-collapse MCWF kernel _mcwf_kernel (ROADMAP.md"
-                " Queue 2, K3)"
+                "depolarizing noise runs the serial quantum-jump solve"
+                " mcsolve_rk4 per trajectory (ROADMAP.md Queue 1, 'serial"
+                " mcsolve_rk4')"
+            )
+        mats = ham._local_collapse_mats
+        if _solver_mod._diag_cops_spec(
+            mats
+        ) is None and _solver_mod.mcwf_ip_eligible(mats):
+            return (
+                "relaxation and other single-matrix-unit collapse operators"
+                " run the interaction-picture quantum-jump solve with"
+                " general collapse operators (ROADMAP.md Queue 1, 'IP"
+                " quantum jumps with general collapse operators')"
             )
         if ham.xy_mat is not None or ham.int_w is not None:
             return (
@@ -394,10 +411,10 @@ class TorchEmulator:
                 " (ROADMAP.md Queue 1, 'lab-frame, XY and qudit sesolve')"
             )
         n = hd.n_qudits
-        if not 2 <= n <= _solver_mod.ROWS_MAX_QUBITS:
+        if not 2 <= n <= _solver_mod.MCWF_MAX_QUBITS:
             return (
-                f"the row-batched quantum-jump solve takes 2 to"
-                f" {_solver_mod.ROWS_MAX_QUBITS} atoms, not {n} (larger"
+                f"the quantum-jump solves take 2 to"
+                f" {_solver_mod.MCWF_MAX_QUBITS} atoms, not {n} (larger"
                 " registers: ROADMAP.md Queue 1, 'backend, JSON, parallel"
                 " and serving')"
             )
@@ -1259,14 +1276,14 @@ class TorchEmulator:
                 print("Emulating Trajectory 1/1")
             return self._run_solver(**options)
 
-        # The fused quantum-jump route: the measurement draws run on the
-        # device after the solve and only sampled indices return. The
-        # gate builds the noiseless Hamiltonian, whose one draw from the
-        # numpy global RNG comes here in the JAX package too.
+        # The batched quantum-jump route. The gate builds the noiseless
+        # Hamiltonian, whose one draw from the numpy global RNG comes
+        # here in the JAX package too.
         if not self._can_batch_lindblad():
             raise NotImplementedError(
                 "Not ported: noisy runs outside the batched quantum-jump"
-                " solve (ROADMAP.md Queue 1, 'mesolve')."
+                " solve run the serial quantum-jump solve mcsolve_rk4 per"
+                " trajectory (ROADMAP.md Queue 1, 'serial mcsolve_rk4')."
             )
         total_count = self._counts_rows_fused(
             print_progress=print_progress, **options
@@ -1438,10 +1455,14 @@ class TorchEmulator:
     def _counts_rows_fused(
         self, print_progress: bool = False, **options: Any
     ) -> np.ndarray:
-        """Per-eval-time bitstring Counters with the measurement draws
-        fused after the quantum-jump solve.
+        """Per-eval-time bitstring Counters of the batched quantum-jump
+        solve.
 
-        The numpy global RNG is consumed in the JAX package's order:
+        When the row-batched solve takes the configuration, the
+        measurement draws run on the device after it; otherwise the
+        state-returning solve runs and the draws run on the host with
+        the uniforms already drawn. The numpy global RNG is consumed in
+        the JAX package's order:
         the noise trajectories (drawn at construction, or redrawn for a
         repeated run), the noiseless Hamiltonian's draw, one seed per
         trajectory, one uniform per measurement sample
@@ -1474,24 +1495,28 @@ class TorchEmulator:
         u_pad = np.full((n_entries, m), 0.5)
         u_pad[valid] = rnd
 
+        solve_args = (
+            p.psi0, p.plans, p.batch.diags, p.pairs, d, n, p.collapse_mats,
+            seeds,
+        )
+        solve_kw = dict(
+            dtype=p.psi0.dtype, ip=p.mcwf_ip, device=self._torch_device
+        )
         with torch.profiler.record_function("emulator.mcsolve_rows"):
             codes_pad = _solver_mod.mcsolve_rows_codes(
-                p.psi0,
-                p.plans,
-                p.batch.diags,
-                p.pairs,
-                d,
-                n,
-                p.collapse_mats,
-                seeds,
-                (u_pad, row_traj, row_ti),
-                dtype=p.psi0.dtype,
-                ip=p.mcwf_ip,
-                device=self._torch_device,
+                *solve_args, (u_pad, row_traj, row_ti), **solve_kw
             )
-        # Device draws return STATE indices; the ground-rydberg
-        # bitstring order is their reversal
-        codes = (d**n - 1) - np.asarray(codes_pad, dtype=np.int64)[valid]
+        if codes_pad is not None:
+            # Device draws return STATE indices; the ground-rydberg
+            # bitstring order is their reversal
+            codes = (d**n - 1) - np.asarray(codes_pad, dtype=np.int64)[valid]
+        else:
+            with torch.profiler.record_function("emulator.mcsolve_batched"):
+                states = _solver_mod.mcsolve_rk4_batched(
+                    *solve_args, **solve_kw
+                )
+            with torch.profiler.record_function("emulator.host_sampling"):
+                codes = _host_sample_codes(states, ns, rnd)
         self._current_hamiltonian = p.batch.last_ham()
 
         width = hd.n_qudits
@@ -1513,6 +1538,27 @@ class TorchEmulator:
         for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
             total_count[v][lab] += c
         return total_count
+
+
+def _host_sample_codes(
+    states: np.ndarray, ns: np.ndarray, rnd: np.ndarray
+) -> np.ndarray:
+    """Bitstring codes drawn on the host from ``(B, n_eval, dim)`` states.
+
+    Entry ``e`` (trajectory-major, eval-time-minor) takes ``ns[e]``
+    consecutive uniforms of ``rnd``; its probabilities are summed in
+    bitstring order (the reversed state order) in float32, and each draw
+    is a searchsorted-left of ``u · total``, as the JAX package draws.
+    """
+    dim = states.shape[-1]
+    probs = np.abs(np.asarray(states)) ** 2
+    cum = np.cumsum(probs[..., ::-1].reshape(-1, dim), axis=1)
+    offs = np.concatenate(([0], np.cumsum(ns)))
+    codes = np.empty(int(offs[-1]), dtype=np.int64)
+    for e in range(len(ns)):
+        sl = slice(offs[e], offs[e + 1])
+        codes[sl] = np.searchsorted(cum[e], rnd[sl] * cum[e, -1])
+    return codes
 
 
 # Drop-in alias matching the reference class name

@@ -9,6 +9,8 @@ tensors in place of the ``(2, d^N)`` real pairs the TPU needed:
 - the Ising interaction is **diagonal** in the computational basis →
   one precomputed length-``d^N`` diagonal vector.
 
+Single-axis application (:func:`apply_axis_c`, the quantum-jump
+candidates) and :func:`neg_i` serve the lab-frame quantum-jump solve.
 The density-matrix sides and the XY flip-flop term are not ported yet
 (see ROADMAP.md).
 """
@@ -19,6 +21,28 @@ import math
 from typing import Sequence
 
 import torch
+
+
+def apply_axis_c(
+    op: torch.Tensor, psi: torch.Tensor, axis: int, d: int, n: int
+) -> torch.Tensor:
+    """Applies a complex ``d×d`` operator to one qudit axis.
+
+    Args:
+        op: The ``(d, d)`` complex operator.
+        psi: ``(..., d**n)`` complex states (any leading batch axes).
+        axis: The qudit the operator acts on (qudit 0 is the most
+            significant digit of the flat index).
+        d, n: The qudit dimension and count.
+    """
+    lead = psi.shape[:-1]
+    v = psi.reshape(*lead, d**axis, d, d ** (n - axis - 1))
+    return torch.einsum("ij,...ajb->...aib", op, v).reshape(*lead, d**n)
+
+
+def neg_i(psi: torch.Tensor) -> torch.Tensor:
+    """Multiplies a complex tensor by ``-i``: x + iy -> y − ix."""
+    return torch.complex(psi.imag, -psi.real)
 
 
 def build_drive_matrices(

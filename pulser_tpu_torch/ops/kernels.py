@@ -8,6 +8,9 @@
   file: the row-batched interaction-picture quantum-jump solve with
   diagonal collapse operators. Source:
   ``pulser_tpu_torch/csrc/mcwf_rows.cu``.
+- ``mcwf`` replaces the TPU kernel ``_mcwf_kernel`` of the same file: the
+  lab-frame quantum-jump solve with general 2×2 collapse operators.
+  Source: ``pulser_tpu_torch/csrc/mcwf.cu``.
 
 Each source says what bounds its kernel on the card and how the design
 answers that. Each is compiled with ``nvcc`` for ``sm_90a`` on first use
@@ -29,12 +32,14 @@ import subprocess
 import numpy as np
 import torch
 
+from pulser_tpu_torch.ops.apply import apply_axis_c, neg_i
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 #: The CUDA sources, by kernel name.
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("ip_sesolve", "mcwf_rows")
+    for name in ("ip_sesolve", "mcwf_rows", "mcwf")
 }
 
 #: Calls of the CUDA entry point ``ip_sesolve_run`` (each call launches
@@ -42,6 +47,8 @@ SOURCES = {
 IP_SESOLVE_LAUNCHES = 0
 #: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
 MCWF_ROWS_LAUNCHES = 0
+#: Launches of ``mcwf_kernel`` (one per whole trajectory batch).
+MCWF_LAUNCHES = 0
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -134,10 +141,15 @@ def _load(name: str) -> ctypes.CDLL:
             lib.ip_sesolve_run.restype = i
             lib.ip_sesolve_run.argtypes = [p] * 14 + [i] * 3 + [p]
         else:
-            lib.mcwf_rows_scratch_floats.restype = ctypes.c_long
-            lib.mcwf_rows_scratch_floats.argtypes = [i, i]
-            lib.mcwf_rows_run.restype = i
-            lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
+            getattr(lib, f"{name}_scratch_floats").restype = ctypes.c_long
+            getattr(lib, f"{name}_scratch_floats").argtypes = [i, i]
+            run = getattr(lib, f"{name}_run")
+            run.restype = i
+            run.argtypes = (
+                [p] * 16 + [i] * 5 + [f, f, p]
+                if name == "mcwf_rows"
+                else [p] * 13 + [i] * 5 + [f] * 4 + [p]
+            )
         _libs[name] = lib
     return lib
 
@@ -595,4 +607,256 @@ def mcwf_rows_reference(
         c, sn = torch.cos(ph), torch.sin(ph)
         out[:, s, 0] = c * pr_n + sn * pi_n
         out[:, s, 1] = c * pi_n - sn * pr_n
+    return out, jumps
+
+
+#: Static collapse algebra of :func:`mcwf`: per operator, its local 2×2 as
+#: 8 floats ``(l00r, l00i, l01r, l01i, l10r, l10i, l11r, l11i)``.
+CopTuple = tuple[float, float, float, float, float, float, float, float]
+
+
+def _mcwf_shapes(
+    n_seg: int, n_traj: int, seg_len: int, n_row: int, n_col: int
+) -> dict[str, tuple[int, ...]]:
+    rows, cols = 1 << n_row, 1 << n_col
+    stage = (n_seg, seg_len, 3, n_row + n_col)
+    return dict(
+        a_re=stage, a_im=stage, det=stage, seg_dts=(n_seg, seg_len, 1),
+        us=(n_seg, seg_len, 2), r0=(n_traj, 1), diag2d=(n_traj, rows, cols),
+        psi0_re=(rows, cols), psi0_im=(rows, cols),
+    )
+
+
+def mcwf(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    det: torch.Tensor,
+    seg_dts: torch.Tensor,
+    us: torch.Tensor,
+    r0: torch.Tensor,
+    diag2d: torch.Tensor,
+    psi0_re: torch.Tensor,
+    psi0_im: torch.Tensor,
+    *,
+    n_row: int,
+    n_col: int,
+    seg_len: int,
+    segs_per_traj: int,
+    cops: tuple[CopTuple, ...],
+    g_diag: tuple[float, float],
+    g_lo: tuple[float, float],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lab-frame quantum-jump (MCWF) solve with general 2×2 collapse
+    operators (d=2, one basis, f32).
+
+    Inputs follow the JAX package's ``_mcwf_jit``: the ``n_seg = B·S``
+    rows are B trajectories of ``S = segs_per_traj`` segments of
+    ``L = seg_len`` steps, trajectory-major; n = n_row + n_col qubits
+    (``R = 2^n_row``, ``C = 2^n_col``, the flat index is row·C + col).
+
+    Args:
+        a_re/a_im: ``(n_seg, L, 3, n)`` drive stages (0.5·Ω·e^{-iφ}).
+        det: ``(n_seg, L, 3, n)`` detuning stages.
+        seg_dts: ``(n_seg, L, 1)`` step sizes (0 = padding).
+        us: ``(n_seg, L, 2)`` per-step uniforms (channel selector, next
+            threshold).
+        r0: ``(B, 1)`` initial jump thresholds.
+        diag2d: ``(B, R, C)`` interaction diagonals.
+        psi0_re/psi0_im: ``(R, C)`` shared initial state.
+        cops: Per collapse operator, its local 2×2 as 8 floats
+            (:data:`CopTuple`; at most 8 operators).
+        g_diag: ``(G00, G11)``, the diagonal of ``G = Σ_k L_k†L_k``.
+        g_lo: ``(re, im)`` of ``G[1, 0]``.
+
+    Returns:
+        ``(states, jumps)``: ``(B, S, 2, 2^n)`` float32 normalized states
+        after each segment (real and imaginary planes; ``_mcwf_jit``'s
+        ``(n_seg, 2, R, C)`` output reshaped) and the ``(B,)`` int32
+        number of jumps of each trajectory.
+    """
+    kw = dict(
+        n_row=n_row, n_col=n_col, seg_len=seg_len,
+        segs_per_traj=segs_per_traj, cops=cops, g_diag=g_diag, g_lo=g_lo,
+    )
+    tensors = dict(
+        a_re=a_re, a_im=a_im, det=det, seg_dts=seg_dts, us=us, r0=r0,
+        diag2d=diag2d, psi0_re=psi0_re, psi0_im=psi0_im,
+    )
+    if a_re.device.type == "cpu":
+        return mcwf_reference(*tensors.values(), **kw)
+    if a_re.device.type != "cuda":
+        raise ValueError(f"Unsupported device {a_re.device}.")
+    n = n_row + n_col
+    n_seg = a_re.shape[0]
+    if not 1 <= n <= 13 or not 1 <= len(cops) <= 8:
+        raise ValueError(
+            f"mcwf takes 1 <= n <= 13 and 1 to 8 collapse operators, not"
+            f" n={n} and {len(cops)}."
+        )
+    if n_seg % segs_per_traj:
+        raise ValueError(
+            f"{n_seg} segment rows are not a whole number of trajectories"
+            f" of {segs_per_traj} segments."
+        )
+    n_traj = n_seg // segs_per_traj
+    _check_inputs(tensors, _mcwf_shapes(n_seg, n_traj, seg_len, n_row, n_col))
+    lib = _load("mcwf")
+    dev = a_re.device
+    dim = 1 << n
+    cop_t = torch.tensor(cops, dtype=torch.float32).reshape(-1, 8).to(dev)
+    out = torch.empty(
+        (n_traj, segs_per_traj, 2, dim), dtype=torch.float32, device=dev
+    )
+    jumps = torch.empty((n_traj,), dtype=torch.int32, device=dev)
+    n_scratch = int(lib.mcwf_scratch_floats(n, n_traj))
+    scratch = (
+        torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+        if n_scratch
+        else None
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mcwf_run(
+        *(t.data_ptr() for t in tensors.values()),
+        cop_t.data_ptr(), out.data_ptr(), jumps.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        n_traj, segs_per_traj, seg_len, n, len(cops),
+        g_diag[0], g_diag[1], g_lo[0], g_lo[1], stream,
+    )
+    global MCWF_LAUNCHES
+    MCWF_LAUNCHES += 1
+    if err != 0:
+        raise RuntimeError(f"mcwf_run failed: CUDA error {err}.")
+    return out, jumps
+
+
+def mcwf_reference(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    det: torch.Tensor,
+    seg_dts: torch.Tensor,
+    us: torch.Tensor,
+    r0: torch.Tensor,
+    diag2d: torch.Tensor,
+    psi0_re: torch.Tensor,
+    psi0_im: torch.Tensor,
+    *,
+    n_row: int,
+    n_col: int,
+    seg_len: int,
+    segs_per_traj: int,
+    cops: tuple[CopTuple, ...],
+    g_diag: tuple[float, float],
+    g_lo: tuple[float, float],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`mcwf` (same arguments).
+
+    The lab-frame branch of the JAX package's ``_mcwf_traj_states`` with
+    the trajectory axis written out, in complex64 on the inputs' device,
+    in the TPU kernel's formulation: ``H_eff`` as a real diagonal, the
+    constant imaginary diagonal ``−½G`` and G's off-diagonal folded into
+    the flip entries; jumps chosen by running comparisons (``u > prev``
+    and ``u <= cum``, the last candidate also taking ``u <= 0``) rather
+    than a searchsorted, so that it agrees with the kernel jump for jump.
+    The step loop runs in Python over the host copy of ``seg_dts`` and
+    skips steps that are padding for every trajectory; the candidates
+    are formed only on steps where some trajectory jumps.
+    """
+    n = n_row + n_col
+    dim = 1 << n
+    n_seg = a_re.shape[0]
+    n_s = segs_per_traj
+    n_traj = n_seg // n_s
+    dev = a_re.device
+    f32 = torch.float32
+    stage = (n_traj, n_s, seg_len, 3, n)
+    a = torch.complex(a_re, a_im).reshape(stage)
+    dt = det.reshape(stage)
+    hs = seg_dts.reshape(n_traj, n_s, seg_len)
+    h_host = hs.cpu().numpy()
+    u_all = us.reshape(n_traj, n_s, seg_len, 2)
+    diag = diag2d.reshape(n_traj, dim)
+    idx = torch.arange(dim, device=dev)
+    shifts = torch.arange(n - 1, -1, -1, device=dev)  # qubit q: bit n-1-q
+    bits = ((idx[None, :] >> shifts[:, None]) & 1).bool()  # (n, dim)
+    bits_f = bits.to(f32)
+    partners = idx[None, :] ^ (1 << shifts)[:, None]  # (n, dim)
+    pop = bits_f.sum(0)
+    g00, g11 = _f32(g_diag[0]), _f32(g_diag[1])
+    d_im = (-0.5 * (g00 * (float(n) - pop) + g11 * pop)).expand(n_traj, dim)
+    # -(i/2) G[1,0] on the |1><0| entries, -(i/2) conj(G[1,0]) on |0><1|
+    k_lo = complex(0.5 * _f32(g_lo[1]), -0.5 * _f32(g_lo[0]))
+    k_up = complex(-0.5 * _f32(g_lo[1]), -0.5 * _f32(g_lo[0]))
+    ops = torch.tensor(
+        [[complex(c[2 * e], c[2 * e + 1]) for e in range(4)] for c in cops],
+        dtype=torch.complex64,
+    ).reshape(-1, 2, 2).to(dev)
+    n_cand = len(cops) * n
+    a_w = (0.0, 0.5, 0.5, 1.0)
+    b_w = tuple(_f32(w) for w in (1 / 6, 1 / 3, 1 / 3, 1 / 6))
+
+    def deriv(x: torch.Tensor, s: int, i: int, sidx: int) -> torch.Tensor:
+        """``−i H_eff x`` for the stage sample ``sidx`` of step i."""
+        amp = a[:, s, i, sidx]  # (B, n)
+        dets = dt[:, s, i, sidx]
+        coef = torch.where(
+            bits[None], (amp + k_lo)[:, :, None], (amp.conj() + k_up)[:, :, None]
+        )  # (B, n, dim): the entry into each output amplitude
+        flips = (coef * x[:, partners]).sum(1)
+        dr = diag - dets.sum(1, keepdim=True) + dets @ bits_f
+        return neg_i(torch.complex(dr, d_im) * x + flips)
+
+    psi = torch.complex(psi0_re, psi0_im).reshape(1, dim).repeat(n_traj, 1)
+    r = r0.reshape(n_traj).clone()
+    jumps = torch.zeros((n_traj,), dtype=torch.int32, device=dev)
+    out = torch.empty((n_traj, n_s, 2, dim), dtype=f32, device=dev)
+    rows = torch.arange(n_traj, device=dev)
+    for s in range(n_s):
+        for i in range(seg_len):
+            if not h_host[:, s, i].any():
+                continue  # start padding of a short segment
+            h = hs[:, s, i, None]  # (B, 1)
+            k = acc = None
+            for j in range(4):
+                x = psi if j == 0 else psi + (h * a_w[j]) * k
+                k = deriv(x, s, i, (j + 1) >> 1)
+                acc = b_w[j] * k if j == 0 else acc + b_w[j] * k
+            psi = psi + h * acc
+            # A trajectory that pads this step keeps its state and norm
+            norm2 = (psi.real**2 + psi.imag**2).sum(1)
+            jump = (norm2 <= r) & (h[:, 0] != 0)
+            if not bool(jump.any()):
+                continue
+            cands = torch.stack(
+                [
+                    apply_axis_c(op, psi, q, 2, n)
+                    for op in ops
+                    for q in range(n)
+                ],
+                1,
+            )  # (B, K·n, dim), operator outer, qubit inner
+            w = (cands.real**2 + cands.imag**2).sum(-1)
+            total = w[:, 0]
+            for c in range(1, n_cand):
+                total = total + w[:, c]
+            u = u_all[:, s, i, 0] * total
+            sel = torch.full((n_traj,), -1, dtype=torch.long, device=dev)
+            cum = torch.zeros_like(total)
+            for c in range(n_cand):
+                prev = cum
+                cum = cum + w[:, c]
+                hit = (u > prev) & (u <= cum)
+                if c == n_cand - 1:
+                    hit = hit | (u <= 0)
+                sel = torch.where((sel < 0) & hit, c, sel)
+            chosen = sel.clamp(min=0)
+            w_sel = torch.where(sel >= 0, w[rows, chosen], 0.0)
+            inv = torch.rsqrt(torch.clamp(w_sel, min=1e-30))
+            new = cands[rows, chosen] * torch.where(sel >= 0, inv, 0.0)[:, None]
+            psi = torch.where(jump[:, None], new, psi)
+            r = torch.where(jump, u_all[:, s, i, 1], r)
+            jumps += jump.to(torch.int32)
+        norm2 = (psi.real**2 + psi.imag**2).sum(1, keepdim=True)
+        psi_n = psi * torch.rsqrt(torch.clamp(norm2, min=1e-30))
+        out[:, s, 0] = psi_n.real
+        out[:, s, 1] = psi_n.imag
     return out, jumps

@@ -17,9 +17,15 @@ States are native complex tensors; the TPU's ``(2, dim)`` real pairs are
 gone. For 10 ≤ n ≤ 17 qubits in single precision on a CUDA device the
 solve runs through the hand-written kernel of
 :mod:`pulser_tpu_torch.ops.kernels`; every other eligible configuration
-runs the torch loop :func:`_sesolve_scan_ip`. The lab-frame solve (XY,
-interaction interpolation), state sharding and the batched and
-dissipative solvers are not ported yet (see ROADMAP.md).
+runs the torch loop :func:`_sesolve_scan_ip`.
+
+The quantum-jump (MCWF) batch runs one of two hand-written kernels
+(:func:`_mcwf_route`): the row-batched interaction-picture solve with
+diagonal collapse operators, or the lab-frame solve with general local
+2×2 collapse operators; on CPU tensors each runs its plain PyTorch
+version. The lab-frame sesolve (XY, interaction interpolation), state
+sharding, mesolve and the other dissipative solvers are not ported yet
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -410,9 +416,20 @@ def _numpy_dtype(dtype: Any) -> np.dtype:
 
 
 def _resolve_device(device: Any) -> torch.device:
-    """The given device, or the first CUDA device when there is one."""
+    """The given device; ``None`` means the first CUDA device.
+
+    Raises:
+        RuntimeError: ``device`` is None and no CUDA device is visible
+            (the entry points never move to the CPU on their own).
+    """
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "No CUDA device is visible. To run on the CPU, ask for it:"
+                " torch_device='cpu' (TorchEmulator) or device='cpu' (the"
+                " solver functions)."
+            )
+        return torch.device("cuda")
     return torch.device(device)
 
 
@@ -527,7 +544,8 @@ def sesolve_rk4(
         lazy: Return a :class:`DeviceStateBatch` (device-resident
             output, fetched on demand) instead of a host array.
         device: The torch device to solve on (default: the first CUDA
-            device when there is one, else the CPU).
+            device; without one this raises: pass ``"cpu"`` to run on
+            the CPU).
 
     Returns:
         ``(n_eval, dim)`` complex numpy states at the evaluation
@@ -1130,6 +1148,61 @@ def _stage_on_device(
     return torch.movedim(st, (-3, -2, -1), (1, 2, 3)).contiguous()
 
 
+def _batched_inputs(
+    plans: BatchedPlan, names: tuple[str, ...]
+) -> tuple[EvolutionPlan, int, dict[str, np.ndarray]]:
+    """``(base plan, B, host-staged dict)`` of a batched plan. (The JAX
+    package also takes a list of per-trajectory plans here; the port's
+    quantum-jump solves take a :class:`BatchedPlan` only.)"""
+    return (
+        plans.plan,
+        plans.n_traj,
+        {name: plans.seg_stage_b(name) for name in names},
+    )
+
+
+def _lindblad_drive_arrays(
+    plans: BatchedPlan, rdtype: Any, device: Any
+) -> tuple:
+    """Staged drive arrays for the lab-frame quantum-jump solve, on
+    ``device``.
+
+    For a :class:`BatchedPlan` carrying raw coefficients, only the small
+    knot values (or rank factors) cross to the device, where
+    :func:`_stage_on_device` gathers the stage arrays.
+
+    Returns:
+        ``(amp_re, amp_im, det, base_plan, n_traj)`` with the staged
+        arrays in the ``(B, n_seg, L, 3, nb, n)`` layout.
+    """
+    dev = torch.device(device)
+    np_r = np.dtype(rdtype)
+    if plans.raw_coeffs is not None and plans.plan.stage_knots is not None:
+        idx0, idx1, frac = plans.seg_knots()
+        gather = (
+            _on_device(idx0, dev),
+            _on_device(idx1, dev),
+            _on_device(np.asarray(frac, np_r), dev),
+        )
+        staged = [
+            _stage_on_device(_on_device(leaf, dev), *gather)
+            for leaf in _raw_drive_leaves(plans, np_r)
+        ]
+        return (*staged, plans.plan, plans.n_traj)
+    base, n_traj, host = _batched_inputs(plans, ("amp", "det"))
+
+    def to_dev(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x, np_r)).to(dev)
+
+    return (
+        to_dev(host["amp"].real),
+        to_dev(host["amp"].imag),
+        to_dev(host["det"].real),
+        base,
+        n_traj,
+    )
+
+
 def mcwf_ip_eligible(collapse_ops: "list[np.ndarray]") -> bool:
     """Whether MCWF can integrate in the interaction picture.
 
@@ -1169,65 +1242,74 @@ def _diag_cops_spec(
     return tuple(spec)
 
 
-#: Largest register the row-batched quantum-jump solve takes: the bound
-#: the JAX package's TPU block ladder admits.
-ROWS_MAX_QUBITS = 13
+#: Largest register the quantum-jump solves take: the bound the JAX
+#: package's TPU block ladder admits for the row-batched kernel, kept for
+#: the lab-frame kernel (its state planes leave shared memory at n = 13).
+MCWF_MAX_QUBITS = 13
 
 
-def _rows_refusal(
+def _n_bases(plans: BatchedPlan) -> int:
+    """The number of drive bases of a batched plan's coefficients."""
+    raw_amp = (plans.raw_coeffs or {}).get("amp")
+    if isinstance(raw_amp, RankFactors):
+        return int(raw_amp.profiles.shape[1])
+    if raw_amp is not None:
+        return int(np.asarray(raw_amp).shape[1])
+    return int(plans.seg_stage_b("amp").shape[-2])
+
+
+def _mcwf_route(
     plans: Any,
     ip: bool,
-    cops_spec: "tuple | None",
+    collapse_ops: list[np.ndarray],
     d: int,
     n: int,
     pairs: tuple,
     rdtype: Any,
-) -> str | None:
-    """Why the row-batched quantum-jump solve cannot take this
-    configuration, or None when it can.
+) -> tuple[str | None, str | None]:
+    """Which quantum-jump solve takes this configuration.
 
-    The gate: a :class:`BatchedPlan`, the interaction-picture grid,
-    qubits (d=2) with one ground-rydberg drive basis, float32, at least
-    one collapse operator, all diagonal, and 2 ≤ n ≤ 13.
+    Both take a :class:`BatchedPlan`, qubits (d=2) with one
+    ground-rydberg drive basis, float32, at least one collapse operator
+    and 2 ≤ n ≤ 13. On the interaction-picture grid the operators must
+    all be diagonal: the row-batched solve (K2). On the lab-frame grid
+    they may be any local 2×2: the lab-frame solve (K3).
+
+    Returns:
+        ``("rows", None)``, ``("lab", None)``, or ``(None, reason)``
+        when neither takes it (the reason names the ROADMAP item).
     """
     if not isinstance(plans, BatchedPlan):
-        return "the quantum-jump solve takes a BatchedPlan"
-    if not cops_spec:
-        return (
-            "collapse operators that are not all diagonal (or none) need"
-            " the general-collapse MCWF kernel _mcwf_kernel (ROADMAP.md"
-            " Queue 2, K3)"
-            if cops_spec is None
-            else "noisy runs without collapse operators need the batched"
+        return None, "the quantum-jump solve takes a BatchedPlan"
+    if not collapse_ops:
+        return None, (
+            "noisy runs without collapse operators need the batched"
             " sesolve (ROADMAP.md Queue 1, 'batched K1')"
         )
-    if not ip:
-        return (
-            "the lab-frame quantum-jump solve (no interaction-picture"
-            " grid) is not ported (ROADMAP.md Queue 2, K3)"
-        )
-    raw_amp = (plans.raw_coeffs or {}).get("amp")
-    nb = (
-        int(raw_amp.profiles.shape[1])
-        if isinstance(raw_amp, RankFactors)
-        else int(np.asarray(raw_amp).shape[1])
-        if raw_amp is not None
-        else 0
-    )
-    if d != 2 or nb != 1 or tuple(pairs) != ((1, 0, 0),):
-        return (
+    if d != 2 or _n_bases(plans) != 1 or tuple(pairs) != ((1, 0, 0),):
+        return None, (
             "only one ground-rydberg basis (d=2) is ported; qudits and"
             " several bases are ROADMAP.md Queue 1, 'lab-frame, XY and"
             " qudit sesolve'"
         )
     if np.dtype(rdtype) != np.float32:
-        return "the quantum-jump solve runs in single precision only"
-    if not 2 <= n <= ROWS_MAX_QUBITS:
-        return (
-            f"the row-batched quantum-jump solve takes 2 <= n <="
-            f" {ROWS_MAX_QUBITS} qubits, not {n}"
+        return None, "the quantum-jump solve runs in single precision only"
+    if not 2 <= n <= MCWF_MAX_QUBITS:
+        return None, (
+            f"the quantum-jump solves take 2 <= n <= {MCWF_MAX_QUBITS}"
+            f" qubits, not {n} (larger registers: ROADMAP.md Queue 1,"
+            " 'backend, JSON, parallel and serving')"
         )
-    return None
+    if not ip:
+        return "lab", None
+    if _diag_cops_spec(collapse_ops) is None:
+        return None, (
+            "the interaction-picture quantum-jump solve with non-diagonal"
+            " collapse operators (relaxation and other single matrix"
+            " units) is not ported (ROADMAP.md Queue 1, 'IP quantum jumps"
+            " with general collapse operators')"
+        )
+    return "rows", None
 
 
 def _mcwf_uniforms(
@@ -1373,38 +1455,110 @@ def _mcsolve_rows_kernel(
     return (host[:, :, 0] + 1j * host[:, :, 1]).astype(cdtype)
 
 
-def _mcsolve_rows(
-    psi0: np.ndarray,
+def _general_cops_spec(collapse_ops: list[np.ndarray]) -> dict[str, Any]:
+    """The static collapse algebra of the lab-frame kernel: each local
+    2×2 as 8 floats ``(l00r, l00i, l01r, l01i, l10r, l10i, l11r,
+    l11i)``, and the diagonal ``(G00, G11)`` and ``G[1, 0]`` (as ``(re,
+    im)``) of ``G = Σ_k L_k†L_k``, formed in float64."""
+    mats = [np.asarray(c, dtype=np.complex128) for c in collapse_ops]
+    g = sum(m.conj().T @ m for m in mats)
+    return dict(
+        cops=tuple(
+            tuple(float(v) for e in m.reshape(-1) for v in (e.real, e.imag))
+            for m in mats
+        ),
+        g_diag=(float(g[0, 0].real), float(g[1, 1].real)),
+        g_lo=(float(g[1, 0].real), float(g[1, 0].imag)),
+    )
+
+
+def mcwf_kernel_inputs(
+    psi0_np: np.ndarray,
     plans: BatchedPlan,
     diags: np.ndarray,
-    pairs: tuple[tuple[int, int, int], ...],
-    d: int,
+    collapse_ops: list[np.ndarray],
+    seeds: list[int],
+    device: Any,
+) -> tuple[list[torch.Tensor], dict[str, Any]]:
+    """The tensors and keywords :func:`~pulser_tpu_torch.ops.kernels.mcwf`
+    takes for one noisy batch, in the layout of the JAX package's
+    ``_mcwf_jit``: drives and detunings staged on ``device``
+    (``(B·S, L, 3, n)``), the grid tiled per trajectory, the
+    trajectories' uniforms, diagonals and the initial state (float32),
+    and the static collapse algebra."""
+    dev = torch.device(device)
+    base = plans.plan
+    n_traj = plans.n_traj
+    n_seg, seg_len = base.seg_dts.shape
+    dim = psi0_np.shape[0]
+    n = dim.bit_length() - 1
+    n_col = min(7, n - 1)
+    n_row = n - n_col
+    shape2d = (1 << n_row, 1 << n_col)
+    amp_re, amp_im, det, _, _ = _lindblad_drive_arrays(plans, np.float32, dev)
+    r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
+
+    def to_dev(host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
+
+    def flat(x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(n_traj * n_seg, seg_len, 3, n)
+
+    tensors = [
+        flat(amp_re),
+        flat(amp_im),
+        flat(det),
+        to_dev(np.tile(base.seg_dts.reshape(n_seg, seg_len, 1), (n_traj, 1, 1))),
+        to_dev(us.reshape(n_traj * n_seg, seg_len, 2)),
+        to_dev(r0.reshape(n_traj, 1)),
+        to_dev(np.asarray(diags).real.reshape((n_traj,) + shape2d)),
+        to_dev(psi0_np.real.reshape(shape2d)),
+        to_dev(psi0_np.imag.reshape(shape2d)),
+    ]
+    kw = dict(
+        n_row=n_row,
+        n_col=n_col,
+        seg_len=seg_len,
+        segs_per_traj=n_seg,
+        **_general_cops_spec(collapse_ops),
+    )
+    return tensors, kw
+
+
+def _mcsolve_kernel_batched(
+    psi0_np: np.ndarray,
+    plans: BatchedPlan,
+    diags: np.ndarray,
     n: int,
     collapse_ops: list[np.ndarray],
     seeds: list[int],
-    dtype: Any,
-    ip: bool,
-    device: Any,
-    sample_spec: "tuple | None",
+    cdtype: Any,
+    device: torch.device,
 ) -> np.ndarray:
-    """Gates the configuration, then runs :func:`_mcsolve_rows_kernel`."""
-    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
-    rdtype = np.zeros((), dtype=cdtype).real.dtype
-    cops_spec = _diag_cops_spec(collapse_ops)
-    reason = _rows_refusal(plans, ip, cops_spec, d, n, pairs, rdtype)
-    if reason is not None:
-        raise NotImplementedError(f"Not ported: {reason}.")
-    return _mcsolve_rows_kernel(
-        np.asarray(psi0, dtype=cdtype),
-        plans,
-        diags,
-        n,
-        cops_spec,
-        seeds,
-        cdtype,
-        _resolve_device(device),
-        sample_spec=sample_spec,
+    """Runs the lab-frame quantum-jump solve with general collapse
+    operators (:func:`~pulser_tpu_torch.ops.kernels.mcwf`).
+
+    Returns:
+        ``(B, n_eval, dim)`` complex states.
+    """
+    from pulser_tpu_torch.ops.kernels import mcwf
+
+    base = plans.plan
+    args, kw = mcwf_kernel_inputs(
+        psi0_np, plans, diags, collapse_ops, seeds, device
     )
+    states, _ = mcwf(*args, **kw)
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind="mcwf_cuda" if device.type == "cuda" else "mcwf_torch",
+        dim=1 << n,
+        n=n,
+        n_traj=plans.n_traj,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+        n_cops=len(collapse_ops),
+    )
+    host = states.cpu().numpy()[:, base.eval_map]  # (B, n_eval, 2, dim)
+    return (host[:, :, 0] + 1j * host[:, :, 1]).astype(cdtype)
 
 
 def mcsolve_rows_codes(
@@ -1420,29 +1574,45 @@ def mcsolve_rows_codes(
     dtype: Any = None,
     ip: bool = False,
     device: Any = None,
-) -> np.ndarray:
+) -> "np.ndarray | None":
     """Fused quantum-jump solve + on-device measurement draws.
 
-    The noisy-emulation endgame is bitstring counts: the draws run on
-    the device against the freshly computed state probabilities and only
-    the sampled STATE indices return (see :func:`_mcsolve_rows_kernel`).
+    The noisy-emulation endgame is bitstring counts: when the row-batched
+    solve takes the configuration, the draws run on the device against
+    the freshly computed state probabilities and only the sampled STATE
+    indices return (see :func:`_mcsolve_rows_kernel`).
 
     Args:
         sample_spec: ``(samp_u, row_traj, row_ti)`` — per-draw uniforms,
             trajectory index and (requested) evaluation-time index.
-        device: The torch device (default: the first CUDA device when
-            there is one, else the CPU).
+        device: The torch device (default: the first CUDA device; without
+            one this raises: pass ``"cpu"`` to run on the CPU).
 
     Returns:
-        ``(n_entries, m)`` int64 state indices.
-
-    Raises:
-        NotImplementedError: The configuration is outside the ported
-            row-batched solve (the message names the ROADMAP item).
+        ``(n_entries, m)`` int64 state indices, or None when the
+        row-batched solve does not take this configuration (the caller
+        then runs :func:`mcsolve_rk4_batched` and samples on the host).
     """
-    return _mcsolve_rows(
-        psi0, plans, diags, pairs, d, n, collapse_ops, seeds, dtype, ip,
-        device, sample_spec,
+    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    route, _ = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
+    if (
+        route != "rows"
+        or plans.raw_coeffs is None
+        or plans.plan.stage_knots is None
+        or plans.plan.knots is None
+    ):
+        return None
+    return _mcsolve_rows_kernel(
+        np.asarray(psi0, dtype=cdtype),
+        plans,
+        diags,
+        n,
+        _diag_cops_spec(collapse_ops),
+        seeds,
+        cdtype,
+        _resolve_device(device),
+        sample_spec=sample_spec,
     )
 
 
@@ -1462,15 +1632,35 @@ def mcsolve_rk4_batched(
     """One quantum-jump realization per noise trajectory, batched.
 
     Trajectory ``i`` draws from ``seeds[i]`` with the JAX package's key
-    derivation, so seeded runs match it trajectory for trajectory. Only
-    the row-batched interaction-picture solve with diagonal collapse
-    operators is ported; every other configuration raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    derivation, so seeded runs match it trajectory for trajectory. Two
+    solves are ported (see :func:`_mcwf_route`): the row-batched
+    interaction-picture solve with diagonal collapse operators, and the
+    lab-frame solve with general local 2×2 collapse operators.
+
+    Args:
+        ip: The plan's grid is the interaction-picture (coarsened) one.
+        device: The torch device (default: the first CUDA device; without
+            one this raises: pass ``"cpu"`` to run on the CPU).
 
     Returns:
         ``(n_traj, n_eval, dim)`` complex states.
+
+    Raises:
+        NotImplementedError: Neither solve takes the configuration (the
+            message names the ROADMAP item).
     """
-    return _mcsolve_rows(
-        psi0, plans, diags, pairs, d, n, collapse_ops, seeds, dtype, ip,
-        device, None,
+    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    route, reason = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
+    if reason is not None:
+        raise NotImplementedError(f"Not ported: {reason}.")
+    psi0_np = np.asarray(psi0, dtype=cdtype)
+    dev = _resolve_device(device)
+    if route == "rows":
+        return _mcsolve_rows_kernel(
+            psi0_np, plans, diags, n, _diag_cops_spec(collapse_ops), seeds,
+            cdtype, dev,
+        )
+    return _mcsolve_kernel_batched(
+        psi0_np, plans, diags, n, collapse_ops, seeds, cdtype, dev
     )

@@ -40,6 +40,7 @@ def _foreign_modules(statements: str) -> list[str]:
         "import chip_smoke; chip_smoke.afm16_inputs()",
         "import pulser_tpu_torch.ops.random, pulser_tpu_torch.ops.solver",
         "import chip_smoke; chip_smoke.noisy10_inputs()",
+        "import chip_smoke; chip_smoke.pauli10_inputs()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 
 #: Both run in float32 with different summation orders and libm.
 TOL = 1e-5
-#: K2 (float32, block reductions, phases of ~100 rad).
+#: K2 and K3 (float32, block reductions; K2's phases reach ~100 rad).
 MCWF_TOL = 5e-5
 
 
@@ -74,3 +74,27 @@ def test_cuda_mcwf_rows_rejects_bad_inputs(cuda):
     args[9] = args[9].cpu()
     with pytest.raises(ValueError, match="cpu"):
         K.mcwf_rows(*args, cops=chip_smoke.RANDOM_COPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 7, 10, 13])
+def test_cuda_mcwf_matches_plain_twin(cuda, n):
+    args, kw = chip_smoke.random_k3_inputs(n, n, cuda)
+    before = K.MCWF_LAUNCHES
+    got, jumps = K.mcwf(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.MCWF_LAUNCHES == before + 1
+    want, jumps_p = K.mcwf_reference(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert int(jumps.min()) >= 1 and torch.equal(jumps, jumps_p)
+    assert float((got - want).abs().max()) <= MCWF_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_mcwf_rejects_bad_inputs(cuda):
+    args, kw = chip_smoke.random_k3_inputs(5, 0, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        K.mcwf(*args[:4], args[4][:, :1].contiguous(), *args[5:], **kw)
+    args[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        K.mcwf(*args, **kw)

@@ -14,6 +14,12 @@
   (``mcsolve_rk4_batched``) on both sides.
 - Fused codes: the sampled state indices of ``mcsolve_rows_codes`` equal
   the JAX ones for every draw farther than 1e-5 from a bin edge.
+- K3: the plain version ``mcwf_reference`` (what the ``mcwf`` wrapper
+  runs on CPU tensors) against the JAX package's ``_mcwf_jit`` in
+  interpret mode on the same random inputs (max |Δ| ≤ 5e-5, final
+  1 − F ≤ 1e-6), and the port's lab-frame ``mcsolve_rk4_batched``
+  against the JAX one on its XLA scan and on K3 (1 − F ≤ 1e-6), under
+  general collapse operators.
 
 The JAX rows path engages only in single precision, so every JAX call
 here runs with x64 switched off (the suite's conftest switches it on).
@@ -29,12 +35,14 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from pulser_tpu.ops import apply as jax_apply
 from pulser_tpu.ops import solver as jax_solver
-from pulser_tpu.ops.pallas_kernels import mcwf_rows_program
+from pulser_tpu.ops.pallas_kernels import _mcwf_jit, mcwf_rows_program
 
 import chip_smoke
 import pulser_tpu_torch.ops.kernels as K
 from pulser_tpu_torch.ops import solver as torch_solver
+from pulser_tpu_torch.ops.apply import apply_axis_c, neg_i
 
 torch.set_num_threads(1)
 
@@ -352,23 +360,185 @@ def test_fused_codes_match_pallas_away_from_edges(rows_interpret):
     "change, match",
     [
         (dict(collapse_ops=[]), "batched K1"),
+        # Relaxation (a single matrix unit) on the interaction-picture grid
         (
-            dict(collapse_ops=[0.3 * np.array([[0, 1], [1, 0]], complex)]),
-            "K3",
+            dict(collapse_ops=[0.3 * np.array([[0, 1], [0, 0]], complex)]),
+            "IP quantum jumps with general collapse operators",
         ),
-        (dict(ip=False), "lab-frame"),
+        (dict(ip=False, n=14), "2 <= n <= 13"),
         (dict(dtype=np.complex128), "single precision"),
         (dict(d=3), "qudits"),
     ],
 )
 def test_solver_refuses_outside_the_gate(change, match):
+    """Neither quantum-jump solve takes these: the state-returning solve
+    raises naming the ROADMAP item, and the fused one declines (None),
+    as the JAX package's does."""
     _, tplans, diags, psi0, common = _batched_case(4, 2, (0.1,), 0)
     common.update(change)
     with pytest.raises(NotImplementedError, match=match):
         torch_solver.mcsolve_rk4_batched(
             psi0, tplans, diags, device="cpu", **common
         )
-    with pytest.raises(NotImplementedError, match=match):
+    assert (
         torch_solver.mcsolve_rows_codes(
             psi0, tplans, diags, sample_spec=None, device="cpu", **common
         )
+        is None
+    )
+
+
+# -- K3: the lab-frame solve with general collapse operators --------------
+
+
+#: General collapse operators of the batched lab-frame cases: the Pauli
+#: channel and a complex operator whose G = Σ L†L has a non-zero
+#: off-diagonal (so the folded flip entries carry G[1, 0]).
+GENERAL_COPS = [
+    np.sqrt(0.4) * np.array([[0, 1], [1, 0]], complex),
+    np.sqrt(0.4) * np.array([[0, -1j], [1j, 0]], complex),
+    np.sqrt(0.4) * np.array([[1, 0], [0, -1]], complex),
+    np.array([[0.3, 0.5 + 0.4j], [0.2 - 0.3j, -0.1j]]),
+]
+
+
+@pytest.mark.parametrize("d, n", [(2, 4), (3, 3)])
+def test_apply_axis_and_neg_i_match_jax(d, n):
+    """The candidates' single-axis application and −i, against the JAX
+    package's real-pair versions (float64: the same products)."""
+    rng = np.random.default_rng(d * 10 + n)
+    psi = rng.normal(size=(2, d**n)) + 1j * rng.normal(size=(2, d**n))
+    op = rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d))
+    batch = torch.from_numpy(psi)
+    for axis in range(n):
+        got = apply_axis_c(torch.from_numpy(op), batch, axis, d, n).numpy()
+        for b in range(2):
+            want = jax_apply.apply_axis_c(
+                jnp.asarray(op.real), jnp.asarray(op.imag),
+                jnp.asarray(np.stack([psi[b].real, psi[b].imag])), axis, d, n,
+            )
+            want = np.asarray(want[0]) + 1j * np.asarray(want[1])
+            assert np.abs(got[b] - want).max() <= 1e-12
+    want = np.asarray(
+        jax_apply.neg_i(jnp.asarray(np.stack([psi.real, psi.imag])))
+    )
+    got = neg_i(batch).numpy()
+    assert np.array_equal(got, want[0] + 1j * want[1])
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_lab_frame_staging_matches_jax(factored):
+    """``_lindblad_drive_arrays`` (drives and detunings staged on the
+    device from the raw knots) against the JAX function on the same
+    plan, and its host-staged branch (a plan without raw coefficients)
+    against its raw branch."""
+    rng = np.random.default_rng(3)
+    n, n_traj = 4, 3
+    if factored:
+        knots, amp, det = _factored(rng, n, n_traj)
+    else:
+        knots, amp, det = _coeffs(rng, n, n_traj)
+    jplans, tplans = _plans(knots, amp, det, factored)
+    got = torch_solver._lindblad_drive_arrays(tplans, np.float32, "cpu")
+    with _jax_f32():
+        want = jax_solver._lindblad_drive_arrays(jplans, jnp.float32)
+        want = [np.asarray(w) for w in want[:3]]
+    assert got[3] is tplans.plan and got[4] == n_traj
+    for g, w in zip(got[:3], want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() <= STAGE_TOL
+    if not factored:
+        host_plan = torch_solver.build_plan_batched(
+            knots, {"amp": amp, "det": det}, np.array([0.0, 1.0, 2.0]),
+            max_step=4e-3,
+        )
+        host_plan.raw_coeffs = None
+        hosted = torch_solver._lindblad_drive_arrays(
+            host_plan, np.float32, "cpu"
+        )
+        for g, h in zip(got[:3], hosted[:3]):
+            assert np.abs(g.numpy() - h.numpy()).max() <= STAGE_TOL
+
+
+def _jax_k3(args, kw):
+    """The JAX package's K3 (``_mcwf_jit``, interpret mode) on the port's
+    inputs, as ``(B, S, 2, dim)``."""
+    with _jax_f32():
+        out = _mcwf_jit(
+            *(jnp.asarray(a.numpy()) for a in args), **kw, interpret=True
+        )
+        out = np.asarray(out)
+    n_traj = args[5].shape[0]
+    return out.reshape(n_traj, kw["segs_per_traj"], 2, -1)
+
+
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_k3_twin_matches_pallas_with_jumps(n):
+    """Random inputs under strong general collapse operators (G[1, 0] ≠ 0)
+    whose thresholds start near 1: every trajectory jumps several times.
+    States after each segment within 5e-5 mean the same jump records: a
+    jump that fired on one side only would move the state by O(1)."""
+    args, kw = chip_smoke.random_k3_inputs(n, n, "cpu")
+    assert kw["g_lo"] != (0.0, 0.0)
+    before = K.MCWF_LAUNCHES
+    got, jumps = K.mcwf(*args, **kw)
+    assert K.MCWF_LAUNCHES == before  # CPU tensors: the plain version
+    assert got.shape == (8, 2, 2, 1 << n) and got.dtype == torch.float32
+    assert jumps.dtype == torch.int32 and int(jumps.min()) >= 3
+    want = _jax_k3(args, kw)
+    got = got.numpy()
+    assert np.abs(got - want).max() <= STATE_TOL
+    assert _final_infidelity(got, want).max() <= FIDELITY_TOL
+
+
+def _lab_case(n, n_traj, seed):
+    rng = np.random.default_rng(seed)
+    knots, amp, det = _coeffs(rng, n, n_traj)
+    jplans, tplans = _plans(knots, amp, det, max_step=1e-2)
+    diags = np.stack([rng.uniform(0, 5, 1 << n) for _ in range(n_traj)])
+    psi0 = np.zeros(1 << n, np.complex64)
+    psi0[-1] = 1.0
+    common = dict(
+        pairs=((1, 0, 0),),
+        d=2,
+        n=n,
+        collapse_ops=GENERAL_COPS,
+        seeds=[13 * (t + 1) + seed for t in range(n_traj)],
+        dtype=np.complex64,
+        ip=False,
+    )
+    return jplans, tplans, diags, psi0, common
+
+
+@pytest.mark.parametrize("jax_route", ["xla_scan", "pallas_interpret"])
+@pytest.mark.parametrize("n, seed", [(4, 21), (6, 22)])
+def test_lab_frame_solve_matches_jax(monkeypatch, jax_route, n, seed):
+    """The port's lab-frame quantum-jump solve against the JAX package's,
+    on its default vmapped XLA scan and on K3 in interpret mode: 1 − F
+    ≤ 1e-6 for every trajectory at every evaluation time (float32 over
+    200 steps; no jump record differs at these sizes)."""
+    if jax_route == "pallas_interpret":
+        monkeypatch.setenv("PULSER_TPU_PALLAS_INTERPRET", "1")
+    n_traj = 4
+    jplans, tplans, diags, psi0, common = _lab_case(n, n_traj, seed)
+    with _jax_f32():
+        want = jax_solver.mcsolve_rk4_batched(
+            psi0, jplans, diags, mesh=None, **common
+        )
+    if jax_route == "xla_scan":
+        assert jax_solver.last_solve_info["kind"] == "mcwf_batched"
+    got = torch_solver.mcsolve_rk4_batched(
+        psi0, tplans, diags, device="cpu", **common
+    )
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_torch" and info["n_cops"] == 4
+    assert got.shape == want.shape == (n_traj, 3, 1 << n)
+    ov = np.abs(np.sum(np.conj(want) * got, axis=-1)) ** 2
+    norms = np.linalg.norm(want, axis=-1) * np.linalg.norm(got, axis=-1)
+    assert (1 - ov / norms**2).max() <= FIDELITY_TOL
+    # Jumps fired in every trajectory
+    args, kw = torch_solver.mcwf_kernel_inputs(
+        psi0, tplans, diags, GENERAL_COPS, common["seeds"], "cpu"
+    )
+    _, jumps = K.mcwf_reference(*args, **kw)
+    assert int(jumps.min()) >= 1

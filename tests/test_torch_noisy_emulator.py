@@ -13,8 +13,13 @@ RNG is consumed in the same order by both, so:
   bitstring counts are equal at every evaluation time, up to the draws
   that lie within 1e-5 of a cumsum bin edge (each may move one count).
 
+The same holds on the lab-frame route: under Pulser's effective-noise
+Pauli channel (general collapse operators) both packages solve in the
+lab frame and draw the counts on the host.
+
 Configurations outside the ported slice raise ``NotImplementedError``
-naming the ROADMAP item.
+naming the ROADMAP item, and no entry point moves to the CPU unless it
+is asked to.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from pulser_tpu.emulator import TpuEmulator
 from pulser_tpu.ops import solver as jax_solver
 
 from pulser_tpu_torch.emulator import NoisyResults, Solver, TorchEmulator
+from pulser_tpu_torch.emulator import simulation as torch_sim
 from pulser_tpu_torch.interop import (
     from_jax_device,
     from_jax_noise_model,
@@ -272,11 +278,17 @@ def test_n_trajectories_and_solver_options():
             {"SPAM", "doppler"},
             "batched K1",
         ),
-        # depolarizing: non-diagonal collapse operators
+        # depolarizing: the serial quantum-jump solve in the JAX package
         (
             dict(depolarizing_rate=0.1, temperature=40),
             {"depolarizing", "doppler"},
-            "_mcwf_kernel",
+            "serial mcsolve_rk4",
+        ),
+        # relaxation: a single matrix unit, on the interaction-picture grid
+        (
+            dict(relaxation_rate=0.2, temperature=40),
+            {"relaxation", "doppler"},
+            "IP quantum jumps with general collapse operators",
         ),
     ],
 )
@@ -292,3 +304,87 @@ def test_master_equation_solver_raises():
     np.random.seed(SEED)
     with pytest.raises(NotImplementedError, match="mesolve"):
         _port_emulator(_sequence(), _noise(), solver=Solver.MESOLVER)
+
+
+#: Pulser's effective-noise Pauli channel, X, Y and Z in the ground-
+#: rydberg basis order, strong enough that the 400 ns pulse jumps.
+PAULIS = [
+    np.array(p, dtype=complex)
+    for p in ([[0, 1], [1, 0]], [[0, -1j], [1j, 0]], [[1, 0], [0, -1]])
+]
+
+
+@pytest.fixture
+def jax_f32(monkeypatch):
+    """The JAX package in single precision, on its default routes."""
+    monkeypatch.setenv("PULSER_TPU_DISABLE_SHARDING", "1")
+    jax.config.update("jax_enable_x64", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def test_pauli_channel_run_matches_pulser_tpu(jax_f32, monkeypatch):
+    """The lab-frame route end to end: the same seeded counts as the JAX
+    package's vmapped XLA scan plus host sampling, away from bin edges
+    (each draw within 1e-5 of a cumsum edge may move one count)."""
+    seq = _sequence()
+    noise = _noise(
+        **NOISE, eff_noise_rates=[0.3] * 3, eff_noise_opers=PAULIS
+    )
+    assert "eff_noise" in noise.noise_types
+    np.random.seed(SEED)
+    jres = _jax_emulator(seq, noise).run()
+    assert jax_solver.last_solve_info["kind"] == "mcwf_batched"
+    jax_after = np.random.rand()
+
+    captured = {}
+    sample = torch_sim._host_sample_codes
+
+    def record(states, ns, rnd):
+        captured.update(states=states, ns=ns, rnd=rnd)
+        return sample(states, ns, rnd)
+
+    monkeypatch.setattr(torch_sim, "_host_sample_codes", record)
+    np.random.seed(SEED)
+    tres = _port_emulator(seq, noise).run()
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_torch" and info["n_cops"] == 4
+    assert info["n_steps"] == jax_solver.last_solve_info["n_steps"]
+    assert np.random.rand() == jax_after
+    assert isinstance(tres, NoisyResults)
+    assert tres.n_measures == jres.n_measures == 24
+
+    # Draws near a bin edge of their (trajectory, time) entry
+    states, ns, rnd = captured["states"], captured["ns"], captured["rnd"]
+    dim = states.shape[-1]
+    cum = np.cumsum((np.abs(states) ** 2)[..., ::-1].reshape(-1, dim), 1)
+    v = np.repeat(cum[:, -1], ns) * rnd
+    edge = np.min(np.abs(v[:, None] - np.repeat(cum, ns, 0)), axis=1)
+    near = int(np.count_nonzero(edge <= EDGE_TOL))
+    moved = 0
+    for t_res, j_res in zip(tres, jres):
+        tc, jc = t_res.bitstring_counts, j_res.bitstring_counts
+        assert sum(tc.values()) == sum(jc.values()) == 24
+        moved += sum(
+            abs(tc.get(k, 0) - jc.get(k, 0)) for k in set(tc) | set(jc)
+        )
+    print(f"{near} draws within {EDGE_TOL} of a bin edge")
+    assert moved <= 2 * near
+
+
+def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
+    """Given no device, the entry points run on the card; without one
+    they raise instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        torch_solver._resolve_device(None)
+    assert torch_solver._resolve_device("cpu") == torch.device("cpu")
+    seq = _sequence()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchEmulator(
+            from_jax_samples(tpu.sampler.sample(seq)),
+            from_jax_register(seq.register),
+            from_jax_device(seq.device),
+        )
