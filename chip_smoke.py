@@ -11,13 +11,13 @@ and read just after):
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the three kernels with nvcc for ``sm_90a`` (one process per
-   source, started together) and print each kernel's registers and
-   spills: the interaction-picture sesolve K1
+   source, started together) and print the registers, shared memory and
+   spills of each instantiation: the interaction-picture sesolve K1
    (``pulser_tpu_torch/csrc/ip_sesolve.cu``), the row-batched quantum-jump
    solve K2 (``mcwf_rows.cu``) and the lab-frame quantum-jump solve with
    general collapse operators K3 (``mcwf.cu``).
 3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
-   13 and 16 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
+   13, 16 and 17 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
 4. Hold K2 against its plain PyTorch version on random inputs at n = 4,
    7, 10 and 13 qubits, 8 trajectories (2 segments x 8 steps, strong
    jumps): max |Δ| ≤ 5e-5, finite, equal jump counts.
@@ -28,7 +28,8 @@ and read just after):
    times. K1 must have been launched, and the mid-sweep and final states
    must reach 1 − F < 1e-6 against ``tests/goldens/afm16_final.npz``.
    Then time K1 against its plain version on the sweep's own inputs
-   (median of 3 warm solves each) and the whole warm ``run()``.
+   (median of 3 warm solves each) and the whole warm ``run()``, and
+   count the device kernels one K1 solve launches (exactly one).
 7. Run the noisy main path at full size: the 10-atom, 100-trajectory
    noisy run of ``bench.py`` through ``TorchEmulator(...).run()`` after
    ``np.random.seed(1234)``. It must take the kernel route with at least
@@ -53,8 +54,13 @@ and read just after):
    K3's states on the run's own inputs must match its plain version for
    all trajectories but at most one whose jump record differs.
 10. Time K3 (median of 3), its plain version (once), the warm PAULI10
-    ``run()``, its host preparation, staging and host sampling, and
-    trace one warm PAULI10 ``run()`` for the device's busy share.
+    ``run()``, its host preparation, staging and host sampling, count
+    the device kernels one K3 solve launches (exactly one), and trace
+    one warm PAULI10 ``run()`` for the device's busy share.
+
+K1 and K3 also report their time per RK4 stage; K1 also the cost of
+its grid barrier alone (a cooperative launch of barriers only, on K1's
+grid).
 
 Each kernel's line in the report gives its launches on its main path,
 its error against its plain version there, its time and the plain
@@ -70,10 +76,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -434,17 +442,26 @@ def random_kernel_inputs(
     stage = (n_seg, seg_len, 3, n)
     dts = rng.uniform(1e-3, 4e-3, (n_seg, seg_len, 1))
     dts[1, :2] = 0.0  # start padding of a short segment
-    t0 = np.cumsum(dts.reshape(-1)).reshape(n_seg, seg_len) - dts[..., 0]
-    t_stage = t0[..., None] + dts * np.array([0.0, 0.5, 1.0])
+    # Stage times on one grid, as build_plan makes them: a step's last
+    # row and the next step's first are the same time
+    grid = np.concatenate([[0.0], np.cumsum(dts.reshape(-1))])
+    t_stage = np.stack(
+        [grid[:-1], 0.5 * (grid[:-1] + grid[1:]), grid[1:]], axis=-1
+    ).reshape(n_seg, seg_len, 3)
+    # Phase integrals continuous across the steps of segment 0 (the
+    # kernel carries its end-of-step rotor there) and independent in
+    # segment 1 (it recomputes)
+    cum = rng.uniform(0.0, 2 * np.pi, stage)
+    cum[0, 1:, 0] = cum[0, :-1, 2]
     psi0 = rng.normal(size=(2, rows, cols))
     psi0 /= np.linalg.norm(psi0)
     host = [
         rng.uniform(-6.0, 6.0, stage),
         rng.uniform(-6.0, 6.0, stage),
-        rng.uniform(0.0, 2 * np.pi, stage),
+        cum,
         t_stage,
         dts,
-        (t0[:, -1] + dts[:, -1, 0]).reshape(n_seg, 1, 1),
+        t_stage[:, -1, 2].reshape(n_seg, 1, 1),
         rng.uniform(0.0, 2 * np.pi, (n_seg, 1, n)),
         rng.uniform(0.0, 400.0, (1, rows, cols)),
         psi0[0],
@@ -514,14 +531,15 @@ RANDOM_GENERAL_COPS = (
 
 
 def random_k3_inputs(
-    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8
+    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8,
+    threshold: float = 0.9,
 ) -> tuple:
     """Random K3 inputs, made with numpy from ``seed``, in the layout of
     the JAX package's ``_mcwf_jit``: ``n_traj`` trajectories of 2
     segments of ``seg_len`` steps (the second starts with 2 padding
-    steps), under :data:`RANDOM_GENERAL_COPS`. The jump thresholds start
-    near 1 so that trajectories jump early. Returns ``(tensors,
-    keywords)``."""
+    steps), under :data:`RANDOM_GENERAL_COPS`. The jump thresholds are
+    drawn in ``[threshold, 1]``, near 1 so that trajectories jump early
+    (at 1, after every step). Returns ``(tensors, keywords)``."""
     import torch
 
     from pulser_tpu_torch.ops.solver import _general_cops_spec
@@ -534,7 +552,7 @@ def random_k3_inputs(
     dts = rng.uniform(2e-3, 6e-3, (n_seg, seg_len))
     dts[1, :2] = 0.0
     us = rng.uniform(0.0, 1.0, (n_traj * n_seg, seg_len, 2))
-    us[..., 1] = rng.uniform(0.9, 1.0, us.shape[:-1])
+    us[..., 1] = rng.uniform(threshold, 1.0, us.shape[:-1])
     psi0 = rng.normal(size=(2, rows, cols))
     psi0 /= np.linalg.norm(psi0)
     host = [
@@ -543,7 +561,7 @@ def random_k3_inputs(
         rng.uniform(-40.0, 40.0, stage),
         np.tile(dts[..., None], (n_traj, 1, 1)),
         us,
-        rng.uniform(0.9, 1.0, (n_traj, 1)),
+        rng.uniform(threshold, 1.0, (n_traj, 1)),
         rng.uniform(0.0, 400.0, (n_traj, rows, cols)),
         psi0[0],
         psi0[1],
@@ -680,24 +698,112 @@ def _print_busy(what: str, wall_s: float, busy_ms: float) -> None:
     )
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel instantiation of an ``nvcc -Xptxas
+    -v`` log: its template arguments, registers, shared memory and
+    spills."""
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kernel = re.search(
+                r"(ip_sesolve_kernel|barrier_probe_kernel|mcwf_rows_kernel"
+                r"|mcwf_kernel)",
+                mangled,
+            )
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = (kernel.group(1) if kernel else mangled) + (
+                f"<{','.join(args)}>" if args else ""
+            )
+            continue
+        spill = re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", line
+        )
+        if spill:
+            spills = f"spills {spill.group(1)}/{spill.group(2)} B"
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used and name is not None:
+            lines.append(
+                f"{name}: {used.group(1)} registers,"
+                f" {used.group(2) or 0} B static smem, {spills}"
+            )
+            name, spills = None, ""
+    return lines
+
+
 def _build(K) -> None:
     """Builds every kernel from the checkout's sources, in parallel, and
-    prints each kernel's registers and spills."""
+    prints each instantiation's registers, shared memory and spills."""
     t0 = time.perf_counter()
     built = K.build(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, (lib_path, log) in built.items():
         print(f"  {name} -> {os.path.relpath(lib_path, _ROOT)}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+        for line in ptxas_summary(log):
+            print("    ptxas:", line)
+
+
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels one call of ``fn`` launches
+    (traced with ``torch.profiler``; copies and fills left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(3):  # a trace that caught no device event is retaken
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # one-cycle profiler
+            with profile(activities=activities) as prof:
+                fn()
+                torch.cuda.synchronize()
+        names = []
+        for e in prof.key_averages():
+            if (
+                e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation
+                and not e.key.startswith(("Memcpy", "Memset"))
+            ):
+                names += [e.key] * e.count
+        if names:
+            break
+    return names
+
+
+def launches_per_call(K, name: str, fn) -> tuple[int, list[str]]:
+    """The device kernel launches of one call of ``fn``: the number the
+    library of kernel ``name`` counts in its C entries, and their names as
+    ``torch.profiler`` traced them in another call. The trace comes back
+    empty now and then (on an H100 it caught no event on some calls late
+    in a process, in three traces running), so the count is the check and
+    a trace that caught anything must agree with it."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = K.device_launches(name)
+    fn()
+    torch.cuda.synchronize()
+    counted = K.device_launches(name) - before
+    return counted, device_kernels(fn)
+
+
+def _check_one_launch(counted: int, traced: list[str], kernel: str) -> None:
+    """Fails unless one solve was one device launch of ``kernel``."""
+    if not traced:
+        print(f"torch.profiler caught no device event of the {kernel} call")
+    _check(counted == 1, f"one device launch per solve: {counted} counted")
+    _check(
+        not traced or (len(traced) == 1 and kernel in traced[0]),
+        f"one device launch per solve: traced {traced}",
+    )
 
 
 def _random_inputs_phase(K, device) -> None:
     """Each kernel against its plain version on random inputs."""
     import torch
 
-    for n in (10, 13, 16):
+    for n in (10, 13, 16, 17):
         args, kw = random_kernel_inputs(n, seed=n, device=device)
         got = K.ip_sesolve(*args, **kw)
         torch.cuda.synchronize()
@@ -735,6 +841,27 @@ def _random_inputs_phase(K, device) -> None:
         _check(bool(torch.isfinite(got).all()), f"finite K3 output, n={n}")
         _check(torch.equal(jumps, jumps_p), f"K3 jump counts, n={n}")
         _check(err <= MCWF_TOL, f"K3 n={n}: {err:.3e} > {MCWF_TOL}")
+
+
+def _barrier_us(K, blocks: int, threads: int, stages: int) -> float:
+    """Microseconds of one grid barrier on K1's grid: a cooperative launch
+    of ``stages`` barriers and no work, timed with CUDA events, median
+    of 3 after one warm-up."""
+    import torch
+
+    probe = K._load("ip_sesolve").ip_sesolve_barrier_probe
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = probe(blocks, threads, stages, stream)
+        end.record()
+        torch.cuda.synchronize()
+        _check(err == 0, f"barrier probe: CUDA error {err}")
+        times.append(start.elapsed_time(end) * 1e3 / stages)
+    return statistics.median(times[1:])
 
 
 def _afm16_path(K, S, device, card: str) -> dict:
@@ -786,6 +913,24 @@ def _afm16_path(K, S, device, card: str) -> dict:
     plain_s = _median_seconds(lambda: K.ip_sesolve_reference(*args, **kw))
     run_s = _median_seconds(lambda: emu.run().states[-1].full())
     n, dim = 16, 1 << 16
+    counted, launched = launches_per_call(
+        K, "ip_sesolve", lambda: K.ip_sesolve(*args, **kw)
+    )
+    blocks, threads, amps = K.ip_sesolve_grid(n)
+    stages = info["n_steps"] * 4
+    print(
+        f"ip_sesolve per call: {counted} device kernel launch(es) counted,"
+        f" traced {sorted(set(launched))}; grid {blocks} x {threads} threads,"
+        f" {amps} amplitude(s) per thread; {kernel_s * 1e6 / stages:.3f} us"
+        f" per RK4 stage ({stages} stages, {card})"
+    )
+    _check_one_launch(counted, launched, "ip_sesolve_kernel")
+    barrier_us = _barrier_us(K, blocks, threads, stages)
+    print(
+        f"ip_sesolve grid barrier alone on that grid: {barrier_us:.3f} us;"
+        f" the rest of a stage (rotors, gathers, arithmetic):"
+        f" {kernel_s * 1e6 / stages - barrier_us:.3f} us"
+    )
     bound_ms, bound_by = _bound(
         info["n_steps"] * 4 * dim * _ops_per_amp_stage("ip_sesolve", n),
         _nbytes(*args, got),
@@ -1033,6 +1178,17 @@ def _pauli10_path(K, S, device, card: str) -> dict:
     _check(k3_err <= MCWF_TOL, f"K3 PAULI10: {k3_err:.3e} > {MCWF_TOL}")
 
     k3_s = _median_seconds(lambda: K.mcwf(*margs, **mkw))
+    counted, launched = launches_per_call(
+        K, "mcwf", lambda: K.mcwf(*margs, **mkw)
+    )
+    stages = pinfo["n_steps"] * 4
+    print(
+        f"mcwf per call: {counted} device kernel launch(es) counted, traced"
+        f" {sorted(set(launched))}; {k3_s * 1e6 / stages:.3f} us per RK4"
+        f" stage ({stages} stages per trajectory, all trajectories at once;"
+        f" {card})"
+    )
+    _check_one_launch(counted, launched, "mcwf_kernel")
     run_s = _median_seconds(pauli.run)
     opts: dict = {}
     pauli._validate_options(opts)  # the options run() solves with

@@ -14,10 +14,10 @@
 
 Each source says what bounds its kernel on the card and how the design
 answers that. Each is compiled with ``nvcc`` for ``sm_90a`` on first use
-into the package's ``build/`` directory (keyed by a hash of the source)
-and loaded with ctypes. A wrapper given CPU tensors runs the plain
-PyTorch version of the same function; given CUDA tensors it launches the
-kernel or raises.
+into the package's ``build/`` directory (keyed by a hash of the source
+and the shared header ``csrc/common.cuh``) and loaded with ctypes. A
+wrapper given CPU tensors runs the plain PyTorch version of the same
+function; given CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -42,13 +42,16 @@ SOURCES = {
     for name in ("ip_sesolve", "mcwf_rows", "mcwf")
 }
 
-#: Calls of the CUDA entry point ``ip_sesolve_run`` (each call launches
-#: the stage and emit kernels of one whole solve).
+#: Launches of ``ip_sesolve_kernel`` (one cooperative launch per whole
+#: solve).
 IP_SESOLVE_LAUNCHES = 0
 #: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
 MCWF_ROWS_LAUNCHES = 0
 #: Launches of ``mcwf_kernel`` (one per whole trajectory batch).
 MCWF_LAUNCHES = 0
+
+#: The qubit counts ``ip_sesolve_kernel`` is instantiated for.
+IP_MIN_QUBITS, IP_MAX_QUBITS = 10, 17
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -67,10 +70,16 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     """Where the library of kernel ``name`` is built: keyed by a hash of
-    its source, so an edited source builds anew."""
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+    its source and the shared headers, so an edited file builds anew."""
+    csrc = os.path.dirname(SOURCES[name])
+    paths = [SOURCES[name]] + sorted(
+        os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh")
+    )
+    digest = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(_BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(
@@ -139,19 +148,32 @@ def _load(name: str) -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "ip_sesolve":
             lib.ip_sesolve_run.restype = i
-            lib.ip_sesolve_run.argtypes = [p] * 14 + [i] * 3 + [p]
+            lib.ip_sesolve_run.argtypes = [p] * 12 + [i] * 3 + [p]
+            lib.ip_sesolve_config.restype = i
+            lib.ip_sesolve_config.argtypes = [i, p]
+            lib.ip_sesolve_barrier_probe.restype = i
+            lib.ip_sesolve_barrier_probe.argtypes = [i] * 3 + [p]
+            lib.ip_sesolve_device_launches.restype = ctypes.c_ulonglong
+        elif name == "mcwf_rows":
+            lib.mcwf_rows_scratch_floats.restype = ctypes.c_long
+            lib.mcwf_rows_scratch_floats.argtypes = [i, i]
+            lib.mcwf_rows_run.restype = i
+            lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
         else:
-            getattr(lib, f"{name}_scratch_floats").restype = ctypes.c_long
-            getattr(lib, f"{name}_scratch_floats").argtypes = [i, i]
-            run = getattr(lib, f"{name}_run")
-            run.restype = i
-            run.argtypes = (
-                [p] * 16 + [i] * 5 + [f, f, p]
-                if name == "mcwf_rows"
-                else [p] * 13 + [i] * 5 + [f] * 4 + [p]
-            )
+            lib.mcwf_run.restype = i
+            lib.mcwf_run.argtypes = [p] * 12 + [i] * 5 + [f] * 4 + [p]
+            lib.mcwf_device_launches.restype = ctypes.c_ulonglong
         _libs[name] = lib
     return lib
+
+
+def device_launches(name: str) -> int:
+    """The device kernels the library of ``name`` (``"ip_sesolve"`` or
+    ``"mcwf"``) has launched so far, as its C entries count them: the
+    launches of one call are the difference across it."""
+    if name not in ("ip_sesolve", "mcwf"):
+        raise ValueError(f"{name} keeps no device launch count.")
+    return int(getattr(_load(name), f"{name}_device_launches")())
 
 
 def _check_inputs(
@@ -219,9 +241,10 @@ def ip_sesolve(
         psi0_re/psi0_im: ``(R, C)`` initial state.
         n_row/n_col: Qubits on the row/column axis (``R = 2^n_row``).
         seg_len: Steps per segment (``L``).
-        seg_dts_host: Host copy of ``seg_dts``. The kernel's host loop
-            reads the step sizes from it; without it they are copied
-            back from the device once.
+        seg_dts_host: Host copy of ``seg_dts``, read by the plain
+            version's step loop (without it the step sizes are copied
+            back from the device once). The kernel reads ``seg_dts``
+            on the device.
 
     Returns:
         ``(n_seg, 2, R, C)`` float32 lab-frame states after each
@@ -256,29 +279,40 @@ def ip_sesolve(
             psi0_im=(rows, cols),
         ),
     )
-    h_host = _host_steps(seg_dts, seg_dts_host)
+    if not IP_MIN_QUBITS <= n <= IP_MAX_QUBITS:
+        raise ValueError(
+            f"ip_sesolve takes {IP_MIN_QUBITS} <= n <= {IP_MAX_QUBITS},"
+            f" not n={n}."
+        )
     lib = _load("ip_sesolve")
     dim = rows * cols
     dev = a_re.device
     out = torch.empty((n_seg, 2, rows, cols), dtype=torch.float32, device=dev)
-    # Scratch as interleaved (re, im) float2: double-buffered state and
-    # stage input, and the RK4 accumulator
-    phi = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
-    k = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
-    acc = torch.empty((dim, 2), dtype=torch.float32, device=dev)
+    # The double-buffered rotated stage input, interleaved (re, im)
+    wbuf = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ip_sesolve_run(
         a_re.data_ptr(), a_im.data_ptr(), cum_mod.data_ptr(),
-        t_stage.data_ptr(), eval_t.data_ptr(), eval_cum_mod.data_ptr(),
-        diag2d.data_ptr(), psi0_re.data_ptr(), psi0_im.data_ptr(),
-        out.data_ptr(), phi.data_ptr(), k.data_ptr(), acc.data_ptr(),
-        h_host.ctypes.data, n_seg, seg_len, n, stream,
+        t_stage.data_ptr(), seg_dts.data_ptr(), eval_t.data_ptr(),
+        eval_cum_mod.data_ptr(), diag2d.data_ptr(), psi0_re.data_ptr(),
+        psi0_im.data_ptr(), out.data_ptr(), wbuf.data_ptr(), n_seg,
+        seg_len, n, stream,
     )
     global IP_SESOLVE_LAUNCHES
     IP_SESOLVE_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"ip_sesolve_run failed: CUDA error {err}.")
     return out
+
+
+def ip_sesolve_grid(n: int) -> tuple[int, int, int]:
+    """The grid :func:`ip_sesolve` launches for n qubits on the current
+    card: ``(blocks, threads per block, amplitudes per thread)``."""
+    config = (ctypes.c_int * 3)()
+    err = _load("ip_sesolve").ip_sesolve_config(n, config)
+    if err != 0:
+        raise RuntimeError(f"ip_sesolve_config failed: CUDA error {err}.")
+    return tuple(config)
 
 
 def ip_sesolve_reference(
@@ -708,17 +742,10 @@ def mcwf(
         (n_traj, segs_per_traj, 2, dim), dtype=torch.float32, device=dev
     )
     jumps = torch.empty((n_traj,), dtype=torch.int32, device=dev)
-    n_scratch = int(lib.mcwf_scratch_floats(n, n_traj))
-    scratch = (
-        torch.empty((n_scratch,), dtype=torch.float32, device=dev)
-        if n_scratch
-        else None
-    )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mcwf_run(
         *(t.data_ptr() for t in tensors.values()),
         cop_t.data_ptr(), out.data_ptr(), jumps.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
         n_traj, segs_per_traj, seg_len, n, len(cops),
         g_diag[0], g_diag[1], g_lo[0], g_lo[1], stream,
     )

@@ -48,6 +48,13 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
     assert torch.equal(got, K.ip_sesolve_reference(*args, **kw))
 
 
+def test_device_launch_count_only_for_counting_libraries():
+    """K2's library keeps no device launch count; asking for it raises
+    before anything is built or loaded."""
+    with pytest.raises(ValueError, match="no device launch count"):
+        K.device_launches("mcwf_rows")
+
+
 def test_padding_steps_are_no_ops():
     """A segment whose steps all have h = 0 leaves the state alone."""
     args, kw = chip_smoke.random_kernel_inputs(10, 4, "cpu", seg_len=4)

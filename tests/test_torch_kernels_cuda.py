@@ -31,7 +31,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [10, 13, 16])
+@pytest.mark.parametrize("n", [10, 13, 16, 17])
 def test_cuda_kernel_matches_plain_twin(cuda, n):
     args, kw = chip_smoke.random_kernel_inputs(n, n, cuda)
     before = K.IP_SESOLVE_LAUNCHES
@@ -40,6 +40,23 @@ def test_cuda_kernel_matches_plain_twin(cuda, n):
     assert K.IP_SESOLVE_LAUNCHES == before + 1
     want = K.ip_sesolve_reference(*args, **kw)
     assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_solve_is_one_device_launch(cuda):
+    """A whole K1 solve (2 segments, padding steps, carried and
+    recomputed rotors) is one cooperative kernel launch."""
+    args, kw = chip_smoke.random_kernel_inputs(16, 16, cuda)
+    K.ip_sesolve(*args, **kw)  # build and load first
+    counted, launched = chip_smoke.launches_per_call(
+        K, "ip_sesolve", lambda: K.ip_sesolve(*args, **kw)
+    )
+    assert counted == 1
+    assert not launched or (
+        len(launched) == 1 and "ip_sesolve_kernel" in launched[0]
+    )
+    blocks, threads, amps = K.ip_sesolve_grid(16)
+    assert blocks * threads * amps == 1 << 16
 
 
 @pytest.mark.cuda
@@ -77,7 +94,7 @@ def test_cuda_mcwf_rows_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 7, 10, 13])
+@pytest.mark.parametrize("n", list(range(1, 14)))
 def test_cuda_mcwf_matches_plain_twin(cuda, n):
     args, kw = chip_smoke.random_k3_inputs(n, n, cuda)
     before = K.MCWF_LAUNCHES
@@ -98,3 +115,19 @@ def test_cuda_mcwf_rejects_bad_inputs(cuda):
     args[6] = args[6].cpu()
     with pytest.raises(ValueError, match="cpu"):
         K.mcwf(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 10, 12])
+def test_cuda_mcwf_jumps_every_step(cuda, n):
+    """Thresholds of 1: every trajectory jumps after every step, so the
+    jump branch runs 22 times per trajectory."""
+    args, kw = chip_smoke.random_k3_inputs(
+        n, 100 + n, cuda, seg_len=12, threshold=1.0
+    )
+    got, jumps = K.mcwf(*args, **kw)
+    torch.cuda.synchronize()
+    want, jumps_p = K.mcwf_reference(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert int(jumps.min()) == 22 and torch.equal(jumps, jumps_p)
+    assert float((got - want).abs().max()) <= MCWF_TOL

@@ -202,3 +202,71 @@ def test_outside_the_slice_raises(afm10, kwargs):
             psi0, plan, ham.int_diag, ham.pairs, 2, 10, device="cpu",
             **kwargs,
         )
+
+
+def _afm16_plan(monkeypatch):
+    """The AFM16 plan ``TorchEmulator.run()`` builds (the solve itself is
+    stopped before it starts)."""
+    import chip_smoke
+
+    class _Stop(Exception):
+        pass
+
+    captured = {}
+
+    def stop(psi0, plan, *args, **kwargs):
+        captured["plan"] = plan
+        raise _Stop
+
+    samples, register, mock = chip_smoke.afm16_inputs()
+    emu = TorchEmulator(
+        samples, register, mock,
+        evaluation_times=np.linspace(0, samples.max_duration * 1e-3, 101),
+        torch_device="cpu",
+    )
+    monkeypatch.setattr(torch_solver, "sesolve_rk4", stop)
+    with pytest.raises(_Stop):
+        emu.run()
+    return captured["plan"], 16
+
+
+def _padded_plan(monkeypatch):
+    """A 10-atom plan whose segments hold 13, 37, 1 and 49 steps, so
+    three of them start with padding."""
+    rng = np.random.default_rng(5)
+    knots = np.linspace(0.0, 1.0, 101)
+    shape = (1, 10, 101)
+    coeffs = {
+        "amp": rng.normal(size=shape) + 1j * rng.normal(size=shape),
+        "det": rng.normal(scale=20.0, size=shape),
+    }
+    plan = torch_solver.build_plan(
+        knots, coeffs, np.array([0.0, 0.13, 0.5, 0.51, 1.0])
+    )
+    return plan, 10
+
+
+@pytest.mark.parametrize("make_plan", [_afm16_plan, _padded_plan],
+                         ids=["afm16", "padded"])
+def test_ip_kernel_rows_share_rotors(monkeypatch, make_plan):
+    """The rotor sharing K1 relies on: RK4 stages 1 and 2 read the same
+    plan row, and each real step's end row (t + h) equals the next real
+    step's start row bit for bit (time and phase integrals), across
+    segment boundaries and padding, so the end-of-step rotor is carried."""
+    plan, n = make_plan(monkeypatch)
+    assert [(j + 1) >> 1 for j in range(4)] == list(torch_solver._RK_STAGE)
+    assert torch_solver._RK_STAGE[1] == torch_solver._RK_STAGE[2]
+    psi0 = np.zeros(1 << n, dtype=np.complex64)
+    psi0[0] = 1.0
+    diag = np.zeros(1 << n)
+    args, _ = torch_solver.ip_kernel_inputs(psi0, plan, diag, n, "cpu")
+    cum, t_stage, seg_dts = args[2], args[3], args[4]
+    real = seg_dts.reshape(-1) != 0
+    assert not bool(real.all())  # some segments start with padding
+    t = t_stage.reshape(-1, 3)[real].numpy().view(np.int32)
+    c = cum.reshape(-1, 3, n)[real].numpy().view(np.int32)
+    assert len(t) == np.count_nonzero(plan.dts)
+    np.testing.assert_array_equal(t[:-1, 2], t[1:, 0])
+    np.testing.assert_array_equal(c[:-1, 2], c[1:, 0])
+    # The steps compared cross segment boundaries
+    assert np.count_nonzero(plan.seg_dts.any(axis=1)) > 1
