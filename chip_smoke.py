@@ -18,9 +18,12 @@ and read just after):
    general collapse operators K3 (``mcwf.cu``).
 3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
    13, 16 and 17 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
-4. Hold K2 against its plain PyTorch version on random inputs at n = 4,
-   7, 10 and 13 qubits, 8 trajectories (2 segments x 8 steps, strong
-   jumps): max |Δ| ≤ 5e-5, finite, equal jump counts.
+4. Hold K2 against its plain PyTorch version on random inputs at n = 1,
+   2, 4, 7, 10, 11, 12 and 13 qubits, 8 trajectories (2 segments x 8
+   steps, strong jumps; rotors carried in the first segment, recomputed
+   in the second), and at n = 3, 10 and 12 with a jump after every step:
+   max |Δ| ≤ 5e-5, finite, equal jump counts, and the kernel's count of
+   carried rotors equal to the rows that agree bit for bit.
 5. The same for K3 at n = 4, 7, 10 and 13 under strong general collapse
    operators whose G = Σ L†L has a non-zero off-diagonal.
 6. Run the noiseless main path at full size: the 16-atom AFM sweep of
@@ -40,9 +43,10 @@ and read just after):
    for all trajectories but at most one whose jump record differs.
 8. Time K2 (median of 3), its plain version (once), the warm noisy
    ``run()``, the host preparation before the kernel, the staging of its
-   inputs and the sampling epilogue (median of 3 each), and trace one
-   warm noisy ``run()`` with ``torch.profiler`` for the device's busy
-   share.
+   inputs and the sampling epilogue (median of 3 each), count the device
+   kernels one K2 solve launches (exactly one) and the steps whose rotor
+   it carried over, and trace one warm noisy ``run()`` with
+   ``torch.profiler`` for the device's busy share.
 9. Run PAULI10, the lab-frame main path, at full size: the noisy 10-atom
    run plus the effective-noise Pauli channel (:func:`pauli10_inputs`),
    after ``np.random.seed(1234)``. It must take K3 (``kind ==
@@ -58,7 +62,7 @@ and read just after):
     the device kernels one K3 solve launches (exactly one), and trace
     one warm PAULI10 ``run()`` for the device's busy share.
 
-K1 and K3 also report their time per RK4 stage; K1 also the cost of
+Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
 grid).
 
@@ -481,12 +485,18 @@ RANDOM_COPS = ((0.3, 0.0, -0.3, 0.0), (0.0, 0.0, 2.5, 0.5))
 
 
 def random_mcwf_inputs(
-    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8
+    n: int, seed: int, device, n_traj: int = 8, seg_len: int = 8,
+    threshold: float = 0.9, plan_like: bool = True,
 ) -> list:
     """Random mcwf_rows inputs, made with numpy from ``seed``, in the
     layout of the JAX package's ``mcwf_rows_program``: 2 segments of
     ``seg_len`` steps (the second starts with 2 padding steps). The
-    jump thresholds start near 1 so that trajectories jump early."""
+    jump thresholds are drawn in ``[threshold, 1]``, near 1 so that
+    trajectories jump early (at 1, after every step). With ``plan_like``
+    the stage times lie on one grid and the phase integrals are
+    continuous across the steps of segment 0, as a plan makes them (the
+    kernel carries its end-of-step rotor there) and independent in
+    segment 1 (it recomputes); without it no two rows agree."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -494,22 +504,33 @@ def random_mcwf_inputs(
     stage = (n_traj, n_seg, seg_len, 3, 1, n)
     dts = rng.uniform(2e-3, 6e-3, (n_seg, seg_len))
     dts[1, :2] = 0.0
-    t0 = np.cumsum(dts.reshape(-1)).reshape(n_seg, seg_len) - dts
-    t_stage = t0[..., None] + dts[..., None] * np.array([0.0, 0.5, 1.0])
+    if plan_like:
+        grid = np.concatenate([[0.0], np.cumsum(dts.reshape(-1))])
+        t_stage = np.stack(
+            [grid[:-1], 0.5 * (grid[:-1] + grid[1:]), grid[1:]], axis=-1
+        ).reshape(n_seg, seg_len, 3)
+    else:
+        t0 = np.cumsum(dts.reshape(-1)).reshape(n_seg, seg_len) - dts
+        t_stage = t0[..., None] + dts[..., None] * np.array([0.0, 0.5, 1.0])
     us = rng.uniform(0.0, 1.0, (n_traj, n_seg, seg_len, 2))
-    us[..., 1] = rng.uniform(0.9, 1.0, us.shape[:-1])
+    us[..., 1] = rng.uniform(threshold, 1.0, us.shape[:-1])
     psi0 = rng.normal(size=(2, dim))
     psi0 /= np.linalg.norm(psi0)
+    a_re = rng.uniform(-6.0, 6.0, stage)
+    a_im = rng.uniform(-6.0, 6.0, stage)
+    cum = rng.uniform(0.0, 2 * np.pi, stage)
+    if plan_like:
+        cum[:, 0, 1:, 0] = cum[:, 0, :-1, 2]
     host = [
-        rng.uniform(-6.0, 6.0, stage),
-        rng.uniform(-6.0, 6.0, stage),
-        rng.uniform(0.0, 2 * np.pi, stage),
+        a_re,
+        a_im,
+        cum,
         t_stage,
         dts,
         us,
-        t0[:, -1] + dts[:, -1],
+        t_stage[:, -1, 2],
         rng.uniform(0.0, 2 * np.pi, (n_traj, n_seg, 1, n)),
-        rng.uniform(0.9, 1.0, n_traj),
+        rng.uniform(threshold, 1.0, n_traj),
         rng.uniform(0.0, 400.0, (n_traj, dim)),
         psi0[0],
         psi0[1],
@@ -813,20 +834,39 @@ def _random_inputs_phase(K, device) -> None:
         print(f"ip_sesolve vs plain, n={n}: max|d| = {err:.3e}")
         _check(bool(torch.isfinite(got).all()), f"finite output, n={n}")
         _check(err <= KERNEL_TOL, f"n={n}: {err:.3e} > {KERNEL_TOL}")
-    for n in (4, 7, 10, 13):
-        args = random_mcwf_inputs(n, seed=n, device=device)
+    # K2: sub-warp states (n = 1, 2, 4), one amplitude per thread (7, 10),
+    # then 2, 4 and 8 (11, 12, 13); carried rotors in segment 0,
+    # recomputed ones in segment 1. Last, thresholds of 1: every
+    # trajectory jumps after every step
+    k2_cases = [(n, n, 0.9) for n in (1, 2, 4, 7, 10, 11, 12, 13)]
+    k2_cases += [(n, 100 + n, 1.0) for n in (3, 10, 12)]
+    for n, seed, threshold in k2_cases:
+        args = random_mcwf_inputs(
+            n, seed=seed, device=device, threshold=threshold
+        )
         got, jumps = K.mcwf_rows(*args, cops=RANDOM_COPS)
         torch.cuda.synchronize()
+        carried = int(K.MCWF_ROWS_CARRIED.sum())
         want, jumps_p = K.mcwf_rows_reference(*args, cops=RANDOM_COPS)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        rows_agree, n_real = K.mcwf_rows_carried_steps(*args[2:5])
         print(
-            f"mcwf_rows vs plain, n={n}: max|d| = {err:.3e},"
-            f" jumps {jumps.tolist()}"
+            f"mcwf_rows vs plain, n={n}, thresholds >= {threshold}:"
+            f" max|d| = {err:.3e}, jumps {jumps.tolist()}, rotors carried"
+            f" on {carried} of {len(jumps) * n_real} steps"
         )
         _check(bool(torch.isfinite(got).all()), f"finite K2 output, n={n}")
         _check(torch.equal(jumps, jumps_p), f"K2 jump counts, n={n}")
         _check(err <= MCWF_TOL, f"K2 n={n}: {err:.3e} > {MCWF_TOL}")
+        _check(
+            carried == int(rows_agree.sum()) > 0,
+            f"K2 n={n}: carried {carried}, rows agree on {rows_agree}",
+        )
+        if threshold == 1.0:
+            _check(
+                int(jumps.min()) == n_real, f"K2 n={n}: a jump on every step"
+            )
     for n in (4, 7, 10, 13):
         args, kw = random_k3_inputs(n, seed=n, device=device)
         got, jumps = K.mcwf(*args, **kw)
@@ -1063,6 +1103,26 @@ def _noisy10_path(K, S, device, card: str) -> dict:
     _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
 
     mcwf_s = _median_seconds(lambda: K.mcwf_rows(*margs, cops=cops_spec))
+    counted, launched = launches_per_call(
+        K, "mcwf_rows", lambda: K.mcwf_rows(*margs, cops=cops_spec)
+    )
+    stages = ninfo["n_steps"] * 4
+    rows_agree, n_real = K.mcwf_rows_carried_steps(*margs[2:5])
+    carried = int(K.MCWF_ROWS_CARRIED.sum())
+    print(
+        f"mcwf_rows per call: {counted} device kernel launch(es) counted,"
+        f" traced {sorted(set(launched))}; {mcwf_s * 1e6 / stages:.3f} us per"
+        f" RK4 stage ({stages} stages per trajectory, all trajectories at"
+        f" once; {card}); end-of-step rotor carried into {carried} of"
+        f" {plans.n_traj * (n_real - 1)} following steps"
+        f" ({100 * carried / (plans.n_traj * (n_real - 1)):.2f}%)"
+    )
+    _check_one_launch(counted, launched, "mcwf_rows_kernel")
+    _check(n_real == ninfo["n_steps"], f"{n_real} non-padding steps")
+    _check(
+        carried == int(rows_agree.sum()),
+        f"carried {carried}, rows agree on {int(rows_agree.sum())}",
+    )
     t0 = time.perf_counter()
     K.mcwf_rows_reference(*margs, cops=cops_spec)
     torch.cuda.synchronize()

@@ -8,28 +8,75 @@
 // trajectories on the sublane axis, qubit flips as slice swaps (rows) and
 // permutation matmuls (columns).
 //
-// What bounds it on an H100: a trajectory is a long chain of small
-// dependent steps (hundreds of RK4 steps of 2^n amplitudes, each stage
-// gathering n flip partners, and a norm reduction after every step), so
-// the cost is latency: synchronisation and the per-amplitude phase and
-// partner arithmetic, not bytes. A 10-qubit state is 8 KB per real plane.
+// Each RK4 stage computes, in the interaction picture of the diagonal,
+//   k = -i e^{+i Phi} sum_q M_q (e^{-i Phi} x)[flip_q] - 1/2 g x,
+// with the rotor phase Phi(idx, t) below and the decay g(idx) =
+// G00 #zeros + G11 #ones of G = sum_k L_k+ L_k. After each step, when
+// |psi|^2 <= r, a jump: the weights of the channels (operator k outer,
+// qubit q inner) from the 2n populations, one chosen searchsorted-left on
+// u0 * total (`u <= cum`, and `u > prev` beyond the first), the state
+// multiplied by the operator's diagonal entry and renormalised by
+// 1/sqrt(max(w, 1e-30)), and r becomes the step's second uniform. Each
+// segment end emits psi/|psi| rotated to the lab frame.
 //
-// What the design does about it: one thread block per trajectory (the
-// batch is embarrassingly parallel: 100 trajectories fill 100 of the 132
-// SMs), and the whole plan in ONE launch: the block loops over segments
-// and steps itself, reads the step sizes from device memory, and skips
-// the zero-length padding steps at no cost. The state, RK4 stage input,
-// accumulator, rotated stage input and the stage's rotor (cos, sin) are
-// ten f32 planes that live in shared memory while they fit (n <= 12 on
-// an H100: 40 * 2^n bytes) and in a per-trajectory slice of device
-// memory otherwise (n = 13: 320 KB per trajectory, L2-resident). Each
-// RK4 stage is two passes separated by a barrier: (1) rotate the stage
-// input into the interaction picture, w = e^{-i Phi} x; (2) gather the n
-// single-flip partners w[i ^ (1 << (n-1-q))], apply the drive, rotate
-// back and add the non-Hermitian decay -1/2 g x. After each step a block
-// reduction gives the norm; only when norm^2 <= r (a jump) does the block
-// reduce the per-(operator, qubit) weights, pick the channel and
-// renormalise. Tensor cores, clusters and TMA are later work.
+// What bounds it on an H100: a trajectory is a chain of hundreds of small
+// dependent RK4 stages over 2^n amplitudes (about 9n + 32 f32 operations
+// per amplitude and stage), so the latency of a stage and the block
+// barrier between two stages bound it, not bytes: a stage reads 3n drive
+// values, and the state is 8 KB per real plane at n = 10. On an NVIDIA
+// H100 80GB HBM3 at 700 W a stage of NOISY10 (n = 10, 1024 threads per
+// trajectory) takes about 1.16 us (chip_smoke.py), against 3.87 us for
+// the previous design with ten shared-memory planes, two passes and 15
+// barriers per step, and four sincosf per amplitude and step.
+//
+// What the design does about it: one thread block per trajectory (100
+// trajectories fill 100 of the 132 SMs), the whole plan in ONE launch; the
+// block loops over segments and steps itself and skips the zero-length
+// padding steps. The kernel is templated on n, so the partner and
+// amplitude loops unroll. Each thread owns fixed amplitudes (one up to
+// n = 10, then 2/4/8 at n = 11/12/13, idx = tid + a * 1024); its psi, the
+// RK4 accumulator, the stage input, its interaction diagonal, its decay
+// factor and its current rotor (cos, sin) live in registers. Only the
+// rotated stage input w = e^{-i Phi} x goes to shared memory,
+// double-buffered (two complex planes, 16 * 2^n bytes: 128 KiB at n = 13),
+// so that partners can read it; no state lives in device memory at any n.
+// Flip partners below 32 come from the same warp by __shfl_xor_sync, the
+// others from shared memory; the sign of a_im is picked by the amplitude's
+// bit as a select, not by a branch. A stage is one pass ending in ONE
+// block barrier, FOUR per jump-free RK4 step: gather the partners of w_j,
+// rotate back, form k_j, accumulate, form the next stage input, rotate it
+// and publish it to the other buffer. The last stage publishes the rotated
+// new state (the next step's first stage input) and each warp's share of
+// |psi|^2; after its barrier every thread sums the shares in a fixed warp
+// order, so the jump test costs no barrier of its own and stays
+// block-uniform.
+//
+// One rotor per distinct plan row: stages 1 and 2 read the same row, and
+// the end-of-step rotor is carried into the next non-padding step
+// whenever warp 0 finds that step's first row (the shared stage time and
+// this trajectory's n phase integrals) equal to it bit for bit; otherwise
+// the rotor is recomputed and the first stage input republished (one more
+// barrier), so the kernel is right on any input. Where the rows agree a
+// step costs two sincosf per amplitude. A carried rotor stays valid across
+// a jump: it depends on time only. Warp 0 copies the next step's drive,
+// phase integrals, stage times and step size into shared memory with
+// cp.async while the current step runs, and finds the next non-padding
+// step, so no stage waits on device memory. The two uniforms are read
+// only in the rare jump branch, which reduces the 2n populations (per-warp
+// partials, then over the warps in a fixed order), lets one thread select
+// and costs three more barriers.
+//
+// Registers: 1024 threads cap a thread at 64 registers. From
+// kLeanFromAmps amplitudes per thread on, the stage input is not kept but
+// recovered from the thread's own w (x = e^{+i Phi} w) and the diagonal
+// and the decay factor are re-read or recomputed where needed; from
+// kSharedAccFromAmps on, the RK4 accumulator lives in a third complex
+// plane of shared memory (64 KiB at n = 13, beside the 128 KiB of w).
+// tools/block_sizes.py times the alternatives: on that card these
+// thresholds and 1024 threads beat 512 threads and all-register variants
+// at n = 10 to 13 (n = 13, which still spills 680 B: 18.6 ms against 39.5
+// ms with everything in registers, 100 trajectories of 254 steps). Tensor
+// cores, clusters and TMA are later work.
 //
 // Conventions, as in the TPU kernel: qubit q is bit n-1-q of the flat
 // index (MSB first). The drive on qubit q enters with +a_im where the
@@ -37,60 +84,172 @@
 //   Phi(i) = ((diag[i] * t) mod 2pi) + sum_q cum_q * (1 - bit_q(i)),
 // summed in that order, with a floored mod (jnp.mod): fmodf truncates,
 // so its sign is fixed up. sincosf (not __sincosf) holds full accuracy at
-// phases of ~100 rad. The jump test and the channel choice use the TPU
-// kernel's comparisons: channels (operator k outer, qubit q inner) are
-// chosen searchsorted-left on u0 * total (`u <= cum`, and `u > prev`
-// beyond the first), the state is renormalised by 1/sqrt(max(w, 1e-30)),
-// and the threshold r becomes the step's second uniform only on a jump.
+// phases of ~100 rad.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
+#include "common.cuh"
+
 namespace {
 
-constexpr int kMaxQubits = 16;
+using pt::cp_async4;
+using pt::cp_async_wait_all;
+using pt::first_real;
+using pt::kFull;
+using pt::step_window;
+
+constexpr int kMaxQubits = 13;
 constexpr int kMaxCops = 8;
-constexpr int kPlanes = 10;
+constexpr int kMaxWarps = 32;
+constexpr int kMaxThreads = 1024;
+// Amplitudes per thread from which the stage input, the diagonal and the
+// decay factor leave the registers, and from which the RK4 accumulator
+// moves to shared memory.
+constexpr int kLeanFromAmps = 4;
+constexpr int kSharedAccFromAmps = 8;
 constexpr float kTwoPi = 6.283185307179586f;
 
-// Plane order inside a trajectory's scratch (each `dim` floats).
-enum Plane { kPsiRe, kPsiIm, kKRe, kKIm, kAccRe, kAccIm, kWRe, kWIm, kCos, kSin };
+// Device kernel launches this library has made (mcwf_rows_device_launches).
+std::atomic<unsigned long long> g_device_launches{0};
 
 __device__ __forceinline__ float floored_mod_2pi(float x) {
   float r = fmodf(x, kTwoPi);
   return (r != 0.0f && r < 0.0f) ? r + kTwoPi : r;
 }
 
-__device__ __forceinline__ float ip_phase(int idx, float diag_t_mod,
-                                          const float* cum, int n) {
-  float ph = diag_t_mod;
-  for (int q = 0; q < n; ++q) {
-    if (!((idx >> (n - 1 - q)) & 1)) ph += cum[q];
-  }
-  return ph;
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(kFull, v, off);
+  return v;
 }
 
 // Sum of `v` over the block, in a fixed order; every thread gets it.
 // `red` holds 33 floats. blockDim.x is a multiple of 32.
 __device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
+  v = warp_sum(v);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();  // `red` may still be read from the previous call
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
     const int n_warps = blockDim.x >> 5;
-    v = lane < n_warps ? red[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
+    v = warp_sum(lane < n_warps ? red[lane] : 0.0f);
     if (lane == 0) red[32] = v;
   }
   __syncthreads();
   return red[32];
 }
 
+template <int N>
+struct Shape {
+  static constexpr int kDim = 1 << N;
+  static constexpr int kThreads =
+      kDim < 32 ? 32 : (kDim > kMaxThreads ? kMaxThreads : kDim);
+  static constexpr int kAmps = kDim > kMaxThreads ? kDim / kMaxThreads : 1;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr bool kLean = kAmps >= kLeanFromAmps;
+  static constexpr bool kSharedAcc = kAmps >= kSharedAccFromAmps;
+  // Two planes of w, and the accumulator's where it lives there
+  static constexpr int kSmemBytes =
+      (kSharedAcc ? 3 : 2) * kDim * static_cast<int>(sizeof(float2));
+};
+
+// One RK4 step's three plan rows (t, t + h/2, t + h) of one trajectory and
+// its bookkeeping.
+template <int N>
+struct Rows {
+  float2 coef[3][N];  // (a_re, a_im)
+  float cum[3][N];
+  float t[3];
+  float h;
+  int carry;  // row 0 equals the previous step's row 2, bit for bit
+  int step;   // index s * L + i in the plan, or S * L past the end
+  int next;   // index of the next non-padding step
+};
+
+// Warp 0: starts copying step `f` of the trajectory whose drive rows begin
+// at row `row0` into `r` (cp.async).
+template <int N>
+__device__ void fetch_rows(Rows<N>& r, long row0, int f, const float* a_re,
+                           const float* a_im, const float* cum,
+                           const float* t_stage, const float* seg_dts) {
+  const int lane = threadIdx.x & 31;
+  const long o = (row0 + f) * 3 * N;
+  float* coef = reinterpret_cast<float*>(&r.coef[0][0]);
+  for (int e = lane; e < 3 * N; e += 32) {
+    cp_async4(coef + 2 * e, a_re + o + e);
+    cp_async4(coef + 2 * e + 1, a_im + o + e);
+    cp_async4(&r.cum[0][0] + e, cum + o + e);
+  }
+  if (lane < 3) cp_async4(&r.t[lane], t_stage + static_cast<long>(f) * 3 + lane);
+  if (lane == 3) cp_async4(&r.h, seg_dts + f);
+}
+
+// Warp 0: waits for the copy into `r` and fills its bookkeeping. `prev`
+// is the previous step's rows (for the carry test), or null.
+template <int N>
+__device__ void finish_rows(Rows<N>& r, const Rows<N>* prev, int f,
+                            int next) {
+  const int lane = threadIdx.x & 31;
+  cp_async_wait_all();
+  __syncwarp();
+  bool same = false;
+  if (prev != nullptr) {
+    const float mine = lane < N ? r.cum[0][lane] : r.t[0];
+    const float theirs = lane < N ? prev->cum[2][lane] : prev->t[2];
+    same = lane > N || __float_as_uint(mine) == __float_as_uint(theirs);
+  }
+  const bool carry = __all_sync(kFull, same);
+  if (lane == 0) {
+    r.carry = carry ? 1 : 0;
+    r.step = f;
+    r.next = next;
+  }
+}
+
+// e^{-i Phi(idx)} as (c, s) for a row's time and phase integrals.
+template <int N>
+__device__ __forceinline__ void rotor(int idx, float dg, float t,
+                                      const float* cum, float& c, float& s) {
+  float ph = floored_mod_2pi(dg * t);
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const bool bit = (idx >> (N - 1 - q)) & 1;
+    ph = bit ? ph : ph + cum[q];
+  }
+  sincosf(ph, &s, &c);
+}
+
+// w = e^{-i Phi} x
+__device__ __forceinline__ float2 rotate(float c, float s, float2 x) {
+  return make_float2(c * x.x + s * x.y, c * x.y - s * x.x);
+}
+
+// The flip partner idx ^ m of amplitude `idx` in plane `w`; `own` is the
+// amplitude's own value there. Flips below 32 come from the lane idx ^ m
+// of the same warp, so every lane must call this with the same m.
+__device__ __forceinline__ float2 partner(const float2* w, int idx, int m,
+                                         float2 own) {
+  if (m < 32)
+    return make_float2(__shfl_xor_sync(kFull, own.x, m),
+                       __shfl_xor_sync(kFull, own.y, m));
+  return w[idx ^ m];
+}
+
+// RK4 weights: stage j adds b_j k_j to the accumulator, and the stage
+// input of stage j + 1 is psi + h a_{j+1} k_j.
+__device__ __forceinline__ float rk_b(int j) {
+  return j == 0 || j == 3 ? 1.0f / 6.0f : 1.0f / 3.0f;
+}
+__device__ __forceinline__ float rk_a_next(int j) {
+  return j == 2 ? 1.0f : 0.5f;
+}
+
 // cops: (n_cops, 6) rows (l00_re, l00_im, l11_re, l11_im, |l00|^2, |l11|^2).
-__global__ void __launch_bounds__(1024)
+template <int N>
+__global__ void __launch_bounds__(Shape<N>::kThreads)
 mcwf_rows_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                  const float* __restrict__ cum, const float* __restrict__ t_stage,
                  const float* __restrict__ seg_dts, const float* __restrict__ us,
@@ -100,231 +259,336 @@ mcwf_rows_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                  const float* __restrict__ psi0_re,
                  const float* __restrict__ psi0_im,
                  const float* __restrict__ cops, float* __restrict__ out,
-                 int* __restrict__ jumps, float* __restrict__ scratch, int S,
-                 int L, int n, int n_cops, float g00, float g11) {
-  extern __shared__ float smem[];
-  __shared__ float s_are[kMaxQubits], s_aim[kMaxQubits], s_cum[kMaxQubits];
+                 int* __restrict__ jumps, int* __restrict__ carried, int S,
+                 int L, int n_cops, float g00, float g11) {
+  using Sh = Shape<N>;
+  constexpr int D = Sh::kDim, T = Sh::kThreads, A = Sh::kAmps;
+  constexpr int W = Sh::kWarps;
+  constexpr bool kLean = Sh::kLean, kSharedAcc = Sh::kSharedAcc;
+  extern __shared__ float2 s_w[];  // two planes of w (and the accumulator)
+  __shared__ Rows<N> s_rows[2];
   __shared__ float s_cop[kMaxCops * 6];
-  __shared__ float s_w[kMaxCops * kMaxQubits];
+  __shared__ float s_part[kMaxWarps * 2 * kMaxQubits];
+  __shared__ float s_pop[2 * kMaxQubits];
+  __shared__ float s_wgt[kMaxCops * kMaxQubits];
+  __shared__ float s_norm[kMaxWarps];
   __shared__ float s_red[33];
-  __shared__ float s_t, s_inv;
+  __shared__ float s_inv;
   __shared__ int s_sel;
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int dim = 1 << n;
-  float* pl = scratch ? scratch + static_cast<long>(b) * kPlanes * dim : smem;
-  float* psi_re = pl + kPsiRe * dim;
-  float* psi_im = pl + kPsiIm * dim;
-  float* k_re = pl + kKRe * dim;
-  float* k_im = pl + kKIm * dim;
-  float* acc_re = pl + kAccRe * dim;
-  float* acc_im = pl + kAccIm * dim;
-  float* w_re = pl + kWRe * dim;
-  float* w_im = pl + kWIm * dim;
-  float* rc = pl + kCos * dim;
-  float* rs = pl + kSin * dim;
-  const float* diag = diags + static_cast<long>(b) * dim;
-  const long drive0 = static_cast<long>(b) * S * L * 3 * n;
-  const long u0_base = static_cast<long>(b) * S * L * 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // Below 32 amplitudes the lanes past D repeat the first D (so every
+  // warp shuffle stays inside a group of D lanes) and write nothing.
+  const bool live = tid < D;
+  const int base = tid & (D - 1);
+  const int total = S * L;
+  const long row0 = static_cast<long>(b) * total;
+  const float* diag = diags + static_cast<long>(b) * D;
+  float2* s_acc = s_w + 2 * D;
 
-  for (int i = tid; i < n_cops * 6; i += nt) s_cop[i] = cops[i];
-  for (int i = tid; i < dim; i += nt) {
-    psi_re[i] = psi0_re[i];
-    psi_im[i] = psi0_im[i];
+  // 1/2 g(idx), g = G00 #zeros + G11 #ones
+  auto half_g = [&](int idx) {
+    const float popf = static_cast<float>(__popc(idx));
+    return 0.5f * (g00 * (static_cast<float>(N) - popf) + g11 * popf);
+  };
+
+  for (int i = tid; i < n_cops * 6; i += T) s_cop[i] = cops[i];
+  float2 psi[A];
+  float2 x[kLean ? 1 : A], acc[kSharedAcc ? 1 : A];
+  float dg[kLean ? 1 : A], hg[kLean ? 1 : A];
+  float c[A], s[A];
+  // Amplitude a's diagonal and decay factor, from registers or anew
+  auto diag_of = [&](int a, int idx) {
+    if constexpr (Sh::kLean)
+      return __ldg(diag + idx);
+    else
+      return dg[a];
+  };
+  auto half_of = [&](int a, int idx) {
+    if constexpr (Sh::kLean)
+      return half_g(idx);
+    else
+      return hg[a];
+  };
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int idx = base + a * T;
+    psi[a] = make_float2(psi0_re[idx], psi0_im[idx]);
+    c[a] = 1.0f;
+    s[a] = 0.0f;
+    if constexpr (!kLean) {
+      dg[a] = diag[idx];
+      hg[a] = half_g(idx);
+    }
+  }
+  if (warp == 0) {
+    const int first =
+        first_real(seg_dts, 0, total, step_window(seg_dts, 0, total));
+    if (first < total) {
+      fetch_rows(s_rows[0], row0, first, a_re, a_im, cum, t_stage, seg_dts);
+      const int next = first_real(seg_dts, first + 1, total,
+                                  step_window(seg_dts, first + 1, total));
+      finish_rows(s_rows[0], static_cast<const Rows<N>*>(nullptr), first,
+                  next);
+    } else if (lane == 0) {
+      s_rows[0].step = total;
+    }
   }
   float r = r0[b];
-  int n_jumps = 0;
-  const float a_w[4] = {0.0f, 0.5f, 0.5f, 1.0f};
-  const float b_w[4] = {1.0f / 6.0f, 1.0f / 3.0f, 1.0f / 3.0f, 1.0f / 6.0f};
+  int n_jumps = 0, n_carried = 0, emitted = 0, p = 0;
+  // Whether plane 0 holds the rotated psi under the rotor in (c, s)
+  bool fresh = false;
   __syncthreads();
 
-  for (int s = 0; s < S; ++s) {
-    for (int st = 0; st < L; ++st) {
-      const float h = seg_dts[s * L + st];
-      if (h == 0.0f) continue;  // start padding of a short segment
-      for (int j = 0; j < 4; ++j) {
-        const int sidx = (j + 1) >> 1;
-        const long row = (static_cast<long>(s) * L + st) * 3 + sidx;
-        __syncthreads();  // the previous pass 2 is done with s_* and w
-        if (tid < n) {
-          s_are[tid] = a_re[drive0 + row * n + tid];
-          s_aim[tid] = a_im[drive0 + row * n + tid];
-          s_cum[tid] = cum[drive0 + row * n + tid];
-        }
-        if (tid == 0) s_t = t_stage[row];
-        __syncthreads();
-        const float t = s_t;
-        const float ha = h * a_w[j];
-        // Pass 1: w = e^{-i Phi} x, x = psi + h a_j k_{j-1}
-        for (int i = tid; i < dim; i += nt) {
-          float xr = psi_re[i], xi = psi_im[i];
-          if (j > 0) {
-            xr += ha * k_re[i];
-            xi += ha * k_im[i];
-          }
-          const float ph = ip_phase(i, floored_mod_2pi(diag[i] * t), s_cum, n);
-          float sn, c;
-          sincosf(ph, &sn, &c);
-          rc[i] = c;
-          rs[i] = sn;
-          w_re[i] = c * xr + sn * xi;
-          w_im[i] = c * xi - sn * xr;
-        }
-        __syncthreads();
-        // Pass 2: k_j = -i e^{i Phi} sum_q M_q w[flip_q] - 1/2 g x
-        for (int i = tid; i < dim; i += nt) {
-          float yr = 0.0f, yi = 0.0f;
-          int pop = 0;
-          for (int q = 0; q < n; ++q) {
-            const int bit = 1 << (n - 1 - q);
-            const int p = i ^ bit;
-            const float fr = w_re[p], fi = w_im[p];
-            const float ar = s_are[q];
-            const float ai = (i & bit) ? s_aim[q] : -s_aim[q];
-            pop += (i & bit) ? 1 : 0;
-            yr = yr + ar * fr - ai * fi;
-            yi = yi + ar * fi + ai * fr;
-          }
-          float xr = psi_re[i], xi = psi_im[i];
-          if (j > 0) {
-            xr += ha * k_re[i];
-            xi += ha * k_im[i];
-          }
-          const float popf = static_cast<float>(pop);
-          const float g = g00 * (static_cast<float>(n) - popf) + g11 * popf;
-          const float c = rc[i], sn = rs[i];
-          const float kr = c * yi + sn * yr - 0.5f * g * xr;
-          const float ki = sn * yi - c * yr - 0.5f * g * xi;
-          k_re[i] = kr;
-          k_im[i] = ki;
-          if (j == 0) {
-            acc_re[i] = b_w[j] * kr;
-            acc_im[i] = b_w[j] * ki;
-          } else {
-            acc_re[i] += b_w[j] * kr;
-            acc_im[i] += b_w[j] * ki;
-          }
-        }
-      }
-      // psi <- psi + h acc, and its norm (each thread owns its indices)
+  for (;;) {
+    const Rows<N>& rw = s_rows[p];
+    const int f = rw.step;
+    const int seg = f < total ? f / L : S;
+    for (; emitted < seg; ++emitted) {
+      // Emit the normalised lab-frame state: e^{-i Phi(t_eval)} psi / |psi|
       float part = 0.0f;
-      for (int i = tid; i < dim; i += nt) {
-        const float pr = psi_re[i] + h * acc_re[i];
-        const float pi = psi_im[i] + h * acc_im[i];
-        psi_re[i] = pr;
-        psi_im[i] = pi;
-        part += pr * pr + pi * pi;
-      }
-      const float norm2 = block_sum(part, s_red);
-      if (norm2 > r) continue;  // no jump (uniform across the block)
-
-      // A jump: weights of every (operator k, qubit q) channel
-      const long ub = u0_base + (static_cast<long>(s) * L + st) * 2;
-      for (int q = 0; q < n; ++q) {
-        float p0 = 0.0f, p1 = 0.0f;
-        for (int i = tid; i < dim; i += nt) {
-          const float p = psi_re[i] * psi_re[i] + psi_im[i] * psi_im[i];
-          if ((i >> (n - 1 - q)) & 1)
-            p1 += p;
-          else
-            p0 += p;
-        }
-        p0 = block_sum(p0, s_red);
-        p1 = block_sum(p1, s_red);
-        if (tid == 0) {
-          for (int k = 0; k < n_cops; ++k)
-            s_w[k * n + q] = s_cop[k * 6 + 4] * p0 + s_cop[k * 6 + 5] * p1;
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+        part += live ? psi[a].x * psi[a].x + psi[a].y * psi[a].y : 0.0f;
+      const float inv_n =
+          1.0f / sqrtf(fmaxf(block_sum(part, s_red), 1e-30f));
+      const float te = __ldg(eval_t + emitted);
+      const float* ec = eval_cum + (static_cast<long>(b) * S + emitted) * N;
+      float* o = out + (static_cast<long>(b) * S + emitted) * 2 * D;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int idx = base + a * T;
+        float ce, se;
+        rotor<N>(idx, diag_of(a, idx), te, ec, ce, se);
+        const float2 lab =
+            rotate(ce, se, make_float2(psi[a].x * inv_n, psi[a].y * inv_n));
+        if (live) {
+          o[idx] = lab.x;
+          o[D + idx] = lab.y;
         }
       }
-      if (tid == 0) {
-        const int n_w = n_cops * n;
-        float total = s_w[0];
-        for (int x = 1; x < n_w; ++x) total = total + s_w[x];
-        const float u = us[ub] * total;
-        float cum_w = 0.0f, w_sel = 0.0f;
-        int sel = -1;
-        for (int x = 0; x < n_w; ++x) {
-          const float prev = cum_w;
-          cum_w = cum_w + s_w[x];
-          const bool hit = (u <= cum_w) && (x == 0 || u > prev);
-          if (hit && sel < 0) {
-            sel = x;
-            w_sel = s_w[x];
-          }
-        }
-        s_sel = sel;
-        s_inv = 1.0f / sqrtf(fmaxf(w_sel, 1e-30f));
+    }
+    if (f >= total) break;
+    const float h = rw.h;
+    const int nxt = rw.next;
+    Rows<N>& nr = s_rows[p ^ 1];
+    float win = 0.0f;
+    if (warp == 0 && nxt < total) {
+      fetch_rows(nr, row0, nxt, a_re, a_im, cum, t_stage, seg_dts);
+      win = step_window(seg_dts, nxt + 1, total);
+    }
+    // The rotor of row 0: carried from the previous step's row 2, or
+    // recomputed; plane 0 then holds w_0 = e^{-i Phi} psi unless the rotor
+    // is new or a jump has replaced psi (all block-uniform).
+    const bool carry = rw.carry != 0;
+    n_carried += carry ? 1 : 0;
+    if (!carry || !fresh) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int idx = base + a * T;
+        if (!carry)
+          rotor<N>(idx, diag_of(a, idx), rw.t[0], rw.cum[0], c[a], s[a]);
+        if (live) s_w[idx] = rotate(c[a], s[a], psi[a]);
       }
       __syncthreads();
-      const int sel = s_sel;
-      const float inv = s_inv;
-      for (int i = tid; i < dim; i += nt) {
-        float jr = 0.0f, ji = 0.0f;
-        if (sel >= 0) {
-          const int k = sel / n, q = sel % n;
-          const bool one = (i >> (n - 1 - q)) & 1;
-          const float cr = s_cop[k * 6 + (one ? 2 : 0)];
-          const float ci = s_cop[k * 6 + (one ? 3 : 1)];
-          const float pr = psi_re[i], pi = psi_im[i];
-          jr = (cr * pr - ci * pi) * inv;
-          ji = (cr * pi + ci * pr) * inv;
-        }
-        psi_re[i] = jr;
-        psi_im[i] = ji;
-      }
-      r = us[ub + 1];
-      ++n_jumps;
     }
-    // Emit the normalised lab-frame state: e^{-i Phi(t_eval)} psi / |psi|
+
     float part = 0.0f;
-    for (int i = tid; i < dim; i += nt)
-      part += psi_re[i] * psi_re[i] + psi_im[i] * psi_im[i];
-    const float inv_n = 1.0f / sqrtf(fmaxf(block_sum(part, s_red), 1e-30f));
-    if (tid < n) s_cum[tid] = eval_cum[(static_cast<long>(b) * S + s) * n + tid];
-    if (tid == 0) s_t = eval_t[s];
-    __syncthreads();
-    float* o = out + (static_cast<long>(b) * S + s) * 2 * dim;
-    for (int i = tid; i < dim; i += nt) {
-      const float ph =
-          ip_phase(i, floored_mod_2pi(diag[i] * s_t), s_cum, n);
-      float sn, c;
-      sincosf(ph, &sn, &c);
-      const float pr = psi_re[i] * inv_n, pi = psi_im[i] * inv_n;
-      o[i] = c * pr + sn * pi;
-      o[dim + i] = c * pi - sn * pr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // Stage j reads plan row sidx, stage j + 1 row nrow
+      const int sidx = (j + 1) >> 1, nrow = (j + 2) >> 1;
+      // Stage j reads plane j & 1 and publishes the next input to the other
+      const float2* win_j = s_w + (j & 1) * D;
+      float2* wout = s_w + ((j + 1) & 1) * D;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int idx = base + a * T;
+        const float2 w = win_j[idx];
+        float yr = 0.0f, yi = 0.0f;
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+          const int m = 1 << (N - 1 - q);
+          const float2 fp = partner(win_j, idx, m, w);
+          const float2 cf = rw.coef[sidx][q];
+          const float ai = (idx & m) ? cf.y : -cf.y;
+          yr = yr + cf.x * fp.x - ai * fp.y;
+          yi = yi + cf.x * fp.y + ai * fp.x;
+        }
+        // The stage input x_j (x_0 = psi)
+        float2 xj = psi[a];
+        if (j > 0) {
+          if constexpr (kLean)
+            xj = make_float2(c[a] * w.x - s[a] * w.y, c[a] * w.y + s[a] * w.x);
+          else
+            xj = x[a];
+        }
+        // k_j = -i e^{+i Phi} y - 1/2 g x_j
+        const float half = half_of(a, idx);
+        const float kr = c[a] * yi + s[a] * yr - half * xj.x;
+        const float ki = s[a] * yi - c[a] * yr - half * xj.y;
+        float2 sum;
+        if (j == 0) {
+          sum = make_float2(rk_b(0) * kr, rk_b(0) * ki);
+        } else {
+          float2 old;
+          if constexpr (kSharedAcc)
+            old = s_acc[idx];
+          else
+            old = acc[a];
+          sum = make_float2(old.x + rk_b(j) * kr, old.y + rk_b(j) * ki);
+        }
+        if (j < 3) {
+          if constexpr (kSharedAcc) {
+            if (live) s_acc[idx] = sum;
+          } else {
+            acc[a] = sum;
+          }
+          const float ha = h * rk_a_next(j);
+          const float2 xn =
+              make_float2(psi[a].x + ha * kr, psi[a].y + ha * ki);
+          if constexpr (!kLean) x[a] = xn;
+          // Rows 1 (stages 1 and 2) and 2 (stage 3 and, carried, the
+          // next step's stage 0) get their rotor here
+          if (nrow != sidx)
+            rotor<N>(idx, diag_of(a, idx), rw.t[nrow], rw.cum[nrow], c[a],
+                     s[a]);
+          if (live) wout[idx] = rotate(c[a], s[a], xn);
+        } else {
+          // psi <- psi + h acc; rotated, it is the next step's w_0
+          psi[a] = make_float2(psi[a].x + h * sum.x, psi[a].y + h * sum.y);
+          if (live) {
+            part += psi[a].x * psi[a].x + psi[a].y * psi[a].y;
+            wout[idx] = rotate(c[a], s[a], psi[a]);
+          }
+        }
+      }
+      if (j == 2 && warp == 0) {
+        // The next step's rows, for the barrier that ends stage 3
+        if (nxt < total) {
+          const int after = first_real(seg_dts, nxt + 1, total, win);
+          finish_rows(nr, &rw, nxt, after);
+        } else if (lane == 0) {
+          nr.step = total;
+        }
+      }
+      if (j == 3) {
+        // Each warp's share of |psi|^2. s_norm is read after this
+        // barrier and written again only after three more.
+        const float v = warp_sum(part);
+        if (lane == 0) s_norm[warp] = v;
+      }
+      __syncthreads();
     }
+    // The step's |psi|^2, summed over the warps in a fixed order
+    float norm2 = warp_sum(lane < W ? s_norm[lane] : 0.0f);
+    norm2 = __shfl_sync(kFull, norm2, 0);
+    p ^= 1;
+    fresh = true;
+    if (norm2 > r) continue;  // no jump (uniform across the block)
+
+    // A jump: the populations of |0> and |1> of every qubit, per-warp
+    // partial sums first, then over the warps (both in a fixed order)
+    const long ub = (row0 + f) * 2;
+#pragma unroll 1
+    for (int q = 0; q < N; ++q) {
+      const int m = 1 << (N - 1 - q);
+      float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int idx = base + a * T;
+        const float pa =
+            live ? psi[a].x * psi[a].x + psi[a].y * psi[a].y : 0.0f;
+        p0 += (idx & m) ? 0.0f : pa;
+        p1 += (idx & m) ? pa : 0.0f;
+      }
+      p0 = warp_sum(p0);
+      p1 = warp_sum(p1);
+      if (lane == 0) {
+        s_part[warp * 2 * kMaxQubits + 2 * q] = p0;
+        s_part[warp * 2 * kMaxQubits + 2 * q + 1] = p1;
+      }
+    }
+    __syncthreads();
+    for (int e = warp; e < 2 * N; e += W) {
+      const float v =
+          warp_sum(lane < W ? s_part[lane * 2 * kMaxQubits + e] : 0.0f);
+      if (lane == 0) s_pop[e] = v;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const int n_w = n_cops * N;
+      for (int q = 0; q < N; ++q)
+        for (int k = 0; k < n_cops; ++k)
+          s_wgt[k * N + q] = s_cop[k * 6 + 4] * s_pop[2 * q] +
+                             s_cop[k * 6 + 5] * s_pop[2 * q + 1];
+      float total_w = s_wgt[0];
+      for (int e = 1; e < n_w; ++e) total_w = total_w + s_wgt[e];
+      const float u = us[ub] * total_w;
+      float cum_w = 0.0f, w_sel = 0.0f;
+      int sel = -1;
+      for (int e = 0; e < n_w; ++e) {
+        const float prev = cum_w;
+        cum_w = cum_w + s_wgt[e];
+        const bool hit = (u <= cum_w) && (e == 0 || u > prev);
+        if (hit && sel < 0) {
+          sel = e;
+          w_sel = s_wgt[e];
+        }
+      }
+      s_sel = sel;
+      s_inv = 1.0f / sqrtf(fmaxf(w_sel, 1e-30f));
+    }
+    __syncthreads();
+    const int sel = s_sel;
+    const float inv = s_inv;
+    const int m_sel = sel >= 0 ? 1 << (N - 1 - sel % N) : 0;
+    const float* cop = s_cop + (sel >= 0 ? sel / N : 0) * 6;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int idx = base + a * T;
+      float2 jumped = make_float2(0.0f, 0.0f);
+      if (sel >= 0) {
+        const bool one = idx & m_sel;
+        const float cr = cop[one ? 2 : 0], ci = cop[one ? 3 : 1];
+        jumped = make_float2((cr * psi[a].x - ci * psi[a].y) * inv,
+                             (cr * psi[a].y + ci * psi[a].x) * inv);
+      }
+      psi[a] = jumped;
+    }
+    r = us[ub + 1];
+    ++n_jumps;
+    fresh = false;  // plane 0 holds the rotated state from before the jump
   }
-  if (tid == 0) jumps[b] = n_jumps;
+  if (tid == 0) {
+    jumps[b] = n_jumps;
+    if (carried != nullptr) carried[b] = n_carried;
+  }
 }
 
-int threads_for(int dim) {
-  int t = dim < 32 ? 32 : dim;
-  return t > 1024 ? 1024 : t;
-}
-
-// Shared-memory bytes the state planes take, or 0 when they do not fit
-// beside the kernel's static shared memory on the current device.
-long planes_smem_bytes(int n) {
-  const long bytes = static_cast<long>(kPlanes) * (1L << n) * sizeof(float);
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, mcwf_rows_kernel) != cudaSuccess) return 0;
-  return bytes + static_cast<long>(attr.sharedSizeBytes) <= optin ? bytes : 0;
+template <int N>
+cudaError_t launch(const float* a_re, const float* a_im, const float* cum,
+                   const float* t_stage, const float* seg_dts, const float* us,
+                   const float* eval_t, const float* eval_cum, const float* r0,
+                   const float* diags, const float* psi0_re,
+                   const float* psi0_im, const float* cops, float* out,
+                   int* jumps, int* carried, int n_traj, int S, int L,
+                   int n_cops, float g00, float g11, cudaStream_t st) {
+  using Sh = Shape<N>;
+  cudaError_t err = cudaFuncSetAttribute(
+      mcwf_rows_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sh::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  mcwf_rows_kernel<N><<<n_traj, Sh::kThreads, Sh::kSmemBytes, st>>>(
+      a_re, a_im, cum, t_stage, seg_dts, us, eval_t, eval_cum, r0, diags,
+      psi0_re, psi0_im, cops, out, jumps, carried, S, L, n_cops, g00, g11);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_device_launches;
+  return err;
 }
 
 }  // namespace
-
-// Floats of device scratch the solve needs for `n_traj` trajectories of
-// n qubits: 0 when the state planes fit in shared memory.
-extern "C" long mcwf_rows_scratch_floats(int n, int n_traj) {
-  if (planes_smem_bytes(n) > 0) return 0;
-  return static_cast<long>(n_traj) * kPlanes * (1L << n);
-}
 
 // Runs the whole solve on `stream`, one block per trajectory. Device
 // inputs, in the layout of the TPU kernel's `mcwf_rows_program`: a_re,
@@ -332,9 +596,9 @@ extern "C" long mcwf_rows_scratch_floats(int n, int n_traj) {
 // (B, S, L, 2); eval_t (S); eval_cum (B, S, n); r0 (B); diags (B, 2^n);
 // psi0_re, psi0_im (2^n); cops (n_cops, 6). Outputs: out (B, S, 2, 2^n)
 // normalised lab-frame states after each segment, jumps (B) int32 jump
-// counts. `scratch` holds mcwf_rows_scratch_floats(n, B) floats (may be
-// null when that is 0). Returns the cudaError_t of the launch (0 on
-// success).
+// counts, and carried (B, may be null) the int32 number of steps of each
+// trajectory that took their first rotor from the step before. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int mcwf_rows_run(const float* a_re, const float* a_im,
                              const float* cum, const float* t_stage,
                              const float* seg_dts, const float* us,
@@ -342,22 +606,31 @@ extern "C" int mcwf_rows_run(const float* a_re, const float* a_im,
                              const float* r0, const float* diags,
                              const float* psi0_re, const float* psi0_im,
                              const float* cops, float* out, int* jumps,
-                             float* scratch, int n_traj, int S, int L, int n,
+                             int* carried, int n_traj, int S, int L, int n,
                              int n_cops, float g00, float g11, void* stream) {
-  if (n < 1 || n > 13 || n_cops < 1 || n_cops > kMaxCops || n_traj < 1)
+  if (n < 1 || n > kMaxQubits || n_cops < 1 || n_cops > kMaxCops ||
+      n_traj < 1)
     return cudaErrorInvalidValue;
-  const long smem = planes_smem_bytes(n);
-  if (smem == 0 && scratch == nullptr) return cudaErrorInvalidValue;
-  if (smem > 0) {
-    scratch = nullptr;
-    cudaError_t err = cudaFuncSetAttribute(
-        mcwf_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PT_ROWS_CASE(NQ)                                                     \
+  case NQ:                                                                   \
+    return launch<NQ>(a_re, a_im, cum, t_stage, seg_dts, us, eval_t,         \
+                      eval_cum, r0, diags, psi0_re, psi0_im, cops, out,      \
+                      jumps, carried, n_traj, S, L, n_cops, g00, g11, st);
+  switch (n) {
+    PT_ROWS_CASE(1) PT_ROWS_CASE(2) PT_ROWS_CASE(3) PT_ROWS_CASE(4)
+    PT_ROWS_CASE(5) PT_ROWS_CASE(6) PT_ROWS_CASE(7) PT_ROWS_CASE(8)
+    PT_ROWS_CASE(9) PT_ROWS_CASE(10) PT_ROWS_CASE(11) PT_ROWS_CASE(12)
+    PT_ROWS_CASE(13)
+    default:
+      return cudaErrorInvalidValue;
   }
-  mcwf_rows_kernel<<<n_traj, threads_for(1 << n), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      a_re, a_im, cum, t_stage, seg_dts, us, eval_t, eval_cum, r0, diags,
-      psi0_re, psi0_im, cops, out, jumps, scratch, S, L, n, n_cops, g00, g11);
-  return cudaGetLastError();
+#undef PT_ROWS_CASE
+}
+
+// The device kernels this library has launched so far (mcwf_rows_run makes
+// one): a caller counts the launches of one call as the difference,
+// without a profiler.
+extern "C" unsigned long long mcwf_rows_device_launches() {
+  return g_device_launches.load();
 }

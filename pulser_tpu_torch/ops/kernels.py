@@ -49,6 +49,10 @@ IP_SESOLVE_LAUNCHES = 0
 MCWF_ROWS_LAUNCHES = 0
 #: Launches of ``mcwf_kernel`` (one per whole trajectory batch).
 MCWF_LAUNCHES = 0
+#: Of the last ``mcwf_rows_kernel`` launch: the ``(B,)`` int32 device
+#: tensor of the steps of each trajectory whose first rotor the kernel
+#: carried over from the step before (``None`` before the first launch).
+MCWF_ROWS_CARRIED: torch.Tensor | None = None
 
 #: The qubit counts ``ip_sesolve_kernel`` is instantiated for.
 IP_MIN_QUBITS, IP_MAX_QUBITS = 10, 17
@@ -153,26 +157,23 @@ def _load(name: str) -> ctypes.CDLL:
             lib.ip_sesolve_config.argtypes = [i, p]
             lib.ip_sesolve_barrier_probe.restype = i
             lib.ip_sesolve_barrier_probe.argtypes = [i] * 3 + [p]
-            lib.ip_sesolve_device_launches.restype = ctypes.c_ulonglong
         elif name == "mcwf_rows":
-            lib.mcwf_rows_scratch_floats.restype = ctypes.c_long
-            lib.mcwf_rows_scratch_floats.argtypes = [i, i]
             lib.mcwf_rows_run.restype = i
             lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
         else:
             lib.mcwf_run.restype = i
             lib.mcwf_run.argtypes = [p] * 12 + [i] * 5 + [f] * 4 + [p]
-            lib.mcwf_device_launches.restype = ctypes.c_ulonglong
+        getattr(lib, f"{name}_device_launches").restype = ctypes.c_ulonglong
         _libs[name] = lib
     return lib
 
 
 def device_launches(name: str) -> int:
-    """The device kernels the library of ``name`` (``"ip_sesolve"`` or
-    ``"mcwf"``) has launched so far, as its C entries count them: the
-    launches of one call are the difference across it."""
-    if name not in ("ip_sesolve", "mcwf"):
-        raise ValueError(f"{name} keeps no device launch count.")
+    """The device kernels the library of kernel ``name`` (a key of
+    :data:`SOURCES`) has launched so far, as its C entries count them:
+    the launches of one call are the difference across it."""
+    if name not in SOURCES:
+        raise ValueError(f"{name} is no kernel of {tuple(SOURCES)}.")
     return int(getattr(_load(name), f"{name}_device_launches")())
 
 
@@ -491,24 +492,47 @@ def mcwf_rows(
     cop_t = torch.from_numpy(table).to(dev)
     out = torch.empty((n_traj, n_seg, 2, dim), dtype=torch.float32, device=dev)
     jumps = torch.empty((n_traj,), dtype=torch.int32, device=dev)
-    n_scratch = int(lib.mcwf_rows_scratch_floats(n, n_traj))
-    scratch = (
-        torch.empty((n_scratch,), dtype=torch.float32, device=dev)
-        if n_scratch
-        else None
-    )
+    carried = torch.empty((n_traj,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mcwf_rows_run(
         *(t.data_ptr() for t in tensors.values()),
         cop_t.data_ptr(), out.data_ptr(), jumps.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
+        carried.data_ptr(),
         n_traj, n_seg, seg_len, n, len(cops), g00, g11, stream,
     )
-    global MCWF_ROWS_LAUNCHES
+    global MCWF_ROWS_LAUNCHES, MCWF_ROWS_CARRIED
     MCWF_ROWS_LAUNCHES += 1
+    MCWF_ROWS_CARRIED = carried
     if err != 0:
         raise RuntimeError(f"mcwf_rows_run failed: CUDA error {err}.")
     return out, jumps
+
+
+def mcwf_rows_carried_steps(
+    cum_mod: torch.Tensor, t_stage: torch.Tensor, seg_dts: torch.Tensor
+) -> tuple[torch.Tensor, int]:
+    """The steps whose first rotor ``mcwf_rows_kernel`` carries over.
+
+    The kernel keeps a step's end-of-step rotor for the next non-padding
+    step when that step's first plan row equals the end row bit for bit:
+    the shared stage time and the trajectory's n phase integrals.
+
+    Args:
+        cum_mod/t_stage/seg_dts: As :func:`mcwf_rows` takes them.
+
+    Returns:
+        ``(carried, n_real)``: the ``(B,)`` int64 number of such steps of
+        each trajectory, and the number of non-padding steps (the first
+        has no step before it, so at most ``n_real - 1`` are carried).
+    """
+    n_traj, n = cum_mod.shape[0], cum_mod.shape[-1]
+    real = seg_dts.reshape(-1) != 0
+    t = t_stage.reshape(-1, 3)[real].view(torch.int32)
+    c = cum_mod.reshape(n_traj, -1, 3, n)[:, real].view(torch.int32)
+    same = (t[1:, 0] == t[:-1, 2])[None] & (
+        c[:, 1:, 0] == c[:, :-1, 2]
+    ).all(-1)
+    return same.sum(1), int(real.sum())
 
 
 def mcwf_rows_reference(

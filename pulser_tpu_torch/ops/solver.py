@@ -1244,7 +1244,8 @@ def _diag_cops_spec(
 
 #: Largest register the quantum-jump solves take: the bound the JAX
 #: package's TPU block ladder admits for the row-batched kernel, kept for
-#: the lab-frame kernel (its state planes leave shared memory at n = 13).
+#: the lab-frame kernel (at n = 13 a trajectory's stage-input planes take
+#: 128 KiB of its block's shared memory).
 MCWF_MAX_QUBITS = 13
 
 

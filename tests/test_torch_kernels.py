@@ -49,10 +49,16 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
 
 
 def test_device_launch_count_only_for_counting_libraries():
-    """K2's library keeps no device launch count; asking for it raises
-    before anything is built or loaded."""
-    with pytest.raises(ValueError, match="no device launch count"):
-        K.device_launches("mcwf_rows")
+    """Every kernel's library counts its device launches; asking for a
+    name that is no kernel raises before anything is built or loaded."""
+    assert set(K.SOURCES) == {"ip_sesolve", "mcwf_rows", "mcwf"}
+    with pytest.raises(ValueError, match="no kernel"):
+        K.device_launches("mcwf_cols")
+    for name, path in K.SOURCES.items():
+        with open(path) as f:
+            assert f'extern "C" unsigned long long {name}_device_launches' in (
+                f.read()
+            )
 
 
 def test_padding_steps_are_no_ops():

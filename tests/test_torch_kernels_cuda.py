@@ -67,10 +67,9 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
         K.ip_sesolve(*args, **kw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 7, 10, 13])
-def test_cuda_mcwf_rows_matches_plain_twin(cuda, n):
-    args = chip_smoke.random_mcwf_inputs(n, n, cuda)
+def _check_k2(args):
+    """One K2 launch against the plain version: states, jump counts and
+    the kernel's count of carried rotors. Returns the jump counts."""
     cops = chip_smoke.RANDOM_COPS
     before = K.MCWF_ROWS_LAUNCHES
     got, jumps = K.mcwf_rows(*args, cops=cops)
@@ -78,8 +77,61 @@ def test_cuda_mcwf_rows_matches_plain_twin(cuda, n):
     assert K.MCWF_ROWS_LAUNCHES == before + 1
     want, jumps_p = K.mcwf_rows_reference(*args, cops=cops)
     assert bool(torch.isfinite(got).all())
-    assert int(jumps.min()) >= 1 and torch.equal(jumps, jumps_p)
+    assert torch.equal(jumps, jumps_p)
     assert float((got - want).abs().max()) <= MCWF_TOL
+    rows_agree, _ = K.mcwf_rows_carried_steps(*args[2:5])
+    assert torch.equal(K.MCWF_ROWS_CARRIED.long(), rows_agree)
+    return jumps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 14)))
+def test_cuda_mcwf_rows_matches_plain_twin(cuda, n):
+    """Sub-warp states (n < 5), one amplitude per thread (n <= 10), then
+    2, 4 and 8; rotors carried in segment 0, recomputed in segment 1."""
+    args = chip_smoke.random_mcwf_inputs(n, n, cuda)
+    jumps = _check_k2(args)
+    assert int(jumps.min()) >= 1
+    assert int(K.MCWF_ROWS_CARRIED.min()) == 7  # steps 1..7 of segment 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 10, 12])
+def test_cuda_mcwf_rows_jumps_every_step(cuda, n):
+    """Thresholds of 1: every trajectory jumps after every step, so the
+    jump branch runs 22 times per trajectory."""
+    args = chip_smoke.random_mcwf_inputs(
+        n, 100 + n, cuda, seg_len=12, threshold=1.0
+    )
+    assert int(_check_k2(args).min()) == 22
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_like", [True, False])
+def test_cuda_mcwf_rows_start_padding(cuda, plan_like):
+    """Both segments start with padding, the first with more steps than a
+    warp looks at in one go; with and without rows that agree."""
+    args = chip_smoke.random_mcwf_inputs(
+        6, 60, cuda, seg_len=40, plan_like=plan_like
+    )
+    args[4][0, :35] = 0.0
+    _check_k2(args)
+    assert bool(K.MCWF_ROWS_CARRIED.any()) == plan_like
+
+
+@pytest.mark.cuda
+def test_cuda_mcwf_rows_solve_is_one_device_launch(cuda):
+    args = chip_smoke.random_mcwf_inputs(10, 10, cuda)
+
+    def call():
+        return K.mcwf_rows(*args, cops=chip_smoke.RANDOM_COPS)
+
+    call()  # build and load first
+    counted, launched = chip_smoke.launches_per_call(K, "mcwf_rows", call)
+    assert counted == 1
+    assert not launched or (
+        len(launched) == 1 and "mcwf_rows_kernel" in launched[0]
+    )
 
 
 @pytest.mark.cuda

@@ -251,8 +251,17 @@ def _final_infidelity(got, want):
 )
 def test_k2_twin_matches_pallas_with_jumps(n, seed, cops):
     """Random inputs whose thresholds start near 1 under a strong decay
-    channel: every trajectory jumps, several times."""
+    channel: every trajectory jumps, several times. The rows are
+    plan-like: a step's end row is the next step's start row in the first
+    segment (where the CUDA kernel carries its rotor) and not in the
+    second."""
     args = chip_smoke.random_mcwf_inputs(n, seed, "cpu")
+    carried, n_real = K.mcwf_rows_carried_steps(*args[2:5])
+    assert n_real == 14 and carried.tolist() == [7] * 8
+    _check_k2_twin_against_pallas(args, n, cops)
+
+
+def _check_k2_twin_against_pallas(args, n, cops):
     before = K.MCWF_ROWS_LAUNCHES
     got, jumps = K.mcwf_rows(*args, cops=cops)
     assert K.MCWF_ROWS_LAUNCHES == before  # CPU tensors: the plain twin
@@ -262,6 +271,60 @@ def test_k2_twin_matches_pallas_with_jumps(n, seed, cops):
     got = got.numpy()
     assert np.abs(got - want).max() <= STATE_TOL
     assert _final_infidelity(got, want).max() <= FIDELITY_TOL
+
+
+def test_k2_twin_matches_pallas_when_rows_differ():
+    """No step's start row equals the step before's end row (times off
+    the grid, independent phase integrals): the inputs on which the CUDA
+    kernel recomputes every rotor have the Pallas kernel as reference
+    too."""
+    n, cops = 5, chip_smoke.RANDOM_COPS
+    args = chip_smoke.random_mcwf_inputs(n, 3, "cpu", plan_like=False)
+    carried, _ = K.mcwf_rows_carried_steps(*args[2:5])
+    assert int(carried.sum()) == 0
+    _check_k2_twin_against_pallas(args, n, cops)
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("n, seed", [(4, 0), (6, 1)])
+def test_k2_rows_share_rotors(n, seed, factored):
+    """The rotor sharing K2 relies on, on a staged noisy batch: RK4
+    stages 1 and 2 read the same plan row, and each real step's end time
+    equals the next real step's start time bit for bit, across segment
+    boundaries and padding. The per-trajectory phase integrals of the two
+    rows are equal in exact arithmetic; the share of steps on which they
+    agree in every bit too (the steps whose rotor the kernel carries) is
+    recorded, not required to be all."""
+    rng = np.random.default_rng(seed)
+    n_traj = 5
+    if factored:
+        knots, amp, det = _factored(rng, n, n_traj)
+    else:
+        knots, amp, det = _coeffs(rng, n, n_traj)
+    _, tplans = _plans(knots, amp, det, factored)
+    assert [(j + 1) >> 1 for j in range(4)] == list(torch_solver._RK_STAGE)
+    assert torch_solver._RK_STAGE[1] == torch_solver._RK_STAGE[2]
+    psi0 = np.zeros(1 << n, np.complex64)
+    psi0[-1] = 1.0
+    diags = np.zeros((n_traj, 1 << n))
+    args = torch_solver.rows_kernel_inputs(
+        psi0, tplans, diags, list(range(n_traj)), "cpu"
+    )
+    cum, t_stage, seg_dts = args[2], args[3], args[4]
+    real = seg_dts.reshape(-1) != 0
+    assert not bool(real.all())  # some segments start with padding
+    assert np.count_nonzero(tplans.plan.seg_dts.any(axis=1)) > 1
+    t = t_stage.reshape(-1, 3)[real].numpy().view(np.int32)
+    np.testing.assert_array_equal(t[:-1, 2], t[1:, 0])
+    c = cum.reshape(n_traj, -1, 3, n)[:, real].numpy()
+    assert _circ(c[:, :-1, 2], c[:, 1:, 0]).max() <= STAGE_TOL
+    carried, n_real = K.mcwf_rows_carried_steps(cum, t_stage, seg_dts)
+    assert n_real == int(real.sum()) and carried.shape == (n_traj,)
+    same = (c[:, :-1, 2].view(np.int32) == c[:, 1:, 0].view(np.int32)).all(-1)
+    assert carried.tolist() == same.sum(1).tolist()
+    share = float(carried.sum()) / (n_traj * (n_real - 1))
+    print(f"n={n}, factored={factored}: rotor carried on {share:.1%} of steps")
+    assert 0.0 <= share <= 1.0
 
 
 def _batched_case(n, n_traj, gammas, seed):
