@@ -10,14 +10,19 @@ each main path runs with every launch counter set to 0 just before it
 and read just after):
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the three kernels with nvcc for ``sm_90a`` (one process per
-   source, started together) and print the registers, shared memory and
-   spills of each instantiation: the interaction-picture sesolve K1
-   (``pulser_tpu_torch/csrc/ip_sesolve.cu``), the row-batched quantum-jump
-   solve K2 (``mcwf_rows.cu``) and the lab-frame quantum-jump solve with
-   general collapse operators K3 (``mcwf.cu``).
+2. Build the four kernel sources with nvcc for ``sm_90a`` (one process
+   per source, started together) and print the registers, shared memory
+   and spills of each instantiation: the interaction-picture sesolve K1
+   (``pulser_tpu_torch/csrc/ip_sesolve.cu``), its trajectory-batched mode
+   with one block per trajectory (``ip_sesolve_batched.cu``), the
+   row-batched quantum-jump solve K2 (``mcwf_rows.cu``) and the lab-frame
+   quantum-jump solve with general collapse operators K3 (``mcwf.cu``).
 3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
-   13, 16 and 17 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5.
+   13, 16 and 17 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5. Then its
+   trajectory-batched mode at n = 10, 12, 13 (one block per trajectory),
+   14 and 17 (the cooperative kernel) with 3 trajectories of 2 segments,
+   drives, phase integrals and diagonals all different: max |Δ| ≤ 2e-5
+   and one device launch per batch by the library's count.
 4. Hold K2 against its plain PyTorch version on random inputs at n = 1,
    2, 4, 7, 10, 11, 12 and 13 qubits, 8 trajectories (2 segments x 8
    steps, strong jumps; rotors carried in the first segment, recomputed
@@ -62,6 +67,23 @@ and read just after):
     the device kernels one K3 solve launches (exactly one), and trace
     one warm PAULI10 ``run()`` for the device's busy share.
 
+11. Run SPD10, the noisy main path without collapse operators, at full
+    size: the noisy 10-atom run with the dephasing taken out
+    (:func:`spd10_inputs`), after ``np.random.seed(1234)``. It must take
+    the trajectory-batched K1 (``kind == "ip_sesolve_batched_cuda"``, at
+    least one launch), give 1000 shots per evaluation time, and match
+    the JAX package's figures for the same seed
+    (``tests/goldens/spd10_reference.json``): trajectory-averaged
+    Rydberg populations within 1e-3, final counts within a
+    total-variation distance of 0.02. The kernel's states on the run's
+    own inputs must match its plain version per trajectory (max |Δ| ≤
+    2e-5, 1 − F ≤ 1e-6).
+12. Time the batched K1 (median of 3), its plain version (once), the
+    warm SPD10 ``run()`` and its parts (host preparation, staging,
+    fetch, result wrapping, host sampling), count the device kernels one
+    batched solve launches (exactly one), and trace one warm SPD10
+    ``run()`` for the device's busy share.
+
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
 grid).
@@ -99,6 +121,12 @@ _GOLDEN = os.path.join(_ROOT, "tests", "goldens", "afm16_final.npz")
 _PAULI10_GOLDEN = os.path.join(
     _ROOT, "tests", "goldens", "noisy10_pauli_reference.json"
 )
+#: The JAX package's SPD10 figures for seed 1234, printed by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/spd10_reference.py`` (its
+#: vmapped XLA batched sesolve on a CPU, single precision): the step
+#: count, the final Rydberg population of each atom per trajectory and
+#: averaged, and the final-time bitstring counts.
+_SPD10_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "spd10_reference.json")
 
 #: Tolerance of the kernel against its plain version on random inputs:
 #: both run in float32 with different summation orders and libm.
@@ -108,6 +136,9 @@ KERNEL_TOL = 1e-5
 SWEEP_TOL = 1e-4
 #: Required agreement with the golden states.
 FIDELITY_TOL = 1e-6
+#: The trajectory-batched K1 against its plain version (as K1; the JAX
+#: package's own batched-kernel test holds its kernel to the same).
+BATCHED_TOL = 2e-5
 #: K2 against its plain version (float32, different summation orders,
 #: libm, and reductions; the phases reach ~100 rad).
 MCWF_TOL = 5e-5
@@ -378,11 +409,14 @@ PAULIS = (
 )
 
 
-def _noisy10(**extra) -> tuple:
+def _noisy10(dephasing: bool = True, **extra) -> tuple:
     import warnings
 
     from pulser_tpu_torch import NoiseModel, Register
 
+    params = dict(_NOISY10_NOISE)
+    if not dephasing:
+        del params["dephasing_rate"]
     om = 2 * np.pi * 1.5
     inputs = _sweep_inputs(
         Register.rectangle(2, 5, spacing=7.0, prefix="q"),
@@ -390,7 +424,7 @@ def _noisy10(**extra) -> tuple:
     )
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)  # runs=
-        noise = NoiseModel(**_NOISY10_NOISE, **extra)
+        noise = NoiseModel(**params, **extra)
     return inputs + (noise,)
 
 
@@ -418,6 +452,15 @@ def pauli10_inputs() -> tuple:
         eff_noise_rates=[PAULI_RATE] * 3,
         eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
     )
+
+
+def spd10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of the SPD10 run: the
+    noisy 10-atom run of :func:`noisy10_inputs` with the dephasing taken
+    out and nothing else changed (SPAM, doppler, amplitude noise). It
+    has no collapse operators, so the 100 trajectories integrate as one
+    pure-state batch on the coarsened interaction-picture grid."""
+    return _noisy10(dephasing=False)
 
 
 def _check(ok: bool, what: str) -> None:
@@ -476,6 +519,63 @@ def random_kernel_inputs(
         for h in host
     ]
     return tensors, dict(n_row=n_row, n_col=n_col, seg_len=seg_len)
+
+
+def random_batched_kernel_inputs(
+    n: int, seed: int, device, n_traj: int = 3, seg_len: int = 8,
+    n_seg: int = 2,
+) -> tuple:
+    """Random inputs of the trajectory-batched ip_sesolve, made with numpy
+    from ``seed``, in the layout of the JAX package's ``_ip_sesolve_jit``
+    with ``segs_per_traj = n_seg``: ``n_traj`` trajectories of ``n_seg``
+    segments of ``seg_len`` steps, trajectory-major; ``(tensors,
+    keywords)``. The grid is shared (tiled per trajectory; the last
+    segment starts with 2 padding steps); drives, phase integrals and
+    diagonals differ between the trajectories, so a missed reset or a
+    wrong diagonal shows. The phase integrals are continuous across the
+    steps of each trajectory's first segment (the kernel carries its
+    end-of-step rotor there) and independent elsewhere (it recomputes)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_col = 8 if n >= 15 else 7
+    n_row = n - n_col
+    rows, cols = 1 << n_row, 1 << n_col
+    stage = (n_traj, n_seg, seg_len, 3, n)
+    dts = rng.uniform(1e-3, 4e-3, (n_seg, seg_len, 1))
+    dts[-1, :2] = 0.0  # start padding of a short segment
+    grid = np.concatenate([[0.0], np.cumsum(dts.reshape(-1))])
+    t_stage = np.stack(
+        [grid[:-1], 0.5 * (grid[:-1] + grid[1:]), grid[1:]], axis=-1
+    ).reshape(n_seg, seg_len, 3)
+    cum = rng.uniform(0.0, 2 * np.pi, stage)
+    cum[:, 0, 1:, 0] = cum[:, 0, :-1, 2]
+    psi0 = rng.normal(size=(2, rows, cols))
+    psi0 /= np.linalg.norm(psi0)
+    flat = (n_traj * n_seg,)
+
+    def tiled(x: np.ndarray) -> np.ndarray:
+        return np.tile(x, (n_traj,) + (1,) * (x.ndim - 1))
+
+    host = [
+        rng.uniform(-6.0, 6.0, stage).reshape(flat + stage[2:]),
+        rng.uniform(-6.0, 6.0, stage).reshape(flat + stage[2:]),
+        cum.reshape(flat + stage[2:]),
+        tiled(t_stage),
+        tiled(dts),
+        tiled(t_stage[:, -1, 2].reshape(n_seg, 1, 1)),
+        rng.uniform(0.0, 2 * np.pi, flat + (1, n)),
+        rng.uniform(0.0, 400.0, (n_traj, rows, cols)),
+        psi0[0],
+        psi0[1],
+    ]
+    tensors = [
+        torch.from_numpy(np.ascontiguousarray(h, dtype=np.float32)).to(device)
+        for h in host
+    ]
+    return tensors, dict(
+        n_row=n_row, n_col=n_col, seg_len=seg_len, segs_per_traj=n_seg
+    )
 
 
 #: Diagonal collapse operators of the random K2 inputs, (l00_re, l00_im,
@@ -637,6 +737,7 @@ def _plane_probs(states) -> np.ndarray:
 #: Launch counters of the wrappers in ``pulser_tpu_torch.ops.kernels``.
 _COUNTERS = {
     "ip_sesolve": "IP_SESOLVE_LAUNCHES",
+    "ip_sesolve_batched": "IP_SESOLVE_BATCHED_LAUNCHES",
     "mcwf_rows": "MCWF_ROWS_LAUNCHES",
     "mcwf": "MCWF_LAUNCHES",
 }
@@ -668,6 +769,7 @@ def _ops_per_amp_stage(kernel: str, n: int) -> int:
     part (13)."""
     return {
         "ip_sesolve": 9 * n + 25,
+        "ip_sesolve_batched": 9 * n + 25,
         "mcwf_rows": 9 * n + 32,
         "mcwf": 9 * n + 21,
     }[kernel]
@@ -729,11 +831,11 @@ def ptxas_summary(log: str) -> list[str]:
         if entry:
             mangled = entry.group(1)
             kernel = re.search(
-                r"(ip_sesolve_kernel|barrier_probe_kernel|mcwf_rows_kernel"
-                r"|mcwf_kernel)",
+                r"(ip_sesolve_kernel|ip_sesolve_batched_kernel"
+                r"|barrier_probe_kernel|mcwf_rows_kernel|mcwf_kernel)",
                 mangled,
             )
-            args = re.findall(r"Li(\d+)E", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
             name = (kernel.group(1) if kernel else mangled) + (
                 f"<{','.join(args)}>" if args else ""
             )
@@ -834,6 +936,26 @@ def _random_inputs_phase(K, device) -> None:
         print(f"ip_sesolve vs plain, n={n}: max|d| = {err:.3e}")
         _check(bool(torch.isfinite(got).all()), f"finite output, n={n}")
         _check(err <= KERNEL_TOL, f"n={n}: {err:.3e} > {KERNEL_TOL}")
+    # Batched K1: one block per trajectory (1, 4 and 8 amplitudes per
+    # thread), then the cooperative kernel (1 and 2 per thread); every
+    # trajectory with its own drives, phase integrals and diagonal
+    for n in (10, 12, 13, 14, 17):
+        args, kw = random_batched_kernel_inputs(n, seed=200 + n, device=device)
+        lib = K.ip_sesolve_batched_library(n)
+        before = K.device_launches(lib)
+        got = K.ip_sesolve(*args, **kw)
+        torch.cuda.synchronize()
+        counted = K.device_launches(lib) - before
+        want = K.ip_sesolve_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(
+            f"ip_sesolve batched vs plain, n={n}, 3 trajectories:"
+            f" max|d| = {err:.3e}, {counted} device launch(es) per batch"
+        )
+        _check(bool(torch.isfinite(got).all()), f"finite batched output, n={n}")
+        _check(err <= BATCHED_TOL, f"batched n={n}: {err:.3e} > {BATCHED_TOL}")
+        _check(counted == 1, f"batched n={n}: {counted} device launches")
     # K2: sub-warp states (n = 1, 2, 4), one amplitude per thread (7, 10),
     # then 2, 4 and 8 (11, 12, 13); carried rotors in segment 0,
     # recomputed ones in segment 1. Last, thresholds of 1: every
@@ -1297,6 +1419,166 @@ def _pauli10_path(K, S, device, card: str) -> dict:
     }
 
 
+def _timed_parts(emu, S, sim) -> dict:
+    """Wall seconds of the parts of one warm pure-state noisy ``run()``:
+    host preparation (trajectory draws, dense batch, step policy, plan),
+    the solve call (staging, kernel, fetch), the wrapping of the states
+    into results, and the host sampling."""
+    marks: dict = {}
+    solve, sample = S.sesolve_rk4_batched, sim._sample_weight_rows
+
+    def timed_solve(*a, **k):
+        marks["solve_begin"] = time.perf_counter()
+        out = solve(*a, **k)
+        marks["solve_end"] = time.perf_counter()
+        return out
+
+    def timed_sample(*a, **k):
+        marks["sample_begin"] = time.perf_counter()
+        out = sample(*a, **k)
+        marks["sample_end"] = time.perf_counter()
+        return out
+
+    S.sesolve_rk4_batched, sim._sample_weight_rows = timed_solve, timed_sample
+    try:
+        start = time.perf_counter()
+        emu.run()
+        end = time.perf_counter()
+    finally:
+        S.sesolve_rk4_batched, sim._sample_weight_rows = solve, sample
+    return {
+        "prep": marks["solve_begin"] - start,
+        "solve": marks["solve_end"] - marks["solve_begin"],
+        "wrap": marks["sample_begin"] - marks["solve_end"],
+        "sampling": marks["sample_end"] - marks["sample_begin"],
+        "rest": end - marks["sample_end"],
+    }
+
+
+def _spd10_path(K, S, device, card: str) -> dict:
+    """The noisy main path without collapse operators at full size (K1's
+    trajectory-batched mode): SPD10 against the JAX package's figures,
+    then the kernel against its plain version on the run's own inputs,
+    the times and the device's busy share."""
+    import torch
+
+    from pulser_tpu_torch.emulator import simulation as sim
+
+    with open(_SPD10_GOLDEN) as f:
+        ref = json.load(f)
+    spd, sres, launches, cold_s, captured = _run_noisy(
+        K, spd10_inputs(), ref["seed"], "sesolve_rk4_batched", S
+    )
+    k1b_launches = launches["ip_sesolve_batched"]
+    sinfo = dict(S.last_solve_info)
+    print(f"SPD10 path: {sinfo}, launches={launches}, cold {cold_s:.3f} s")
+    _check(sinfo.get("kind") == "ip_sesolve_batched_cuda", "batched K1 route")
+    _check(k1b_launches > 0, "batched ip_sesolve launched on the SPD10 path")
+    _check(sinfo["n_steps"] == ref["n_steps"], f"steps {sinfo['n_steps']}")
+    _check(sinfo["n_traj"] == ref["n_traj"], f"trajectories {sinfo['n_traj']}")
+    _check_shots(sres)
+    tv = _tv_distance(dict(sres[-1].bitstring_counts), ref["final_counts"])
+    states = captured["out"]  # (B, n_eval, dim) complex64
+    _check(bool(np.isfinite(states).all()), "finite SPD10 states")
+    n_q = sinfo["n"]
+    probs = np.abs(states[:, -1].astype(np.complex128)) ** 2
+    probs /= probs.sum(axis=1, keepdims=True)  # as run() renormalizes
+    pops = _rydberg_populations(probs, n_q)
+    pop_err = float(
+        np.max(np.abs(pops.mean(0) - ref["rydberg_populations_mean"]))
+    )
+    traj_err = float(
+        np.max(np.abs(pops - np.asarray(ref["rydberg_populations"])))
+    )
+    print(
+        f"vs the JAX package (seed {ref['seed']}): trajectory-averaged"
+        f" Rydberg populations max|d| = {pop_err:.3e} (per trajectory"
+        f" {traj_err:.3e}), final counts TV = {tv:.4f}"
+    )
+    _check(pop_err <= POPULATION_TOL, f"populations {pop_err:.3e}")
+    _check(traj_err <= POPULATION_TOL, f"per-trajectory {traj_err:.3e}")
+    _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
+
+    psi0_s, plans, diags = captured["args"][:3]
+    n_traj, dim = plans.n_traj, 1 << n_q
+    bargs, bkw = S.ip_batched_kernel_inputs(psi0_s, plans, diags, n_q, device)
+    got = K.ip_sesolve(*bargs, **bkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = K.ip_sesolve_reference(*bargs, **bkw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(bool(torch.isfinite(got).all()), "finite batched K1 states")
+    g = got.reshape(n_traj, -1, 2, dim).double()
+    w = want.reshape(n_traj, -1, 2, dim).double()
+    per_traj = (g - w).abs().amax(dim=(1, 2, 3))
+    k1b_err = float(per_traj.max())
+    gf = torch.complex(g[:, -1, 0], g[:, -1, 1])
+    wf = torch.complex(w[:, -1, 0], w[:, -1, 1])
+    fid = (wf.conj() * gf).sum(1).abs() ** 2 / (
+        gf.abs().pow(2).sum(1) * wf.abs().pow(2).sum(1)
+    )
+    infid = float((1 - fid).max())
+    print(
+        f"ip_sesolve batched vs plain on the SPD10 run: max|d| ="
+        f" {k1b_err:.3e} over {n_traj} trajectories (worst trajectory"
+        f" {int(per_traj.argmax())}), final states 1-F <= {infid:.3e}"
+    )
+    _check(k1b_err <= BATCHED_TOL, f"SPD10: {k1b_err:.3e} > {BATCHED_TOL}")
+    _check(infid <= FIDELITY_TOL, f"SPD10 1-F {infid:.3e}")
+
+    k1b_s = _median_seconds(lambda: K.ip_sesolve(*bargs, **bkw))
+    lib = K.ip_sesolve_batched_library(n_q)
+    counted, launched = launches_per_call(
+        K, lib, lambda: K.ip_sesolve(*bargs, **bkw)
+    )
+    stages = sinfo["n_steps"] * 4
+    print(
+        f"ip_sesolve batched per call: {counted} device kernel launch(es)"
+        f" counted, traced {sorted(set(launched))}; {k1b_s * 1e6 / stages:.3f}"
+        f" us per RK4 stage ({stages} stages per trajectory, all"
+        f" trajectories at once; {card})"
+    )
+    _check_one_launch(counted, launched, "ip_sesolve_batched_kernel")
+    run_s = _median_seconds(spd.run)
+    parts = [_timed_parts(spd, S, sim) for _ in range(3)]
+    part = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    stage_s = _median_seconds(
+        lambda: S.ip_batched_kernel_inputs(psi0_s, plans, diags, n_q, device)
+    )
+    fetch_s = _median_seconds(lambda: got.cpu().numpy())
+    bound_ms, bound_by = _bound(
+        n_traj * stages * dim * _ops_per_amp_stage("ip_sesolve_batched", n_q),
+        _nbytes(*bargs, got),
+    )
+    print(
+        f"times on {card}: ip_sesolve batched {k1b_s * 1e3:.3f} ms, plain"
+        f" (once) {plain_s * 1e3:.3f} ms, warm SPD10 run()"
+        f" {run_s * 1e3:.3f} ms, of which host prep (trajectory draws,"
+        f" dense batch, plan staged on the host) {part['prep'] * 1e3:.3f}"
+        f" ms, the solve call {part['solve'] * 1e3:.3f} ms (alone: staging"
+        f" {stage_s * 1e3:.3f} ms, fetch {fetch_s * 1e3:.3f} ms), wrapping"
+        f" the states into results {part['wrap'] * 1e3:.3f} ms, host"
+        f" sampling {part['sampling'] * 1e3:.3f} ms"
+        f" ({sinfo['n_steps']} RK4 steps, {n_traj} trajectories); bound"
+        f" {bound_ms:.3f} ms ({bound_by})"
+    )
+    _print_busy("SPD10 run()", *_device_busy(spd.run))
+    return {
+        "name": "ip_sesolve_batched",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/ip_sesolve_batched.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
+        "launches": k1b_launches,
+        "max_abs_err": k1b_err,
+        "ms": k1b_s * 1e3,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1329,6 +1611,7 @@ def main() -> int:
     report = {
         "kernels": [
             _afm16_path(K, S, device, card),  # 6
+            _spd10_path(K, S, device, card),  # 11-12
             _noisy10_path(K, S, device, card),  # 7-8
             _pauli10_path(K, S, device, card),  # 9-10
         ]

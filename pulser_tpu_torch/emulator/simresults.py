@@ -3,8 +3,8 @@
 Behavioral parity with reference
 ``pulser-simulation/pulser_simulation/simresults.py:38-568``, over
 dense numpy states instead of qutip objects: ``CoherentResults`` and
-``NoisyResults`` with its pseudo-density expectation path. Measurement
-errors on coherent results and plotting are not ported (see
+``NoisyResults`` with its pseudo-density expectation path, and the SPAM
+measurement errors of coherent results. Plotting is not ported (see
 ROADMAP.md).
 """
 
@@ -278,6 +278,7 @@ class CoherentResults(SimulationResults[TorchResult]):
         basis_name: str,
         sim_times: np.ndarray,
         meas_basis: str,
+        meas_errors: Optional[collections.abc.Mapping[str, float]] = None,
     ) -> None:
         """Initializes a new CoherentResults instance.
 
@@ -288,11 +289,21 @@ class CoherentResults(SimulationResults[TorchResult]):
             sim_times: Times at which results were returned.
             meas_basis: The basis in which sampling measurements are
                 performed ("ground-rydberg" or "digital").
+            meas_errors: Optional measurement errors, as a dict with
+                "epsilon" and "epsilon_prime".
         """
         super().__init__(size, basis_name, sim_times)
         self._check_meas_basis(meas_basis)
         self._meas_basis = meas_basis
         self._results_seq = tuple(run_output)
+        if meas_errors is not None:
+            if set(meas_errors) != {"epsilon", "epsilon_prime"}:
+                raise ValueError(
+                    "When defining measurement errors, only values of "
+                    "'epsilon' and 'epsilon_prime' must be given."
+                )
+            self._use_pseudo_dens = True
+        self._meas_errors = meas_errors
 
     def _check_meas_basis(self, meas_basis: str) -> None:
         """The measurement basis allowed by the state's basis.
@@ -363,4 +374,61 @@ class CoherentResults(SimulationResults[TorchResult]):
             ignore_global_phase,
             tol,
             normalize,
+        )
+
+    def _meas_projector(self, state_n: int) -> Qobj:
+        if self._meas_errors:
+            err_param = (
+                self._meas_errors["epsilon"]
+                if state_n == 0
+                else self._meas_errors["epsilon_prime"]
+            )
+            # 'good' is the position of the state measuring to state_n;
+            # matches for digital and XY, inverted for ground-rydberg
+            good = (
+                1 - state_n
+                if "ground-rydberg" in self._basis_name
+                else state_n
+            )
+            return (
+                basis_ket(2, good).proj() * (1 - err_param)
+                + basis_ket(2, 1 - good).proj() * err_param
+            )
+        return super()._meas_projector(state_n)
+
+    def sample_state(
+        self, t: float, n_samples: int = 1000, t_tol: float = 1.0e-3
+    ) -> Counter:
+        """The result of multiple measurements at time t.
+
+        SPAM measurement errors are applied as vectorized random XOR
+        flips, drawn from the numpy global RNG in the JAX package's
+        order.
+        """
+        sampled_state = super().sample_state(t, n_samples, t_tol)
+        if self._meas_errors is None or (
+            self._meas_errors["epsilon"] == 0.0
+            and self._meas_errors["epsilon_prime"] == 0
+        ):
+            return sampled_state
+
+        eps = self._meas_errors["epsilon"]
+        eps_p = self._meas_errors["epsilon_prime"]
+        shots = list(sampled_state.keys())
+        n_detects_list = list(sampled_state.values())
+
+        shot_arr = np.array([list(shot) for shot in shots], dtype=int)
+        flip_probs = np.where(shot_arr == 1, eps_p, eps)
+        flip_probs_repeated = np.repeat(flip_probs, n_detects_list, axis=0)
+        random_matrix = np.random.uniform(
+            size=(np.sum(n_detects_list), len(shot_arr[0]))
+        )
+        flips = random_matrix < flip_probs_repeated
+        new_shots = shot_arr.repeat(n_detects_list, axis=0) ^ flips
+        detected_sample_dict: Counter = Counter(map(tuple, new_shots))
+        return Counter(
+            {
+                "".join(map(str, k)): v
+                for k, v in detected_sample_dict.items()
+            }
         )

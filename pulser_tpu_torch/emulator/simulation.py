@@ -2,12 +2,18 @@
 
 Port of ``pulser_tpu/emulator/simulation.py`` (itself behavioral parity
 with reference ``pulser-simulation/pulser_simulation/simulation.py``,
-``QutipEmulator``), for two paths, on a CUDA device unless the CPU is
+``QutipEmulator``), for three paths, on a CUDA device unless the CPU is
 asked for:
 
 - noiseless: QuTiP's ``sesolve`` becomes
   :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4` in the interaction
   picture;
+- noisy with shot-to-shot noise and no collapse operators (SPAM,
+  doppler, amplitude): the whole trajectory batch in one
+  interaction-picture solve
+  (:func:`~pulser_tpu_torch.ops.solver.sesolve_rk4_batched`), the
+  states fetched once and sampled on the host, ending in
+  ``NoisyResults``;
 - noisy with shot-to-shot noise and collapse operators: one quantum-jump
   realization per noise trajectory, the whole batch in one solve, ending
   in ``NoisyResults`` of bitstring counts. With diagonal collapse
@@ -23,9 +29,9 @@ The evaluation-times semantics (Full/Minimal/array/fraction, union with
 {0, T}), the +1 duration extension, the step policy, the noise draws and
 the order in which the numpy global RNG is consumed match the JAX
 package exactly, so both build the same plan and a seeded run gives the
-same counts. Every other noise configuration (master equation, no
-collapse operators, depolarizing, relaxation and other single-matrix-
-unit operators on the interaction-picture grid, XY, interaction
+same counts. Every other noise configuration (master equation,
+depolarizing, relaxation and other single-matrix-unit operators on the
+interaction-picture grid, register noise, XY, interaction
 interpolation), density-matrix inputs, the lab-frame sesolve and
 ``from_sequence`` are not ported yet and raise ``NotImplementedError``
 (see ROADMAP.md).
@@ -94,7 +100,8 @@ class _CoeffBatch:
     profiles[r]``) and never materializes the dense ``(B, nb, N, K)``
     batch on the hot path. The dense ``amp`` / ``det`` views
     materialize lazily (via ``dense_fn``, which replays the generic
-    path's operation order) for the parity tests.
+    path's operation order) for the pure-state batched path and the
+    parity tests.
     """
 
     def __init__(
@@ -103,21 +110,25 @@ class _CoeffBatch:
         reps: list,
         template: Hamiltonian,
         last_ham: Any,
+        shims: "list | None" = None,
         amp: "np.ndarray | None" = None,
         det: "np.ndarray | None" = None,
         det_factors: Any = None,
         amp_factors: Any = None,
         dense_fn: Any = None,
+        flip_gaps: "np.ndarray | None" = None,
     ) -> None:
         self.diags = diags  # (T, dim) interaction diagonals
         self.reps = reps  # repetition count per trajectory
         self.template = template  # pairs / dims / knots / collapse
         self.last_ham = last_ham  # () -> Hamiltonian
+        self._shims = shims  # per-trajectory step-policy views
         self._amp = amp  # (T, nb, N, K) complex, or lazy
         self._det = det  # (T, nb, N, K) real, or lazy
         self.det_factors = det_factors
         self.amp_factors = amp_factors
         self._dense_fn = dense_fn
+        self._flip_gaps = flip_gaps
         assert (amp is not None and det is not None) or (
             dense_fn is not None
         ), "need dense arrays or a materializer"
@@ -138,6 +149,33 @@ class _CoeffBatch:
         self._materialize()
         return self._det
 
+    @property
+    def shims(self) -> list:
+        """Per-trajectory step-policy views (lazy, like the dense batch
+        they slice)."""
+        if self._shims is None:
+            knots = np.asarray(self.template.sampling_times)
+            self._shims = [
+                _CoeffShim(
+                    self.amp[t],
+                    self.det[t],
+                    knots,
+                    float(self._flip_gaps[t]),
+                )
+                for t in range(len(self.reps))
+            ]
+        return self._shims
+
+
+class _CoeffShim(NamedTuple):
+    """Duck-typed stand-in for a per-trajectory Hamiltonian, carrying
+    exactly the fields the step-policy helpers read."""
+
+    amp_coeffs: np.ndarray
+    det_coeffs: np.ndarray
+    sampling_times: np.ndarray
+    max_flip_gap: float
+
 
 class _LindbladPrep(NamedTuple):
     """Host-prep outputs of :meth:`TorchEmulator._lindblad_batch_prep`."""
@@ -150,6 +188,13 @@ class _LindbladPrep(NamedTuple):
     collapse_mats: list
     psi0: np.ndarray  # complex, solver dtype
     mcwf_ip: bool
+
+
+#: Why XY mode and interaction interpolation are refused.
+_LAB_FRAME_REFUSAL = (
+    "XY mode and interaction interpolation need the lab-frame solve"
+    " (ROADMAP.md Queue 1, 'Lab-frame, XY and int_w sesolve')"
+)
 
 
 def _has_stochastic_noise(noise_model: NoiseModel) -> bool:
@@ -211,10 +256,10 @@ class TorchEmulator:
         config: (Deprecated) SimConfig; use ``noise_model``.
         evaluation_times: "Full", "Minimal", an array of times (in µs)
             or a float sampling fraction.
-        noise_model: The noise model for the simulation. Noise is
-            ported for the quantum-jump path only: shot-to-shot noise
-            with diagonal collapse operators, or with general ones on
-            the lab-frame grid (see the module docstring).
+        noise_model: The noise model for the simulation. Ported:
+            shot-to-shot noise without collapse operators, with
+            diagonal ones, or with general ones on the lab-frame grid
+            (see the module docstring).
         solver: Solver selection (see :class:`Solver`).
         n_trajectories: The number of noise trajectories to average over
             when the emulation includes stochastic noise.
@@ -361,23 +406,32 @@ class TorchEmulator:
         nm = self.noise_model
         if not nm.noise_types:
             return None
-        if not _has_stochastic_noise(nm):
-            return (
-                "noise without shot-to-shot randomness runs the master"
-                " equation (ROADMAP.md Queue 1, 'mesolve')"
-            )
         hd = self._hamiltonian_data
         ham = self._current_hamiltonian
         lindblad = hd.lindblad_data
+        if not _has_stochastic_noise(nm):
+            if lindblad.local_collapse_ops:
+                return (
+                    "collapse operators without shot-to-shot randomness run"
+                    " the master equation (ROADMAP.md Queue 1, 'mesolve')"
+                )
+            # One coherent run (SPAM measurement errors alone, say)
+            return None
         if not lindblad.local_collapse_ops:
-            return (
-                "noisy runs without collapse operators need the batched"
-                " sesolve (ROADMAP.md Queue 1, 'batched K1')"
-            )
+            # The pure-state batch (sesolve_rk4_batched); its gate is
+            # _can_batch_trajectories, read in run()
+            if ham.xy_mat is not None or ham.int_w is not None:
+                return _LAB_FRAME_REFUSAL
+            if not self.initial_state.isket:
+                return (
+                    "density-matrix initial states are ROADMAP.md Queue 1,"
+                    " 'mesolve'"
+                )
+            return None
         if lindblad.depolarizing_pauli_2ds:
             return (
                 "depolarizing noise runs the serial quantum-jump solve"
-                " mcsolve_rk4 per trajectory (ROADMAP.md Queue 1, 'serial"
+                " mcsolve_rk4 per trajectory (ROADMAP.md Queue 1, 'Serial"
                 " mcsolve_rk4')"
             )
         mats = ham._local_collapse_mats
@@ -387,15 +441,11 @@ class TorchEmulator:
             return (
                 "relaxation and other single-matrix-unit collapse operators"
                 " run the interaction-picture quantum-jump solve with"
-                " general collapse operators (ROADMAP.md Queue 1, 'IP"
-                " quantum jumps with general collapse operators')"
+                " general collapse operators, on the vmapped scan"
+                f" ({_solver_mod._MCWF_SCAN_ITEM})"
             )
         if ham.xy_mat is not None or ham.int_w is not None:
-            return (
-                "XY mode and interaction interpolation need the lab-frame"
-                " solve (ROADMAP.md Queue 1, 'lab-frame, XY and int_w"
-                " sesolve')"
-            )
+            return _LAB_FRAME_REFUSAL
         if self.solver == Solver.MESOLVER or not self.initial_state.isket:
             return (
                 "the master-equation solver and density-matrix initial"
@@ -407,16 +457,17 @@ class TorchEmulator:
             or self._meas_basis not in self.basis_name
         ):
             return (
-                "noisy runs are ported for the ground-rydberg basis only"
-                " (ROADMAP.md Queue 1, 'lab-frame, XY and qudit sesolve')"
+                "quantum-jump runs are ported for the ground-rydberg basis"
+                " only; other bases run the vmapped scan"
+                f" ({_solver_mod._MCWF_SCAN_ITEM})"
             )
         n = hd.n_qudits
         if not 2 <= n <= _solver_mod.MCWF_MAX_QUBITS:
             return (
-                f"the quantum-jump solves take 2 to"
-                f" {_solver_mod.MCWF_MAX_QUBITS} atoms, not {n} (larger"
-                " registers: ROADMAP.md Queue 1, 'backend, JSON, parallel"
-                " and serving')"
+                f"the quantum-jump kernels take 2 to"
+                f" {_solver_mod.MCWF_MAX_QUBITS} atoms, not {n}; larger"
+                " registers run the vmapped scan"
+                f" ({_solver_mod._MCWF_SCAN_ITEM})"
             )
         return None
 
@@ -493,6 +544,7 @@ class TorchEmulator:
             diags=np.stack([h.hamiltonian.int_diag for h in hams]),
             reps=[h.reps for h in hams],
             template=hams[0].hamiltonian,
+            shims=[h.hamiltonian for h in hams],
             last_ham=lambda: hams[-1].hamiltonian,
         )
 
@@ -602,6 +654,7 @@ class TorchEmulator:
         good = np.ones((n_traj, n))
         dopp = np.zeros((n_traj, n))
         diags = np.empty((n_traj, dim))
+        mfgs = np.zeros(n_traj)
         no_int = "digital" in template.basis_data.basis_name or n == 1
         # Absent register noise, every trajectory carries the same
         # register object: the per-channel waist profile is computed
@@ -640,6 +693,7 @@ class TorchEmulator:
             eff = n - sum(traj.bad_atoms.values())
             if not no_int and eff > 1:
                 diags[t] = template._interaction_diag(imat[-1], "r", set())
+                mfgs[t] = float(np.max(np.sum(np.abs(imat[-1]), axis=1)))
             else:
                 diags[t] = 0.0
 
@@ -686,6 +740,7 @@ class TorchEmulator:
             det_factors=det_factors,
             amp_factors=amp_factors,
             dense_fn=dense_fn,
+            flip_gaps=mfgs,
         )
 
     @staticmethod
@@ -1102,7 +1157,7 @@ class TorchEmulator:
             raise NotImplementedError(
                 "The lab-frame solve (XY mode, SLM-masked interaction"
                 " interpolation) is not ported yet (ROADMAP.md Queue 1,"
-                " 'lab-frame, XY and int_w sesolve')."
+                " 'Lab-frame, XY and int_w sesolve')."
             )
         if self.initial_state.isoper and not self.initial_state.isket:
             raise NotImplementedError(
@@ -1224,12 +1279,21 @@ class TorchEmulator:
                 )
                 for state, t in zip(states, self._eval_times_array)
             ]
+        meas_errors = (
+            {
+                "epsilon": self.noise_model.p_false_pos,
+                "epsilon_prime": self.noise_model.p_false_neg,
+            }
+            if "SPAM" in self.noise_model.noise_types
+            else None
+        )
         return CoherentResults(
             results,
             self._hamiltonian_data.n_qudits,
             self.basis_name,
             self._eval_times_array,
             self._meas_basis,
+            meas_errors,
         )
 
     def _validate_options(self, options: Any) -> None:
@@ -1246,6 +1310,20 @@ class TorchEmulator:
             )
             / 1000,
         )
+        if "SPAM" in self.noise_model.noise_types:
+            v = self._hamiltonian_data.basis_data.interaction_type
+            if (
+                self.noise_model.state_prep_error > 0
+                and self.initial_state
+                != tensor(
+                    [self.basis[("u" if v == "XY" else "g")]]
+                    * self._hamiltonian_data.n_qudits
+                )
+            ):
+                raise NotImplementedError(
+                    "Can't combine state preparation errors with an"
+                    " initial state different from the ground."
+                )
 
     def run(
         self,
@@ -1276,18 +1354,23 @@ class TorchEmulator:
                 print("Emulating Trajectory 1/1")
             return self._run_solver(**options)
 
-        # The batched quantum-jump route. The gate builds the noiseless
-        # Hamiltonian, whose one draw from the numpy global RNG comes
-        # here in the JAX package too.
-        if not self._can_batch_lindblad():
-            raise NotImplementedError(
-                "Not ported: noisy runs outside the batched quantum-jump"
-                " solve run the serial quantum-jump solve mcsolve_rk4 per"
-                " trajectory (ROADMAP.md Queue 1, 'serial mcsolve_rk4')."
+        # The batched routes. The gates build the noiseless Hamiltonian,
+        # whose one draw from the numpy global RNG comes here in the JAX
+        # package too.
+        if self._can_batch_lindblad():
+            # Quantum jumps: the draws run on the device after the solve
+            # where the row-batched solve takes the batch
+            total_count = self._counts_rows_fused(
+                print_progress=print_progress, **options
             )
-        total_count = self._counts_rows_fused(
-            print_progress=print_progress, **options
-        )
+        else:
+            # Pure states: one solve for the batch, one vectorized
+            # sampling pass on the host
+            total_count = self._sample_runs_vectorized(
+                progress_bar=progress_bar,
+                print_progress=print_progress,
+                **options,
+            )
         n_measures = (
             cast(int, self.n_trajectories) * self.noise_model.samples_per_run
         )
@@ -1322,6 +1405,150 @@ class TorchEmulator:
                 self._get_n_trajectories(noise_model, check_value=True),
             )
         self._noise_trajectories_used = True
+
+    def _can_batch_trajectories(self) -> bool:
+        """Whether noise trajectories can integrate as one pure-state
+        batch: no collapse operators (read from the true noise model;
+        the noiseless Hamiltonian never carries any), no XY coupling or
+        interaction interpolation, a ket initial state. Trajectory noise
+        then only perturbs the coefficient values and the diagonal."""
+        ham0 = self._noiseless_hamiltonian
+        lindblad = self._hamiltonian_data.lindblad_data
+        return (
+            len(lindblad.local_collapse_ops) == 0
+            and ham0.xy_mat is None
+            and ham0.int_w is None
+            and self.initial_state.isket
+        )
+
+    def _noisy_runs_batched(
+        self,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> Iterator[tuple[SimulationResults, int]]:
+        """The pure-state trajectory batch in a single solve: yields one
+        ``(CoherentResults, repetitions)`` per trajectory."""
+        self._refresh_trajectories()
+        batch = self._noisy_coeff_batch()
+        if print_progress:
+            print(
+                f"Emulating Trajectories [1 - {self.n_trajectories}]"
+                f"/{self.n_trajectories} (batched)"
+            )
+        first = batch.template
+        d, n = first.dim, first.n_qudits
+        knots = first.sampling_times
+        # Shared step cap: the tightest across trajectories
+        lambda_max = float(
+            np.max(np.sum(2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1))
+        )
+        base_step = min(
+            float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
+            1e-3,
+        )
+        # 1.3 margin: noise draws stay inside one power-of-two step
+        max_step = self._sticky_quantized_step(
+            "sesolve_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
+        )
+        if "max_step" in options and options["max_step"]:
+            max_step = min(max_step, float(options["max_step"]))
+        # The batch integrates in the interaction picture, so the
+        # coherent path's step coarsening applies (its 1.3 margin for
+        # several trajectories absorbs the fluctuations of their gaps)
+        max_step, coarsen = self._coarse_ip_step(
+            "sesolve_batch_coarse", max_step, lambda_max, batch.shims, options
+        )
+        # One plan for the whole batch, staged on the host in float64:
+        # the grid is shared, only the coefficient values differ
+        with torch.profiler.record_function("emulator.build_plan_batched"):
+            plans = _solver_mod.build_plan_batched(
+                knots,
+                {"amp": batch.amp, "det": batch.det},
+                self._eval_times_array,
+                max_step=max_step,
+                coarsen=coarsen,
+                breakpoints=(
+                    self._sharp_knots(batch, knots) if coarsen else None
+                ),
+            )
+        cdtype = _solver_mod._numpy_dtype(_default_cdtype())
+        with torch.profiler.record_function("emulator.sesolve_batched"):
+            states_batch = _solver_mod.sesolve_rk4_batched(
+                np.asarray(self._initial_ket(), dtype=cdtype),
+                plans,
+                batch.diags,
+                first.pairs,
+                d,
+                n,
+                True,
+                dtype=cdtype,
+                device=self._torch_device,
+            )
+        if coarsen:
+            # As on the coherent path: unitary evolution, renormalize
+            norms = np.linalg.norm(states_batch, axis=-1, keepdims=True)
+            states_batch = states_batch / np.where(norms == 0, 1.0, norms)
+        legal_dims_ket = [[d] * n, [1] * n]
+        self._current_hamiltonian = batch.last_ham()
+        for reps, states_t in zip(batch.reps, states_batch):
+            states_q = [Qobj(s, dims=legal_dims_ket) for s in states_t]
+            yield self._wrap_coherent(states_q), reps
+
+    def _noisy_runs(
+        self,
+        progress_bar: bool,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> Iterator[tuple[SimulationResults, int]]:
+        """Clean results of every noisy trajectory, with its repetitions."""
+        if self._can_batch_trajectories():
+            yield from self._noisy_runs_batched(
+                print_progress=print_progress, **options
+            )
+            return
+        raise NotImplementedError(
+            "Not ported: noisy runs outside the batched solves run the"
+            " serial solve per trajectory (ROADMAP.md Queue 1, 'Serial"
+            " mcsolve_rk4')."
+        )
+
+    def _sample_runs_vectorized(
+        self,
+        progress_bar: bool,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> np.ndarray:
+        """Per-eval-time bitstring Counters over all noisy runs.
+
+        One vectorized pass over the whole (trajectory × eval-time)
+        batch on the host: a cumsum and searchsorted sampler per entry
+        and the SPAM flips, drawn from the numpy global RNG in the JAX
+        package's order (one uniform per measurement sample, trajectory-
+        major and eval-time-minor, then the flip uniforms).
+        """
+        eval_ts = self._eval_times_array
+        spr = self.noise_model.samples_per_run
+        weight_rows: list[np.ndarray] = []
+        ns: list[int] = []
+        meas_errors = None
+        for cres, reps in self._noisy_runs(
+            progress_bar=progress_bar,
+            print_progress=print_progress,
+            **options,
+        ):
+            meas_errors = getattr(cres, "_meas_errors", None)
+            for t in eval_ts:
+                ti = cres._get_index_from_time(t, 1.0e-3)
+                weight_rows.append(cres[ti]._weights())
+                ns.append(spr * reps)
+        with torch.profiler.record_function("emulator.host_sampling"):
+            return _sample_weight_rows(
+                np.stack(weight_rows),
+                ns,
+                len(eval_ts),
+                self._hamiltonian_data.n_qudits,
+                meas_errors,
+            )
 
     def _can_batch_lindblad(self) -> bool:
         """Whether dissipative noise trajectories can batch on-device:
@@ -1538,6 +1765,50 @@ class TorchEmulator:
         for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
             total_count[v][lab] += c
         return total_count
+
+
+def _sample_weight_rows(
+    weights: np.ndarray,
+    ns: list[int],
+    n_times: int,
+    width: int,
+    meas_errors: "dict | None",
+) -> np.ndarray:
+    """Bitstring Counters per evaluation time, drawn on the host from
+    ``(n_entries, 2^width)`` measurement weights.
+
+    Entry ``e`` (trajectory-major, eval-time-minor) takes ``ns[e]``
+    uniforms of one draw from the numpy global RNG and a searchsorted of
+    its cumulative weights; the SPAM flips (``meas_errors`` with
+    "epsilon" and "epsilon_prime") are one more draw over all the bits.
+    """
+    cum = np.cumsum(weights, axis=1)
+    offs = np.concatenate(([0], np.cumsum(ns)))
+    rnd = np.random.rand(offs[-1])
+    idx = np.empty(offs[-1], dtype=np.int64)
+    for e in range(len(ns)):
+        sl = slice(offs[e], offs[e + 1])
+        idx[sl] = np.searchsorted(cum[e], rnd[sl])
+    bit_pos = np.arange(width - 1, -1, -1)
+    bits = (idx[:, None] >> bit_pos) & 1
+    if meas_errors is not None and (
+        meas_errors["epsilon"] != 0.0 or meas_errors["epsilon_prime"] != 0.0
+    ):
+        flip_probs = np.where(
+            bits == 1, meas_errors["epsilon_prime"], meas_errors["epsilon"]
+        )
+        flips = np.random.uniform(size=bits.shape) < flip_probs
+        bits = bits ^ flips
+    codes = bits @ (1 << bit_pos)
+    total_count = np.array([Counter() for _ in range(n_times)])
+    for e in range(len(ns)):
+        vals, cnts = np.unique(
+            codes[offs[e] : offs[e + 1]], return_counts=True
+        )
+        total_count[e % n_times].update(
+            dict(zip(_labels_of(vals, width), cnts.tolist()))
+        )
+    return total_count
 
 
 def _host_sample_codes(

@@ -100,10 +100,11 @@ def _noisy_register(
     """Add Gaussian noise to the positions of the register.
 
     The jittered positions are three-dimensional, and ``Register3D`` is
-    not ported yet (ROADMAP.md, Queue 1: the noisy leg).
+    not ported yet.
     """
     raise NotImplementedError(
-        "Register noise needs Register3D, which is not ported yet."
+        "Not ported: register noise needs Register3D (ROADMAP.md Queue 1,"
+        " 'Register noise and Register3D')."
     )
 
 

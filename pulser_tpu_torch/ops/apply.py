@@ -59,20 +59,23 @@ def build_drive_matrices(
     already includes the reference's ``H + H†`` doubling).
 
     Args:
-        amp: ``(n_bases, n)`` complex drive coefficients.
-        det: ``(n_bases, n)`` real detuning coefficients.
+        amp: ``(..., n_bases, n)`` complex drive coefficients (any
+            leading batch axes).
+        det: ``(..., n_bases, n)`` real detuning coefficients.
         pairs: Per basis, the static ``(i, j, k)`` index triple.
         d: The qudit dimension.
         n: The number of qudits.
 
     Returns:
-        The ``(n, d, d)`` complex matrices.
+        The ``(..., n, d, d)`` complex matrices.
     """
-    mats = torch.zeros((n, d, d), dtype=amp.dtype, device=amp.device)
+    mats = torch.zeros(
+        amp.shape[:-2] + (n, d, d), dtype=amp.dtype, device=amp.device
+    )
     for b, (i, j, k) in enumerate(pairs):
-        mats[:, i, j] += amp[b]
-        mats[:, j, i] += amp[b].conj()
-        mats[:, k, k] -= det[b]
+        mats[..., i, j] += amp[..., b, :]
+        mats[..., j, i] += amp[..., b, :].conj()
+        mats[..., k, k] -= det[..., b, :]
     return mats
 
 
@@ -107,21 +110,28 @@ def _group_matrix(
     materializations at the final group dimension.
 
     Args:
-        mats: ``(n, d, d)`` per-qudit drive matrices.
+        mats: ``(..., n, d, d)`` per-qudit drive matrices (any leading
+            batch axes).
         lo, hi: The group's qudit range.
         d: The qudit dimension.
 
     Returns:
-        The group's ``(d**(hi-lo),)²`` matrix.
+        The group's ``(..., d**(hi-lo), d**(hi-lo))`` matrix.
     """
     if hi - lo == 1:
-        return mats[lo]
+        return mats[..., lo, :, :]
     mid = (lo + hi) // 2
     a = _group_matrix(mats, lo, mid, d)
     b = _group_matrix(mats, mid, hi, d)
-    eye_a = torch.eye(d ** (mid - lo), dtype=mats.dtype, device=mats.device)
-    eye_b = torch.eye(d ** (hi - mid), dtype=mats.dtype, device=mats.device)
-    return torch.kron(a, eye_b) + torch.kron(eye_a, b)
+    p, q = a.shape[-1], b.shape[-1]
+    eye_a = torch.eye(p, dtype=mats.dtype, device=mats.device)
+    eye_b = torch.eye(q, dtype=mats.dtype, device=mats.device)
+    # a ⊗ I + I ⊗ b, as broadcasts so that batch axes ride along
+    out = (
+        a[..., :, None, :, None] * eye_b[:, None, :]
+        + eye_a[:, None, :, None] * b[..., None, :, None, :]
+    )
+    return out.reshape(a.shape[:-2] + (p * q, p * q))
 
 
 def apply_block_c(
@@ -134,12 +144,16 @@ def apply_block_c(
     """Applies a ``block×block`` operator to the middle reshape axis.
 
     Args:
-        op: The ``(block, block)`` complex operator.
-        psi: ``(left*block*right,)`` complex state.
+        op: The ``(..., block, block)`` complex operator.
+        psi: ``(..., left*block*right)`` complex state (the same leading
+            batch axes as ``op``, or none).
         left/block/right: The reshape factorization.
     """
-    out = torch.matmul(op, psi.reshape(left, block, right))
-    return out.reshape(-1)
+    lead = psi.shape[:-1]
+    out = torch.matmul(
+        op.unsqueeze(-3), psi.reshape(lead + (left, block, right))
+    )
+    return out.reshape(out.shape[:-3] + (-1,))
 
 
 def _hpsi(

@@ -4,6 +4,11 @@
   ``pulser_tpu/ops/pallas_kernels.py``: a fused interaction-picture RK4
   sesolve over the evaluation segments of a plan (d=2, one
   ground-rydberg basis). Source: ``pulser_tpu_torch/csrc/ip_sesolve.cu``.
+  Its trajectory-batched mode (``segs_per_traj``) gives each trajectory a
+  thread block of its own for n ≤ 13
+  (``pulser_tpu_torch/csrc/ip_sesolve_batched.cu``) and runs the
+  trajectories one after another inside the cooperative kernel of
+  ``ip_sesolve.cu`` for n ≥ 14.
 - ``mcwf_rows`` replaces the TPU kernel ``_mcwf_rows_kernel`` of the same
   file: the row-batched interaction-picture quantum-jump solve with
   diagonal collapse operators. Source:
@@ -39,12 +44,16 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 #: The CUDA sources, by kernel name.
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("ip_sesolve", "mcwf_rows", "mcwf")
+    for name in ("ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf")
 }
 
 #: Launches of ``ip_sesolve_kernel`` (one cooperative launch per whole
 #: solve).
 IP_SESOLVE_LAUNCHES = 0
+#: Launches of the trajectory-batched mode of :func:`ip_sesolve` (one
+#: per whole batch: ``ip_sesolve_batched_kernel`` for n ≤ 13, the
+#: cooperative ``ip_sesolve_kernel`` above that).
+IP_SESOLVE_BATCHED_LAUNCHES = 0
 #: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
 MCWF_ROWS_LAUNCHES = 0
 #: Launches of ``mcwf_kernel`` (one per whole trajectory batch).
@@ -56,6 +65,9 @@ MCWF_ROWS_CARRIED: torch.Tensor | None = None
 
 #: The qubit counts ``ip_sesolve_kernel`` is instantiated for.
 IP_MIN_QUBITS, IP_MAX_QUBITS = 10, 17
+#: The largest n whose trajectory-batched solve gives each trajectory one
+#: thread block (``ip_sesolve_batched_kernel``).
+IP_BLOCK_MAX_QUBITS = 13
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -153,10 +165,15 @@ def _load(name: str) -> ctypes.CDLL:
         if name == "ip_sesolve":
             lib.ip_sesolve_run.restype = i
             lib.ip_sesolve_run.argtypes = [p] * 12 + [i] * 3 + [p]
+            lib.ip_sesolve_run_batched.restype = i
+            lib.ip_sesolve_run_batched.argtypes = [p] * 12 + [i] * 4 + [p]
             lib.ip_sesolve_config.restype = i
             lib.ip_sesolve_config.argtypes = [i, p]
             lib.ip_sesolve_barrier_probe.restype = i
             lib.ip_sesolve_barrier_probe.argtypes = [i] * 3 + [p]
+        elif name == "ip_sesolve_batched":
+            lib.ip_sesolve_batched_run.restype = i
+            lib.ip_sesolve_batched_run.argtypes = [p] * 11 + [i] * 4 + [p]
         elif name == "mcwf_rows":
             lib.mcwf_rows_run.restype = i
             lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
@@ -223,11 +240,17 @@ def ip_sesolve(
     n_row: int,
     n_col: int,
     seg_len: int,
+    segs_per_traj: int | None = None,
     seg_dts_host: np.ndarray | None = None,
 ) -> torch.Tensor:
     """Fused interaction-picture RK4 sesolve (d=2, one basis, f32).
 
-    Inputs and output follow the JAX package's ``_ip_sesolve_jit``.
+    Inputs and output follow the JAX package's ``_ip_sesolve_jit``. With
+    ``segs_per_traj`` the ``n_seg = T·segs_per_traj`` rows are T
+    trajectories, trajectory-major: the state starts from ``psi0`` at
+    each trajectory's first segment, and segment ``s`` reads the diagonal
+    of trajectory ``s // segs_per_traj``. One device launch per call in
+    either mode.
 
     Args:
         a_re/a_im: ``(n_seg, L, 3, n)`` drive coefficient stages.
@@ -238,10 +261,13 @@ def ip_sesolve(
         eval_t: ``(n_seg, 1, 1)`` evaluation times.
         eval_cum_mod: ``(n_seg, 1, n)`` range-reduced ``−∫det`` at the
             evaluation times.
-        diag2d: ``(1, R, C)`` or ``(R, C)`` static interaction diagonal.
-        psi0_re/psi0_im: ``(R, C)`` initial state.
+        diag2d: ``(T, R, C)`` interaction diagonals (``(R, C)`` for one
+            trajectory).
+        psi0_re/psi0_im: ``(R, C)`` initial state, shared.
         n_row/n_col: Qubits on the row/column axis (``R = 2^n_row``).
         seg_len: Steps per segment (``L``).
+        segs_per_traj: Segments per trajectory (default: one trajectory
+            of ``n_seg`` segments).
         seg_dts_host: Host copy of ``seg_dts``, read by the plain
             version's step loop (without it the step sizes are copied
             back from the device once). The kernel reads ``seg_dts``
@@ -256,7 +282,7 @@ def ip_sesolve(
             a_re, a_im, cum_mod, t_stage, seg_dts, eval_t, eval_cum_mod,
             diag2d, psi0_re, psi0_im,
             n_row=n_row, n_col=n_col, seg_len=seg_len,
-            seg_dts_host=seg_dts_host,
+            segs_per_traj=segs_per_traj, seg_dts_host=seg_dts_host,
         )
     if a_re.device.type != "cuda":
         raise ValueError(f"Unsupported device {a_re.device}.")
@@ -265,6 +291,7 @@ def ip_sesolve(
     rows, cols = 1 << n_row, 1 << n_col
     if diag2d.ndim == 2:
         diag2d = diag2d[None]
+    n_traj = _n_trajectories(n_seg, segs_per_traj)
     stage = (n_seg, seg_len, 3, n)
     _check_inputs(
         dict(
@@ -276,7 +303,7 @@ def ip_sesolve(
             a_re=stage, a_im=stage, cum_mod=stage,
             t_stage=(n_seg, seg_len, 3), seg_dts=(n_seg, seg_len, 1),
             eval_t=(n_seg, 1, 1), eval_cum_mod=(n_seg, 1, n),
-            diag2d=(1, rows, cols), psi0_re=(rows, cols),
+            diag2d=(n_traj, rows, cols), psi0_re=(rows, cols),
             psi0_im=(rows, cols),
         ),
     )
@@ -285,25 +312,64 @@ def ip_sesolve(
             f"ip_sesolve takes {IP_MIN_QUBITS} <= n <= {IP_MAX_QUBITS},"
             f" not n={n}."
         )
-    lib = _load("ip_sesolve")
     dim = rows * cols
     dev = a_re.device
     out = torch.empty((n_seg, 2, rows, cols), dtype=torch.float32, device=dev)
-    # The double-buffered rotated stage input, interleaved (re, im)
-    wbuf = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ip_sesolve_run(
-        a_re.data_ptr(), a_im.data_ptr(), cum_mod.data_ptr(),
-        t_stage.data_ptr(), seg_dts.data_ptr(), eval_t.data_ptr(),
-        eval_cum_mod.data_ptr(), diag2d.data_ptr(), psi0_re.data_ptr(),
-        psi0_im.data_ptr(), out.data_ptr(), wbuf.data_ptr(), n_seg,
-        seg_len, n, stream,
-    )
-    global IP_SESOLVE_LAUNCHES
-    IP_SESOLVE_LAUNCHES += 1
+    ptrs = [
+        t.data_ptr()
+        for t in (
+            a_re, a_im, cum_mod, t_stage, seg_dts, eval_t, eval_cum_mod,
+            diag2d, psi0_re, psi0_im, out,
+        )
+    ]
+    global IP_SESOLVE_LAUNCHES, IP_SESOLVE_BATCHED_LAUNCHES
+    if segs_per_traj is not None and n <= IP_BLOCK_MAX_QUBITS:
+        entry = "ip_sesolve_batched_run"
+        err = _load("ip_sesolve_batched").ip_sesolve_batched_run(
+            *ptrs, n_traj, segs_per_traj, seg_len, n, stream
+        )
+        IP_SESOLVE_BATCHED_LAUNCHES += 1
+    else:
+        lib = _load("ip_sesolve")
+        # The double-buffered rotated stage input, interleaved (re, im)
+        wbuf = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
+        if segs_per_traj is None:
+            entry = "ip_sesolve_run"
+            err = lib.ip_sesolve_run(
+                *ptrs, wbuf.data_ptr(), n_seg, seg_len, n, stream
+            )
+            IP_SESOLVE_LAUNCHES += 1
+        else:
+            entry = "ip_sesolve_run_batched"
+            err = lib.ip_sesolve_run_batched(
+                *ptrs, wbuf.data_ptr(), n_seg, segs_per_traj, seg_len, n,
+                stream,
+            )
+            IP_SESOLVE_BATCHED_LAUNCHES += 1
     if err != 0:
-        raise RuntimeError(f"ip_sesolve_run failed: CUDA error {err}.")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}.")
     return out
+
+
+def _n_trajectories(n_seg: int, segs_per_traj: int | None) -> int:
+    """The trajectories of ``n_seg`` segment rows (one without
+    ``segs_per_traj``)."""
+    if segs_per_traj is None:
+        return 1
+    if segs_per_traj < 1 or n_seg % segs_per_traj:
+        raise ValueError(
+            f"{n_seg} segment rows are not a whole number of trajectories"
+            f" of {segs_per_traj} segments."
+        )
+    return n_seg // segs_per_traj
+
+
+def ip_sesolve_batched_library(n: int) -> str:
+    """The kernel of :data:`SOURCES` whose library runs the
+    trajectory-batched mode of :func:`ip_sesolve` for n qubits (its
+    device launches are ``device_launches`` of that name)."""
+    return "ip_sesolve_batched" if n <= IP_BLOCK_MAX_QUBITS else "ip_sesolve"
 
 
 def ip_sesolve_grid(n: int) -> tuple[int, int, int]:
@@ -331,22 +397,32 @@ def ip_sesolve_reference(
     n_row: int,
     n_col: int,
     seg_len: int,
+    segs_per_traj: int | None = None,
     seg_dts_host: np.ndarray | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`ip_sesolve` (same arguments).
 
-    Runs on the inputs' device in complex64. Each RK4 stage gathers the
-    ``n`` single-flip partners of every amplitude at once.
+    Runs on the inputs' device in complex64. The trajectories ride a
+    leading tensor axis, so the Python loop runs over the segments and
+    steps of ONE trajectory whatever the batch; each RK4 stage gathers
+    the ``n`` single-flip partners of every amplitude at once. A step
+    that is padding (h = 0) for every trajectory is skipped; one that is
+    padding for some leaves their state as it is.
     """
     n = n_row + n_col
     dim = 1 << n
     n_seg = a_re.shape[0]
+    n_traj = _n_trajectories(n_seg, segs_per_traj)
+    spt = n_seg // n_traj
     dev = a_re.device
-    a = torch.complex(a_re, a_im).reshape(n_seg, seg_len * 3, n)
-    cum = cum_mod.reshape(n_seg, seg_len * 3, n)
-    t_st = t_stage.reshape(n_seg, seg_len * 3)
-    h_host = _host_steps(seg_dts, seg_dts_host)
-    diag = diag2d.reshape(-1)
+    a = torch.complex(a_re, a_im).reshape(n_traj, spt, seg_len * 3, n)
+    cum = cum_mod.reshape(n_traj, spt, seg_len * 3, n)
+    t_st = t_stage.reshape(n_traj, spt, seg_len * 3)
+    h_dev = seg_dts.reshape(n_traj, spt, seg_len)
+    h_host = _host_steps(seg_dts, seg_dts_host).reshape(n_traj, spt, seg_len)
+    ev_t = eval_t.reshape(n_traj, spt)
+    ev_cum = eval_cum_mod.reshape(n_traj, spt, n)
+    diag = diag2d.reshape(n_traj, dim)
     idx = torch.arange(dim, device=dev)
     shifts = torch.arange(n - 1, -1, -1, device=dev)  # qubit q: bit n-1-q
     bits = (idx[None, :] >> shifts[:, None]) & 1  # (n, dim)
@@ -356,36 +432,38 @@ def ip_sesolve_reference(
     im_sign = 2.0 * bits_f - 1.0
 
     def rotor(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """``e^{-iΦ}`` with Φ = (diag·t mod 2π) + Σc − Σ_q c_q bit_q."""
-        ph = torch.remainder(diag * t, 2 * math.pi) + c.sum()
-        ph = ph - c @ bits_f
+        """``e^{-iΦ}`` with Φ = (diag·t mod 2π) + Σc − Σ_q c_q bit_q, for
+        the ``(T,)`` times and ``(T, n)`` phase integrals."""
+        ph = torch.remainder(diag * t[:, None], 2 * math.pi)
+        ph = ph + c.sum(1, keepdim=True) - c @ bits_f
         return torch.complex(torch.cos(ph), -torch.sin(ph))
 
-    phi = torch.complex(psi0_re, psi0_im).reshape(dim)
-    out = torch.empty((n_seg, 2, dim), dtype=torch.float32, device=dev)
-    for s in range(n_seg):
+    phi = torch.complex(psi0_re, psi0_im).reshape(1, dim).repeat(n_traj, 1)
+    out = torch.empty((n_traj, spt, 2, dim), dtype=torch.float32, device=dev)
+    for s in range(spt):
         for i in range(seg_len):
-            h = float(h_host[s, i])
-            if h == 0.0:
+            if not h_host[:, s, i].any():
                 continue
+            h = h_dev[:, s, i, None]  # (T, 1)
             k = torch.zeros_like(phi)
             acc = torch.zeros_like(phi)
             for j in range(4):
                 sidx = (j + 1) >> 1
                 row = i * 3 + sidx
-                rot = rotor(t_st[s, row], cum[s, row])
-                w = rot * (phi + (h * 0.5 * sidx) * k)
-                coef = a[s, row].real[:, None] + 1j * (
-                    a[s, row].imag[:, None] * im_sign
+                rot = rotor(t_st[:, s, row], cum[:, s, row])
+                w = rot * (phi + (h * (0.5 * sidx)) * k)
+                amp = a[:, s, row]  # (T, n)
+                coef = torch.complex(
+                    amp.real[:, :, None].expand(-1, -1, dim),
+                    amp.imag[:, :, None] * im_sign,
                 )
-                y = (coef * w[partners]).sum(0)
+                y = (coef * w[:, partners]).sum(1)
                 k = -1j * (rot.conj() * y)
                 acc = acc + (1 / 3 if j in (1, 2) else 1 / 6) * k
             phi = phi + h * acc
-        lab = rotor(eval_t.reshape(-1)[s], eval_cum_mod.reshape(n_seg, n)[s])
-        lab = lab * phi
-        out[s, 0] = lab.real
-        out[s, 1] = lab.imag
+        lab = rotor(ev_t[:, s], ev_cum[:, s]) * phi
+        out[:, s, 0] = lab.real
+        out[:, s, 1] = lab.imag
     return out.reshape(n_seg, 2, 1 << n_row, 1 << n_col)
 
 

@@ -19,6 +19,10 @@ solve runs through the hand-written kernel of
 :mod:`pulser_tpu_torch.ops.kernels`; every other eligible configuration
 runs the torch loop :func:`_sesolve_scan_ip`.
 
+A noise-trajectory batch without collapse operators runs
+:func:`sesolve_rk4_batched`: the same kernel in its trajectory-batched
+mode under the same gate, else the torch loop with a batch axis.
+
 The quantum-jump (MCWF) batch runs one of two hand-written kernels
 (:func:`_mcwf_route`): the row-batched interaction-picture solve with
 diagonal collapse operators, or the lab-frame solve with general local
@@ -561,7 +565,7 @@ def sesolve_rk4(
     if state_mesh is not None:
         raise NotImplementedError(
             "State sharding is not ported yet (ROADMAP.md Queue 1,"
-            " 'backend, JSON, parallel and serving')."
+            " 'Backend, JSON, parallel and serving')."
         )
     cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
@@ -628,7 +632,9 @@ def _make_ip_phase_fn(
 ) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
     """Builds the interaction-picture phase evaluator.
 
-    Returns ``phase_at(diag_static, t_s, cum_s) -> (dim,)`` computing
+    Returns ``phase_at(diag_static, t_s, cum_s) -> (..., dim)`` (for a
+    ``(..., dim)`` diagonal and ``(..., n_bases, n)`` integrals, any
+    leading batch axes) computing
     ``(diag·t) mod 2π + Σ_bq cum_mod·occ`` with the projector
     occupancies synthesized as axis-wise broadcast adds (one small
     ``(d**g,)`` vector per qubit group) — no ``(n_bases, n, dim)``
@@ -659,18 +665,19 @@ def _make_ip_phase_fn(
     def phase_at(
         diag_static: torch.Tensor, t_s: torch.Tensor, cum_s: torch.Tensor
     ) -> torch.Tensor:
+        lead = diag_static.shape[:-1]
         shaped = torch.remainder(diag_static * t_s, 2 * math.pi).reshape(
-            group_shape
+            lead + group_shape
         )
         for b in range(len(pairs)):
             q0 = 0
             for j, g in enumerate(phase_groups):
-                vec = cum_s[b, q0 : q0 + g] @ patterns[b][j]
+                vec = cum_s[..., b, q0 : q0 + g] @ patterns[b][j]
                 shaped = shaped + vec.reshape(
-                    (1,) * j + (d**g,) + (1,) * (k_axes - 1 - j)
+                    lead + (1,) * j + (d**g,) + (1,) * (k_axes - 1 - j)
                 )
                 q0 += g
-        return shaped.reshape(-1)
+        return shaped.reshape(lead + (-1,))
 
     return phase_at
 
@@ -703,21 +710,26 @@ def _sesolve_scan_ip(
     per stage; only the small amplitude term ``A`` is integrated
     numerically.
 
+    A trajectory batch rides leading axes ``B`` of ``amp``,
+    ``det_cum_mod``, ``eval_cum_mod`` and ``diag_static`` (all four, or
+    none): the grid and the initial state are shared, and the loop runs
+    once over the steps whatever the batch.
+
     Args:
         psi0: ``(dim,)`` complex initial state.
-        amp: ``(n_seg, L, 3, n_bases, n)`` complex drive stages.
-        det_cum_mod: ``(n_seg, L, 3, n_bases, n)`` range-reduced
+        amp: ``(B..., n_seg, L, 3, n_bases, n)`` complex drive stages.
+        det_cum_mod: ``(B..., n_seg, L, 3, n_bases, n)`` range-reduced
             ``−∫det`` stages.
         t_stage: ``(n_seg, L, 3)`` stage times.
         dts: ``(n_seg, L)`` host step sizes (0 = padding, skipped).
         eval_t: ``(n_seg,)`` evaluation times.
-        eval_cum_mod: ``(n_seg, n_bases, n)`` range-reduced ``−∫det``
-            at the evaluation times.
-        diag_static: ``(dim,)`` static interaction diagonal.
+        eval_cum_mod: ``(B..., n_seg, n_bases, n)`` range-reduced
+            ``−∫det`` at the evaluation times.
+        diag_static: ``(B..., dim)`` static interaction diagonal.
         pairs, d, n: Static structure.
 
     Returns:
-        ``(n_seg, dim)`` lab-frame states after each segment.
+        ``(B..., n_seg, dim)`` lab-frame states after each segment.
     """
     rdtype = diag_static.dtype
     groups = group_sizes(d, n)
@@ -748,9 +760,12 @@ def _sesolve_scan_ip(
         return out
 
     n_seg, seg_len = dts.shape
-    phi = psi0
+    lead = tuple(diag_static.shape[:-1])
+    phi = psi0.expand(lead + tuple(psi0.shape))
     out = torch.empty(
-        (n_seg,) + tuple(psi0.shape), dtype=psi0.dtype, device=psi0.device
+        lead + (n_seg,) + tuple(psi0.shape),
+        dtype=psi0.dtype,
+        device=psi0.device,
     )
     for s in range(n_seg):
         for i in range(seg_len):
@@ -758,10 +773,16 @@ def _sesolve_scan_ip(
             if h == 0.0:
                 continue  # start padding of a short segment
             rots = [
-                rotor(phase_at(diag_static, t_stage[s, i, j], det_cum_mod[s, i, j]))
+                rotor(
+                    phase_at(
+                        diag_static,
+                        t_stage[s, i, j],
+                        det_cum_mod[..., s, i, j, :, :],
+                    )
+                )
                 for j in range(3)
             ]
-            mats = [drive_groups(amp[s, i, j]) for j in range(3)]
+            mats = [drive_groups(amp[..., s, i, j, :, :]) for j in range(3)]
             k = torch.zeros_like(phi)
             acc = torch.zeros_like(phi)
             for j in range(4):
@@ -773,7 +794,10 @@ def _sesolve_scan_ip(
                 acc = acc + _RK_B[j] * k
             phi = phi + h * acc
         # Emit in the lab frame: ψ = e^{-iΦ(t_eval)} φ
-        out[s] = rotor(phase_at(diag_static, eval_t[s], eval_cum_mod[s])) * phi
+        out[..., s, :] = (
+            rotor(phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :]))
+            * phi
+        )
     return out
 
 
@@ -1149,16 +1173,231 @@ def _stage_on_device(
 
 
 def _batched_inputs(
-    plans: BatchedPlan, names: tuple[str, ...]
+    plans: "list[EvolutionPlan] | BatchedPlan", names: tuple[str, ...]
 ) -> tuple[EvolutionPlan, int, dict[str, np.ndarray]]:
-    """``(base plan, B, host-staged dict)`` of a batched plan. (The JAX
-    package also takes a list of per-trajectory plans here; the port's
-    quantum-jump solves take a :class:`BatchedPlan` only.)"""
+    """``(base plan, B, host-staged dict)`` of a batched plan or of a
+    list of per-trajectory plans on one grid, the staged arrays in the
+    ``(B, n_seg, L, 3, ...)`` layout. (Of the port's solves only
+    :func:`sesolve_rk4_batched` takes a list.)"""
+    if isinstance(plans, BatchedPlan):
+        return (
+            plans.plan,
+            plans.n_traj,
+            {name: plans.seg_stage_b(name) for name in names},
+        )
     return (
-        plans.plan,
-        plans.n_traj,
-        {name: plans.seg_stage_b(name) for name in names},
+        plans[0],
+        len(plans),
+        {name: np.stack([p.seg_stage(name) for p in plans]) for name in names},
     )
+
+
+def sesolve_rk4_batched(
+    psi0: np.ndarray,
+    plans: "list[EvolutionPlan] | BatchedPlan",
+    static_diags: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    ip_occ: Any,
+    dtype: Any = None,
+    mesh: Any = None,
+    device: Any = None,
+) -> np.ndarray:
+    """Batched interaction-picture sesolve over noise trajectories.
+
+    Every trajectory's host-staged stage coefficients ride a leading
+    batch axis and the whole batch integrates at once: through the
+    trajectory-batched mode of the hand-written kernel
+    (:func:`~pulser_tpu_torch.ops.kernels.ip_sesolve` with
+    ``segs_per_traj``) for a :class:`BatchedPlan` of qubits (d=2) with one
+    ground-rydberg drive basis, 10 ≤ n ≤ 17, in single precision on a
+    CUDA device; through the torch loop :func:`_sesolve_scan_ip` with a
+    batch axis otherwise (any d and n, either precision, the CPU).
+
+    Args:
+        psi0: ``(dim,)`` shared complex initial state.
+        plans: A :class:`BatchedPlan`, or one :func:`build_plan` result
+            per trajectory; all share the grid and segment structure
+            (noise trajectories only perturb coefficient values). The
+            plans are host-staged (``host_stage=True``).
+        static_diags: ``(T, dim)`` per-trajectory interaction diagonals.
+        pairs, d, n: Static Hamiltonian structure.
+        ip_occ: Kept for the JAX package's signature: the solve always
+            runs in the interaction picture, the occupancies synthesized
+            from the basis index.
+        dtype: Complex dtype of the evolution (defaults to psi0's).
+        mesh: Trajectory sharding over devices; not ported.
+        device: The torch device to solve on (default: the first CUDA
+            device; without one this raises: pass ``"cpu"`` to run on
+            the CPU).
+
+    Returns:
+        ``(T, n_eval, dim)`` complex states at the evaluation times.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "Trajectory sharding over devices is not ported yet (ROADMAP.md"
+            " Queue 1, 'Backend, JSON, parallel and serving')."
+        )
+    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    dev = _resolve_device(device)
+    psi0_np = np.asarray(psi0, dtype=cdtype)
+    pairs = tuple(tuple(p) for p in pairs)
+    # The same gate as sesolve_rk4's: on a card it alone decides
+    if (
+        isinstance(plans, BatchedPlan)
+        and d == 2
+        and pairs == ((1, 0, 0),)
+        and 10 <= n <= 17
+        and rdtype == np.float32
+        and dev.type == "cuda"
+    ):
+        return _sesolve_batched_kernel(
+            psi0_np, plans, static_diags, n, cdtype, dev
+        )
+
+    def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
+            dev
+        )
+
+    # Phases reduced mod 2π in float64 on the host, before the cast
+    two_pi = 2 * np.pi
+    base, n_traj, staged = _batched_inputs(plans, ("amp", "det_cum"))
+    if isinstance(plans, BatchedPlan):
+        eval_cum = plans.eval_det_cum_b
+    else:
+        eval_cum = np.stack([p.eval_det_cum for p in plans])
+    out = _sesolve_scan_ip(
+        to_dev(psi0_np, cdtype),
+        to_dev(staged["amp"], cdtype),
+        to_dev((-staged["det_cum"]) % two_pi, rdtype),
+        to_dev(base.seg_stage("t_stage"), rdtype),
+        np.asarray(base.seg_dts, dtype=rdtype),
+        to_dev(base.eval_times - base.grid[0], rdtype),
+        to_dev((-eval_cum) % two_pi, rdtype),
+        to_dev(np.asarray(static_diags).real, rdtype),
+        pairs=pairs,
+        d=d,
+        n=n,
+    )
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind="sesolve_batched_torch",
+        dim=d**n,
+        n=n,
+        n_traj=n_traj,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+    )
+    # (T, n_seg, dim) -> the requested evaluation times, one transfer
+    return out.cpu().numpy()[:, base.eval_map].astype(cdtype)
+
+
+def ip_batched_kernel_inputs(
+    psi0_np: np.ndarray,
+    plans: BatchedPlan,
+    static_diags: np.ndarray,
+    n: int,
+    device: Any,
+) -> tuple[list[torch.Tensor], dict[str, Any]]:
+    """The arguments of :func:`~pulser_tpu_torch.ops.kernels.ip_sesolve`
+    for one trajectory batch: ``(tensors, keyword arguments)``.
+
+    The layout of the JAX package's ``_ip_sesolve_jit`` with
+    ``segs_per_traj``: (trajectory, segment) flattened trajectory-major
+    on the leading axis, the shared grid tiled per trajectory, float32,
+    qubits split over rows and columns. Drives and phase integrals come
+    from the plan's host-staged float64 arrays, reduced mod 2π before
+    the cast.
+    """
+    dev = torch.device(device)
+    n_col = 8 if n >= 15 else 7  # the JAX package's (rows, cols) split
+    n_row = n - n_col
+    rows, cols = 1 << n_row, 1 << n_col
+    two_pi = 2 * np.pi
+    n_traj = plans.n_traj
+    base = plans.plan
+    spt, seg_len = base.seg_dts.shape
+    n_flat = n_traj * spt
+    f32 = np.float32
+
+    def to_dev(host: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, dtype=f32)).to(
+            dev
+        )
+
+    def tiled(x: np.ndarray, shape: tuple) -> np.ndarray:
+        return np.tile(np.asarray(x, f32).reshape(shape), (n_traj, 1, 1))
+
+    # (B, S, L, 3, n) -> (B*S, L, 3, n), single drive basis
+    stage = (n_flat, seg_len, 3, n)
+    a = plans.seg_stage_b("amp")[..., 0, :].reshape(stage)
+    cum = (-plans.seg_stage_b("det_cum")[..., 0, :]) % two_pi
+    eval_cum = (-plans.eval_det_cum_b[:, :, 0, :]) % two_pi
+    seg_dts = tiled(base.seg_dts, (spt, seg_len, 1))
+    tensors = [
+        to_dev(a.real),
+        to_dev(a.imag),
+        to_dev(cum.reshape(stage)),
+        to_dev(tiled(base.seg_stage("t_stage"), (spt, seg_len, 3))),
+        to_dev(seg_dts),
+        to_dev(tiled(base.eval_times - base.grid[0], (spt, 1, 1))),
+        to_dev(eval_cum.reshape(n_flat, 1, n)),
+        to_dev(np.asarray(static_diags).real.reshape(n_traj, rows, cols)),
+        to_dev(psi0_np.real.reshape(rows, cols)),
+        to_dev(psi0_np.imag.reshape(rows, cols)),
+    ]
+    kwargs = dict(
+        n_row=n_row,
+        n_col=n_col,
+        seg_len=seg_len,
+        segs_per_traj=spt,
+        seg_dts_host=seg_dts,
+    )
+    return tensors, kwargs
+
+
+def _sesolve_batched_kernel(
+    psi0_np: np.ndarray,
+    plans: BatchedPlan,
+    static_diags: np.ndarray,
+    n: int,
+    cdtype: Any,
+    device: Any,
+) -> np.ndarray:
+    """Dispatches the trajectory-batched mode of the hand-written
+    interaction-picture sesolve kernel: one device launch for the whole
+    batch, the states fetched once.
+
+    On a CPU device the kernel's plain PyTorch version runs instead.
+    """
+    from pulser_tpu_torch.ops.kernels import ip_sesolve
+
+    dev = torch.device(device)
+    base = plans.plan
+    args, kwargs = ip_batched_kernel_inputs(
+        psi0_np, plans, static_diags, n, dev
+    )
+    out = ip_sesolve(*args, **kwargs)
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind=(
+            "ip_sesolve_batched_cuda"
+            if dev.type == "cuda"
+            else "ip_sesolve_batched_plain"
+        ),
+        rows=1 << kwargs["n_row"],
+        cols=1 << kwargs["n_col"],
+        n=n,
+        n_traj=plans.n_traj,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+    )
+    spt = kwargs["segs_per_traj"]
+    host = out.reshape(plans.n_traj, spt, 2, -1).cpu().numpy()
+    host = host[:, base.eval_map]  # (T, n_eval, 2, dim)
+    return (host[:, :, 0] + 1j * host[:, :, 1]).astype(cdtype)
 
 
 def _lindblad_drive_arrays(
@@ -1247,6 +1486,8 @@ def _diag_cops_spec(
 #: the lab-frame kernel (at n = 13 a trajectory's stage-input planes take
 #: 128 KiB of its block's shared memory).
 MCWF_MAX_QUBITS = 13
+#: The ROADMAP item that holds what the quantum-jump kernels do not take.
+_MCWF_SCAN_ITEM = "ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'"
 
 
 def _n_bases(plans: BatchedPlan) -> int:
@@ -1281,25 +1522,31 @@ def _mcwf_route(
         when neither takes it (the reason names the ROADMAP item).
     """
     if not isinstance(plans, BatchedPlan):
-        return None, "the quantum-jump solve takes a BatchedPlan"
+        return None, (
+            "the quantum-jump kernels take a BatchedPlan; a list of plans"
+            f" runs the vmapped scan ({_MCWF_SCAN_ITEM})"
+        )
     if not collapse_ops:
         return None, (
-            "noisy runs without collapse operators need the batched"
-            " sesolve (ROADMAP.md Queue 1, 'batched K1')"
+            "without collapse operators there is no quantum jump to solve:"
+            " such a batch runs sesolve_rk4_batched"
         )
     if d != 2 or _n_bases(plans) != 1 or tuple(pairs) != ((1, 0, 0),):
         return None, (
-            "only one ground-rydberg basis (d=2) is ported; qudits and"
-            " several bases are ROADMAP.md Queue 1, 'lab-frame, XY and"
-            " qudit sesolve'"
+            "the quantum-jump kernels take one ground-rydberg basis (d=2);"
+            f" qudits and several bases run the vmapped scan"
+            f" ({_MCWF_SCAN_ITEM})"
         )
     if np.dtype(rdtype) != np.float32:
-        return None, "the quantum-jump solve runs in single precision only"
+        return None, (
+            "the quantum-jump kernels run in single precision only; double"
+            f" precision runs the vmapped scan ({_MCWF_SCAN_ITEM})"
+        )
     if not 2 <= n <= MCWF_MAX_QUBITS:
         return None, (
-            f"the quantum-jump solves take 2 <= n <= {MCWF_MAX_QUBITS}"
-            f" qubits, not {n} (larger registers: ROADMAP.md Queue 1,"
-            " 'backend, JSON, parallel and serving')"
+            f"the quantum-jump kernels take 2 <= n <= {MCWF_MAX_QUBITS}"
+            f" qubits, not {n}; larger registers run the vmapped scan"
+            f" ({_MCWF_SCAN_ITEM})"
         )
     if not ip:
         return "lab", None
@@ -1307,8 +1554,7 @@ def _mcwf_route(
         return None, (
             "the interaction-picture quantum-jump solve with non-diagonal"
             " collapse operators (relaxation and other single matrix"
-            " units) is not ported (ROADMAP.md Queue 1, 'IP quantum jumps"
-            " with general collapse operators')"
+            f" units) runs the vmapped scan ({_MCWF_SCAN_ITEM})"
         )
     return "rows", None
 

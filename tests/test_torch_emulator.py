@@ -220,3 +220,124 @@ def test_noise_is_not_ported_yet():
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port(seq, noise_model=NoiseModel(dephasing_rate=0.1))
+
+
+# -- SPAM measurement errors on coherent results --------------------------
+
+
+def _coherent_pair(meas_errors, seed=3, n=3, n_times=2):
+    """The same random states as ``CoherentResults`` of both packages."""
+    from pulser_tpu.emulator.sim_result import TpuResult
+    from pulser_tpu.emulator.simresults import CoherentResults as JaxCoherent
+    from pulser_tpu.emulator import qobj as jax_qobj
+
+    from pulser_tpu_torch.emulator.qobj import Qobj
+    from pulser_tpu_torch.emulator.sim_result import TorchResult
+
+    rng = np.random.default_rng(seed)
+    states = rng.normal(size=(n_times, 2**n)) + 1j * rng.normal(
+        size=(n_times, 2**n)
+    )
+    states /= np.linalg.norm(states, axis=1, keepdims=True)
+    qids = tuple(f"q{i}" for i in range(n))
+    times = np.linspace(0.0, 1.0, n_times)
+    dims = [[2] * n, [1] * n]
+    out = []
+    for result_cls, qobj_cls, res_cls in (
+        (TpuResult, jax_qobj.Qobj, JaxCoherent),
+        (TorchResult, Qobj, CoherentResults),
+    ):
+        results = [
+            result_cls(
+                qids, "ground-rydberg", qobj_cls(s, dims=dims), True,
+                evaluation_time=float(t),
+            )
+            for s, t in zip(states, times)
+        ]
+        out.append(
+            res_cls(
+                results, n, "ground-rydberg", times, "ground-rydberg",
+                meas_errors,
+            )
+        )
+    return out
+
+
+@pytest.mark.parametrize(
+    "meas_errors",
+    [
+        {"epsilon": 0.1, "epsilon_prime": 0.25},
+        {"epsilon": 0.0, "epsilon_prime": 0.3},
+        {"epsilon": 0.0, "epsilon_prime": 0.0},
+        None,
+    ],
+    ids=["both", "false_neg", "zero", "none"],
+)
+def test_coherent_results_meas_errors_match_pulser_tpu(meas_errors):
+    """``sample_state`` (SPAM flips from the numpy global RNG),
+    ``_meas_projector`` and the pseudo-density expectation equal the JAX
+    package's on the same states and seed."""
+    jres, tres = _coherent_pair(meas_errors)
+    assert tres._use_pseudo_dens == jres._use_pseudo_dens == (
+        meas_errors is not None
+    )
+    for state_n in (0, 1):
+        assert np.array_equal(
+            tres._meas_projector(state_n).full(),
+            np.asarray(jres._meas_projector(state_n).full()),
+        )
+    rng_state = np.random.get_state()
+    try:
+        for t in (0.0, 1.0):
+            np.random.seed(11)
+            want = jres.sample_state(t, n_samples=300)
+            j_after = np.random.rand()
+            np.random.seed(11)
+            got = tres.sample_state(t, n_samples=300)
+            assert np.random.rand() == j_after
+            assert got == want and sum(got.values()) == 300
+    finally:
+        np.random.set_state(rng_state)
+    # A diagonal observable: the Rydberg occupation of atom 0
+    obs = np.kron(np.diag([1.0, 0.0]), np.eye(4))
+    assert np.allclose(
+        tres.expect([obs])[0], np.asarray(jres.expect([obs])[0]), atol=1e-12
+    )
+
+
+def test_coherent_results_meas_errors_keys():
+    with pytest.raises(ValueError, match="epsilon"):
+        _coherent_pair({"epsilon": 0.1})
+
+
+def test_spam_measurement_errors_alone_stay_coherent():
+    """False positives and negatives without preparation errors are no
+    shot-to-shot noise: one coherent run whose samples carry the flips,
+    as in the JAX package."""
+    seq = _afm_sequence(
+        tpu.Register.square(2, spacing=6.0, prefix="q"),
+        2 * np.pi, -2 * np.pi, 2 * np.pi, 100, 100, 100,
+    )
+    spam = dict(p_false_pos=0.1, p_false_neg=0.2)
+    jres = TpuEmulator.from_sequence(
+        seq, noise_model=tpu.NoiseModel(**spam), evaluation_times="Minimal"
+    ).run()
+    tres = _port(
+        seq, noise_model=NoiseModel(**spam), evaluation_times="Minimal"
+    ).run()
+    assert isinstance(tres, CoherentResults)
+    assert tres._meas_errors == jres._meas_errors == {
+        "epsilon": 0.1, "epsilon_prime": 0.2,
+    }
+    rng_state = np.random.get_state()
+    try:
+        np.random.seed(2)
+        want = jres.sample_final_state(200)
+        np.random.seed(2)
+        got = tres.sample_final_state(200)
+    finally:
+        np.random.set_state(rng_state)
+    moved = sum(abs(got.get(k, 0) - want.get(k, 0)) for k in set(got) | set(want))
+    # complex64 against complex128 states: a draw within float32 rounding
+    # of a bin edge may move one count
+    assert moved <= 2

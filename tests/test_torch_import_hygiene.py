@@ -41,6 +41,11 @@ def _foreign_modules(statements: str) -> list[str]:
         "import pulser_tpu_torch.ops.random, pulser_tpu_torch.ops.solver",
         "import chip_smoke; chip_smoke.noisy10_inputs()",
         "import chip_smoke; chip_smoke.pauli10_inputs()",
+        "import chip_smoke; chip_smoke.spd10_inputs()",
+        "import chip_smoke;"
+        " chip_smoke.random_batched_kernel_inputs(10, 0, 'cpu')",
+        "import pulser_tpu_torch.emulator.simulation,"
+        " pulser_tpu_torch.emulator.simresults, pulser_tpu_torch.ops.apply",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

@@ -19,6 +19,8 @@ torch.set_num_threads(1)
 
 #: Both run in float32 with different summation orders and libm.
 TOL = 1e-5
+#: The trajectory-batched K1 (as K1, over up to three times the steps).
+BATCHED_TOL = 2e-5
 #: K2 and K3 (float32, block reductions; K2's phases reach ~100 rad).
 MCWF_TOL = 5e-5
 
@@ -65,6 +67,91 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
     args[0] = args[0].double()
     with pytest.raises(TypeError, match="float32"):
         K.ip_sesolve(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_traj", [1, 3])
+@pytest.mark.parametrize("n", list(range(10, 18)))
+def test_cuda_batched_kernel_matches_plain_twin(cuda, n, n_traj):
+    """The trajectory-batched mode: one block per trajectory up to n = 13,
+    the cooperative kernel above; every trajectory with its own drives,
+    phase integrals and diagonal, reset from psi0."""
+    args, kw = chip_smoke.random_batched_kernel_inputs(
+        n, n, cuda, n_traj=n_traj
+    )
+    before = K.IP_SESOLVE_BATCHED_LAUNCHES, K.IP_SESOLVE_LAUNCHES
+    got = K.ip_sesolve(*args, **kw)
+    torch.cuda.synchronize()
+    assert K.IP_SESOLVE_BATCHED_LAUNCHES == before[0] + 1
+    assert K.IP_SESOLVE_LAUNCHES == before[1]
+    want = K.ip_sesolve_reference(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= BATCHED_TOL
+    if n_traj > 1:
+        # The trajectories really differ
+        assert float((want[:2] - want[2:4]).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 12, 14])
+def test_cuda_batched_kernel_equals_single_solves(cuda, n):
+    """Each trajectory of a batch equals the single-trajectory kernel on
+    its own rows and diagonal (same arithmetic, other grid)."""
+    args, kw = chip_smoke.random_batched_kernel_inputs(n, 50 + n, cuda)
+    got = K.ip_sesolve(*args, **kw)
+    spt = kw.pop("segs_per_traj")
+    for t in range(3):
+        rows = slice(t * spt, (t + 1) * spt)
+        one = [a[rows].contiguous() for a in args[:7]]
+        one += [args[7][t : t + 1].contiguous(), args[8], args[9]]
+        single = K.ip_sesolve(*one, **kw)
+        assert float((got[rows] - single).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 13, 15])
+def test_cuda_batched_kernel_padding_steps(cuda, n):
+    """Leading all-padding segments (an evaluation at t = 0), a first
+    real step beyond the 32 a warp looks at in one go, and per-trajectory
+    padding that differs."""
+    args, kw = chip_smoke.random_batched_kernel_inputs(
+        n, 70 + n, cuda, n_traj=3, seg_len=40, n_seg=3
+    )
+    dts = args[4].reshape(3, 3, 40)
+    dts[:, 0] = 0.0  # segment 0 emits psi0 in the lab frame
+    dts[:, 1, :35] = 0.0
+    dts[1, 2, :5] = 0.0  # trajectory 1 alone pads 5 steps here
+    got = K.ip_sesolve(*args, **kw)
+    torch.cuda.synchronize()
+    want = K.ip_sesolve_reference(*args, **kw)
+    assert float((got - want).abs().max()) <= BATCHED_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 13, 14, 17])
+def test_cuda_batched_kernel_is_one_device_launch(cuda, n):
+    args, kw = chip_smoke.random_batched_kernel_inputs(n, n, cuda)
+
+    def call():
+        return K.ip_sesolve(*args, **kw)
+
+    call()  # build and load first
+    counted, launched = chip_smoke.launches_per_call(
+        K, K.ip_sesolve_batched_library(n), call
+    )
+    assert counted == 1
+    assert not launched or (
+        len(launched) == 1 and "ip_sesolve" in launched[0]
+    )
+
+
+@pytest.mark.cuda
+def test_cuda_batched_wrapper_rejects_bad_inputs(cuda):
+    args, kw = chip_smoke.random_batched_kernel_inputs(10, 0, cuda)
+    with pytest.raises(ValueError, match="whole number"):
+        K.ip_sesolve(*args, **{**kw, "segs_per_traj": 4})
+    with pytest.raises(ValueError, match="shape"):
+        K.ip_sesolve(*args[:7], args[7][:1].contiguous(), *args[8:], **kw)
 
 
 def _check_k2(args):

@@ -419,30 +419,49 @@ def test_fused_codes_match_pallas_away_from_edges(rows_interpret):
     print(f"{len(near)} draws within {EDGE_TOL} of a bin edge: {near.tolist()}")
 
 
+#: The ROADMAP item that holds what the quantum-jump kernels do not take,
+#: quoted by title.
+SCAN_ITEM = r"\(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)"
+
+
 @pytest.mark.parametrize(
     "change, match",
     [
-        (dict(collapse_ops=[]), "batched K1"),
+        # No collapse operators: not a quantum-jump solve at all
+        (dict(collapse_ops=[]), "such a batch runs sesolve_rk4_batched"),
         # Relaxation (a single matrix unit) on the interaction-picture grid
         (
             dict(collapse_ops=[0.3 * np.array([[0, 1], [0, 0]], complex)]),
-            "IP quantum jumps with general collapse operators",
+            "single matrix\n? ?units\\) runs the vmapped scan " + SCAN_ITEM,
         ),
-        (dict(ip=False, n=14), "2 <= n <= 13"),
-        (dict(dtype=np.complex128), "single precision"),
+        (
+            dict(ip=False, n=14),
+            "2 <= n <= 13 qubits, not 14; larger registers run the vmapped"
+            " scan " + SCAN_ITEM,
+        ),
+        (
+            dict(dtype=np.complex128),
+            "double precision runs the vmapped scan " + SCAN_ITEM,
+        ),
+        (dict(plans="list"), "a list of plans runs the vmapped scan " + SCAN_ITEM),
         (dict(d=3), "qudits"),
     ],
+    ids=["no_cops", "relaxation", "n14", "float64", "plan_list", "d3"],
 )
 def test_solver_refuses_outside_the_gate(change, match):
     """Neither quantum-jump solve takes these: the state-returning solve
-    raises naming the ROADMAP item, and the fused one declines (None),
-    as the JAX package's does."""
+    raises quoting the title of the ROADMAP item that holds them (never
+    its number), and the fused one declines (None), as the JAX package's
+    does."""
     _, tplans, diags, psi0, common = _batched_case(4, 2, (0.1,), 0)
+    if change.pop("plans", None) == "list":
+        tplans = [tplans.plan] * tplans.n_traj
     common.update(change)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         torch_solver.mcsolve_rk4_batched(
             psi0, tplans, diags, device="cpu", **common
         )
+    assert "item" not in str(err.value)
     assert (
         torch_solver.mcsolve_rows_codes(
             psi0, tplans, diags, sample_spec=None, device="cpu", **common

@@ -17,9 +17,16 @@ The same holds on the lab-frame route: under Pulser's effective-noise
 Pauli channel (general collapse operators) both packages solve in the
 lab frame and draw the counts on the host.
 
+Without collapse operators (SPAM, doppler and amplitude noise only) both
+packages integrate the trajectories as one pure-state batch
+(``sesolve_rk4_batched``) and sample on the host from the numpy global
+RNG: the stream is left at the same point and the counts are equal, in
+double precision exactly, in single precision up to one draw that may
+sit within float32 rounding of a cumsum bin edge.
+
 Configurations outside the ported slice raise ``NotImplementedError``
-naming the ROADMAP item, and no entry point moves to the CPU unless it
-is asked to.
+quoting the title of the ROADMAP item that holds them, and no entry
+point moves to the CPU unless it is asked to.
 """
 
 from __future__ import annotations
@@ -77,11 +84,12 @@ def jax_rows(monkeypatch):
         jax.config.update("jax_enable_x64", True)
 
 
-def _sequence(local=False):
-    """A 2x2 register under a global Rydberg pulse; with ``local``, a
-    second (local) Rydberg channel on the same basis, which takes the
-    emulator's generic coefficient batch instead of the factored one."""
-    reg = tpu.Register.rectangle(2, 2, spacing=7.0, prefix="q")
+def _sequence(local=False, shape=(2, 2)):
+    """A 2x2 register (or ``shape``) under a global Rydberg pulse; with
+    ``local``, a second (local) Rydberg channel on the same basis, which
+    takes the emulator's generic coefficient batch instead of the
+    factored one."""
+    reg = tpu.Register.rectangle(*shape, spacing=7.0, prefix="q")
     seq = tpu.Sequence(reg, tpu.MockDevice)
     seq.declare_channel("ryd", "rydberg_global")
     seq.add(tpu.Pulse.ConstantPulse(400, 2 * np.pi, -1.0, 0.0), "ryd")
@@ -270,34 +278,185 @@ def test_n_trajectories_and_solver_options():
 
 
 @pytest.mark.parametrize(
-    "params, types, match",
+    "params, types, shape, match",
     [
-        # SPAM and doppler only: no collapse operators
+        # SPAM and doppler only: no collapse operators. Inside the slice
+        # now: the pure-state batch runs
         (
             dict(state_prep_error=0.05, p_false_pos=0.01, temperature=40),
             {"SPAM", "doppler"},
-            "batched K1",
+            (2, 2),
+            None,
         ),
         # depolarizing: the serial quantum-jump solve in the JAX package
         (
             dict(depolarizing_rate=0.1, temperature=40),
             {"depolarizing", "doppler"},
-            "serial mcsolve_rk4",
+            (2, 2),
+            "ROADMAP.md Queue 1, 'Serial mcsolve_rk4'",
         ),
         # relaxation: a single matrix unit, on the interaction-picture grid
         (
             dict(relaxation_rate=0.2, temperature=40),
             {"relaxation", "doppler"},
-            "IP quantum jumps with general collapse operators",
+            (2, 2),
+            "general collapse operators, on the vmapped scan"
+            r" \(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)",
+        ),
+        # more atoms than the quantum-jump kernels take: the JAX package
+        # runs its vmapped scan
+        (
+            dict(dephasing_rate=0.1, temperature=40),
+            {"dephasing", "doppler"},
+            (2, 7),
+            "2 to 13 atoms, not 14; larger registers run the vmapped scan"
+            r" \(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)",
+        ),
+        # register (position) noise jitters the atoms in three dimensions
+        (
+            dict(trap_waist=1.0, trap_depth=150.0, temperature=40),
+            {"register", "doppler"},
+            (2, 2),
+            "ROADMAP.md Queue 1, 'Register noise and Register3D'",
         ),
     ],
+    ids=[
+        "spam_doppler", "depolarizing", "relaxation", "fourteen_atoms",
+        "register_noise",
+    ],
 )
-def test_configurations_outside_the_slice_raise(params, types, match):
+def test_configurations_outside_the_slice_raise(params, types, shape, match):
     noise = _noise(**params, runs=6, samples_per_run=4)
     assert set(noise.noise_types) == types
     np.random.seed(SEED)
-    with pytest.raises(NotImplementedError, match=match):
-        _port_emulator(_sequence(), noise)
+    if match is None:
+        res = _port_emulator(_sequence(), noise).run()
+        assert isinstance(res, NoisyResults) and res.n_measures == 24
+        assert torch_solver.last_solve_info["kind"] == "sesolve_batched_torch"
+        return
+    with pytest.raises(NotImplementedError, match=match) as err:
+        _port_emulator(_sequence(shape=shape), noise)
+    # Titles are quoted, never item numbers
+    assert "item" not in str(err.value)
+
+
+@pytest.fixture
+def jax_unsharded(monkeypatch):
+    """The JAX package on one device, on its default (XLA) routes."""
+    monkeypatch.setenv("PULSER_TPU_DISABLE_SHARDING", "1")
+    monkeypatch.delenv("PULSER_TPU_PALLAS_INTERPRET", raising=False)
+    monkeypatch.delenv("PULSER_TPU_SESOLVE_PALLAS_BATCHED", raising=False)
+
+
+#: SPAM, doppler and amplitude noise with a laser waist: no collapse
+#: operators.
+PURE_NOISE = {k: v for k, v in NOISE.items() if k != "dephasing_rate"}
+
+
+@pytest.mark.parametrize("double", [True, False], ids=["double", "single"])
+@pytest.mark.parametrize("local", [False, True], ids=["factored", "generic"])
+def test_pure_state_noisy_run_matches_pulser_tpu(
+    jax_unsharded, monkeypatch, double, local
+):
+    """SPAM + doppler + amplitude on 4 atoms through both packages on the
+    same seed: same route, same plan, same RNG stream afterwards, and
+    equal counts (in single precision one draw may sit within float32
+    rounding of a bin edge and move one count from a bin to the next)."""
+    seq, noise = _sequence(local), _noise(**PURE_NOISE)
+    assert set(noise.noise_types) == {"SPAM", "doppler", "amplitude"}
+    jax.config.update("jax_enable_x64", double)
+    torch.set_default_dtype(torch.float64 if double else torch.float32)
+    try:
+        np.random.seed(SEED)
+        jemu = _jax_emulator(seq, noise)
+        assert jemu._can_batch_trajectories()
+        jres = jemu.run()
+        jax_after = np.random.rand()
+
+        captured = {}
+        solve = torch_solver.sesolve_rk4_batched
+
+        def record(*args, **kwargs):
+            captured["plans"] = args[1]
+            captured["states"] = solve(*args, **kwargs)
+            return captured["states"]
+
+        monkeypatch.setattr(torch_solver, "sesolve_rk4_batched", record)
+        np.random.seed(SEED)
+        temu = _port_emulator(seq, noise)
+        tres = temu.run()
+        assert np.random.rand() == jax_after
+    finally:
+        jax.config.update("jax_enable_x64", True)
+        torch.set_default_dtype(torch.float32)
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "sesolve_batched_torch"
+    assert info["n_traj"] == len(captured["states"]) <= 6
+    states = captured["states"]
+    assert states.dtype == (np.complex128 if double else np.complex64)
+    assert states.shape[1:] == (2, 16)
+    # Renormalized after the coarsened solve
+    assert np.allclose(np.linalg.norm(states, axis=-1), 1.0, atol=1e-6)
+    assert isinstance(tres, NoisyResults)
+    assert np.array_equal(tres._sim_times, jres._sim_times)
+    assert tres.n_measures == jres.n_measures == 24
+    moved = 0
+    for t_res, j_res in zip(tres, jres):
+        assert t_res.evaluation_time == j_res.evaluation_time
+        tc, jc = t_res.bitstring_counts, j_res.bitstring_counts
+        assert sum(tc.values()) == sum(jc.values()) == 24
+        moved += sum(
+            abs(tc.get(k, 0) - jc.get(k, 0)) for k in set(tc) | set(jc)
+        )
+    assert moved <= (0 if double else 2)
+
+
+def test_pure_state_batch_policy_matches_pulser_tpu(jax_unsharded):
+    """The step policy of the pure-state batch reads the per-trajectory
+    shims: both packages build the same plan from the same draws."""
+    seq, noise = _sequence(), _noise(**PURE_NOISE)
+    jemu, temu = _both(seq, noise)
+    jb, tb = jemu._noisy_coeff_batch(), temu._noisy_coeff_batch()
+    assert len(tb.shims) == len(jb.shims) == len(tb.reps)
+    for got, want in zip(tb.shims, jb.shims):
+        assert type(got).__name__ == type(want).__name__ == "_CoeffShim"
+        assert got.max_flip_gap == want.max_flip_gap > 0
+        assert np.array_equal(got.amp_coeffs, np.asarray(want.amp_coeffs))
+        assert np.array_equal(got.det_coeffs, np.asarray(want.det_coeffs))
+    opts_t, opts_j = {}, {}
+    temu._validate_options(opts_t)
+    jemu._validate_options(opts_j)
+    step_t = temu._coarse_ip_step("k", 1e-3, 12.0, tb.shims, opts_t)
+    step_j = jemu._coarse_ip_step("k", 1e-3, 12.0, jb.shims, opts_j)
+    assert step_t == step_j and step_t[1]
+
+
+def test_pure_state_run_twice_and_progress(jax_unsharded, capsys):
+    """A second run() redraws the trajectories from the same point of
+    the RNG stream as the JAX package's."""
+    seq, noise = _sequence(), _noise(**PURE_NOISE)
+    jemu, temu = _both(seq, noise)
+    np.random.seed(5)
+    jemu.run()
+    j2 = jemu.run()
+    j_after = np.random.rand()
+    np.random.seed(5)
+    temu.run()
+    t2 = temu.run(print_progress=True)
+    assert np.random.rand() == j_after
+    assert "(batched)" in capsys.readouterr().out
+    assert [r.n_samples for r in t2] == [r.n_samples for r in j2] == [24, 24]
+
+
+def test_spam_with_another_initial_state_raises():
+    """State-preparation errors assume the all-ground initial state."""
+    np.random.seed(SEED)
+    emu = _port_emulator(_sequence(), _noise(**PURE_NOISE))
+    psi = np.zeros(16, complex)
+    psi[0] = 1.0
+    emu.set_initial_state(psi)
+    with pytest.raises(NotImplementedError, match="different from the ground"):
+        emu.run()
 
 
 def test_master_equation_solver_raises():
@@ -387,4 +546,16 @@ def test_entry_points_need_a_card_or_the_cpu(monkeypatch):
             from_jax_samples(tpu.sampler.sample(seq)),
             from_jax_register(seq.register),
             from_jax_device(seq.device),
+        )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_solver.sesolve_rk4_batched(
+            np.ones(4, np.complex64), None, None, ((1, 0, 0),), 2, 2, True
+        )
+    # ... the noisy emulator of the pure-state batch included
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        TorchEmulator(
+            from_jax_samples(tpu.sampler.sample(seq)),
+            from_jax_register(seq.register),
+            from_jax_device(seq.device),
+            noise_model=from_jax_noise_model(_noise(**PURE_NOISE)),
         )

@@ -7,6 +7,11 @@
   complex128 solve to max |Δ| ≤ 1e-12 (same grid and RK4 arithmetic,
   other summation orders), and complex64 against the same JAX solve to
   1 − F ≤ 1e-6 (float32 rounding over the sweep).
+- ``sesolve_rk4_batched`` (noise-trajectory batches) against the JAX
+  package's vmapped XLA route on the same batched plan: complex128 to
+  max |Δ| ≤ 1e-12, complex64 to 1 − F ≤ 1e-6, for qubits, for a d = 3
+  basis, for a list of plans, and through the batched kernel's plain
+  twin.
 """
 
 from __future__ import annotations
@@ -270,3 +275,138 @@ def test_ip_kernel_rows_share_rotors(monkeypatch, make_plan):
     np.testing.assert_array_equal(c[:-1, 2], c[1:, 0])
     # The steps compared cross segment boundaries
     assert np.count_nonzero(plan.seg_dts.any(axis=1)) > 1
+
+
+def _batched_case(n, d, pairs, n_traj=3, seed=12):
+    """A random trajectory batch on six knots, as the JAX package's own
+    batched tests build it: ``(knots, coeffs, eval_times, diags, psi0)``."""
+    rng = np.random.default_rng(seed)
+    nb = len(pairs)
+    knots = np.linspace(0.0, 0.1, 6)
+    amp_b = rng.uniform(1, 5, size=(n_traj, nb, n, 6)) * np.exp(
+        1j * rng.uniform(0, 2 * np.pi, size=(n_traj, nb, n, 1))
+    )
+    det_b = rng.normal(0, 2, size=(n_traj, nb, n, 6))
+    diags = rng.uniform(0, 20, size=(n_traj, d**n))
+    psi0 = np.zeros(d**n, complex)
+    psi0[-1] = 1.0
+    return (
+        knots, {"amp": amp_b, "det": det_b}, np.array([0.0, 0.04, 0.1]),
+        diags, psi0,
+    )
+
+
+def _jax_batched(case, pairs, d, n, dtype):
+    knots, coeffs, eval_times, diags, psi0 = case
+    plans = jax_solver.build_plan_batched(
+        knots, coeffs, eval_times, max_step=2e-3
+    )
+    return jax_solver.sesolve_rk4_batched(
+        psi0, plans, diags, pairs, d, n, True, dtype=dtype
+    )
+
+
+@pytest.mark.parametrize(
+    "n, d, pairs",
+    [(6, 2, ((1, 0, 0),)), (10, 2, ((1, 0, 0),)), (4, 3, ((0, 1, 0), (1, 2, 2)))],
+    ids=["qubits6", "qubits10", "qutrits4"],
+)
+@pytest.mark.parametrize(
+    "dtype, check",
+    [
+        (np.complex128, lambda w, g: np.max(np.abs(w - g)) <= 1e-12),
+        (
+            np.complex64,
+            lambda w, g: max(np.max(_infidelity(a, b)) for a, b in zip(w, g))
+            <= 1e-6,
+        ),
+    ],
+    ids=["complex128", "complex64"],
+)
+def test_sesolve_batched_matches_jax(monkeypatch, n, d, pairs, dtype, check):
+    monkeypatch.delenv("PULSER_TPU_PALLAS_INTERPRET", raising=False)
+    case = _batched_case(n, d, pairs)
+    want = np.asarray(_jax_batched(case, pairs, d, n, np.complex128))
+    knots, coeffs, eval_times, diags, psi0 = case
+    plans = torch_solver.build_plan_batched(
+        knots, coeffs, eval_times, max_step=2e-3
+    )
+    got = torch_solver.sesolve_rk4_batched(
+        psi0, plans, diags, pairs, d, n, True, dtype=dtype, device="cpu"
+    )
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "sesolve_batched_torch" and info["n_traj"] == 3
+    assert got.shape == want.shape == (3, 3, d**n) and got.dtype == dtype
+    assert check(want, got)
+    # The trajectories differ, and each starts from psi0
+    assert np.allclose(got[:, 0], psi0, atol=1e-6)
+    assert np.max(np.abs(got[0, -1] - got[1, -1])) > 1e-2
+
+
+def test_sesolve_batched_takes_a_list_of_plans():
+    """One plan per trajectory on one grid, as the JAX function takes."""
+    n, d, pairs = 5, 2, ((1, 0, 0),)
+    knots, coeffs, eval_times, diags, psi0 = _batched_case(n, d, pairs)
+    batched = torch_solver.build_plan_batched(
+        knots, coeffs, eval_times, max_step=2e-3
+    )
+    plans = [
+        torch_solver.build_plan(
+            knots, {k: v[t] for k, v in coeffs.items()}, eval_times,
+            max_step=2e-3,
+        )
+        for t in range(3)
+    ]
+    kw = dict(dtype=np.complex128, device="cpu")
+    want = torch_solver.sesolve_rk4_batched(
+        psi0, batched, diags, pairs, d, n, True, **kw
+    )
+    got = torch_solver.sesolve_rk4_batched(
+        psi0, plans, diags, pairs, d, n, True, **kw
+    )
+    assert np.max(np.abs(got - want)) <= 1e-14
+    jplans = [
+        jax_solver.build_plan(
+            knots, {k: v[t] for k, v in coeffs.items()}, eval_times,
+            max_step=2e-3,
+        )
+        for t in range(3)
+    ]
+    jwant = jax_solver.sesolve_rk4_batched(
+        psi0, jplans, diags, pairs, d, n, True, dtype=np.complex128
+    )
+    assert np.max(np.abs(got - np.asarray(jwant))) <= 1e-12
+
+
+def test_sesolve_batched_kernel_route_on_cpu_matches_jax():
+    """The batched kernel's dispatch with its plain twin (what a CPU
+    tensor gets) against the JAX XLA route: float32, 1 − F ≤ 1e-6."""
+    n, d, pairs = 10, 2, ((1, 0, 0),)
+    case = _batched_case(n, d, pairs)
+    want = np.asarray(_jax_batched(case, pairs, d, n, np.complex128))
+    knots, coeffs, eval_times, diags, psi0 = case
+    plans = torch_solver.build_plan_batched(
+        knots, coeffs, eval_times, max_step=2e-3
+    )
+    got = torch_solver._sesolve_batched_kernel(
+        psi0.astype(np.complex64), plans, diags, n, np.complex64, "cpu"
+    )
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "ip_sesolve_batched_plain" and info["n_traj"] == 3
+    assert got.shape == want.shape
+    assert max(np.max(_infidelity(a, b)) for a, b in zip(want, got)) <= 1e-6
+
+
+def test_sesolve_batched_refuses_a_mesh_and_needs_a_device():
+    n, d, pairs = 4, 2, ((1, 0, 0),)
+    knots, coeffs, eval_times, diags, psi0 = _batched_case(n, d, pairs)
+    plans = torch_solver.build_plan_batched(knots, coeffs, eval_times)
+    with pytest.raises(NotImplementedError, match="parallel and serving"):
+        torch_solver.sesolve_rk4_batched(
+            psi0, plans, diags, pairs, d, n, True, mesh=object(), device="cpu"
+        )
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            torch_solver.sesolve_rk4_batched(
+                psi0, plans, diags, pairs, d, n, True
+            )

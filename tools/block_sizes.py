@@ -1,7 +1,9 @@
-"""Times K1, K2 and K3 at several thread-block sizes and register
-policies, in turns, on one CUDA card.
+"""Times K1, its trajectory-batched mode, K2 and K3 at several
+thread-block sizes and register policies, in turns, on one CUDA card.
 
-K1 (``csrc/ip_sesolve.cu``) runs the AFM16 sweep, K2
+K1 (``csrc/ip_sesolve.cu``) runs the AFM16 sweep, the batched K1
+(``csrc/ip_sesolve_batched.cu``, ``kThreads``) the SPD10 batch and, like
+K2 below, 100 random trajectories of 254 steps at n = 11, 12 and 13, K2
 (``csrc/mcwf_rows.cu``) the NOISY10 quantum-jump batch, K3
 (``csrc/mcwf.cu``) the PAULI10 batch, each on its main path's own inputs
 at 256, 512 and 1024 threads per block (``kMaxThreads``). K2 also runs
@@ -17,7 +19,9 @@ through the package's wrapper; every result is checked against the
 shipped kernel's. Run from the repository root on a machine with the
 card::
 
-    python3 tools/block_sizes.py
+    python3 tools/block_sizes.py [group ...]
+
+With no argument every group of :data:`GROUPS` runs (a few minutes).
 """
 
 from __future__ import annotations
@@ -54,6 +58,39 @@ GROUPS = {
             "512 threads": {},
             "256 threads": {"kMaxThreads": 256},
             "1024 threads": {"kMaxThreads": 1024},
+        },
+    ),
+    "ip_sesolve_batched": (
+        "ip_sesolve_batched",
+        (10,),
+        {
+            "1024 threads": {},
+            "512 threads": {
+                "kThreads": 512,
+                "kLeanFromAmps": _NEVER,
+                "kSharedAccFromAmps": _NEVER,
+            },
+            "256 threads": {
+                "kThreads": 256,
+                "kLeanFromAmps": _NEVER,
+                "kSharedAccFromAmps": _NEVER,
+            },
+        },
+    ),
+    "ip_sesolve_batched_big": (
+        "ip_sesolve_batched",
+        (11, 12, 13),
+        {
+            "1024 threads, lean from 4, shared accumulator from 8": {},
+            "1024 threads, all in registers": {
+                "kLeanFromAmps": _NEVER,
+                "kSharedAccFromAmps": _NEVER,
+            },
+            "512 threads, all in registers": {
+                "kThreads": 512,
+                "kLeanFromAmps": _NEVER,
+                "kSharedAccFromAmps": _NEVER,
+            },
         },
     ),
     "mcwf_rows": (
@@ -162,7 +199,7 @@ def _build(group: str) -> dict[str, ctypes.CDLL]:
             line
             for line in chip_smoke.ptxas_summary(log)
             if keep is None
-            and "<16,1>" in line
+            and "<16,1,0>" in line
             or keep is not None
             and any(f"<{n}>" in line for n in keep)
         ]
@@ -186,6 +223,25 @@ def _afm16_call():
     args, kw = S.ip_kernel_inputs(
         psi0, emu._plan_cache[1], emu._current_hamiltonian.int_diag, 16,
         "cuda",
+    )
+    return lambda: K.ip_sesolve(*args, **kw)
+
+
+def _spd10_call():
+    with open(chip_smoke._SPD10_GOLDEN) as f:
+        seed = json.load(f)["seed"]
+    *_, captured = chip_smoke._run_noisy(
+        K, chip_smoke.spd10_inputs(), seed, "sesolve_rk4_batched", S
+    )
+    psi0, plans, diags, _, _, n = captured["args"][:6]
+    args, kw = S.ip_batched_kernel_inputs(psi0, plans, diags, n, "cuda")
+    return lambda: K.ip_sesolve(*args, **kw)
+
+
+def _random_batched_call(n: int):
+    """100 random trajectories of 254 steps."""
+    args, kw = chip_smoke.random_batched_kernel_inputs(
+        n, n, "cuda", n_traj=100, seg_len=128
     )
     return lambda: K.ip_sesolve(*args, **kw)
 
@@ -246,7 +302,7 @@ def _time(group: str, calls: dict) -> None:
             # crossing by a step
             diff = (got - want).abs().reshape(got.shape[0], -1).amax(1)
             n_far = int((diff > chip_smoke.MCWF_TOL).sum())
-            if n_far > (name != "ip_sesolve"):
+            if n_far > (not name.startswith("ip_sesolve")):
                 raise RuntimeError(f"{group}, {label} disagrees on {what}")
             return start.elapsed_time(end)
 
@@ -267,13 +323,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("block_sizes: no CUDA device", file=sys.stderr)
         return 1
-    _time("ip_sesolve", {"AFM16": _afm16_call()})
-    _time("mcwf_rows", {"NOISY10": _noisy10_call()})
-    _time(
-        "mcwf_rows_big",
-        {f"random n={n}": _random_rows_call(n) for n in (11, 12, 13)},
-    )
-    _time("mcwf", {"PAULI10": _pauli10_call()})
+    big = (11, 12, 13)
+    calls = {
+        "ip_sesolve": lambda: {"AFM16": _afm16_call()},
+        "ip_sesolve_batched": lambda: {"SPD10": _spd10_call()},
+        "ip_sesolve_batched_big": lambda: {
+            f"random n={n}": _random_batched_call(n) for n in big
+        },
+        "mcwf_rows": lambda: {"NOISY10": _noisy10_call()},
+        "mcwf_rows_big": lambda: {
+            f"random n={n}": _random_rows_call(n) for n in big
+        },
+        "mcwf": lambda: {"PAULI10": _pauli10_call()},
+    }
+    for group in sys.argv[1:] or list(calls):
+        _time(group, calls[group]())
     return 0
 
 
