@@ -6,8 +6,11 @@ Run from the root of the repository, on a machine with a CUDA card and
     python3 chip_smoke.py
 
 Phases (each one raises on failure, and the script then exits non-zero;
-each main path runs with every launch counter set to 0 just before it
-and read just after):
+each main path builds its ``pulser_tpu_torch.Sequence`` with the same
+calls as ``bench.py``, enters through ``TorchEmulator.from_sequence``,
+and runs with every launch counter set to 0 just before it and read just
+after; before it, a line gives the host time to build the sequence and
+to sample it, median of 3 each, beside the card's name and power limit):
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the four kernel sources with nvcc for ``sm_90a`` (one process
@@ -32,14 +35,15 @@ and read just after):
 5. The same for K3 at n = 4, 7, 10 and 13 under strong general collapse
    operators whose G = Σ L†L has a non-zero off-diagonal.
 6. Run the noiseless main path at full size: the 16-atom AFM sweep of
-   ``bench.py`` through ``TorchEmulator(...).run()`` with 101 evaluation
-   times. K1 must have been launched, and the mid-sweep and final states
-   must reach 1 − F < 1e-6 against ``tests/goldens/afm16_final.npz``.
+   ``bench.py`` through ``TorchEmulator.from_sequence(seq).run()`` with
+   101 evaluation times. K1 must have been launched, and the mid-sweep
+   and final states must reach 1 − F < 1e-6 against
+   ``tests/goldens/afm16_final.npz``.
    Then time K1 against its plain version on the sweep's own inputs
    (median of 3 warm solves each) and the whole warm ``run()``, and
    count the device kernels one K1 solve launches (exactly one).
 7. Run the noisy main path at full size: the 10-atom, 100-trajectory
-   noisy run of ``bench.py`` through ``TorchEmulator(...).run()`` after
+   noisy run of ``bench.py`` through ``from_sequence(seq).run()`` after
    ``np.random.seed(1234)``. It must take the kernel route with at least
    one K2 launch and give 1000 shots per evaluation time; the final
    counts and the trajectory-averaged Rydberg populations must match the
@@ -53,7 +57,7 @@ and read just after):
    it carried over, and trace one warm noisy ``run()`` with
    ``torch.profiler`` for the device's busy share.
 9. Run PAULI10, the lab-frame main path, at full size: the noisy 10-atom
-   run plus the effective-noise Pauli channel (:func:`pauli10_inputs`),
+   run plus the effective-noise Pauli channel (:func:`pauli10_sequence`),
    after ``np.random.seed(1234)``. It must take K3 (``kind ==
    "mcwf_cuda"``, at least one launch), give 1000 shots per evaluation
    time, and match the JAX package's figures for the same seed
@@ -69,7 +73,7 @@ and read just after):
 
 11. Run SPD10, the noisy main path without collapse operators, at full
     size: the noisy 10-atom run with the dephasing taken out
-    (:func:`spd10_inputs`), after ``np.random.seed(1234)``. It must take
+    (:func:`spd10_sequence`), after ``np.random.seed(1234)``. It must take
     the trajectory-batched K1 (``kind == "ip_sesolve_batched_cuda"``, at
     least one launch), give 1000 shots per evaluation time, and match
     the JAX package's figures for the same seed
@@ -305,73 +309,48 @@ NOISY10_REFERENCE = {
 }
 
 
-def _ramp(duration: int, start: float, stop: float) -> np.ndarray:
-    """``RampWaveform(duration, start, stop)`` samples."""
-    slope = (stop - start) / (duration - 1)
-    ramp = slope * np.arange(duration, dtype=float) + start
-    return np.clip(ramp, *sorted([float(start), float(stop)]))
-
-
-def _const(duration: int, value: float) -> np.ndarray:
-    """``ConstantWaveform(duration, value)`` samples."""
-    return value * np.ones(duration)
-
-
-def _sweep_inputs(
+def _sweep_sequence(
     register, omega: float, delta_0: float, delta_f: float,
     t_rise: int, t_sweep: int, t_fall: int,
-) -> tuple:
-    """``(samples, register, device)`` of a ramp-sweep-ramp on
-    ``MockDevice``'s global Rydberg channel, phase 0: an amplitude rise
-    to ``omega`` at ``delta_0``, a detuning sweep to ``delta_f`` at
-    ``omega``, an amplitude fall at ``delta_f``. Built from the waveform
-    formulas directly, since the sequence builder is not ported yet."""
-    import pulser_tpu_torch.math as pm
-    from pulser_tpu_torch import MockDevice
-    from pulser_tpu_torch.interop import _TimeSlot
-    from pulser_tpu_torch.sampler.samples import (
-        ChannelSamples,
-        SequenceSamples,
-        _PulseTargetSlot,
-    )
+):
+    """A ramp-sweep-ramp ``Sequence`` on ``MockDevice``'s global Rydberg
+    channel, phase 0: an amplitude rise to ``omega`` at ``delta_0``, a
+    detuning sweep to ``delta_f`` at ``omega``, an amplitude fall at
+    ``delta_f`` (the ``Sequence`` calls of ``bench.py``)."""
+    from pulser_tpu_torch import MockDevice, Pulse, RampWaveform, Sequence
 
-    qids = set(register.qubit_ids)
-    amp = np.concatenate(
-        [
-            _ramp(t_rise, 0.0, omega),
-            _const(t_sweep, omega),
-            _ramp(t_fall, omega, 0.0),
-        ]
+    seq = Sequence(register, MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(
+        Pulse.ConstantDetuning(
+            RampWaveform(t_rise, 0.0, omega), delta_0, 0.0
+        ),
+        "ryd",
     )
-    det = np.concatenate(
-        [
-            _const(t_rise, delta_0),
-            _ramp(t_sweep, delta_0, delta_f),
-            _const(t_fall, delta_f),
-        ]
+    seq.add(
+        Pulse.ConstantAmplitude(
+            omega, RampWaveform(t_sweep, delta_0, delta_f), 0.0
+        ),
+        "ryd",
     )
-    edges = np.cumsum([0, t_rise, t_sweep, t_fall])
-    channel = ChannelSamples(
-        amp=pm.AbstractArray(amp),
-        det=pm.AbstractArray(det),
-        phase=pm.AbstractArray(np.zeros(len(amp))),
-        slots=[
-            _PulseTargetSlot(int(ti), int(tf), set(qids))
-            for ti, tf in zip(edges[:-1], edges[1:])
-        ],
-        target_time_slots=[_TimeSlot("target", -1, 0, set(qids))],
+    seq.add(
+        Pulse.ConstantDetuning(
+            RampWaveform(t_fall, omega, 0.0), delta_f, 0.0
+        ),
+        "ryd",
     )
-    samples = SequenceSamples(
-        channels=["ryd"],
-        samples_list=[channel],
-        _ch_objs={"ryd": MockDevice.channels["rydberg_global"]},
-        _basis_ref={"ground-rydberg": {q: ((0, 0.0),) for q in qids}},
-    )
-    return samples, register, MockDevice
+    return seq
 
 
-def afm16_inputs() -> tuple:
-    """``(samples, register, device)`` of the 16-atom AFM sweep.
+def _sampled(seq, *rest) -> tuple:
+    """``(samples, register, device, *rest)`` of a built sequence."""
+    from pulser_tpu_torch import sample
+
+    return (sample(seq), seq.register, seq.device) + rest
+
+
+def afm16_sequence():
+    """The ``Sequence`` of the 16-atom AFM sweep.
 
     The configuration of ``bench.py``'s ``build_afm_sequence``: a 4x4
     square register at 6 µm on ``MockDevice``, one global Rydberg
@@ -380,10 +359,15 @@ def afm16_inputs() -> tuple:
     """
     from pulser_tpu_torch import Register
 
-    return _sweep_inputs(
+    return _sweep_sequence(
         Register.square(4, spacing=6.0, prefix="q"),
         2.0 * 2 * np.pi, -6 * 2 * np.pi, 2 * 2 * np.pi, 252, 2700, 252,
     )
+
+
+def afm16_inputs() -> tuple:
+    """``(samples, register, device)`` of :func:`afm16_sequence`."""
+    return _sampled(afm16_sequence())
 
 
 #: The noise of the noisy 10-atom run (``bench.py::build_noisy_10atom``).
@@ -410,26 +394,24 @@ PAULIS = (
 
 
 def _noisy10(dephasing: bool = True, **extra) -> tuple:
-    import warnings
-
     from pulser_tpu_torch import NoiseModel, Register
 
     params = dict(_NOISY10_NOISE)
     if not dephasing:
         del params["dephasing_rate"]
     om = 2 * np.pi * 1.5
-    inputs = _sweep_inputs(
+    seq = _sweep_sequence(
         Register.rectangle(2, 5, spacing=7.0, prefix="q"),
         om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400,
     )
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)  # runs=
         noise = NoiseModel(**params, **extra)
-    return inputs + (noise,)
+    return seq, noise
 
 
-def noisy10_inputs() -> tuple:
-    """``(samples, register, device, noise_model)`` of the noisy run.
+def noisy10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of the noisy run.
 
     The configuration of ``bench.py``'s ``build_noisy_10atom`` (the
     BASELINE's noisy leg): a 2x5 rectangle at 7 µm on ``MockDevice``, a
@@ -442,9 +424,15 @@ def noisy10_inputs() -> tuple:
     return _noisy10()
 
 
-def pauli10_inputs() -> tuple:
-    """``(samples, register, device, noise_model)`` of the PAULI10 run:
-    the noisy 10-atom run of :func:`noisy10_inputs` plus the effective-
+def noisy10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of
+    :func:`noisy10_sequence`."""
+    return _sampled(*noisy10_sequence())
+
+
+def pauli10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of the PAULI10 run:
+    the noisy 10-atom run of :func:`noisy10_sequence` plus the effective-
     noise Pauli channel (:data:`PAULIS` at :data:`PAULI_RATE` each). Its
     collapse operators are not diagonal, so the quantum-jump solve runs
     in the lab frame, 4000 RK4 steps."""
@@ -454,13 +442,42 @@ def pauli10_inputs() -> tuple:
     )
 
 
-def spd10_inputs() -> tuple:
-    """``(samples, register, device, noise_model)`` of the SPD10 run: the
-    noisy 10-atom run of :func:`noisy10_inputs` with the dephasing taken
+def pauli10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of
+    :func:`pauli10_sequence`."""
+    return _sampled(*pauli10_sequence())
+
+
+def spd10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of the SPD10 run: the
+    noisy 10-atom run of :func:`noisy10_sequence` with the dephasing taken
     out and nothing else changed (SPAM, doppler, amplitude noise). It
     has no collapse operators, so the 100 trajectories integrate as one
     pure-state batch on the coarsened interaction-picture grid."""
     return _noisy10(dephasing=False)
+
+
+def spd10_inputs() -> tuple:
+    """``(samples, register, device, noise_model)`` of
+    :func:`spd10_sequence`."""
+    return _sampled(*spd10_sequence())
+
+
+def _sequence_ms(path: str, make_sequence, card: str) -> None:
+    """Prints the host time to build ``path``'s sequence and to sample it
+    as ``from_sequence`` does (median of 3 each), beside the card."""
+    from pulser_tpu_torch import sample
+
+    seq = make_sequence()
+    build_s = _median_seconds(make_sequence)
+    sample_s = _median_seconds(
+        lambda: sample(seq, extended_duration=seq.get_duration())
+    )
+    print(
+        f"{path} sequence: build {build_s * 1e3:.3f} ms, "
+        f"sample {sample_s * 1e3:.3f} ms (host, median of 3) [{card}]",
+        flush=True,
+    )
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1033,14 +1050,13 @@ def _afm16_path(K, S, device, card: str) -> dict:
 
     from pulser_tpu_torch.emulator import TorchEmulator
 
-    samples, register, mock = afm16_inputs()
-    eval_times = np.linspace(0, samples.max_duration * 1e-3, 101)
+    _sequence_ms("AFM16", afm16_sequence, card)
+    seq = afm16_sequence()
+    eval_times = np.linspace(0, seq.get_duration() * 1e-3, 101)
     golden = np.load(_GOLDEN)
     _reset_launches(K)
     t0 = time.perf_counter()
-    emu = TorchEmulator(
-        samples, register, mock, evaluation_times=eval_times
-    )
+    emu = TorchEmulator.from_sequence(seq, evaluation_times=eval_times)
     res = emu.run()
     mid = res.states[50].full()[:, 0]
     fin = res.states[-1].full()[:, 0]
@@ -1118,13 +1134,13 @@ def _afm16_path(K, S, device, card: str) -> dict:
     }
 
 
-def _run_noisy(K, inputs, seed: int, solver_fn: str, S) -> tuple:
-    """One seeded noisy ``run()`` through ``TorchEmulator``, counted, with
-    the call of ``S.<solver_fn>`` recorded: ``(emulator, results,
-    launches, cold seconds, {"args", "kwargs", "out"})``."""
+def _run_noisy(K, seq_and_noise, seed: int, solver_fn: str, S) -> tuple:
+    """One seeded noisy ``run()`` through ``TorchEmulator.from_sequence``,
+    counted, with the call of ``S.<solver_fn>`` recorded: ``(emulator,
+    results, launches, cold seconds, {"args", "kwargs", "out"})``."""
     from pulser_tpu_torch.emulator import TorchEmulator
 
-    samples, register, mock, noise = inputs
+    seq, noise = seq_and_noise
     captured: dict = {}
     solve = getattr(S, solver_fn)
 
@@ -1138,9 +1154,8 @@ def _run_noisy(K, inputs, seed: int, solver_fn: str, S) -> tuple:
         np.random.seed(seed)
         _reset_launches(K)
         t0 = time.perf_counter()
-        emu = TorchEmulator(
-            samples, register, mock, noise_model=noise,
-            evaluation_times="Minimal",
+        emu = TorchEmulator.from_sequence(
+            seq, noise_model=noise, evaluation_times="Minimal"
         )
         res = emu.run()
         cold_s = time.perf_counter() - t0
@@ -1174,8 +1189,9 @@ def _noisy10_path(K, S, device, card: str) -> dict:
     the times and the device's busy share."""
     import torch
 
+    _sequence_ms("NOISY10", lambda: noisy10_sequence()[0], card)
     noisy, nres, launches, cold_s, captured = _run_noisy(
-        K, noisy10_inputs(), NOISY10_REFERENCE["seed"], "mcsolve_rows_codes",
+        K, noisy10_sequence(), NOISY10_REFERENCE["seed"], "mcsolve_rows_codes",
         S,
     )
     mcwf_launches = launches["mcwf_rows"]
@@ -1302,8 +1318,9 @@ def _pauli10_path(K, S, device, card: str) -> dict:
 
     with open(_PAULI10_GOLDEN) as f:
         ref = json.load(f)
+    _sequence_ms("PAULI10", lambda: pauli10_sequence()[0], card)
     pauli, pres, launches, cold_s, captured = _run_noisy(
-        K, pauli10_inputs(), ref["seed"], "mcsolve_rk4_batched", S
+        K, pauli10_sequence(), ref["seed"], "mcsolve_rk4_batched", S
     )
     k3_launches = launches["mcwf"]
     pinfo = dict(S.last_solve_info)
@@ -1466,8 +1483,9 @@ def _spd10_path(K, S, device, card: str) -> dict:
 
     with open(_SPD10_GOLDEN) as f:
         ref = json.load(f)
+    _sequence_ms("SPD10", lambda: spd10_sequence()[0], card)
     spd, sres, launches, cold_s, captured = _run_noisy(
-        K, spd10_inputs(), ref["seed"], "sesolve_rk4_batched", S
+        K, spd10_sequence(), ref["seed"], "sesolve_rk4_batched", S
     )
     k1b_launches = launches["ip_sesolve_batched"]
     sinfo = dict(S.last_solve_info)

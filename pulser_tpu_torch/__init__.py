@@ -1,24 +1,94 @@
-"""PyTorch/CUDA port of the pulser_tpu neutral-atom emulator.
+"""PyTorch/CUDA port of the pulser_tpu neutral-atom framework.
 
 Mirrors ``pulser_tpu``'s module paths with ``Tpu`` replaced by
-``Torch`` in the public names. This slice covers the noiseless
-ground-rydberg emulation, entered through
-``TorchEmulator(samples, register, device).run()``; the sequence
-builder and the noisy solvers come in later slices (see ROADMAP.md).
+``Torch`` in the public names. A run starts as in the JAX package:
+``Sequence(register, device)`` → ``declare_channel`` →
+``add(Pulse(...))`` → ``TorchEmulator.from_sequence(seq).run()``.
+Serialization, drawing and device switching are not ported yet (see
+ROADMAP.md).
 """
 
+from pulser_tpu_torch.waveforms import (
+    CompositeWaveform,
+    CustomWaveform,
+    ConstantWaveform,
+    RampWaveform,
+    BlackmanWaveform,
+    InterpolatedWaveform,
+    KaiserWaveform,
+)
+from pulser_tpu_torch.pulse import Pulse
+from pulser_tpu_torch.parametrized import Variable
+from pulser_tpu_torch.register import (
+    MappableRegister,
+    Register,
+    RegisterLayout,
+)
+from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.devices import (
     AnalogDevice,
     DigitalAnalogDevice,
     MockDevice,
 )
-from pulser_tpu_torch.noise_model import NoiseModel
-from pulser_tpu_torch.register import Register
+
+from pulser_tpu_torch import (
+    waveforms as waveforms,
+    channels as channels,
+    register as register,
+    devices as devices,
+    exceptions as exceptions,
+)
 
 __all__ = [
+    "CompositeWaveform",
+    "CustomWaveform",
+    "ConstantWaveform",
+    "RampWaveform",
+    "BlackmanWaveform",
+    "InterpolatedWaveform",
+    "KaiserWaveform",
+    "Pulse",
+    "Variable",
+    "MappableRegister",
+    "Register",
+    "RegisterLayout",
+    "NoiseModel",
     "AnalogDevice",
     "DigitalAnalogDevice",
     "MockDevice",
-    "NoiseModel",
-    "Register",
+    "Sequence",
+    "sample",
 ]
+
+
+def __getattr__(name: str):
+    # Lazily resolved to avoid import cycles while the package loads.
+    if name == "Sequence":
+        from pulser_tpu_torch.sequence import Sequence
+
+        return Sequence
+    if name == "sample":
+        from pulser_tpu_torch.sampler import sample
+
+        return sample
+    if name == "sampler":
+        import pulser_tpu_torch.sampler as sampler
+
+        return sampler
+    if name == "sequence":
+        import importlib
+        import sys
+
+        # The partially-initialized module must be returned during
+        # its own import (submodule imports re-enter this hook)
+        mod = sys.modules.get("pulser_tpu_torch.sequence")
+        if mod is not None:
+            return mod
+        return importlib.import_module("pulser_tpu_torch.sequence")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(
+        set(globals()) | {"Sequence", "sample", "sampler", "sequence"}
+    )

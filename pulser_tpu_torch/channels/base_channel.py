@@ -25,6 +25,7 @@ from pulser_tpu_torch.channels.modulation import (
     calculate_mod_bandwidth_from_amplitude_rise_time,
     validate_mod_bandwidth,
 )
+from pulser_tpu_torch.pulse import Pulse
 
 # Emit duration-rounding warnings a single time only
 warnings.filterwarnings("once", "A duration of")
@@ -394,6 +395,48 @@ class Channel(ABC):
                 stacklevel=4,
             )
         return _duration
+
+    def validate_pulse(self, pulse: Pulse) -> None:
+        """Checks if a pulse can be executed on this channel.
+
+        Args:
+            pulse: The pulse to validate.
+        """
+        if not isinstance(pulse, Pulse):
+            raise TypeError(
+                f"'pulse' must be of type Pulse, not of type {type(pulse)}."
+            )
+
+        if (
+            pulse.amplitude.samples.requires_grad
+            or pulse.detuning.samples.requires_grad
+        ):
+            # Live values are not checked against the channel limits;
+            # the checks run on the concrete build.
+            return
+
+        amp_samples_np = pulse.amplitude.samples.as_array(detach=True)
+        if self.max_amp is not None and np.any(
+            amp_samples_np > self.max_amp
+        ):
+            raise ValueError(
+                "The pulse's amplitude goes over the maximum "
+                "value allowed for the chosen channel."
+            )
+        det_abs = np.abs(pulse.detuning.samples.as_array(detach=True))
+        if self.max_abs_detuning is not None and np.any(
+            np.round(det_abs, decimals=6) > self.max_abs_detuning
+        ):
+            raise ValueError(
+                "The pulse's detuning values go out of the range "
+                "allowed for the chosen channel."
+            )
+        avg_amp = np.average(amp_samples_np)
+        if 0 < avg_amp < self.min_avg_amp:
+            raise ValueError(
+                "The pulse's average amplitude is below the chosen "
+                f"channel's limit ({self.min_avg_amp})."
+            )
 
     # ------------------------------------------------------------------
     # Output modulation

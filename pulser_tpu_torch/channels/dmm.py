@@ -11,7 +11,9 @@ from typing import Any, Literal, Optional
 
 import numpy as np
 
+import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.channels.base_channel import Channel
+from pulser_tpu_torch.pulse import Pulse
 from pulser_tpu_torch.register.weight_maps import DetuningMap
 
 
@@ -178,6 +180,31 @@ class DMM(Channel):
                 " not respect the minimum threshold for the average absolute"
                 f" detuning of the DMM ({self.min_avg_abs_detuning} rad/µs)."
             )
+
+    def validate_pulse(
+        self,
+        pulse: Pulse,
+        detuning_map: DetuningMap = DetuningMap(
+            trap_coordinates=[(0, 0)], weights=[1.0]
+        ),
+    ) -> None:
+        """Checks if a pulse can be executed via this DMM on a DetuningMap.
+
+        Args:
+            pulse: The pulse to validate.
+            detuning_map: The detuning map on which the pulse is applied
+                (defaults to a detuning map with weight 1.0).
+        """
+        super().validate_pulse(pulse)
+        round_detuning = pm.round(pulse.detuning.samples, 6).as_array(
+            detach=True
+        )
+        if np.any(round_detuning > 0):
+            raise ValueError("The detuning in a DMM must not be positive.")
+        min_round_detuning = np.min(round_detuning)
+        self._check_spot_floor(min_round_detuning, detuning_map.weights)
+        self._check_total_floor(min_round_detuning, detuning_map.weights)
+        self._check_avg_threshold(round_detuning, detuning_map.weights)
 
 
 def _dmm_id_from_name(dmm_name: str) -> str:

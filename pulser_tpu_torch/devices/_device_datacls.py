@@ -3,8 +3,8 @@
 Behavioral parity with reference
 ``pulser-core/pulser/devices/_device_datacls.py:86-1195``: same frozen
 dataclasses, validation rules, C6/C3 lookup, blockade-radius math, and
-spec pretty-printers. Register layouts (``pre_calibrated_layouts`` and
-the layout checks) and serialization are not ported yet (see ROADMAP.md).
+spec pretty-printers. Calibrated layouts (``pre_calibrated_layouts``)
+and serialization are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ from pulser_tpu_torch.exceptions import sequence as _seq_exc
 from pulser_tpu_torch.exceptions.base import PulserValueError
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
+from pulser_tpu_torch.register.mappable_reg import MappableRegister
+from pulser_tpu_torch.register.register_layout import RegisterLayout
 from pulser_tpu_torch.register.traps import COORD_PRECISION
 
 DIMENSIONS = Literal[2, 3]
@@ -383,6 +385,70 @@ class BaseDevice(ABC):
                 invalid=register.dimensionality,
             )
         self._validate_coords(register.qubits, kind="atoms")
+        if register.layout is not None:
+            try:
+                self.validate_layout(register.layout)
+            except (ValueError, TypeError) as e:
+                raise PulserValueError(
+                    "The 'register' is associated with an incompatible "
+                    + "register layout."
+                ) from e
+            self.validate_layout_filling(register)
+
+    def validate_layout(self, layout: RegisterLayout) -> None:
+        """Raises if a register layout is incompatible with the device."""
+        if not isinstance(layout, RegisterLayout):
+            raise TypeError("'layout' must be a RegisterLayout instance.")
+
+        n_traps = layout.number_of_traps
+        trap_bounds = (
+            (
+                layout.dimensionality > self.dimensions,
+                _seq_exc.DimensionTooHighError,
+                dict(invalid=layout.dimensionality),
+            ),
+            (
+                n_traps < self.min_layout_traps,
+                _seq_exc.TrapsNumberTooLowError,
+                dict(invalid=n_traps, layout=layout),
+            ),
+            (
+                self.max_layout_traps is not None
+                and n_traps > self.max_layout_traps,
+                _seq_exc.TrapsNumberTooHighError,
+                dict(invalid=n_traps, layout=layout),
+            ),
+        )
+        for failed, exc, exc_kwargs in trap_bounds:
+            if failed:
+                raise exc(self, **exc_kwargs)
+
+        self._validate_coords(layout.traps_dict, kind="traps")
+
+    def validate_layout_filling(
+        self, register: BaseRegister | MappableRegister
+    ) -> None:
+        """Raises if a layout-based register under- or over-fills it."""
+        if register.layout is None:
+            raise TypeError(
+                "'validate_layout_filling' can only be called for"
+                " registers with a register layout."
+            )
+        n_qubits = len(register.qubit_ids)
+        n_traps = register.layout.number_of_traps
+        min_qubits = int(np.ceil(n_traps * self.min_layout_filling))
+        max_qubits = int(n_traps * self.max_layout_filling)
+        if n_traps > self.min_layout_traps and n_qubits < min_qubits:
+            raise _seq_exc.MinQubitNumberError(
+                device=self,
+                invalid=n_qubits,
+                min=min_qubits,
+                min_traps=self.min_layout_traps,
+            )
+        if n_qubits > max_qubits:
+            raise _seq_exc.MaxQubitNumberError(
+                device=self, invalid=n_qubits, max=max_qubits
+            )
 
     def _validate_coords(
         self,

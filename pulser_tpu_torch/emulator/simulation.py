@@ -32,9 +32,8 @@ package exactly, so both build the same plan and a seeded run gives the
 same counts. Every other noise configuration (master equation,
 depolarizing, relaxation and other single-matrix-unit operators on the
 interaction-picture grid, register noise, XY, interaction
-interpolation), density-matrix inputs, the lab-frame sesolve and
-``from_sequence`` are not ported yet and raise ``NotImplementedError``
-(see ROADMAP.md).
+interpolation), density-matrix inputs and the lab-frame sesolve are
+not ported yet and raise ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,6 +50,7 @@ import numpy as np
 import torch
 from numpy.typing import ArrayLike
 
+import pulser_tpu_torch.sampler as sampler
 from pulser_tpu_torch.channels.base_channel import States
 from pulser_tpu_torch.devices._device_datacls import BaseDevice
 from pulser_tpu_torch.emulator.hamiltonian import Hamiltonian
@@ -71,6 +71,7 @@ from pulser_tpu_torch.ops import solver as _solver_mod
 from pulser_tpu_torch.ops.solver import build_plan
 from pulser_tpu_torch.register.base_register import BaseRegister
 from pulser_tpu_torch.result import SampledResult, _labels_of
+from pulser_tpu_torch.sequence import Sequence
 from pulser_tpu_torch.sampler.samples import (
     ChannelSamples,
     DMMSamples,
@@ -1765,6 +1766,87 @@ class TorchEmulator:
         for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
             total_count[v][lab] += c
         return total_count
+
+    @classmethod
+    def from_sequence(
+        cls,
+        sequence: Sequence,
+        sampling_rate: float = 1.0,
+        config: Optional[SimConfig] = None,
+        evaluation_times: Union[float, str, ArrayLike] = "Full",
+        with_modulation: bool = False,
+        noise_model: NoiseModel | None = None,
+        solver: Solver = Solver.DEFAULT,
+        n_trajectories: int | None = None,
+        torch_device: Union[str, torch.device, None] = None,
+    ) -> TorchEmulator:
+        r"""Creates the emulator from a Sequence.
+
+        Args:
+            sequence: The Sequence to simulate.
+            sampling_rate: The fraction of samples to extract from the
+                pulse sequence (between 0.05 and 1.0).
+            config: (Deprecated) SimConfig; use 'noise_model'.
+            evaluation_times: "Full", "Minimal", an array of times (in
+                µs) or a float sampling fraction.
+            with_modulation: Whether to simulate the sequence with the
+                programmed input or the expected output.
+            noise_model: The noise model for the simulation.
+            solver: Solver selection.
+            n_trajectories: The number of noise trajectories.
+            torch_device: The torch device the solver runs on (default:
+                the first CUDA device; without one the call raises, and
+                ``"cpu"`` must be asked for).
+        """
+        if not isinstance(sequence, Sequence):
+            raise TypeError(
+                "The provided sequence has to be a valid "
+                "pulser.Sequence instance."
+            )
+        if (
+            sequence.is_parametrized()
+            or sequence.is_register_mappable()
+        ):
+            raise ValueError(
+                "The provided sequence needs to be built to be"
+                " simulated. Call `Sequence.build()` with the necessary"
+                " parameters."
+            )
+        if not sequence._schedule:
+            raise ValueError(
+                "The provided sequence has no declared channels."
+            )
+        if all(
+            sequence._schedule[x][-1].tf == 0
+            for x in sequence.declared_channels
+        ):
+            raise ValueError(
+                "No instructions given for the channels in the"
+                " sequence."
+            )
+        if with_modulation and sequence._slm_mask_targets:
+            raise NotImplementedError(
+                "Simulation of sequences combining an SLM mask and"
+                " output modulation is not supported."
+            )
+        return cls(
+            sampler.sample(
+                sequence,
+                modulation=with_modulation,
+                extended_duration=sequence.get_duration(
+                    include_fall_time=with_modulation
+                ),
+            ),
+            sequence.register,
+            sequence.device,
+            sampling_rate,
+            config,
+            evaluation_times,
+            noise_model=noise_model,
+            solver=solver,
+            n_trajectories=n_trajectories,
+            torch_device=torch_device,
+        )
 
 
 def _sample_weight_rows(

@@ -1,11 +1,13 @@
 """Carries sampled sequences, registers, devices and noise models across
 from pulser_tpu.
 
-The sequence builder and the sampler are not ported yet, so the port's
-inputs are built with the JAX package and rebuilt here as the port's own
-objects. Only plain attributes and numpy arrays of the given objects are
-read, and the JAX package is never imported: each object maps onto the
-class of the same name at the same module path under ``pulser_tpu_torch``.
+Objects built with the JAX package are rebuilt here as the port's own,
+so that both packages can be run on the same inputs (the port builds and
+samples its own sequences: ``pulser_tpu_torch.Sequence``,
+``pulser_tpu_torch.sampler.sample``). Only plain attributes and numpy
+arrays of the given objects are read, and the JAX package is never
+imported: each object maps onto the class of the same name at the same
+module path under ``pulser_tpu_torch``.
 
 Example::
 
@@ -23,43 +25,23 @@ import dataclasses
 import enum
 import importlib
 import warnings
-from typing import Any, NamedTuple
+from typing import Any
 
 import numpy as np
 
 import pulser_tpu_torch.math as pm
-from pulser_tpu_torch.channels.eom import RydbergBeam
 from pulser_tpu_torch.devices._device_datacls import BaseDevice
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.register import Register
 from pulser_tpu_torch.register.weight_maps import DetuningMap
+from pulser_tpu_torch.pulse import Pulse
 from pulser_tpu_torch.sampler.samples import SequenceSamples
+from pulser_tpu_torch.sequence._basis_ref import _QubitRef
+from pulser_tpu_torch.sequence._schedule import _EOMSettings, _TimeSlot
+from pulser_tpu_torch.waveforms import CustomWaveform
 
 _SRC_PKG = "pulser_tpu"
 _DST_PKG = "pulser_tpu_torch"
-
-
-@dataclasses.dataclass
-class _EOMSettings:
-    """An EOM-mode block of a channel's samples (the sequence builder's
-    ``_EOMSettings``, until that is ported)."""
-
-    rabi_freq: pm.AbstractArray
-    detuning_on: pm.AbstractArray
-    detuning_off: pm.AbstractArray
-    ti: int
-    tf: int | None = None
-    switching_beams: tuple[RydbergBeam, ...] = ()
-
-
-class _TimeSlot(NamedTuple):
-    """A channel timeline entry (the sequence builder's ``_TimeSlot``);
-    ``type`` is "delay", "target" or the name of the pulse's class."""
-
-    type: str
-    ti: int
-    tf: int
-    targets: set
 
 
 def _port_class(obj: Any) -> Any:
@@ -97,11 +79,22 @@ def _convert(obj: Any) -> Any:
             }
         )
     if name == "_TimeSlot":
-        kind = obj.type if isinstance(obj.type, str) else type(obj.type).__name__
-        return _TimeSlot(kind, obj.ti, obj.tf, set(obj.targets))
+        return _TimeSlot(
+            _convert(obj.type), obj.ti, obj.tf, set(obj.targets)
+        )
+    if name == "Pulse":
+        # The same samples, whatever waveform classes produced them
+        return Pulse(
+            CustomWaveform(_convert(obj.amplitude.samples)),
+            CustomWaveform(_convert(obj.detuning.samples)),
+            _convert(obj.phase),
+            obj.post_phase_shift,
+        )
     if name == "_QubitRef":
-        # The phase reference as its (time, phase) breakpoints
-        return tuple(obj.phase._steps)
+        ref = _QubitRef()
+        ref.phase._steps = list(obj.phase._steps)
+        ref._usage_times = set(obj._usage_times)
+        return ref
     if isinstance(obj, (list, tuple, set)):
         return type(obj)(_convert(x) for x in obj)
     if isinstance(obj, dict):
@@ -142,8 +135,8 @@ def from_jax_register(register: Any) -> Register:
 def from_jax_device(device: Any) -> BaseDevice:
     """The port's Device or VirtualDevice with the same dataclass fields.
 
-    Register layouts are not ported, so ``pre_calibrated_layouts`` is
-    left out.
+    The devices' calibrated layouts are not ported, so
+    ``pre_calibrated_layouts`` is left out.
     """
     ported = _convert(device)
     custom_xy = getattr(device, "_custom_interaction_coeff_xy", None)

@@ -36,6 +36,14 @@ def _unary(np_fn: Any, torch_fn: Any) -> Any:
 
 exp = _unary(np.exp, torch.exp)
 sqrt = _unary(np.sqrt, torch.sqrt)
+log2 = _unary(np.log2, torch.log2)
+log = _unary(np.log, torch.log)
+sin = _unary(np.sin, torch.sin)
+cos = _unary(np.cos, torch.cos)
+tan = _unary(np.tan, torch.tan)
+tanh = _unary(np.tanh, torch.tanh)
+ceil = _unary(np.ceil, torch.ceil)
+floor = _unary(np.floor, torch.floor)
 
 
 def pad(
@@ -114,6 +122,14 @@ def mean(a: AbstractArrayLike, axis: int | None = None) -> AbstractArray:
     return AbstractArray(np.mean(a.as_array(), axis=axis))
 
 
+def sum(a: AbstractArrayLike) -> AbstractArray:
+    """Sum of all elements."""
+    a = AbstractArray(a)
+    if a.is_tensor:
+        return AbstractArray(torch.sum(a.as_tensor()))
+    return AbstractArray(np.sum(a.as_array()))
+
+
 def cumsum(a: AbstractArrayLike, axis: int = 0) -> AbstractArray:
     """Cumulative sum along an axis."""
     a = AbstractArray(a)
@@ -122,12 +138,45 @@ def cumsum(a: AbstractArrayLike, axis: int = 0) -> AbstractArray:
     return AbstractArray(np.cumsum(a.as_array(), axis=axis))
 
 
+def diff(a: AbstractArrayLike) -> AbstractArray:
+    """First discrete difference."""
+    a = AbstractArray(a)
+    if a.is_tensor:
+        return AbstractArray(torch.diff(a.as_tensor()))
+    return AbstractArray(np.diff(a.as_array()))
+
+
+def clip(
+    a: AbstractArrayLike, a_min: TensorLike, a_max: TensorLike
+) -> AbstractArray:
+    """Clip values to [a_min, a_max] (bounds may be tensors)."""
+    a = AbstractArray(a)
+    if a.is_tensor or any(
+        isinstance(b, torch.Tensor) for b in (a_min, a_max)
+    ):
+        t = a.as_tensor()
+        lo, hi = (
+            torch.as_tensor(b, dtype=t.dtype, device=t.device)
+            for b in (a_min, a_max)
+        )
+        return AbstractArray(torch.clamp(t, lo, hi))
+    return AbstractArray(np.clip(a.as_array(), a_min, a_max))
+
+
 def pdist(a: AbstractArrayLike) -> AbstractArray:
     """Pairwise distances between the rows of a 2D array."""
     a = AbstractArray(a)
     if a.is_tensor:
         return AbstractArray(torch.pdist(a.as_tensor()))
     return AbstractArray(scipy.spatial.distance.pdist(a.as_array()))
+
+
+def concatenate(arrs: Sequence[AbstractArrayLike]) -> AbstractArray:
+    """Concatenate arrays along the first axis."""
+    abst_arrs = tuple(map(AbstractArray, arrs))
+    if any(a.is_tensor for a in abst_arrs):
+        return AbstractArray(torch.cat([a.as_tensor() for a in abst_arrs]))
+    return AbstractArray(np.concatenate([a.as_array() for a in abst_arrs]))
 
 
 def vstack(arrs: Sequence[AbstractArrayLike]) -> AbstractArray:

@@ -1,8 +1,8 @@
 """Abstract register: an ordered qubit-id -> position mapping.
 
 Behavioral parity with reference
-``pulser-core/pulser/register/base_register.py:58-332``. Register
-layouts and serialization are not ported yet (see ROADMAP.md).
+``pulser-core/pulser/register/base_register.py:58-332``. Serialization
+is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import warnings
 from abc import ABC, abstractmethod
 from collections.abc import Iterable, Mapping
 from collections.abc import Sequence as abcSequence
-from typing import Any, Optional, Type, TypeVar, cast
+from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Type
+from typing import TypeVar, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
@@ -19,6 +20,9 @@ from numpy.typing import ArrayLike
 import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.register._coordinates import CoordsCollection
 from pulser_tpu_torch.register.weight_maps import DetuningMap
+
+if TYPE_CHECKING:
+    from pulser_tpu_torch.register.register_layout import RegisterLayout
 
 T = TypeVar("T", bound="BaseRegister")
 QubitId = str
@@ -30,6 +34,13 @@ _NON_STR_ID_WARNING = (
     " as that will become the new default once `int` qubit"
     " IDs become invalid."
 )
+
+
+class _LayoutInfo(NamedTuple):
+    """Records which layout (and traps) a register was carved from."""
+
+    layout: RegisterLayout
+    trap_ids: tuple[int, ...]
 
 
 def _id_map(
@@ -67,6 +78,7 @@ class BaseRegister(ABC, CoordsCollection):
     def __init__(
         self,
         qubits: Mapping[str, ArrayLike] | Mapping[int, ArrayLike],
+        **kwargs: Any,
     ):
         """Initializes a custom Register."""
         if not isinstance(qubits, dict):
@@ -89,6 +101,17 @@ class BaseRegister(ABC, CoordsCollection):
                     _NON_STR_ID_WARNING, DeprecationWarning, stacklevel=2
                 )
 
+        self._layout_info: Optional[_LayoutInfo] = None
+        if kwargs:
+            if set(kwargs) != {"layout", "trap_ids"}:
+                raise ValueError(
+                    "If specifying 'kwargs', they must only be 'layout' and"
+                    " 'trap_ids'."
+                )
+            self._attach_layout(
+                kwargs["layout"], tuple(kwargs["trap_ids"])
+            )
+
     # --- identity & lookup -------------------------------------------
 
     @property
@@ -100,6 +123,12 @@ class BaseRegister(ABC, CoordsCollection):
     def qubits(self) -> dict[QubitId, pm.AbstractArray]:
         """Dictionary of the qubit names and their position coordinates."""
         return dict(zip(self._ids, self._coords_arr))
+
+    @property
+    def layout(self) -> Optional[RegisterLayout]:
+        """The layout used to define the register."""
+        info = self._layout_info
+        return info.layout if info is not None else None
 
     def find_indices(self, id_list: abcSequence[QubitId]) -> list[int]:
         """Positions of the given qubit IDs in this register's order.
@@ -145,6 +174,7 @@ class BaseRegister(ABC, CoordsCollection):
         center: bool = True,
         prefix: Optional[str] = None,
         labels: Optional[abcSequence[QubitId]] = None,
+        **kwargs: Any,
     ) -> T:
         """Builds a register by listing positions instead of a dict.
 
@@ -161,7 +191,57 @@ class BaseRegister(ABC, CoordsCollection):
         positions = pm.vstack(cast(abcSequence, coords)).astype(float)
         if center:
             positions = positions - pm.mean(positions, axis=0)
-        return cls(_id_map(positions, prefix, labels))
+        return cls(_id_map(positions, prefix, labels), **kwargs)
+
+    # --- layout provenance -------------------------------------------
+
+    def _attach_layout(
+        self, register_layout: RegisterLayout, trap_ids: tuple[int, ...]
+    ) -> None:
+        """Validates and records the layout this register came from.
+
+        The checks run in order; each entry is (ok, message).
+        """
+        own = self._coords_arr.as_array(detach=True)
+
+        def _traps_match() -> bool:
+            picked = register_layout.coords[list(trap_ids)]
+            return own.shape == picked.shape and not np.any(own != picked)
+
+        checks: tuple[tuple[bool, str], ...] = (
+            (
+                register_layout.dimensionality == self.dimensionality,
+                "The RegisterLayout dimensionality is not the same as"
+                " this register's.",
+            ),
+            (
+                len(set(trap_ids)) == len(trap_ids),
+                "Every 'trap_id' must be a unique integer.",
+            ),
+            (
+                len(trap_ids) == len(self._ids),
+                "The amount of 'trap_ids' must be equal to the number"
+                " of atoms in the register.",
+            ),
+        )
+        for ok, message in checks:
+            if not ok:
+                raise ValueError(message)
+        if not _traps_match():
+            raise ValueError(
+                "The chosen traps from the RegisterLayout don't match"
+                " this register's coordinates."
+            )
+        self._layout_info = _LayoutInfo(register_layout, trap_ids)
+
+    # Kept as a separate hook: subclasses and tests exercise the
+    # validation half without mutating provenance.
+    def _validate_layout(
+        self, register_layout: RegisterLayout, trap_ids: tuple[int, ...]
+    ) -> None:
+        saved = self._layout_info
+        self._attach_layout(register_layout, trap_ids)
+        self._layout_info = saved
 
     # --- derived objects ----------------------------------------------
 

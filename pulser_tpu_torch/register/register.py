@@ -52,9 +52,10 @@ class Register(BaseRegister):
     def __init__(
         self,
         qubits: Mapping[Any, Union[ArrayLike, pm.TensorLike]],
+        **kwargs: Any,
     ):
         """Initializes a custom Register."""
-        super().__init__(qubits)
+        super().__init__(qubits, **kwargs)
         coords_2d = self.dimensionality == 2 and all(
             c.shape == (2,) for c in self._coords_arr
         )

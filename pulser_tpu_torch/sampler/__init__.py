@@ -1,5 +1,6 @@
-"""Sequence samples (the sampler's ``sample(seq)`` is not ported yet)."""
+"""Module for sequence sampling."""
 
+from pulser_tpu_torch.sampler.sampler import sample
 from pulser_tpu_torch.sampler.samples import (
     ChannelSamples,
     DMMSamples,
@@ -7,6 +8,7 @@ from pulser_tpu_torch.sampler.samples import (
 )
 
 __all__ = [
+    "sample",
     "ChannelSamples",
     "DMMSamples",
     "SequenceSamples",

@@ -19,6 +19,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FOREIGN = "[m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pulser_tpu')]"
 
 
+#: Builds, samples (with modulation) and differentiates an EOM sequence.
+_EOM_SEQUENCE = """
+import torch
+import pulser_tpu_torch as P
+import pulser_tpu_torch.emulator
+amp = torch.tensor(2.0, dtype=torch.float64, requires_grad=True)
+reg = P.Register.rectangle(1, 2, spacing=7.0, prefix="q")
+seq = P.Sequence(reg, P.AnalogDevice)
+seq.declare_channel("ryd", "rydberg_global")
+seq.enable_eom_mode("ryd", amp, 0.5, -10.0)
+seq.add_eom_pulse("ryd", 100, 0.3)
+seq.disable_eom_mode("ryd", correct_phase_drift=True)
+seq.add(P.Pulse.ConstantDetuning(P.BlackmanWaveform(200, 1.0), 0, 0), "ryd")
+samples = P.sample(seq, modulation=True)
+samples.channel_samples["ryd"].amp.as_tensor().sum().backward()
+assert amp.grad is not None
+P.emulator.TorchEmulator.from_sequence
+"""
+
+
 def _foreign_modules(statements: str) -> list[str]:
     code = f"import sys\n{statements}\nprint({_FOREIGN})"
     out = subprocess.run(
@@ -46,6 +66,28 @@ def _foreign_modules(statements: str) -> list[str]:
         " chip_smoke.random_batched_kernel_inputs(10, 0, 'cpu')",
         "import pulser_tpu_torch.emulator.simulation,"
         " pulser_tpu_torch.emulator.simresults, pulser_tpu_torch.ops.apply",
+        "import pulser_tpu_torch as P;"
+        " P.Sequence, P.Pulse, P.RampWaveform, P.sample, P.Variable,"
+        " P.MappableRegister, P.RegisterLayout",
+        "import pulser_tpu_torch.parametrized.paramabc,"
+        " pulser_tpu_torch.parametrized.variable,"
+        " pulser_tpu_torch.parametrized.paramobj,"
+        " pulser_tpu_torch.parametrized.decorators,"
+        " pulser_tpu_torch.waveforms, pulser_tpu_torch.pulse,"
+        " pulser_tpu_torch.register.register_layout,"
+        " pulser_tpu_torch.register.mappable_reg",
+        "import pulser_tpu_torch.sequence._basis_ref,"
+        " pulser_tpu_torch.sequence._call,"
+        " pulser_tpu_torch.sequence._decorators,"
+        " pulser_tpu_torch.sequence.helpers._seq_str,"
+        " pulser_tpu_torch.sequence._schedule,"
+        " pulser_tpu_torch.sequence._eom_mode,"
+        " pulser_tpu_torch.sequence.sequence,"
+        " pulser_tpu_torch.sampler.sampler",
+        "import chip_smoke; chip_smoke.afm16_sequence();"
+        " chip_smoke.noisy10_sequence(); chip_smoke.pauli10_sequence();"
+        " chip_smoke.spd10_sequence()",
+        _EOM_SEQUENCE,
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

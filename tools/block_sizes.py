@@ -213,10 +213,10 @@ def _build(group: str) -> dict[str, ctypes.CDLL]:
 
 
 def _afm16_call():
-    samples, register, mock = chip_smoke.afm16_inputs()
-    emu = TorchEmulator(
-        samples, register, mock,
-        evaluation_times=np.linspace(0, samples.max_duration * 1e-3, 101),
+    seq = chip_smoke.afm16_sequence()
+    emu = TorchEmulator.from_sequence(
+        seq,
+        evaluation_times=np.linspace(0, seq.get_duration() * 1e-3, 101),
     )
     emu.run()
     psi0 = emu._initial_ket().astype(np.complex64)
@@ -231,7 +231,7 @@ def _spd10_call():
     with open(chip_smoke._SPD10_GOLDEN) as f:
         seed = json.load(f)["seed"]
     *_, captured = chip_smoke._run_noisy(
-        K, chip_smoke.spd10_inputs(), seed, "sesolve_rk4_batched", S
+        K, chip_smoke.spd10_sequence(), seed, "sesolve_rk4_batched", S
     )
     psi0, plans, diags, _, _, n = captured["args"][:6]
     args, kw = S.ip_batched_kernel_inputs(psi0, plans, diags, n, "cuda")
@@ -248,7 +248,7 @@ def _random_batched_call(n: int):
 
 def _noisy10_call():
     *_, captured = chip_smoke._run_noisy(
-        K, chip_smoke.noisy10_inputs(), chip_smoke.NOISY10_REFERENCE["seed"],
+        K, chip_smoke.noisy10_sequence(), chip_smoke.NOISY10_REFERENCE["seed"],
         "mcsolve_rows_codes", S,
     )
     psi0, plans, diags, _, _, _, cops, seeds, _ = captured["args"]
@@ -270,7 +270,7 @@ def _pauli10_call():
     with open(chip_smoke._PAULI10_GOLDEN) as f:
         seed = json.load(f)["seed"]
     *_, captured = chip_smoke._run_noisy(
-        K, chip_smoke.pauli10_inputs(), seed, "mcsolve_rk4_batched", S
+        K, chip_smoke.pauli10_sequence(), seed, "mcsolve_rk4_batched", S
     )
     psi0, plans, diags, _, _, _, cops, seeds = captured["args"]
     args, kw = S.mcwf_kernel_inputs(psi0, plans, diags, cops, seeds, "cuda")
