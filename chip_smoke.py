@@ -88,9 +88,34 @@ to sample it, median of 3 each, beside the card's name and power limit):
     batched solve launches (exactly one), and trace one warm SPD10
     ``run()`` for the device's busy share.
 
+13. Run DEPH10, the master equation of one density matrix: the register
+    and pulses of NOISY10 under dephasing alone (:func:`deph10_sequence`),
+    through ``from_sequence(seq).run()``. It must take the master-equation
+    route on the card (``kind == "mesolve_cuda"``, the interaction
+    picture, the reference's step count), and the final ρ must have
+    |tr − 1| ≤ 1e-5, be Hermitian within 1e-6, and match the JAX
+    package's figures (``tests/goldens/deph10_reference.json``): Rydberg
+    populations, diagonal and 64 off-diagonal elements within 1e-4. Time
+    the warm ``run()`` (median of 3), the solve per RK4 stage, its kernel
+    launches per stage, and the busy share from one trace.
+14. Run MESOLVE10: NOISY10 with ``solver=Solver.MESOLVER``, 100 density
+    matrices in one batched solve, after ``np.random.seed(1234)``. It must
+    take the batched master-equation route (``kind ==
+    "mesolve_batched_cuda"``), give 1000 shots per evaluation time, keep
+    every trajectory's trace within 1e-5, and match trajectories 0-2 of the
+    JAX package's batch (``tests/goldens/mesolve10_reference.json``) as in
+    13. Time the cold ``run()``, one warm ``run()`` split into host prep,
+    solve, wrapping and sampling, and the busy share from one trace.
+15. Run EFF8, the lab-frame master equation with off-diagonal collapse
+    operators (:func:`eff8_sequence`), and check and time it as in 13
+    (``tests/goldens/eff8_reference.json``).
+
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
-grid).
+grid). The master-equation paths run torch operations only (the JAX
+package computes them in XLA, outside any Pallas kernel); they report
+their times, stages, ms and kernel launches per stage and the bytes of ρ
+in the ``paths`` entry of the report.
 
 Each kernel's line in the report gives its launches on its main path,
 its error against its plain version there, its time and the plain
@@ -131,6 +156,15 @@ _PAULI10_GOLDEN = os.path.join(
 #: count, the final Rydberg population of each atom per trajectory and
 #: averaged, and the final-time bitstring counts.
 _SPD10_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "spd10_reference.json")
+#: The JAX package's master-equation figures (double precision, on a CPU),
+#: written by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tools/mesolve_references.py``: the step count, the final ρ diagonal, the
+#: per-atom Rydberg populations and 64 fixed off-diagonal elements of the
+#: final ρ (MESOLVE10: of trajectories 0, 1 and 2 of the seeded batch).
+_MESOLVE_GOLDENS = {
+    name: os.path.join(_ROOT, "tests", "goldens", f"{name}_reference.json")
+    for name in ("deph10", "mesolve10", "eff8")
+}
 
 #: Tolerance of the kernel against its plain version on random inputs:
 #: both run in float32 with different summation orders and libm.
@@ -151,6 +185,12 @@ MCWF_TOL = 5e-5
 #: distance of the final 1000-shot count table.
 POPULATION_TOL = 1e-3
 COUNTS_TV_TOL = 0.02
+#: The master-equation paths in complex64 against the JAX package's
+#: complex128 figures: ρ elements and Rydberg populations (absolute), the
+#: trace, and the Hermiticity of the final ρ.
+RHO_TOL = 1e-4
+TRACE_TOL = 1e-5
+HERMITIAN_TOL = 1e-6
 
 #: The JAX package's run of the noisy 10-atom configuration after
 #: ``np.random.seed(1234)`` (row-batched quantum-jump kernel, Pallas
@@ -461,6 +501,46 @@ def spd10_inputs() -> tuple:
     """``(samples, register, device, noise_model)`` of
     :func:`spd10_sequence`."""
     return _sampled(*spd10_sequence())
+
+
+def deph10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of DEPH10: the register and pulses of
+    :func:`noisy10_sequence` (2x5 at 7 µm, 400/1200/400 ns) under
+    dephasing at 0.05 /µs alone. Without shot-to-shot noise the default
+    solver runs one master-equation solve of the 1024 x 1024 density
+    matrix on the coarsened interaction-picture grid."""
+    from pulser_tpu_torch import NoiseModel
+
+    return _noisy10()[0], NoiseModel(dephasing_rate=0.05)
+
+
+def mesolve10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of MESOLVE10: NOISY10 exactly
+    (:func:`noisy10_sequence`), run with ``solver=Solver.MESOLVER``: one
+    density matrix per noise trajectory, 100 trajectories, in one batched
+    master-equation solve on the interaction-picture grid."""
+    return noisy10_sequence()
+
+
+def eff8_sequence() -> tuple:
+    """``(sequence, noise_model)`` of EFF8: the sweep of
+    :func:`noisy10_sequence` on a 2x4 rectangle at 7 µm under PAULI10's
+    effective-noise Pauli channel alone (no shot-to-shot noise). The Pauli
+    operators are not diagonal, so the master equation runs in the lab
+    frame. Eight atoms, so that the JAX package's reference finishes on a
+    CPU (``tools/mesolve_references.py``)."""
+    from pulser_tpu_torch import NoiseModel, Register
+
+    om = 2 * np.pi * 1.5
+    seq = _sweep_sequence(
+        Register.rectangle(2, 4, spacing=7.0, prefix="q"),
+        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400,
+    )
+    noise = NoiseModel(
+        eff_noise_rates=[PAULI_RATE] * 3,
+        eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
+    )
+    return seq, noise
 
 
 def _sequence_ms(path: str, make_sequence, card: str) -> None:
@@ -807,28 +887,38 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _device_busy(fn) -> tuple[float, float]:
-    """Wall seconds of one traced call of ``fn`` and the device's busy
+#: Names of the CUDA runtime and driver calls that launch a kernel, as
+#: ``torch.profiler`` records them on the host.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+
+
+def _device_busy(fn) -> tuple[float, float, int]:
+    """Wall seconds of one traced call of ``fn``, the device's busy
     milliseconds in it (kernels and copies; the emulator's
-    record_function ranges show as device events too and are left
-    out)."""
+    record_function ranges show as device events too and are left out),
+    and its kernel launches: the host-side launch calls of the trace,
+    which it records even when it catches no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # one-cycle profiler
+        with profile(activities=activities) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
     busy_us = sum(
         e.self_device_time_total
-        for e in prof.key_averages()
+        for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
         and not e.is_user_annotation
     )
-    return wall_s, busy_us / 1e3
+    launches = sum(e.count for e in events if e.key in _LAUNCH_CALLS)
+    return wall_s, busy_us / 1e3, launches
 
 
 def _print_busy(what: str, wall_s: float, busy_ms: float) -> None:
@@ -1292,7 +1382,7 @@ def _noisy10_path(K, S, device, card: str) -> dict:
         f" {ninfo['n_traj']} trajectories); bound {bound_ms:.3f} ms"
         f" ({bound_by})"
     )
-    _print_busy("noisy run()", *_device_busy(noisy.run))
+    _print_busy("noisy run()", *_device_busy(noisy.run)[:2])
     return {
         "name": "mcwf_rows",
         "route": "cuda",
@@ -1420,7 +1510,7 @@ def _pauli10_path(K, S, device, card: str) -> dict:
         f" ({pinfo['n_steps']} RK4 steps, {n_traj} trajectories, {n_cops}"
         f" collapse operators); bound {bound_ms:.3f} ms ({bound_by})"
     )
-    _print_busy("PAULI10 run()", *_device_busy(pauli.run))
+    _print_busy("PAULI10 run()", *_device_busy(pauli.run)[:2])
     return {
         "name": "mcwf",
         "route": "cuda",
@@ -1436,13 +1526,13 @@ def _pauli10_path(K, S, device, card: str) -> dict:
     }
 
 
-def _timed_parts(emu, S, sim) -> dict:
-    """Wall seconds of the parts of one warm pure-state noisy ``run()``:
-    host preparation (trajectory draws, dense batch, step policy, plan),
-    the solve call (staging, kernel, fetch), the wrapping of the states
-    into results, and the host sampling."""
+def _timed_parts(emu, S, sim, solver_fn: str = "sesolve_rk4_batched") -> dict:
+    """Wall seconds of the parts of one warm noisy ``run()`` that samples
+    on the host: host preparation (trajectory draws, batch, step policy,
+    plan), the solve call ``S.<solver_fn>`` (staging, solve, fetch), the
+    wrapping of the states into results, and the host sampling."""
     marks: dict = {}
-    solve, sample = S.sesolve_rk4_batched, sim._sample_weight_rows
+    solve, sample = getattr(S, solver_fn), sim._sample_weight_rows
 
     def timed_solve(*a, **k):
         marks["solve_begin"] = time.perf_counter()
@@ -1456,13 +1546,15 @@ def _timed_parts(emu, S, sim) -> dict:
         marks["sample_end"] = time.perf_counter()
         return out
 
-    S.sesolve_rk4_batched, sim._sample_weight_rows = timed_solve, timed_sample
+    setattr(S, solver_fn, timed_solve)
+    sim._sample_weight_rows = timed_sample
     try:
         start = time.perf_counter()
         emu.run()
         end = time.perf_counter()
     finally:
-        S.sesolve_rk4_batched, sim._sample_weight_rows = solve, sample
+        setattr(S, solver_fn, solve)
+        sim._sample_weight_rows = sample
     return {
         "prep": marks["solve_begin"] - start,
         "solve": marks["solve_end"] - marks["solve_begin"],
@@ -1581,7 +1673,7 @@ def _spd10_path(K, S, device, card: str) -> dict:
         f" ({sinfo['n_steps']} RK4 steps, {n_traj} trajectories); bound"
         f" {bound_ms:.3f} ms ({bound_by})"
     )
-    _print_busy("SPD10 run()", *_device_busy(spd.run))
+    _print_busy("SPD10 run()", *_device_busy(spd.run)[:2])
     return {
         "name": "ip_sesolve_batched",
         "route": "cuda",
@@ -1595,6 +1687,248 @@ def _spd10_path(K, S, device, card: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def _rho_checks(rho: np.ndarray, ref: dict, what: str) -> None:
+    """Trace, Hermiticity, populations, diagonal and the 64 sampled
+    off-diagonal elements of a final ρ against the JAX package's."""
+    n = ref["n"]
+    rho = np.asarray(rho, dtype=np.complex128)
+    diag = np.real(np.diag(rho))
+    trace_err = abs(np.trace(rho) - 1.0)
+    herm_err = float(np.abs(rho - rho.conj().T).max())
+    pops = _rydberg_populations(diag[None], n)[0]
+    pop_err = float(np.abs(pops - ref["rydberg_populations"]).max())
+    diag_err = float(np.abs(diag - ref["diagonal"]).max())
+    off = ref.get("offdiagonal") or []
+    off_err = max(
+        (abs(rho[int(r), int(c)] - complex(re, im)) for r, c, re, im in off),
+        default=0.0,
+    )
+    print(
+        f"{what} vs the JAX package: |tr-1| = {trace_err:.3e}, max|rho -"
+        f" rho^H| = {herm_err:.3e}, Rydberg populations max|d| ="
+        f" {pop_err:.3e}, diagonal max|d| = {diag_err:.3e}, sampled"
+        f" off-diagonal max|d| = {off_err:.3e}"
+    )
+    _check(trace_err <= TRACE_TOL, f"{what} trace {trace_err:.3e}")
+    _check(herm_err <= HERMITIAN_TOL, f"{what} Hermitian {herm_err:.3e}")
+    _check(pop_err <= RHO_TOL, f"{what} populations {pop_err:.3e}")
+    _check(max(diag_err, off_err) <= RHO_TOL, f"{what} rho {diag_err:.3e}")
+
+
+def _path_entry(name, run_ms, stages, solve_ms, launches, rho_bytes) -> dict:
+    """A ``paths`` entry of the report: the warm ``run()`` time, the RK4
+    stages, the solve's ms per stage, the device kernel launches per stage,
+    the bytes of ρ, and the least time per stage the memory rate allows
+    (read ρ once and write its derivative once)."""
+    return {
+        "name": name,
+        "ms": run_ms,
+        "stages": stages,
+        "ms_per_stage": solve_ms / stages,
+        "ops_per_stage": launches / stages,
+        "rho_bytes": rho_bytes,
+        "floor_ms_per_stage": 2 * rho_bytes / PEAK_BYTES_PER_S * 1e3,
+    }
+
+
+def _head_plan(plan, steps: int):
+    """The first ``steps`` steps of ``plan``'s last (longest) segment as a
+    plan of its own, emitted at that segment's evaluation time: the same
+    RK4 stages as the full solve, for a trace short enough to read."""
+    import dataclasses
+
+    return dataclasses.replace(
+        plan,
+        seg_map=plan.seg_map[-1:, :steps],
+        seg_dts=plan.seg_dts[-1:, :steps],
+        eval_times=plan.eval_times[-1:],
+        eval_det_cum=(
+            None if plan.eval_det_cum is None else plan.eval_det_cum[-1:]
+        ),
+        eval_map=np.zeros(1, dtype=np.int64),
+        runtime_cache={},
+    )
+
+
+def _timed_run(emu, S) -> tuple[float, float]:
+    """Wall seconds of one warm ``run()`` with the final state fetched, and
+    of its ``S.mesolve_rk4`` call up to the device's completion."""
+    import torch
+
+    solve, marks = S.mesolve_rk4, {}
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = solve(*a, **k)
+        torch.cuda.synchronize()
+        marks["solve"] = time.perf_counter() - t0
+        return out
+
+    S.mesolve_rk4 = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emu.run().get_final_state().full()
+        run_s = time.perf_counter() - t0
+    finally:
+        S.mesolve_rk4 = solve
+    return run_s, marks["solve"]
+
+
+#: RK4 steps of the traced head of a lab-frame solve (its 40 kernel
+#: launches per stage over the whole EFF8 run make a trace of about a
+#: million events, which takes minutes to read back).
+_TRACE_STEPS = 200
+
+
+def _single_rho_path(S, name: str, make, card: str) -> dict:
+    """One master-equation ``run()`` through ``from_sequence`` on the card
+    (no shot-to-shot noise): the route, the final ρ against the JAX
+    package's figures, then the warm ``run()`` and its solve (median of
+    3), the kernel launches per stage and the device's busy share from
+    one trace (of the whole warm ``run()`` on the interaction-picture
+    grid, of the solve's first :data:`_TRACE_STEPS` steps in the lab
+    frame)."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    with open(_MESOLVE_GOLDENS[name.lower()]) as f:
+        ref = json.load(f)
+    _sequence_ms(name, lambda: make()[0], card)
+    seq, noise = make()
+    captured: dict = {}
+    solve = S.mesolve_rk4
+
+    def record(*a, **k):
+        captured["args"], captured["kwargs"] = a, k
+        return solve(*a, **k)
+
+    S.mesolve_rk4 = record
+    try:
+        t0 = time.perf_counter()
+        emu = TorchEmulator.from_sequence(
+            seq, noise_model=noise, evaluation_times="Minimal"
+        )
+        rho = emu.run().get_final_state().full()
+        cold_s = time.perf_counter() - t0
+    finally:
+        S.mesolve_rk4 = solve
+    info = dict(S.last_solve_info)
+    print(f"{name} path: {info}, cold {cold_s:.3f} s")
+    _check(info.get("kind") == "mesolve_cuda", f"{name} master-equation route")
+    _check(info["ip"] == ref["interaction_picture"], f"{name} frame")
+    _check(info["n_steps"] == ref["n_steps"], f"{name}: {info['n_steps']}")
+    _check(bool(np.isfinite(rho).all()), f"finite {name} state")
+    _rho_checks(rho, ref, name)
+
+    runs = [_timed_run(emu, S) for _ in range(3)]
+    run_s = statistics.median(r[0] for r in runs)
+    solve_s = statistics.median(r[1] for r in runs)
+    stages = info["n_steps"] * 4
+    if info["ip"]:
+        traced_stages = stages
+        wall_s, busy_ms, launches = _device_busy(
+            lambda: emu.run().get_final_state().full()
+        )
+        what = f"{name} run()"
+    else:
+        a, k = captured["args"], captured["kwargs"]
+        head = _head_plan(a[1], _TRACE_STEPS)
+        traced_stages = 4 * int(np.count_nonzero(head.seg_dts))
+        kw = dict(k, lazy=False)
+        wall_s, busy_ms, launches = _device_busy(
+            lambda: S.mesolve_rk4(a[0], head, *a[2:], **kw)
+        )
+        what = f"{name} solve, first {_TRACE_STEPS} steps"
+    dim = info["dim"]
+    rho_bytes = dim * dim * 8
+    print(
+        f"times on {card}: warm {name} run() {run_s * 1e3:.3f} ms, its solve"
+        f" {solve_s * 1e3:.3f} ms = {solve_s * 1e3 / stages:.4f} ms per RK4"
+        f" stage ({stages} stages, {launches / traced_stages:.1f} kernel"
+        f" launches per stage); rho {rho_bytes} bytes"
+    )
+    _print_busy(what, wall_s, busy_ms)
+    return _path_entry(
+        name, run_s * 1e3, stages, solve_s * 1e3,
+        launches * stages / traced_stages, rho_bytes,
+    )
+
+
+def _mesolve10_path(S, card: str) -> dict:
+    """MESOLVE10 on the card: NOISY10 with ``solver=Solver.MESOLVER``
+    through ``from_sequence`` after ``np.random.seed(1234)``, the route,
+    the shots, trajectories 0-2 against the JAX package's batch, every
+    trajectory's trace; then one warm ``run()`` split into host prep,
+    solve, wrapping and sampling, and the busy share from one trace."""
+    from pulser_tpu_torch.emulator import Solver, TorchEmulator
+    from pulser_tpu_torch.emulator import simulation as sim
+
+    with open(_MESOLVE_GOLDENS["mesolve10"]) as f:
+        ref = json.load(f)
+    _sequence_ms("MESOLVE10", lambda: mesolve10_sequence()[0], card)
+    seq, noise = mesolve10_sequence()
+    captured: dict = {}
+    solve = S.mesolve_rk4_batched
+
+    def record(*a, **k):
+        captured["args"], captured["kwargs"] = a, k
+        captured["out"] = solve(*a, **k)
+        return captured["out"]
+
+    S.mesolve_rk4_batched = record
+    try:
+        np.random.seed(ref["seed"])
+        t0 = time.perf_counter()
+        emu = TorchEmulator.from_sequence(
+            seq, noise_model=noise, evaluation_times="Minimal",
+            solver=Solver.MESOLVER,
+        )
+        res = emu.run()
+        cold_s = time.perf_counter() - t0
+    finally:
+        S.mesolve_rk4_batched = solve
+    info = dict(S.last_solve_info)
+    print(f"MESOLVE10 path: {info}, cold {cold_s:.3f} s")
+    _check(info.get("kind") == "mesolve_batched_cuda", "batched master eq.")
+    _check(info["ip"] == ref["interaction_picture"], "MESOLVE10 frame")
+    _check(info["n_steps"] == ref["n_steps"], f"steps {info['n_steps']}")
+    _check(info["n_traj"] == ref["n_traj_batch"], f"{info['n_traj']} traj")
+    _check_shots(res)
+    states = captured["out"]  # (B, n_eval, dim, dim) complex64
+    _check(bool(np.isfinite(states).all()), "finite MESOLVE10 states")
+    traces = np.abs(np.trace(states[:, -1], axis1=-2, axis2=-1) - 1)
+    print(f"MESOLVE10 final traces: max|tr-1| = {traces.max():.3e}")
+    _check(float(traces.max()) <= TRACE_TOL, f"traces {traces.max():.3e}")
+    for tr in ref["trajectories"]:
+        _rho_checks(
+            states[tr["index"], -1], {"n": ref["n"], **tr},
+            f"MESOLVE10 trajectory {tr['index']}",
+        )
+
+    t0 = time.perf_counter()
+    part = _timed_parts(emu, S, sim, "mesolve_rk4_batched")
+    warm_s = time.perf_counter() - t0
+    stages = info["n_steps"] * 4
+    dim, n_traj = info["dim"], info["n_traj"]
+    wall_s, busy_ms, launches = _device_busy(emu.run)
+    print(
+        f"times on {card}: cold MESOLVE10 run() {cold_s * 1e3:.3f} ms, warm"
+        f" {warm_s * 1e3:.3f} ms, of which host prep (trajectory draws,"
+        f" batch, plan) {part['prep'] * 1e3:.3f} ms, the solve call"
+        f" {part['solve'] * 1e3:.3f} ms ="
+        f" {part['solve'] * 1e3 / stages:.4f} ms per RK4 stage ({stages}"
+        f" stages, {n_traj} trajectories in {info['traj_per_call']} per"
+        f" call), wrapping {part['wrap'] * 1e3:.3f} ms, host sampling"
+        f" {part['sampling'] * 1e3:.3f} ms; {launches / stages:.1f} kernel"
+        f" launches per stage in the traced run"
+    )
+    _print_busy("MESOLVE10 run()", wall_s, busy_ms)
+    return _path_entry(
+        "MESOLVE10", warm_s * 1e3, stages, part["solve"] * 1e3, launches,
+        n_traj * dim * dim * 8,
+    )
 
 
 def main() -> int:
@@ -1632,7 +1966,12 @@ def main() -> int:
             _spd10_path(K, S, device, card),  # 11-12
             _noisy10_path(K, S, device, card),  # 7-8
             _pauli10_path(K, S, device, card),  # 9-10
-        ]
+        ],
+        "paths": [
+            _single_rho_path(S, "DEPH10", deph10_sequence, card),  # 13
+            _mesolve10_path(S, card),  # 14
+            _single_rho_path(S, "EFF8", eff8_sequence, card),  # 15
+        ],
     }
     print(json.dumps(report))
     print(

@@ -23,17 +23,26 @@ asked for:
   with general ones (the effective-noise Pauli channel, for instance) the
   lab-frame solve returns the states
   (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rk4_batched`) and the
-  draws run on the host.
+  draws run on the host;
+- the Lindblad master equation: collapse operators without shot-to-shot
+  noise, or ``Solver.MESOLVER``, or a density-matrix initial state run
+  :func:`~pulser_tpu_torch.ops.solver.mesolve_rk4` (one solve) or
+  :func:`~pulser_tpu_torch.ops.solver.mesolve_rk4_batched` (one
+  density matrix per noise trajectory), in the interaction picture on
+  the coarsened grid when every collapse operator is diagonal, in the
+  lab frame otherwise; the device-memory contract of
+  :mod:`pulser_tpu_torch.parallel.capacity` is checked first.
 
 The evaluation-times semantics (Full/Minimal/array/fraction, union with
 {0, T}), the +1 duration extension, the step policy, the noise draws and
 the order in which the numpy global RNG is consumed match the JAX
 package exactly, so both build the same plan and a seeded run gives the
-same counts. Every other noise configuration (master equation,
-depolarizing, relaxation and other single-matrix-unit operators on the
-interaction-picture grid, register noise, XY, interaction
-interpolation), density-matrix inputs and the lab-frame sesolve are
-not ported yet and raise ``NotImplementedError`` (see ROADMAP.md).
+same counts. The quantum-jump runs outside the two kernels (the serial
+solve, depolarizing under shot-to-shot noise, relaxation and other
+single-matrix-unit operators on the interaction-picture grid), register
+noise, the XY term and interaction interpolation (with noise or a
+density matrix) and the lab-frame sesolve are not ported yet and raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from pulser_tpu_torch.hamiltonian_data import (
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.ops import solver as _solver_mod
 from pulser_tpu_torch.ops.solver import build_plan
+from pulser_tpu_torch.parallel.capacity import check_capacity
 from pulser_tpu_torch.register.base_register import BaseRegister
 from pulser_tpu_torch.result import SampledResult, _labels_of
 from pulser_tpu_torch.sequence import Sequence
@@ -189,12 +199,18 @@ class _LindbladPrep(NamedTuple):
     collapse_mats: list
     psi0: np.ndarray  # complex, solver dtype
     mcwf_ip: bool
+    mesolve_ip: bool
 
 
 #: Why XY mode and interaction interpolation are refused.
 _LAB_FRAME_REFUSAL = (
     "XY mode and interaction interpolation need the lab-frame solve"
     " (ROADMAP.md Queue 1, 'Lab-frame, XY and int_w sesolve')"
+)
+#: Why the serial quantum-jump solve is refused.
+_SERIAL_MCWF_REFUSAL = (
+    "the serial quantum-jump solve mcsolve_rk4 per trajectory is"
+    " ROADMAP.md Queue 1, 'Serial mcsolve_rk4'"
 )
 
 
@@ -234,7 +250,7 @@ class Solver(str, Enum):
     used (this setting is ignored). With effective noise:
         - ``DEFAULT``: quantum-jump Monte-Carlo under stochastic noise,
           master equation otherwise (the reference's auto-selection),
-        - ``MESOLVER``: master-equation solver (not ported yet),
+        - ``MESOLVER``: master-equation solver,
         - ``MCSOLVER``: quantum-jump Monte-Carlo (MCWF) solver.
     """
 
@@ -258,9 +274,10 @@ class TorchEmulator:
         evaluation_times: "Full", "Minimal", an array of times (in µs)
             or a float sampling fraction.
         noise_model: The noise model for the simulation. Ported:
-            shot-to-shot noise without collapse operators, with
-            diagonal ones, or with general ones on the lab-frame grid
-            (see the module docstring).
+            the master equation, shot-to-shot noise without collapse
+            operators, and quantum jumps with diagonal collapse
+            operators or with general ones on the lab-frame grid (see
+            the module docstring).
         solver: Solver selection (see :class:`Solver`).
         n_trajectories: The number of noise trajectories to average over
             when the emulation includes stochastic noise.
@@ -405,30 +422,22 @@ class TorchEmulator:
         numpy global RNG, so it cannot shift a seeded run's draws.
         """
         nm = self.noise_model
-        if not nm.noise_types:
-            return None
-        hd = self._hamiltonian_data
         ham = self._current_hamiltonian
-        lindblad = hd.lindblad_data
-        if not _has_stochastic_noise(nm):
-            if lindblad.local_collapse_ops:
-                return (
-                    "collapse operators without shot-to-shot randomness run"
-                    " the master equation (ROADMAP.md Queue 1, 'mesolve')"
-                )
-            # One coherent run (SPAM measurement errors alone, say)
-            return None
-        if not lindblad.local_collapse_ops:
-            # The pure-state batch (sesolve_rk4_batched); its gate is
-            # _can_batch_trajectories, read in run()
-            if ham.xy_mat is not None or ham.int_w is not None:
+        lindblad = self._hamiltonian_data.lindblad_data
+        is_dm = not self.initial_state.isket
+        has_cops = bool(lindblad.local_collapse_ops)
+        stochastic = _has_stochastic_noise(nm)
+        if ham.xy_mat is not None or ham.int_w is not None:
+            if has_cops or is_dm or stochastic:
                 return _LAB_FRAME_REFUSAL
-            if not self.initial_state.isket:
-                return (
-                    "density-matrix initial states are ROADMAP.md Queue 1,"
-                    " 'mesolve'"
-                )
+            return None  # the noiseless lab-frame sesolve raises in run()
+        if not has_cops or is_dm or not self._lindblad_solver_choice():
+            # sesolve, the pure-state batch, or the master equation
+            # (one solve, the batch, or one solve per trajectory)
             return None
+        # Quantum jumps
+        if not stochastic:
+            return _SERIAL_MCWF_REFUSAL
         if lindblad.depolarizing_pauli_2ds:
             return (
                 "depolarizing noise runs the serial quantum-jump solve"
@@ -445,13 +454,7 @@ class TorchEmulator:
                 " general collapse operators, on the vmapped scan"
                 f" ({_solver_mod._MCWF_SCAN_ITEM})"
             )
-        if ham.xy_mat is not None or ham.int_w is not None:
-            return _LAB_FRAME_REFUSAL
-        if self.solver == Solver.MESOLVER or not self.initial_state.isket:
-            return (
-                "the master-equation solver and density-matrix initial"
-                " states are ROADMAP.md Queue 1, 'mesolve'"
-            )
+        hd = self._hamiltonian_data
         if (
             hd.basis_data.dim != 2
             or self._meas_basis != "ground-rydberg"
@@ -1151,55 +1154,89 @@ class TorchEmulator:
         self._sticky_steps[key] = step
         return step
 
-    def _run_solver(self, **options: Any) -> CoherentResults:
-        """Runs the interaction-picture evolution."""
-        hamiltonian = self._current_hamiltonian
+    def _run_solver(
+        self, hamiltonian: "Hamiltonian | None" = None, **options: Any
+    ) -> CoherentResults:
+        """Runs one evolution of ``hamiltonian`` (default: the current
+        one): the interaction-picture sesolve of a ket, or the master
+        equation with collapse operators or a density-matrix input."""
+        if hamiltonian is None:
+            hamiltonian = self._current_hamiltonian
         if hamiltonian.xy_mat is not None or hamiltonian.int_w is not None:
             raise NotImplementedError(
                 "The lab-frame solve (XY mode, SLM-masked interaction"
                 " interpolation) is not ported yet (ROADMAP.md Queue 1,"
                 " 'Lab-frame, XY and int_w sesolve')."
             )
-        if self.initial_state.isoper and not self.initial_state.isket:
-            raise NotImplementedError(
-                "Density-matrix initial states need mesolve, which is"
-                " not ported yet (ROADMAP.md Queue 1, 'mesolve')."
-            )
+        is_dm = not self.initial_state.isket
+        use_lindblad = len(hamiltonian.lindblad_data.local_collapse_ops) > 0
+        if use_lindblad and not is_dm and self._lindblad_solver_choice():
+            raise NotImplementedError(f"Not ported: {_SERIAL_MCWF_REFUSAL}.")
+        can_use_ip = not use_lindblad and not is_dm
         d = hamiltonian.dim
         n = hamiltonian.n_qudits
         knots = hamiltonian.sampling_times
         # Keep steps at or below 1 ns (and below any user max_step, µs).
         # Additionally bound λ_max·h for RK4 stability/accuracy on the
-        # drive term (the interaction picture rotates the diagonal away)
+        # drive term; without the interaction picture the full diagonal
+        # adds to the stiffness
         spacings = np.diff(knots)
         lambda_max = float(
             np.sum(
                 2 * np.max(np.abs(hamiltonian.amp_coeffs), axis=(1, 2))
             )
         )
+        if not can_use_ip:
+            lambda_max += float(np.max(np.abs(hamiltonian.int_diag))) + float(
+                np.sum(np.max(np.abs(hamiltonian.det_coeffs), axis=(1, 2)))
+            )
         base_step = min(
             float(np.median(spacings)) if len(spacings) else 1e-3,
             1e-3,
         )
         max_step = self._sticky_quantized_step(
-            "sesolve", base_step, 0.8 / max(lambda_max, 1e-9)
+            "sesolve" if can_use_ip else "sesolve_lab",
+            base_step,
+            0.8 / max(lambda_max, 1e-9),
         )
         if "max_step" in options and options["max_step"]:
             max_step = min(max_step, float(options["max_step"]))
-        max_step, coarsen = self._coarse_ip_step(
-            "sesolve_coarse", max_step, lambda_max, [hamiltonian], options
-        )
+        coarsen = False
+        if can_use_ip:
+            max_step, coarsen = self._coarse_ip_step(
+                "sesolve_coarse", max_step, lambda_max, [hamiltonian], options
+            )
+        # The master equation coarsens the same way when every collapse
+        # operator is diagonal (ρ's rotor conjugation then commutes with
+        # the dissipator exactly); the policy reads the NOISELESS
+        # Hamiltonian with the batch margin, as the JAX package's does
+        mats = hamiltonian._local_collapse_mats
+        mesolve_ip = not can_use_ip and _solver_mod.mesolve_ip_eligible(mats)
+        if mesolve_ip:
+            ham0 = self._noiseless_hamiltonian
+            lam_drive = float(
+                np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+            )
+            max_step, coarsen = self._coarse_ip_step(
+                "mesolve_coarse", max_step, lam_drive, [ham0], options,
+                margin=1.3,
+            )
+            mesolve_ip = coarsen
 
-        # Repeat runs with unchanged evaluation times reuse the previous
-        # plan object — and with it the staged device inputs (see
-        # EvolutionPlan.runtime_cache)
+        # Repeat runs with an unchanged Hamiltonian and evaluation times
+        # reuse the previous plan object — and with it the staged device
+        # inputs (see EvolutionPlan.runtime_cache)
         plan_key = (
             self._eval_times_array.tobytes(),
             float(max_step),
             bool(coarsen),
         )
         cached = getattr(self, "_plan_cache", None)
-        if cached is not None and cached[0] == plan_key:
+        if (
+            cached is not None
+            and cached[0] == plan_key
+            and cached[2] is hamiltonian
+        ):
             plan = cached[1]
         else:
             with torch.profiler.record_function("emulator.build_plan"):
@@ -1218,34 +1255,67 @@ class TorchEmulator:
                         else None
                     ),
                 )
-            self._plan_cache = (plan_key, plan)
+            self._plan_cache = (plan_key, plan, hamiltonian)
 
-        with torch.profiler.record_function("emulator.sesolve"):
-            states_arr = _solver_mod.sesolve_rk4(
-                self._initial_ket(),
-                plan,
-                hamiltonian.int_diag,
-                hamiltonian.pairs,
+        cdtype = _default_cdtype()
+        if not can_use_ip:
+            if is_dm:
+                rho0: Any = np.asarray(
+                    self.initial_state.full(),
+                    dtype=_solver_mod._numpy_dtype(cdtype),
+                )
+            else:
+                # ρ = ψψ† is formed on the device
+                rho0 = ("pure", self._initial_ket())
+            check_capacity(
                 d,
                 n,
-                dtype=_default_cdtype(),
-                # The projector occupancies are synthesized from the
-                # basis index; any non-None value selects the
-                # interaction picture
-                ip_occ=True,
-                lazy=True,
+                n_eval=len(self._eval_times_array),
+                itemsize=torch.finfo(cdtype).bits // 8,
+                density_matrix=True,
+                what="master-equation solve",
                 device=self._torch_device,
             )
-        # Coarse RK4 steps drift the norm by ~1e-6/µs; the evolution is
-        # exactly unitary, so the emitted states are renormalized at
-        # fetch time (direction/phase accuracy is separately held at
-        # ~1e-10 by the ω·h bound).
-        states_arr.normalize = bool(coarsen)
-        dims_ket = [[d] * n, [1] * n]
+            with torch.profiler.record_function("emulator.mesolve"):
+                states_arr = _solver_mod.mesolve_rk4(
+                    rho0,
+                    plan,
+                    hamiltonian.int_diag,
+                    hamiltonian.pairs,
+                    d,
+                    n,
+                    mats,
+                    dtype=cdtype,
+                    ip=mesolve_ip,
+                    lazy=True,
+                    device=self._torch_device,
+                )
+            shape, dims = (d**n, d**n), [[d] * n, [d] * n]
+        else:
+            with torch.profiler.record_function("emulator.sesolve"):
+                states_arr = _solver_mod.sesolve_rk4(
+                    self._initial_ket(),
+                    plan,
+                    hamiltonian.int_diag,
+                    hamiltonian.pairs,
+                    d,
+                    n,
+                    dtype=cdtype,
+                    # The projector occupancies are synthesized from the
+                    # basis index; any non-None value selects the
+                    # interaction picture
+                    ip_occ=True,
+                    lazy=True,
+                    device=self._torch_device,
+                )
+            # Coarse RK4 steps drift the norm by ~1e-6/µs; the evolution
+            # is exactly unitary, so the emitted states are renormalized
+            # at fetch time (direction/phase accuracy is separately held
+            # at ~1e-10 by the ω·h bound).
+            states_arr.normalize = bool(coarsen)
+            shape, dims = (d**n, 1), [[d] * n, [1] * n]
         states = [
-            Qobj.deferred(
-                functools.partial(states_arr.state, i), (d**n, 1), dims_ket
-            )
+            Qobj.deferred(functools.partial(states_arr.state, i), shape, dims)
             for i in range(len(states_arr))
         ]
         return self._wrap_coherent(states)
@@ -1355,23 +1425,44 @@ class TorchEmulator:
                 print("Emulating Trajectory 1/1")
             return self._run_solver(**options)
 
-        # The batched routes. The gates build the noiseless Hamiltonian,
-        # whose one draw from the numpy global RNG comes here in the JAX
-        # package too.
+        # The routes in the JAX package's order. The gates build the
+        # noiseless Hamiltonian, whose one draw from the numpy global RNG
+        # comes here in the JAX package too.
+        total_count = None
         if self._can_batch_lindblad():
             # Quantum jumps: the draws run on the device after the solve
-            # where the row-batched solve takes the batch
+            # where the row-batched solve takes the batch (None, before
+            # any draw, under the master equation)
             total_count = self._counts_rows_fused(
                 print_progress=print_progress, **options
             )
-        else:
-            # Pure states: one solve for the batch, one vectorized
-            # sampling pass on the host
+        if total_count is None and (
+            self._can_batch_trajectories() or self._can_batch_lindblad()
+        ):
+            # One solve for the batch (pure states, or one density matrix
+            # per trajectory), one vectorized sampling pass on the host
             total_count = self._sample_runs_vectorized(
                 progress_bar=progress_bar,
                 print_progress=print_progress,
                 **options,
             )
+        elif total_count is None:
+            # One solve per trajectory (a density-matrix initial state, or
+            # depolarizing noise under the master equation), sampled per
+            # trajectory and evaluation time
+            spr = self.noise_model.samples_per_run
+            total_count = np.array([Counter() for _ in self._eval_times_array])
+            for cres, reps in self._noisy_runs(
+                progress_bar=progress_bar,
+                print_progress=print_progress,
+                **options,
+            ):
+                total_count += np.array(
+                    [
+                        cres.sample_state(t, n_samples=spr * reps)
+                        for t in self._eval_times_array
+                    ]
+                )
         n_measures = (
             cast(int, self.n_trajectories) * self.noise_model.samples_per_run
         )
@@ -1501,17 +1592,37 @@ class TorchEmulator:
         print_progress: bool = False,
         **options: Any,
     ) -> Iterator[tuple[SimulationResults, int]]:
-        """Clean results of every noisy trajectory, with its repetitions."""
+        """Clean results of every noisy trajectory, with its repetitions:
+        the pure-state batch, the dissipative batch, or one solve per
+        trajectory."""
         if self._can_batch_trajectories():
             yield from self._noisy_runs_batched(
                 print_progress=print_progress, **options
             )
             return
-        raise NotImplementedError(
-            "Not ported: noisy runs outside the batched solves run the"
-            " serial solve per trajectory (ROADMAP.md Queue 1, 'Serial"
-            " mcsolve_rk4')."
-        )
+        if self._can_batch_lindblad():
+            yield from self._noisy_runs_batched_lindblad(
+                print_progress=print_progress, **options
+            )
+            return
+        n_trajectories = self.n_trajectories
+        traj_nb = 0
+        # Repeated run() calls use fresh noise trajectories
+        self._refresh_trajectories()
+        for ham, reps in self._hamiltonians:
+            if print_progress:
+                if reps == 1:
+                    print(
+                        f"Emulating Trajectory {traj_nb + 1}/{n_trajectories}"
+                    )
+                else:
+                    print(
+                        "Emulating Trajectories "
+                        f"[{traj_nb + 1} - {traj_nb + reps}]/{n_trajectories}"
+                    )
+            self._current_hamiltonian = ham
+            traj_nb += reps
+            yield self._run_solver(ham, **options), reps
 
     def _sample_runs_vectorized(
         self,
@@ -1552,9 +1663,10 @@ class TorchEmulator:
             )
 
     def _can_batch_lindblad(self) -> bool:
-        """Whether dissipative noise trajectories can batch on-device:
-        collapse operators, no depolarizing, no XY or interaction
-        interpolation, a ket initial state."""
+        """Whether dissipative noise trajectories can batch on the device
+        (one quantum-jump realization or one density matrix per
+        trajectory): collapse operators, no depolarizing, no XY or
+        interaction interpolation, a ket initial state."""
         ham0 = self._noiseless_hamiltonian
         lindblad = self._hamiltonian_data.lindblad_data
         return (
@@ -1620,25 +1732,32 @@ class TorchEmulator:
         # The quantum-jump solve integrates in the interaction picture
         # (eligible collapse ops) and then coarsens its step. The policy
         # reads the NOISELESS Hamiltonian, as the JAX package does.
+        # The master equation does the same with diagonal collapse ops.
         first_mats = first._local_collapse_mats
         use_mcwf = self._lindblad_solver_choice() and self.initial_state.isket
+        structure_ok = first.xy_mat is None and first.int_w is None
         mcwf_ip = (
             use_mcwf
-            and first.xy_mat is None
-            and first.int_w is None
+            and structure_ok
             and _solver_mod.mcwf_ip_eligible(first_mats)
         )
+        mesolve_ip = (
+            not use_mcwf
+            and structure_ok
+            and _solver_mod.mesolve_ip_eligible(first_mats)
+        )
         coarsen = False
-        if mcwf_ip:
+        if mcwf_ip or mesolve_ip:
             ham0 = self._noiseless_hamiltonian
             lam_drive = float(
                 np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
             )
             max_step, coarsen = self._coarse_ip_step(
-                "mcwf_coarse", max_step, lam_drive, [ham0], options,
-                margin=1.3,
+                "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
+                max_step, lam_drive, [ham0], options, margin=1.3,
             )
-            mcwf_ip = coarsen
+            mcwf_ip = mcwf_ip and coarsen
+            mesolve_ip = mesolve_ip and coarsen
         # One plan for the whole batch; the drives and the exact phase
         # integrals are staged on the device from the raw knot values
         if factored:
@@ -1678,11 +1797,64 @@ class TorchEmulator:
                 dtype=_solver_mod._numpy_dtype(_default_cdtype()),
             ),
             mcwf_ip=mcwf_ip,
+            mesolve_ip=mesolve_ip,
+        )
+
+    def _noisy_runs_batched_lindblad(
+        self,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> Iterator[tuple[SimulationResults, int]]:
+        """The dissipative trajectory batch in one solve: one quantum-jump
+        realization per trajectory under the quantum-jump solver, one
+        density matrix per trajectory under the master equation; yields
+        one ``(CoherentResults, repetitions)`` per trajectory."""
+        p = self._lindblad_batch_prep(options)
+        if print_progress:
+            self._print_batched_progress()
+        d, n = p.d, p.n
+        cdtype = p.psi0.dtype
+        if self._lindblad_solver_choice():
+            # The per-trajectory seed draws of the serial loop
+            seeds = [int(np.random.randint(2**31)) for _ in p.batch.reps]
+            with torch.profiler.record_function("emulator.mcsolve_batched"):
+                states_batch = _solver_mod.mcsolve_rk4_batched(
+                    p.psi0, p.plans, p.batch.diags, p.pairs, d, n,
+                    p.collapse_mats, seeds, dtype=cdtype, ip=p.mcwf_ip,
+                    device=self._torch_device,
+                )
+            dims = [[d] * n, [1] * n]
+        else:
+            check_capacity(
+                d,
+                n,
+                n_eval=len(self._eval_times_array),
+                itemsize=cdtype.itemsize // 2,
+                density_matrix=True,
+                what="master-equation solve of one trajectory",
+                device=self._torch_device,
+            )
+            with torch.profiler.record_function("emulator.mesolve_batched"):
+                states_batch = _solver_mod.mesolve_rk4_batched(
+                    np.outer(p.psi0, p.psi0.conj()),
+                    p.plans, p.batch.diags, p.pairs, d, n, p.collapse_mats,
+                    dtype=cdtype, ip=p.mesolve_ip, device=self._torch_device,
+                )
+            dims = [[d] * n, [d] * n]
+        self._current_hamiltonian = p.batch.last_ham()
+        for reps, states_t in zip(p.batch.reps, states_batch):
+            states_q = [Qobj(s, dims=dims) for s in states_t]
+            yield self._wrap_coherent(states_q), reps
+
+    def _print_batched_progress(self) -> None:
+        print(
+            f"Emulating Trajectories [1 - {self.n_trajectories}]"
+            f"/{self.n_trajectories} (batched, dissipative)"
         )
 
     def _counts_rows_fused(
         self, print_progress: bool = False, **options: Any
-    ) -> np.ndarray:
+    ) -> "np.ndarray | None":
         """Per-eval-time bitstring Counters of the batched quantum-jump
         solve.
 
@@ -1695,16 +1867,23 @@ class TorchEmulator:
         repeated run), the noiseless Hamiltonian's draw, one seed per
         trajectory, one uniform per measurement sample
         (trajectory-major, eval-time-minor), then the SPAM flip
-        uniforms.
+        uniforms. Returns None, before any draw, where the quantum-jump
+        solver does not take the batch (the master equation, other
+        bases).
         """
+        if not self._lindblad_solver_choice():
+            return None
+        hd = self._hamiltonian_data
+        if (
+            hd.basis_data.dim != 2
+            or self._meas_basis != "ground-rydberg"
+            or self._meas_basis not in self.basis_name
+        ):
+            return None
         p = self._lindblad_batch_prep(options)
         if print_progress:
-            print(
-                f"Emulating Trajectories [1 - {self.n_trajectories}]"
-                f"/{self.n_trajectories} (batched, dissipative)"
-            )
+            self._print_batched_progress()
         d, n = p.d, p.n
-        hd = self._hamiltonian_data
         seeds = [int(np.random.randint(2**31)) for _ in p.batch.reps]
         eval_ts = self._eval_times_array
         n_times = len(eval_ts)

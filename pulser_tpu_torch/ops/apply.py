@@ -10,9 +10,10 @@ tensors in place of the ``(2, d^N)`` real pairs the TPU needed:
   one precomputed length-``d^N`` diagonal vector.
 
 Single-axis application (:func:`apply_axis_c`, the quantum-jump
-candidates) and :func:`neg_i` serve the lab-frame quantum-jump solve.
-The density-matrix sides and the XY flip-flop term are not ported yet
-(see ROADMAP.md).
+candidates) and :func:`neg_i` serve the lab-frame quantum-jump solve;
+:func:`apply_row_c` and :func:`apply_col_c` apply a one-qudit operator
+to the row and column multi-index of a density matrix (the master
+equation). The XY flip-flop term is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -204,3 +205,32 @@ def hamiltonian_matvec(
 ) -> torch.Tensor:
     """One full ``H(t) @ psi`` (exposed for tests)."""
     return _hpsi(psi, diag, amp, det, pairs, d, n)
+
+
+def apply_row_c(
+    op: torch.Tensor, rho: torch.Tensor, q: int, d: int, n: int
+) -> torch.Tensor:
+    """``(op at qudit q) @ rho`` on the row multi-index.
+
+    Args:
+        op: The ``(d, d)`` complex operator.
+        rho: ``(..., d**n, d**n)`` complex density matrices (any leading
+            batch axes).
+        q, d, n: Axis and structure.
+    """
+    lead, dim = rho.shape[:-2], d**n
+    v = rho.reshape(*lead, d**q, d, d ** (n - q - 1) * dim)
+    return torch.matmul(op, v).reshape(rho.shape)
+
+
+def apply_col_c(
+    op: torch.Tensor, rho: torch.Tensor, q: int, d: int, n: int
+) -> torch.Tensor:
+    """``rho @ (op at qudit q)`` on the column multi-index.
+
+    Contracts ``out[..b..] = Σ_a rho[..a..] op[a, b]`` directly on a
+    ``(dim, left, d, right)`` view of each density matrix.
+    """
+    lead, dim = rho.shape[:-2], d**n
+    v = rho.reshape(*lead, dim * d**q, d, d ** (n - q - 1))
+    return torch.matmul(op.transpose(-1, -2), v).reshape(rho.shape)

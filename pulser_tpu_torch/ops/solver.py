@@ -27,16 +27,24 @@ The quantum-jump (MCWF) batch runs one of two hand-written kernels
 (:func:`_mcwf_route`): the row-batched interaction-picture solve with
 diagonal collapse operators, or the lab-frame solve with general local
 2×2 collapse operators; on CPU tensors each runs its plain PyTorch
-version. The lab-frame sesolve (XY, interaction interpolation), state
-sharding, mesolve and the other dissipative solvers are not ported yet
-(see ROADMAP.md).
+version.
+
+The Lindblad master equation (:func:`mesolve_rk4`, and
+:func:`mesolve_rk4_batched` for one density matrix per noise trajectory)
+is a torch loop with native complex density matrices
+(:func:`_mesolve_scan`): in the interaction picture on the coarsened
+grid when every collapse operator is diagonal, in the lab frame
+otherwise. The JAX package computes it in XLA, outside any Pallas
+kernel. The lab-frame sesolve (XY, interaction interpolation), the XY
+term of the master equation, sharding over devices and the serial
+quantum-jump solve are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from pulser_tpu_torch.ops.apply import (
     build_drive_matrices,
     group_sizes,
 )
+from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1911,3 +1920,658 @@ def mcsolve_rk4_batched(
     return _mcsolve_kernel_batched(
         psi0_np, plans, diags, n, collapse_ops, seeds, cdtype, dev
     )
+
+
+# -- The Lindblad master equation -----------------------------------------
+
+#: The ROADMAP item that holds the lab-frame solves with the XY term.
+_LAB_FRAME_ITEM = "ROADMAP.md Queue 1, 'Lab-frame, XY and int_w sesolve'"
+#: The ROADMAP item that holds sharding over several devices.
+_PARALLEL_ITEM = "ROADMAP.md Queue 1, 'Backend, JSON, parallel and serving'"
+
+
+class CollapseAlgebra(NamedTuple):
+    """The static collapse algebra of :func:`_collapse_algebra`.
+
+    Attributes:
+        cdc_sum: ``(d, d)`` complex ``Σ_k L_k†L_k`` (for ``−½{L†L, ρ}``).
+        lrl_idx: The matrix-unit terms ``(i1, j1, i2, j2)`` of
+            ``L ρ L†`` whose units are not both diagonal.
+        lrl_coef: Their complex coefficients ``v1·v2*``.
+        diag_mask: ``(dim, dim)`` complex
+            ``W[r, c] = Σ_q Σ_t c_t [digit_q(r) = i1][digit_q(c) = i2]``
+            over the diagonal-unit terms, or None when there are none.
+    """
+
+    cdc_sum: torch.Tensor
+    lrl_idx: list[tuple[int, int, int, int]]
+    lrl_coef: list[complex]
+    diag_mask: torch.Tensor | None
+
+
+def _digits(d: int, n: int, device: Any) -> torch.Tensor:
+    """``(n, d**n)`` int64: the base-``d`` digits of every basis index,
+    qudit 0 the most significant."""
+    idx = torch.arange(d**n, device=device)
+    place = d ** torch.arange(n - 1, -1, -1, device=device)
+    return (idx[None, :] // place[:, None]) % d
+
+
+def _collapse_algebra(
+    collapse_ops: list[np.ndarray],
+    d: int,
+    n: int,
+    cdtype: torch.dtype,
+    device: Any,
+) -> CollapseAlgebra:
+    """The collapse algebra of local ``d×d`` operators on every qudit.
+
+    Any local ``L`` is ``Σ v_a |i_a><j_a|``, so ``L ρ L† = Σ_{a,b} v_a
+    v_b* E_{i_a j_a} ρ E_{j_b i_b}``: each term moves the ``(j_a, j_b)``
+    block of the qudit's (row, column) digits to ``(i_a, i_b)``. Terms
+    whose units are both diagonal collapse into one elementwise mask
+    ``W``, built on the device from the digit vectors: its entries are
+    ``Σ_q C[digit_q(r), digit_q(c)]`` with ``C[i1, i2] = Σ_t c_t``.
+    """
+    cdc_sum = np.zeros((d, d), dtype=np.complex128)
+    lrl_idx: list[tuple[int, int, int, int]] = []
+    lrl_coef: list[complex] = []
+    unit_coef = np.zeros((d, d), dtype=np.complex128)
+    for c_np in collapse_ops:
+        c_np = np.asarray(c_np, dtype=np.complex128)
+        cdc_sum += c_np.conj().T @ c_np
+        nz = [
+            (i, j, c_np[i, j])
+            for i in range(d)
+            for j in range(d)
+            if abs(c_np[i, j]) > 1e-14
+        ]
+        for i1, j1, v1 in nz:
+            for i2, j2, v2 in nz:
+                c = v1 * np.conj(v2)
+                if i1 == j1 and i2 == j2:
+                    unit_coef[i1, i2] += c
+                else:
+                    lrl_idx.append((i1, j1, i2, j2))
+                    lrl_coef.append(complex(c))
+    diag_mask = None
+    if np.any(np.abs(unit_coef) > 1e-14):
+        dig = _digits(d, n, device)
+        coef = torch.as_tensor(unit_coef, device=device).to(cdtype)
+        diag_mask = torch.zeros((d**n, d**n), dtype=cdtype, device=device)
+        for q in range(n):
+            diag_mask += coef[dig[q][:, None], dig[q][None, :]]
+    return CollapseAlgebra(
+        torch.as_tensor(cdc_sum, device=device).to(cdtype),
+        lrl_idx,
+        lrl_coef,
+        diag_mask,
+    )
+
+
+def _dag2(rho: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose of (a batch of) density matrices."""
+    return rho.transpose(-1, -2).conj()
+
+
+def mesolve_ip_eligible(collapse_ops: "list[np.ndarray]") -> bool:
+    """Whether the master equation can integrate in the IP.
+
+    The density-matrix rotor conjugation only commutes with the
+    dissipator when every collapse operator is DIAGONAL (off-diagonal
+    matrix units pick up state-dependent phases in ``LρL†``).
+    """
+    for c in collapse_ops:
+        c = np.asarray(c)
+        if np.any(c - np.diag(np.diag(c))):
+            return False
+    return True
+
+
+def _dissipator_parts(
+    alg: CollapseAlgebra, d: int, n: int, groups: tuple[int, ...]
+) -> tuple[torch.Tensor | None, list[torch.Tensor], list[tuple]]:
+    """The dissipator in the scan's layout: ``(mask, g_off_groups, S)``.
+
+    - ``mask``: ``(dim, dim)`` ``W − ½(g_r + g_c)`` with ``g`` the
+      diagonal of ``Σ_q (Σ L†L)_q``: the diagonal-unit terms of ``LρL†``
+      and the diagonal part of the anticommutator as one elementwise
+      factor (None without either);
+    - ``g_off_groups``: ``−½·`` the group matrices of the off-diagonal
+      part of ``Σ L†L`` (empty when it is diagonal, as for dephasing,
+      relaxation and the Pauli channels);
+    - ``S``: the nonzero entries ``(i1, i2, j1, j2, c)`` of the
+      superoperator ``S[i1, i2, j1, j2] = Σ_t c_t`` of the remaining
+      matrix-unit terms (terms that cancel, as the X and Y parts of a
+      Pauli channel partly do, drop out). Each entry moves the ``(j1,
+      j2)`` block of a qudit's (row, column) digits to ``(i1, i2)``: one
+      strided in-place add per entry and qudit.
+    """
+    cdc = alg.cdc_sum
+    dev, cdtype = cdc.device, cdc.dtype
+    dim = d**n
+    dig = _digits(d, n, dev)
+    g_vec = torch.zeros(dim, dtype=cdtype, device=dev)
+    cdc_diag = torch.diagonal(cdc)
+    for q in range(n):
+        g_vec += cdc_diag[dig[q]]
+    mask = alg.diag_mask
+    if bool((cdc_diag != 0).any()):
+        anti = -0.5 * (g_vec[:, None] + g_vec[None, :])
+        mask = anti if mask is None else mask + anti
+    g_off_groups: list[torch.Tensor] = []
+    off = cdc - torch.diag(cdc_diag)
+    if bool((off != 0).any()):
+        stack = off.expand(n, d, d)
+        q0 = 0
+        for g in groups:
+            g_off_groups.append(-0.5 * _group_matrix(stack, q0, q0 + g, d))
+            q0 += g
+    s_np = np.zeros((d, d, d, d), dtype=np.complex128)
+    for (i1, j1, i2, j2), c in zip(alg.lrl_idx, alg.lrl_coef):
+        s_np[i1, i2, j1, j2] += c
+    sup = [
+        (*(int(i) for i in idx), complex(s_np[idx]))
+        for idx in zip(*np.nonzero(s_np))
+    ]
+    return mask, g_off_groups, sup
+
+
+def _row_group(
+    op: torch.Tensor, rho: torch.Tensor, q0: int, g: int, d: int, n: int
+) -> torch.Tensor:
+    """``(op on qudits [q0, q0+g)) @ rho`` on the row multi-index; ``op``
+    is ``(B..., d**g, d**g)`` with the batch axes of ``rho``."""
+    lead, dim = rho.shape[:-2], d**n
+    v = rho.reshape(*lead, d**q0, d**g, d ** (n - q0 - g) * dim)
+    return torch.matmul(op.unsqueeze(-3), v).reshape(rho.shape)
+
+
+#: Budget of the drive matrices and rotors :func:`_mesolve_scan` stages
+#: for a chunk of steps at once (the steps of a segment go in chunks).
+_STAGE_CHUNK_BYTES = 1 << 28
+
+
+def _mesolve_scan(
+    rho0: torch.Tensor,
+    amp: torch.Tensor,
+    dts: np.ndarray,
+    diag_static: torch.Tensor,
+    alg: CollapseAlgebra,
+    *,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    det: torch.Tensor | None = None,
+    int_w: torch.Tensor | None = None,
+    ip_args: "tuple[torch.Tensor, ...] | None" = None,
+) -> torch.Tensor:
+    """The Lindblad RK4 scan as a torch loop over segments and steps.
+
+    ``dρ/dt = −i[H, ρ] + Σ_q (W ⊙ ρ + Σ_t c_t E ρ E'†) − ½{Σ L†L, ρ}``:
+
+    - the coherent part applies the grouped drive matrices (folded with
+      ``−i``) to the row multi-index, one batched matmul per group, and
+      completes the commutator as ``X + X†`` (ρ is Hermitian, so
+      ``−i[A, ρ] = X + X†`` with ``X = −iAρ``); in the lab frame the
+      static (or ``int_w``-interpolated) diagonal is one elementwise
+      factor ``−i(D_r − D_c)``;
+    - in the **interaction picture** (``ip_args``), ``ρ_I = R†ρR`` with
+      the diagonal rotor ``R = e^{−iθ}``: ``[H_I, ρ_I] = R†[A, σ]R`` with
+      ``σ = R ρ_I R†``, so one elementwise phase factor goes in and its
+      conjugate comes out; the drive ``A`` carries no detuning (it lives
+      in the exact phase integrals). Valid when every collapse operator
+      is diagonal: the dissipator then commutes with ``R``;
+    - the dissipator is :func:`_dissipator_parts`'s mask, the static
+      off-diagonal anticommutator groups (``Y + Y†``, ``Y = −½Gρ``), and
+      the matrix-unit superoperator's entries as strided adds per qudit.
+
+    A trajectory batch rides leading axes ``B`` of ``amp``, ``det``,
+    the IP integrals and ``diag_static`` (all of them, or none); the
+    grid, the initial state and the collapse algebra are shared.
+
+    Args:
+        rho0: ``(dim, dim)`` complex initial density matrix.
+        amp: ``(B..., n_seg, L, 3, n_bases, n)`` complex drive stages.
+        dts: ``(n_seg, L)`` host step sizes (0 = padding, skipped).
+        diag_static: ``(B..., dim)`` real interaction diagonal, or
+            ``(B..., k, dim)`` with ``int_w``.
+        alg: The collapse algebra.
+        pairs, d, n: Static structure.
+        det: ``(B..., n_seg, L, 3, n_bases, n)`` real detuning stages
+            (lab frame).
+        int_w: ``(n_seg, L, 3, k)`` interaction-interpolation weights
+            (lab frame).
+        ip_args: ``(cum_mod, t_stage, eval_t, eval_cum_mod)``: the
+            range-reduced ``−∫det`` stages ``(B..., n_seg, L, 3, n_bases,
+            n)``, the stage times ``(n_seg, L, 3)``, the evaluation times
+            ``(n_seg,)`` and ``−∫det`` there ``(B..., n_seg, n_bases, n)``.
+
+    Returns:
+        ``(B..., n_seg, dim, dim)`` lab-frame states after each segment.
+    """
+    cdtype, dev = rho0.dtype, rho0.device
+    dim = d**n
+    use_ip = ip_args is not None
+    groups = group_sizes(d, n)
+    offsets = [sum(groups[:i]) for i in range(len(groups))]
+    lead = tuple(amp.shape[:-5])
+    mask, g_off, sup = _dissipator_parts(alg, d, n, groups)
+    # Diagonal collapse operators only: the IP derivative rotates the
+    # coherent part alone
+    assert not (use_ip and (g_off or sup))
+    if use_ip:
+        cum_mod, t_stage, eval_t, eval_cum_mod = ip_args
+        phase_at = _make_ip_phase_fn(pairs, d, n, diag_static.dtype, dev)
+    else:
+        # −i(D_r − D_c): one factor with the mask folded in, or with
+        # int_w one part per interpolation weight, combined per point
+        diff = diag_static[..., :, None] - diag_static[..., None, :]
+        lab_parts = torch.complex(torch.zeros_like(diff), -diff)
+        lab_fac = lab_parts if mask is None else lab_parts + mask
+
+    def rotors(ph: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(e^{−iθ}, e^{+iθ})``."""
+        c, s = torch.cos(ph), torch.sin(ph)
+        return torch.complex(c, -s), torch.complex(c, s)
+
+    def outer(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return u[..., :, None] * v[..., None, :]
+
+    def stage_mats(sl: slice, s: int) -> list[torch.Tensor]:
+        """``−i·`` the drive group matrices of steps ``sl``:
+        ``(B..., c, 3, D, D)`` per group."""
+        a = amp[..., s, sl, :, :, :]
+        de = torch.zeros_like(a.real) if use_ip else det[..., s, sl, :, :, :]
+        mats = build_drive_matrices(a, de, pairs, d, n)
+        return [
+            -1j * _group_matrix(mats, q0, q0 + g, d)
+            for q0, g in zip(offsets, groups)
+        ]
+
+    def rhs(p: torch.Tensor, mats, fac, ph) -> torch.Tensor:
+        # ρ is Hermitian, so −i[A, ρ] = X + X† with X = −iAρ (the group
+        # matrices carry the −i), and −½{G, ρ} = Y + Y† with Y = −½Gρ:
+        # one side of group products, and a derivative that is Hermitian
+        # by construction
+        x = ph[0] * p if use_ip else p
+        acc_x = None
+        for q0, g, m in zip(offsets, groups, mats):
+            t = _row_group(m, x, q0, g, d, n)
+            acc_x = t if acc_x is None else acc_x.add_(t)
+        for q0, g, m in zip(offsets, groups, g_off):
+            acc_x.add_(_row_group(m, p, q0, g, d, n))
+        k = acc_x + _dag2(acc_x)
+        if use_ip:
+            k = ph[1] * k
+            if mask is not None:
+                k = torch.addcmul(k, mask, p)
+        else:
+            k = torch.addcmul(k, fac, p)
+        for q in range(n if sup else 0):
+            shape5 = (*lead, d**q, d, d ** (n - 1), d, d ** (n - q - 1))
+            kv, pv = k.view(shape5), p.view(shape5)
+            for i1, i2, j1, j2, c in sup:
+                kv[..., i1, :, i2, :].add_(pv[..., j1, :, j2, :], alpha=c)
+        return k
+
+    def chunk_inputs(s: int, sl: slice) -> tuple:
+        """Steps ``sl`` of segment ``s``: ``−i·`` the drive group matrices
+        ``(B..., c, 3, D, D)``, and the IP rotors ``(B..., c, 3, dim)``
+        or the ``int_w`` weights ``(c, 3, k)``."""
+        mats = stage_mats(sl, s)
+        if use_ip:
+            ph = phase_at(
+                diag_static[..., None, None, :].expand(
+                    lead + (sl.stop - sl.start, 3, dim)
+                ),
+                t_stage[s, sl, :, None],
+                cum_mod[..., s, sl, :, :, :],
+            )
+            return mats, rotors(ph)
+        return mats, None if int_w is None else int_w[s, sl]
+
+    def point(inputs: tuple, i: int, j: int) -> tuple:
+        """Stage point ``j`` of step ``i`` of a chunk: its group matrices,
+        lab-frame factor and IP phase factors ``(R·R†, R†·R)``."""
+        mats_c, extra = inputs
+        mats = [m[..., i, j, :, :] for m in mats_c]
+        if use_ip:
+            u, uc = extra[0][..., i, j, :], extra[1][..., i, j, :]
+            return mats, None, (outer(u, uc), outer(uc, u))
+        if extra is None:
+            return mats, lab_fac, None
+        f = (extra[i, j][:, None, None] * lab_parts).sum(-3)
+        return mats, f if mask is None else f + mask, None
+
+    n_seg, seg_len = dts.shape
+    # The drive matrices and rotors are staged for a chunk of steps at once
+    per_step = 3 * (sum((d**g) ** 2 for g in groups) + 2 * dim * use_ip)
+    per_step *= (int(np.prod(lead)) if lead else 1) * rho0.element_size()
+    chunk = max(1, min(seg_len, _STAGE_CHUNK_BYTES // per_step))
+    rho = rho0.expand(lead + (dim, dim)).clone()
+    out = torch.empty(lead + (n_seg, dim, dim), dtype=cdtype, device=dev)
+    for s in range(n_seg):
+        for c0 in range(0, seg_len, chunk):
+            sl = slice(c0, min(seg_len, c0 + chunk))
+            if not np.any(dts[s, sl]):
+                continue  # start padding of a short segment
+            inputs = chunk_inputs(s, sl)
+            for i in range(sl.stop - sl.start):
+                h = float(dts[s, sl.start + i])
+                if h == 0.0:
+                    continue
+                pts = [point(inputs, i, j) for j in range(3)]
+                k = acc = None
+                for j in range(4):
+                    p = rho
+                    if k is not None:
+                        p = torch.add(rho, k, alpha=h * _RK_A[j])
+                    k = rhs(p, *pts[_RK_STAGE[j]])
+                    if acc is None:
+                        acc = _RK_B[j] * k
+                    else:
+                        acc.add_(k, alpha=_RK_B[j])
+                rho.add_(acc, alpha=h)
+        if use_ip:
+            u, uc = rotors(
+                phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :])
+            )
+            out[..., s, :, :] = outer(u, uc) * rho
+        else:
+            out[..., s, :, :] = rho
+    return out
+
+
+def _chunk_trajectories(
+    n_traj: int, per_traj_bytes: int, device: torch.device
+) -> int:
+    """Trajectories per device call: what the free device memory holds
+    (``torch.cuda.mem_get_info``, with a fifth kept back), the whole
+    batch on the CPU."""
+    if device.type != "cuda":
+        return n_traj
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(n_traj, int(0.8 * free) // max(1, per_traj_bytes)))
+
+
+def mesolve_rk4(
+    rho0: "np.ndarray | tuple",
+    plan: EvolutionPlan,
+    static_diag: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    xy_static: np.ndarray | None = None,
+    xy_indices: tuple[int, int] | None = None,
+    dtype: Any = None,
+    ip: bool = False,
+    state_mesh: Any = None,
+    lazy: bool = False,
+    device: Any = None,
+) -> "np.ndarray | DeviceStateBatch":
+    """Solves the Lindblad master equation over the plan's grid.
+
+    ``dρ/dt = −i[H, ρ] + Σ_{k,q} L ρ L† − ½{L†L, ρ}`` with every
+    collapse operator a local ``d×d`` matrix applied on each qudit
+    (:func:`_mesolve_scan`).
+
+    Args:
+        rho0: ``(dim, dim)`` complex initial density matrix (host), or
+            ``("pure", psi)``: a ``(dim,)`` state whose ``ψψ†`` is formed
+            on the device (the dense host matrix never exists).
+        plan: The evolution plan; ``int_w`` stage arrays select the
+            interpolated interaction (lab frame only).
+        static_diag: ``(dim,)`` interaction diagonal (``(k, dim)`` with
+            ``int_w``).
+        collapse_ops: Local ``(d, d)`` complex collapse operators (each
+            applied on every qudit).
+        xy_static, xy_indices: The XY term; not ported yet (raises).
+        dtype: Complex dtype of the evolution (defaults to rho0's).
+        ip: Integrate in the interaction picture (every collapse operator
+            diagonal, no ``int_w``).
+        state_mesh: Row sharding of ρ over devices; not ported (raises).
+        lazy: Return a :class:`DeviceStateBatch` of the ``(dim, dim)``
+            states instead of a host array.
+        device: The torch device (default: the first CUDA device; without
+            one this raises: pass ``"cpu"`` to run on the CPU).
+
+    Returns:
+        ``(n_eval, dim, dim)`` complex density matrices at the evaluation
+        times (host numpy), or a :class:`DeviceStateBatch`.
+    """
+    if state_mesh is not None:
+        raise NotImplementedError(
+            f"Row sharding of the density matrix is not ported yet"
+            f" ({_PARALLEL_ITEM})."
+        )
+    if xy_static is not None:
+        raise NotImplementedError(
+            f"The master equation with the XY term needs the lab-frame"
+            f" Hamiltonian application ({_LAB_FRAME_ITEM})."
+        )
+    has_int_w = "int_w" in plan.stage_arrays
+    if ip and (has_int_w or not mesolve_ip_eligible(collapse_ops)):
+        raise ValueError(
+            "The interaction picture needs a static diagonal and diagonal"
+            " collapse operators."
+        )
+    pure = isinstance(rho0, tuple) and rho0[0] == "pure"
+    src = np.asarray(rho0[1] if pure else rho0)
+    cdtype = np.result_type(_numpy_dtype(dtype or src.dtype), np.complex64)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    dev = _resolve_device(device)
+
+    def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
+
+    if pure:
+        psi = to_dev(src, cdtype)
+        rho0_t = psi[:, None] * psi.conj()[None, :]
+    else:
+        rho0_t = to_dev(src, cdtype)
+    alg = _collapse_algebra(
+        collapse_ops, d, n, rho0_t.dtype, dev
+    )
+    two_pi = 2 * np.pi
+    kw: dict[str, Any] = {}
+    if ip:
+        kw["ip_args"] = (
+            to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
+            to_dev(plan.seg_stage("t_stage"), rdtype),
+            to_dev(plan.eval_times - plan.grid[0], rdtype),
+            to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+        )
+    else:
+        kw["det"] = to_dev(plan.seg_stage("det").real, rdtype)
+        if has_int_w:
+            kw["int_w"] = to_dev(plan.seg_stage("int_w").real, rdtype)
+    out = _mesolve_scan(
+        rho0_t,
+        to_dev(plan.seg_stage("amp"), cdtype),
+        np.asarray(plan.seg_dts, dtype=rdtype),
+        to_dev(np.asarray(static_diag).real, rdtype),
+        alg,
+        pairs=tuple(tuple(p) for p in pairs),
+        d=d,
+        n=n,
+        **kw,
+    )
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind=f"mesolve_{dev.type}",
+        dim=d**n,
+        n=n,
+        n_steps=int(np.count_nonzero(plan.seg_dts)),
+        n_cops=len(collapse_ops),
+        ip=bool(ip),
+    )
+    if lazy:
+        return DeviceStateBatch(out, plan.eval_map, lambda h: h.astype(cdtype))
+    return out.cpu().numpy()[plan.eval_map].astype(cdtype)
+
+
+def _batched_cum_arrays(
+    plans: "list[EvolutionPlan] | BatchedPlan", rdtype: Any, device: Any
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotor-phase arrays for a batched IP solve, on ``device``.
+
+    Returns ``(cum_mod_b, eval_cum_mod_b)``: the per-trajectory staged
+    detuning integrals (pre-negated mod 2π) and their values at the
+    evaluation times. For a :class:`BatchedPlan` carrying raw
+    coefficients the staging runs on the device
+    (:func:`_stage_cum_on_device`); otherwise the host-staged integrals
+    are reduced mod 2π in float64 before the cast.
+    """
+    two_pi = 2 * np.pi
+    dev = torch.device(device)
+    np_r = np.dtype(rdtype)
+    if (
+        isinstance(plans, BatchedPlan)
+        and plans.raw_coeffs is not None
+        and plans.plan.stage_knots is not None
+        and plans.plan.knots is not None
+    ):
+        cum_in = [_on_device(x, dev) for x in _raw_cum_inputs(plans, np_r)]
+        return _stage_cum_on_device(*cum_in)
+    if isinstance(plans, BatchedPlan):
+        cum_np = (-plans.seg_stage_b("det_cum")) % two_pi
+        ev_np = (-plans.eval_det_cum_b) % two_pi
+    else:
+        cum_np = np.stack([(-p.seg_stage("det_cum")) % two_pi for p in plans])
+        ev_np = np.stack([(-p.eval_det_cum) % two_pi for p in plans])
+    return (
+        _on_device(np.asarray(cum_np, np_r), dev),
+        _on_device(np.asarray(ev_np, np_r), dev),
+    )
+
+
+def _mesolve_drive_arrays(
+    plans: "list[EvolutionPlan] | BatchedPlan", rdtype: Any, device: Any
+) -> tuple:
+    """``(amp complex, det, base plan, B)`` in the ``(B, n_seg, L, 3, nb,
+    n)`` layout on ``device``: staged there from the raw knots of a
+    :class:`BatchedPlan`, transferred from a host-staged one or from a
+    list of plans."""
+    if isinstance(plans, BatchedPlan) and plans.raw_coeffs is not None and (
+        plans.plan.stage_knots is not None
+    ):
+        amp_re, amp_im, det, base, n_traj = _lindblad_drive_arrays(
+            plans, rdtype, device
+        )
+        return torch.complex(amp_re, amp_im), det, base, n_traj
+    base, n_traj, host = _batched_inputs(plans, ("amp", "det"))
+    dev = torch.device(device)
+    np_r = np.dtype(rdtype)
+    np_c = np.result_type(np_r, np.complex64)
+    amp = torch.from_numpy(np.ascontiguousarray(host["amp"], np_c)).to(dev)
+    det = torch.from_numpy(
+        np.ascontiguousarray(host["det"].real, np_r)
+    ).to(dev)
+    return amp, det, base, n_traj
+
+
+def mesolve_rk4_batched(
+    rho0: np.ndarray,
+    plans: "list[EvolutionPlan] | BatchedPlan",
+    diags: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    dtype: Any = None,
+    mesh: Any = None,
+    ip: bool = False,
+    device: Any = None,
+) -> np.ndarray:
+    """Solves one Lindblad equation per noise trajectory, batched.
+
+    All plans share the grid (noise trajectories only perturb coefficient
+    values). The batch runs :func:`_mesolve_scan` on a leading trajectory
+    axis (the JAX package's ``vmap`` of ``_mesolve_scan_batched``), split
+    into device calls of as many trajectories as the free device memory
+    holds (``torch.cuda.mem_get_info`` against
+    :data:`~pulser_tpu_torch.parallel.capacity.LIVE_STATE_BUFFERS` density
+    matrices per trajectory and its output).
+
+    Args:
+        rho0: ``(dim, dim)`` shared complex initial density matrix.
+        plans: A :class:`BatchedPlan` or one plan per trajectory.
+        diags: ``(T, dim)`` per-trajectory interaction diagonals.
+        collapse_ops: Local ``(d, d)`` collapse operators.
+        dtype: Complex dtype of the evolution (defaults to rho0's).
+        mesh: Trajectory sharding over devices; not ported (raises).
+        ip: Integrate in the interaction picture (diagonal collapse
+            operators).
+        device: The torch device (default: the first CUDA device; without
+            one this raises: pass ``"cpu"`` to run on the CPU).
+
+    Returns:
+        ``(n_traj, n_eval, dim, dim)`` complex density matrices.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            f"Trajectory sharding over devices is not ported yet"
+            f" ({_PARALLEL_ITEM})."
+        )
+    if ip and not mesolve_ip_eligible(collapse_ops):
+        raise ValueError(
+            "The interaction picture needs diagonal collapse operators."
+        )
+    cdtype = np.result_type(
+        _numpy_dtype(dtype or np.asarray(rho0).dtype), np.complex64
+    )
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    dev = _resolve_device(device)
+    rho0_t = torch.from_numpy(np.ascontiguousarray(rho0, dtype=cdtype)).to(dev)
+    amp, det, base, n_traj = _mesolve_drive_arrays(plans, rdtype, dev)
+    amp = amp.to(rho0_t.dtype)
+    diag_b = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(diags).real, dtype=rdtype)
+    ).to(dev)
+    alg = _collapse_algebra(collapse_ops, d, n, rho0_t.dtype, dev)
+    dts = np.asarray(base.seg_dts, dtype=rdtype)
+    if ip:
+        cum_b, ev_cum_b = _batched_cum_arrays(plans, rdtype, dev)
+        t_stage = _on_device(
+            np.asarray(base.seg_stage("t_stage"), rdtype), dev
+        )
+        eval_t = _on_device(
+            np.asarray(base.eval_times - base.grid[0], rdtype), dev
+        )
+    dim = d**n
+    n_seg = dts.shape[0]
+    per_traj = (LIVE_STATE_BUFFERS + n_seg) * dim * dim * rho0_t.element_size()
+    batch = _chunk_trajectories(n_traj, per_traj, dev)
+    outs = []
+    for lo in range(0, n_traj, batch):
+        take = slice(lo, min(lo + batch, n_traj))
+        frame: dict[str, Any] = {"det": det[take]}
+        if ip:
+            frame = {"ip_args": (cum_b[take], t_stage, eval_t, ev_cum_b[take])}
+        ys = _mesolve_scan(
+            rho0_t,
+            amp[take],
+            dts,
+            diag_b[take],
+            alg,
+            pairs=tuple(tuple(p) for p in pairs),
+            d=d,
+            n=n,
+            **frame,
+        )
+        outs.append(ys[:, base.eval_map].cpu().numpy())
+        del ys
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind=f"mesolve_batched_{dev.type}",
+        dim=dim,
+        n=n,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+        n_traj=n_traj,
+        n_cops=len(collapse_ops),
+        ip=bool(ip),
+        traj_per_call=batch,
+    )
+    return np.concatenate(outs).astype(cdtype, copy=False)

@@ -214,12 +214,24 @@ def test_results_api(afm10):
 
 
 def test_noise_is_not_ported_yet():
+    """Dephasing alone runs the master equation now; the quantum-jump
+    solver without shot-to-shot noise (the serial solve) still raises,
+    naming its ROADMAP item."""
+    from pulser_tpu_torch.emulator import Solver
+
     seq = _afm_sequence(
         tpu.Register.square(2, spacing=6.0, prefix="q"),
         2 * np.pi, -2 * np.pi, 2 * np.pi, 100, 100, 100,
     )
+    res = _port(seq, noise_model=NoiseModel(dephasing_rate=0.1)).run()
+    assert torch_solver.last_solve_info["kind"] == "mesolve_cpu"
+    assert res.get_final_state().shape == (16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(seq, noise_model=NoiseModel(dephasing_rate=0.1))
+        _port(
+            seq,
+            noise_model=NoiseModel(dephasing_rate=0.1),
+            solver=Solver.MCSOLVER,
+        )
 
 
 # -- SPAM measurement errors on coherent results --------------------------

@@ -87,6 +87,15 @@ def _foreign_modules(statements: str) -> list[str]:
         "import chip_smoke; chip_smoke.afm16_sequence();"
         " chip_smoke.noisy10_sequence(); chip_smoke.pauli10_sequence();"
         " chip_smoke.spd10_sequence()",
+        "import chip_smoke; chip_smoke.deph10_sequence();"
+        " chip_smoke.mesolve10_sequence(); chip_smoke.eff8_sequence()",
+        "import pulser_tpu_torch.parallel.capacity as C, numpy as np;"
+        " from pulser_tpu_torch.ops import solver as S;"
+        " C.capacity_report('cpu');"
+        " S.mesolve_rk4(np.eye(4) / 4, S.build_plan(np.linspace(0, 0.01,"
+        " 11), {'amp': np.ones((1, 2, 11), complex), 'det': np.zeros((1,"
+        " 2, 11))}, np.array([0.01]), max_step=1e-3), np.zeros(4),"
+        " ((1, 0, 0),), 2, 2, [np.diag([1.0, 0.0])], device='cpu')",
         _EOM_SEQUENCE,
     ],
 )

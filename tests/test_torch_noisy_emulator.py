@@ -460,9 +460,29 @@ def test_spam_with_another_initial_state_raises():
 
 
 def test_master_equation_solver_raises():
+    """``Solver.MESOLVER`` under this file's noise runs now: one density
+    matrix per trajectory in one batched solve on the interaction-picture
+    grid, the same seeded counts as the JAX package's, the RNG stream
+    left at the same point."""
+    from pulser_tpu.emulator.simulation import Solver as JaxSolver
+
+    seq, noise = _sequence(), _noise()
     np.random.seed(SEED)
-    with pytest.raises(NotImplementedError, match="mesolve"):
-        _port_emulator(_sequence(), _noise(), solver=Solver.MESOLVER)
+    jres = _jax_emulator(seq, noise, solver=JaxSolver.MESOLVER).run()
+    j_after = np.random.rand()
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)  # complex128, as the JAX side
+    try:
+        np.random.seed(SEED)
+        tres = _port_emulator(seq, noise, solver=Solver.MESOLVER).run()
+    finally:
+        torch.set_default_dtype(old)
+    assert np.random.rand() == j_after
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mesolve_batched_cpu" and info["ip"]
+    assert [dict(r.bitstring_counts) for r in tres] == [
+        dict(r.bitstring_counts) for r in jres
+    ]
 
 
 #: Pulser's effective-noise Pauli channel, X, Y and Z in the ground-
