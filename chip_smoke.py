@@ -109,13 +109,36 @@ to sample it, median of 3 each, beside the card's name and power limit):
 15. Run EFF8, the lab-frame master equation with off-diagonal collapse
     operators (:func:`eff8_sequence`), and check and time it as in 13
     (``tests/goldens/eff8_reference.json``).
+16. Run XY16 (:func:`xy16_sequence`), the lab-frame sesolve with the XY
+    term and the SLM mask's interaction interpolation, 51 evaluation
+    times. It must take the torch loop (``kind == "sesolve_torch_loop"``,
+    ``ip`` false, the reference's step count); the final state must reach
+    1 − F ≤ 1e-6 against ``tests/goldens/xy16_final.npz``, and the norm
+    and the mean number of ``d`` excitations at every evaluation time
+    must be within 1e-5 of the JAX package's. Time the warm ``run()`` and
+    its solve (median of 3), and trace the solve's first 200 steps.
+17. Run RELAX10 (:func:`relax10_sequence`) after
+    ``np.random.seed(1234)``: the batched torch scan (``kind ==
+    "mcwf_batched_torch"``, interaction picture, no kernel launched),
+    1000 shots per evaluation time, the counts within TV 0.02 and the
+    per-trajectory final Rydberg populations within 1e-3 (all but at most
+    one trajectory) of ``tests/goldens/relax10_reference.json``. Time it
+    as in 13, tracing one warm ``run()``.
+18. Run MCDEPOL10 (:func:`mcdepol10_sequence`) with
+    ``solver=Solver.MCSOLVER``, 100 trajectories, after
+    ``np.random.seed(1234)``: the serial solve (``kind ==
+    "mcwf_serial_torch"``, lab frame); the averaged final ρ must keep its
+    trace within 1e-5, be Hermitian within 1e-6, and match the Rydberg
+    populations of ``tests/goldens/mcdepol10_reference.json`` within 2e-2.
+    Time it as in 16.
 
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
-grid). The master-equation paths run torch operations only (the JAX
-package computes them in XLA, outside any Pallas kernel); they report
-their times, stages, ms and kernel launches per stage and the bytes of ρ
-in the ``paths`` entry of the report.
+grid). The master-equation, XY and quantum-jump scan paths run torch
+operations only (the JAX package computes them in XLA, outside any Pallas
+kernel); they report their times, stages, ms and kernel launches per
+stage, the bytes of the state and the device's busy share in the
+``paths`` entry of the report.
 
 Each kernel's line in the report gives its launches on its main path,
 its error against its plain version there, its time and the plain
@@ -165,6 +188,20 @@ _MESOLVE_GOLDENS = {
     name: os.path.join(_ROOT, "tests", "goldens", f"{name}_reference.json")
     for name in ("deph10", "mesolve10", "eff8")
 }
+#: The JAX package's XY16 run (double precision, on a CPU), written by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/xy_references.py``: the
+#: final state, and the norm and mean number of ``d`` excitations at each
+#: evaluation time.
+_XY16_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "xy16_final.npz")
+#: The JAX package's quantum-jump scans for seed 1234 (single precision,
+#: on a CPU), written by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tools/mcwf_references.py``: RELAX10's step count, per-trajectory final
+#: Rydberg populations and final counts; MCDEPOL10's step count and final
+#: averaged ρ's Rydberg populations, diagonal and trace.
+_MCWF_GOLDENS = {
+    name: os.path.join(_ROOT, "tests", "goldens", f"{name}_reference.json")
+    for name in ("relax10", "mcdepol10")
+}
 
 #: Tolerance of the kernel against its plain version on random inputs:
 #: both run in float32 with different summation orders and libm.
@@ -191,6 +228,13 @@ COUNTS_TV_TOL = 0.02
 RHO_TOL = 1e-4
 TRACE_TOL = 1e-5
 HERMITIAN_TOL = 1e-6
+#: XY16 against the JAX package's double-precision run: the norm and the
+#: mean number of d excitations at every evaluation time (both move by
+#: the RK4 step's per-sector damping, identically in both packages).
+XY_TOL = 1e-5
+#: MCDEPOL10's averaged Rydberg populations against the JAX package's
+#: (100 trajectories whose float32 jump times may differ by a step).
+MC_POPULATION_TOL = 2e-2
 
 #: The JAX package's run of the noisy 10-atom configuration after
 #: ``np.random.seed(1234)`` (row-batched quantum-jump kernel, Pallas
@@ -541,6 +585,57 @@ def eff8_sequence() -> tuple:
         eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
     )
     return seq, noise
+
+
+def relax10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of RELAX10: NOISY10
+    (:func:`noisy10_sequence`) plus relaxation at 0.1 /µs, the dephasing
+    kept. Relaxation is a single matrix unit, so the 100 quantum-jump
+    trajectories run the batched torch scan on the interaction-picture
+    grid (no kernel takes a non-diagonal operator there)."""
+    return _noisy10(relaxation_rate=0.1)
+
+
+def mcdepol10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of MCDEPOL10: NOISY10's register and
+    pulses under depolarizing noise at 0.05 /µs alone, run with
+    ``solver=Solver.MCSOLVER`` and ``n_trajectories=100``: one serial
+    quantum-jump solve in the lab frame whose trajectories average into
+    density matrices."""
+    from pulser_tpu_torch import NoiseModel
+
+    return _noisy10()[0], NoiseModel(depolarizing_rate=0.05)
+
+
+def xy16_build(P):
+    """The XY16 ``Sequence`` built with the package namespace ``P``
+    (``pulser_tpu_torch``, or ``pulser_tpu`` for its reference): Pulser's
+    state preparation with the SLM mask in XY mode. A 4x4 square at 10 µm
+    on ``MockDevice``, the magnetic field along z (30 G), the ``mw_global``
+    channel, the mask on the 8 atoms of one checkerboard colour, a 48 ns
+    π pulse the mask holds off the masked atoms, then 1000 ns of free
+    exchange."""
+    reg = P.Register.square(4, spacing=10.0, prefix="q")
+    seq = P.Sequence(reg, P.MockDevice)
+    seq.set_magnetic_field(0.0, 0.0, 30.0)
+    seq.declare_channel("mw", "mw_global")
+    seq.config_slm_mask(
+        [f"q{i}" for i in range(16) if (i // 4 + i % 4) % 2 == 0]
+    )
+    seq.add(P.Pulse.ConstantPulse(48, np.pi / 0.048, 0.0, 0.0), "mw")
+    seq.add(P.Pulse.ConstantPulse(1000, 0.0, 0.0, 0.0), "mw")
+    return seq
+
+
+def xy16_sequence():
+    """The ``pulser_tpu_torch.Sequence`` of XY16 (:func:`xy16_build`)."""
+    import pulser_tpu_torch
+
+    return xy16_build(pulser_tpu_torch)
+
+
+#: XY16's 51 evaluation times (µs), on the nanosecond grid of the samples.
+XY16_EVAL_TIMES = np.round(np.linspace(0, 1048, 51)) / 1000
 
 
 def _sequence_ms(path: str, make_sequence, card: str) -> None:
@@ -1224,6 +1319,31 @@ def _afm16_path(K, S, device, card: str) -> dict:
     }
 
 
+def _traced_head(S, solver_fn: str, captured: dict) -> tuple:
+    """One traced call of ``S.<solver_fn>`` with the recorded arguments on
+    the first :data:`_TRACE_STEPS` steps of the plan (argument 1):
+    ``(wall seconds, busy ms, kernel launches, traced RK4 stages)``."""
+    a, k = captured["args"], captured["kwargs"]
+    head = _head_plan(a[1], _TRACE_STEPS)
+    kw = dict(k, lazy=False) if "lazy" in k else k
+    fn = getattr(S, solver_fn)
+    wall_s, busy_ms, launches = _device_busy(lambda: fn(a[0], head, *a[2:], **kw))
+    return wall_s, busy_ms, launches, 4 * int(np.count_nonzero(head.seg_dts))
+
+
+def _recording(S, solver_fn: str, captured: dict):
+    """A stand-in for ``S.<solver_fn>`` that records its arguments and
+    output into ``captured``."""
+    solve = getattr(S, solver_fn)
+
+    def record(*a, **k):
+        captured["args"], captured["kwargs"] = a, k
+        captured["out"] = solve(*a, **k)
+        return captured["out"]
+
+    return solve, record
+
+
 def _run_noisy(K, seq_and_noise, seed: int, solver_fn: str, S) -> tuple:
     """One seeded noisy ``run()`` through ``TorchEmulator.from_sequence``,
     counted, with the call of ``S.<solver_fn>`` recorded: ``(emulator,
@@ -1232,13 +1352,7 @@ def _run_noisy(K, seq_and_noise, seed: int, solver_fn: str, S) -> tuple:
 
     seq, noise = seq_and_noise
     captured: dict = {}
-    solve = getattr(S, solver_fn)
-
-    def record(*a, **k):
-        captured["args"], captured["kwargs"] = a, k
-        captured["out"] = solve(*a, **k)
-        return captured["out"]
-
+    solve, record = _recording(S, solver_fn, captured)
     setattr(S, solver_fn, record)
     try:
         np.random.seed(seed)
@@ -1717,19 +1831,23 @@ def _rho_checks(rho: np.ndarray, ref: dict, what: str) -> None:
     _check(max(diag_err, off_err) <= RHO_TOL, f"{what} rho {diag_err:.3e}")
 
 
-def _path_entry(name, run_ms, stages, solve_ms, launches, rho_bytes) -> dict:
+def _path_entry(
+    name, run_ms, stages, solve_ms, launches, state_bytes, busy_share
+) -> dict:
     """A ``paths`` entry of the report: the warm ``run()`` time, the RK4
     stages, the solve's ms per stage, the device kernel launches per stage,
-    the bytes of ρ, and the least time per stage the memory rate allows
-    (read ρ once and write its derivative once)."""
+    the bytes of the state (ρ, or the batch of state vectors), the least
+    time per stage the memory rate allows (read the state once and write
+    its derivative once), and the device's busy share of a traced run."""
     return {
         "name": name,
         "ms": run_ms,
         "stages": stages,
         "ms_per_stage": solve_ms / stages,
         "ops_per_stage": launches / stages,
-        "rho_bytes": rho_bytes,
-        "floor_ms_per_stage": 2 * rho_bytes / PEAK_BYTES_PER_S * 1e3,
+        "state_bytes": state_bytes,
+        "floor_ms_per_stage": 2 * state_bytes / PEAK_BYTES_PER_S * 1e3,
+        "busy_share": busy_share,
     }
 
 
@@ -1752,12 +1870,15 @@ def _head_plan(plan, steps: int):
     )
 
 
-def _timed_run(emu, S) -> tuple[float, float]:
-    """Wall seconds of one warm ``run()`` with the final state fetched, and
-    of its ``S.mesolve_rk4`` call up to the device's completion."""
+def _timed_run(
+    emu, S, solver_fn: str = "mesolve_rk4", fetch: bool = True
+) -> tuple[float, float]:
+    """Wall seconds of one warm ``run()`` (with the final state fetched if
+    ``fetch``), and of its ``S.<solver_fn>`` call up to the device's
+    completion."""
     import torch
 
-    solve, marks = S.mesolve_rk4, {}
+    solve, marks = getattr(S, solver_fn), {}
 
     def timed(*a, **k):
         t0 = time.perf_counter()
@@ -1766,14 +1887,16 @@ def _timed_run(emu, S) -> tuple[float, float]:
         marks["solve"] = time.perf_counter() - t0
         return out
 
-    S.mesolve_rk4 = timed
+    setattr(S, solver_fn, timed)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        emu.run().get_final_state().full()
+        res = emu.run()
+        if fetch:
+            res.get_final_state().full()
         run_s = time.perf_counter() - t0
     finally:
-        S.mesolve_rk4 = solve
+        setattr(S, solver_fn, solve)
     return run_s, marks["solve"]
 
 
@@ -1798,12 +1921,7 @@ def _single_rho_path(S, name: str, make, card: str) -> dict:
     _sequence_ms(name, lambda: make()[0], card)
     seq, noise = make()
     captured: dict = {}
-    solve = S.mesolve_rk4
-
-    def record(*a, **k):
-        captured["args"], captured["kwargs"] = a, k
-        return solve(*a, **k)
-
+    solve, record = _recording(S, "mesolve_rk4", captured)
     S.mesolve_rk4 = record
     try:
         t0 = time.perf_counter()
@@ -1833,12 +1951,8 @@ def _single_rho_path(S, name: str, make, card: str) -> dict:
         )
         what = f"{name} run()"
     else:
-        a, k = captured["args"], captured["kwargs"]
-        head = _head_plan(a[1], _TRACE_STEPS)
-        traced_stages = 4 * int(np.count_nonzero(head.seg_dts))
-        kw = dict(k, lazy=False)
-        wall_s, busy_ms, launches = _device_busy(
-            lambda: S.mesolve_rk4(a[0], head, *a[2:], **kw)
+        wall_s, busy_ms, launches, traced_stages = _traced_head(
+            S, "mesolve_rk4", captured
         )
         what = f"{name} solve, first {_TRACE_STEPS} steps"
     dim = info["dim"]
@@ -1852,7 +1966,7 @@ def _single_rho_path(S, name: str, make, card: str) -> dict:
     _print_busy(what, wall_s, busy_ms)
     return _path_entry(
         name, run_s * 1e3, stages, solve_s * 1e3,
-        launches * stages / traced_stages, rho_bytes,
+        launches * stages / traced_stages, rho_bytes, busy_ms / 1e3 / wall_s,
     )
 
 
@@ -1870,13 +1984,7 @@ def _mesolve10_path(S, card: str) -> dict:
     _sequence_ms("MESOLVE10", lambda: mesolve10_sequence()[0], card)
     seq, noise = mesolve10_sequence()
     captured: dict = {}
-    solve = S.mesolve_rk4_batched
-
-    def record(*a, **k):
-        captured["args"], captured["kwargs"] = a, k
-        captured["out"] = solve(*a, **k)
-        return captured["out"]
-
+    solve, record = _recording(S, "mesolve_rk4_batched", captured)
     S.mesolve_rk4_batched = record
     try:
         np.random.seed(ref["seed"])
@@ -1927,7 +2035,204 @@ def _mesolve10_path(S, card: str) -> dict:
     _print_busy("MESOLVE10 run()", wall_s, busy_ms)
     return _path_entry(
         "MESOLVE10", warm_s * 1e3, stages, part["solve"] * 1e3, launches,
-        n_traj * dim * dim * 8,
+        n_traj * dim * dim * 8, busy_ms / 1e3 / wall_s,
+    )
+
+
+def _xy16_path(S, card: str) -> dict:
+    """XY16 on the card: the lab-frame sesolve with the XY term and the SLM
+    mask's interaction interpolation through ``from_sequence``, against
+    the JAX package's double-precision run; then the warm ``run()`` and its
+    solve (median of 3), the launches per stage and the busy share from a
+    trace of the solve's first :data:`_TRACE_STEPS` steps."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    ref = np.load(_XY16_GOLDEN)
+    _sequence_ms("XY16", xy16_sequence, card)
+    captured: dict = {}
+    solve, record = _recording(S, "sesolve_rk4", captured)
+    S.sesolve_rk4 = record
+    try:
+        t0 = time.perf_counter()
+        emu = TorchEmulator.from_sequence(
+            xy16_sequence(), evaluation_times=XY16_EVAL_TIMES
+        )
+        res = emu.run()
+        states = np.stack([s.full()[:, 0] for s in res.states])
+        cold_s = time.perf_counter() - t0
+    finally:
+        S.sesolve_rk4 = solve
+    info = dict(S.last_solve_info)
+    print(f"XY16 path: {info}, cold {cold_s:.3f} s")
+    _check(info.get("kind") == "sesolve_torch_loop", "XY16 torch loop")
+    _check(info["ip"] is False, "XY16 lab frame")
+    _check(info["n_steps"] == int(ref["n_steps"]), f"steps {info['n_steps']}")
+    _check(bool(np.isfinite(states).all()), "finite XY16 states")
+    _check(
+        np.allclose(res._sim_times, ref["eval_times"]), "XY16 eval times"
+    )
+    infid = 1 - _fidelity(ref["final"], states[-1])
+    norms = np.linalg.norm(states, axis=1)
+    norm_err = float(np.abs(norms - ref["norms"]).max())
+    probs = np.abs(states.astype(np.complex128)) ** 2
+    ones = np.array([bin(i).count("1") for i in range(probs.shape[1])])
+    n_d = (probs @ ones) / probs.sum(axis=1)
+    free = XY16_EVAL_TIMES >= 0.048  # after the π pulse
+    d_err = float(np.abs(n_d - ref["d_excitations"])[free].max())
+    print(
+        f"XY16 vs the JAX package: final 1-F = {infid:.3e}, norms max|d| ="
+        f" {norm_err:.3e} (final norm {norms[-1]:.9f}), d excitations over"
+        f" the free exchange {n_d[free].min():.6f}..{n_d[free].max():.6f},"
+        f" max|d| = {d_err:.3e}"
+    )
+    _check(infid <= FIDELITY_TOL, f"XY16 1-F {infid:.3e}")
+    _check(norm_err <= XY_TOL, f"XY16 norms {norm_err:.3e}")
+    _check(d_err <= XY_TOL, f"XY16 d excitations {d_err:.3e}")
+
+    runs = [_timed_run(emu, S, "sesolve_rk4") for _ in range(3)]
+    run_s = statistics.median(r[0] for r in runs)
+    solve_s = statistics.median(r[1] for r in runs)
+    stages = info["n_steps"] * 4
+    wall_s, busy_ms, launches, traced = _traced_head(S, "sesolve_rk4", captured)
+    state_bytes = info["dim"] * 8
+    print(
+        f"times on {card}: warm XY16 run() {run_s * 1e3:.3f} ms, its solve"
+        f" {solve_s * 1e3:.3f} ms = {solve_s * 1e3 / stages:.4f} ms per RK4"
+        f" stage ({stages} stages, {launches / traced:.1f} kernel launches"
+        f" per stage); state {state_bytes} bytes"
+    )
+    _print_busy(f"XY16 solve, first {_TRACE_STEPS} steps", wall_s, busy_ms)
+    return _path_entry(
+        "XY16", run_s * 1e3, stages, solve_s * 1e3, launches * stages / traced,
+        state_bytes, busy_ms / 1e3 / wall_s,
+    )
+
+
+def _relax10_path(K, S, card: str) -> dict:
+    """RELAX10 on the card: the batched quantum-jump torch scan through
+    ``from_sequence`` after ``np.random.seed(1234)``, against the JAX
+    package's figures for the same seed (counts TV ≤ 0.02, per-trajectory
+    final Rydberg populations within 1e-3 for all trajectories but at most
+    one); then the warm ``run()`` and its solve (median of 3), and the
+    launches per stage and busy share from one traced warm ``run()``."""
+    with open(_MCWF_GOLDENS["relax10"]) as f:
+        ref = json.load(f)
+    _sequence_ms("RELAX10", lambda: relax10_sequence()[0], card)
+    emu, res, launches, cold_s, captured = _run_noisy(
+        K, relax10_sequence(), ref["seed"], "mcsolve_rk4_batched", S
+    )
+    info = dict(S.last_solve_info)
+    print(f"RELAX10 path: {info}, cold {cold_s:.3f} s, kernel launches {launches}")
+    _check(info.get("kind") == "mcwf_batched_torch", "RELAX10 torch scan")
+    _check(info["ip"] is True, "RELAX10 interaction picture")
+    _check(info["n_steps"] == ref["n_steps"], f"steps {info['n_steps']}")
+    _check(not any(launches.values()), f"no kernel on RELAX10: {launches}")
+    _check_shots(res)
+    states = captured["out"]  # (B, n_eval, dim)
+    _check(bool(np.isfinite(states).all()), "finite RELAX10 states")
+    n = info["n"]
+    pops = _rydberg_populations(np.abs(states[:, -1]) ** 2, n)
+    per_traj = np.abs(pops - np.asarray(ref["rydberg_populations"])).max(1)
+    odd = np.flatnonzero(per_traj > POPULATION_TOL).tolist()
+    tv = _tv_distance(res[-1].bitstring_counts, ref["final_counts"])
+    print(
+        f"RELAX10 vs the JAX package: per-trajectory populations max|d| ="
+        f" {np.median(per_traj):.3e} (median), trajectories beyond"
+        f" {POPULATION_TOL}: {odd}; final counts TV = {tv:.4f}"
+    )
+    _check(len(odd) <= 1, f"RELAX10 trajectories {odd}")
+    _check(tv <= COUNTS_TV_TOL, f"RELAX10 counts TV {tv:.4f}")
+
+    runs = [
+        _timed_run(emu, S, "mcsolve_rk4_batched", fetch=False)
+        for _ in range(3)
+    ]
+    run_s = statistics.median(r[0] for r in runs)
+    solve_s = statistics.median(r[1] for r in runs)
+    stages = info["n_steps"] * 4
+    wall_s, busy_ms, n_launch = _device_busy(emu.run)
+    state_bytes = info["n_traj"] * info["dim"] * 8
+    print(
+        f"times on {card}: warm RELAX10 run() {run_s * 1e3:.3f} ms, its"
+        f" solve {solve_s * 1e3:.3f} ms = {solve_s * 1e3 / stages:.4f} ms"
+        f" per RK4 stage ({stages} stages, {info['n_traj']} trajectories in"
+        f" {info['traj_per_call']} per call, {n_launch / stages:.1f} kernel"
+        f" launches per stage in the traced run); states {state_bytes} bytes"
+    )
+    _print_busy("RELAX10 run()", wall_s, busy_ms)
+    return _path_entry(
+        "RELAX10", run_s * 1e3, stages, solve_s * 1e3, n_launch, state_bytes,
+        busy_ms / 1e3 / wall_s,
+    )
+
+
+def _mcdepol10_path(S, card: str) -> dict:
+    """MCDEPOL10 on the card: the serial quantum-jump solve of 100
+    trajectories in the lab frame through ``from_sequence`` with
+    ``solver=Solver.MCSOLVER`` after ``np.random.seed(1234)``; the averaged
+    final ρ's trace, Hermiticity and Rydberg populations (within 2e-2 of
+    the JAX package's); then the warm ``run()`` and its solve (median of
+    3), and the launches per stage and busy share from a trace of the
+    solve's first :data:`_TRACE_STEPS` steps."""
+    from pulser_tpu_torch.emulator import Solver, TorchEmulator
+
+    with open(_MCWF_GOLDENS["mcdepol10"]) as f:
+        ref = json.load(f)
+    _sequence_ms("MCDEPOL10", lambda: mcdepol10_sequence()[0], card)
+    seq, noise = mcdepol10_sequence()
+    captured: dict = {}
+    solve, record = _recording(S, "mcsolve_rk4", captured)
+    S.mcsolve_rk4 = record
+    try:
+        np.random.seed(ref["seed"])
+        t0 = time.perf_counter()
+        emu = TorchEmulator.from_sequence(
+            seq, noise_model=noise, evaluation_times="Minimal",
+            solver=Solver.MCSOLVER, n_trajectories=ref["ntraj"],
+        )
+        rho = emu.run().get_final_state().full()
+        cold_s = time.perf_counter() - t0
+    finally:
+        S.mcsolve_rk4 = solve
+    info = dict(S.last_solve_info)
+    print(f"MCDEPOL10 path: {info}, cold {cold_s:.3f} s")
+    _check(info.get("kind") == "mcwf_serial_torch", "MCDEPOL10 serial solve")
+    _check(info["ip"] is False, "MCDEPOL10 lab frame")
+    _check(info["n_traj"] == ref["ntraj"], f"{info['n_traj']} trajectories")
+    _check(info["n_steps"] == ref["n_steps"], f"steps {info['n_steps']}")
+    _check(bool(np.isfinite(rho).all()), "finite MCDEPOL10 state")
+    rho = np.asarray(rho, dtype=np.complex128)
+    trace_err = abs(np.trace(rho) - 1.0)
+    herm_err = float(np.abs(rho - rho.conj().T).max())
+    pops = _rydberg_populations(np.real(np.diag(rho))[None], ref["n"])[0]
+    pop_err = float(np.abs(pops - ref["rydberg_populations"]).max())
+    print(
+        f"MCDEPOL10 vs the JAX package: |tr-1| = {trace_err:.3e}, max|rho -"
+        f" rho^H| = {herm_err:.3e}, Rydberg populations max|d| ="
+        f" {pop_err:.3e}"
+    )
+    _check(trace_err <= TRACE_TOL, f"MCDEPOL10 trace {trace_err:.3e}")
+    _check(herm_err <= HERMITIAN_TOL, f"MCDEPOL10 Hermitian {herm_err:.3e}")
+    _check(pop_err <= MC_POPULATION_TOL, f"MCDEPOL10 populations {pop_err:.3e}")
+
+    runs = [_timed_run(emu, S, "mcsolve_rk4") for _ in range(3)]
+    run_s = statistics.median(r[0] for r in runs)
+    solve_s = statistics.median(r[1] for r in runs)
+    stages = info["n_steps"] * 4
+    wall_s, busy_ms, launches, traced = _traced_head(S, "mcsolve_rk4", captured)
+    state_bytes = info["n_traj"] * info["dim"] * 8
+    print(
+        f"times on {card}: warm MCDEPOL10 run() {run_s * 1e3:.3f} ms, its"
+        f" solve {solve_s * 1e3:.3f} ms = {solve_s * 1e3 / stages:.4f} ms per"
+        f" RK4 stage ({stages} stages, {info['n_traj']} trajectories in"
+        f" {info['traj_per_call']} per call, {launches / traced:.1f} kernel"
+        f" launches per stage); states {state_bytes} bytes, averaged rho"
+        f" {2 * info['dim'] ** 2 * 8} bytes"
+    )
+    _print_busy(f"MCDEPOL10 solve, first {_TRACE_STEPS} steps", wall_s, busy_ms)
+    return _path_entry(
+        "MCDEPOL10", run_s * 1e3, stages, solve_s * 1e3,
+        launches * stages / traced, state_bytes, busy_ms / 1e3 / wall_s,
     )
 
 
@@ -1971,6 +2276,9 @@ def main() -> int:
             _single_rho_path(S, "DEPH10", deph10_sequence, card),  # 13
             _mesolve10_path(S, card),  # 14
             _single_rho_path(S, "EFF8", eff8_sequence, card),  # 15
+            _xy16_path(S, card),  # 16
+            _relax10_path(K, S, card),  # 17
+            _mcdepol10_path(S, card),  # 18
         ],
     }
     print(json.dumps(report))

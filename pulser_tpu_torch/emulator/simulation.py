@@ -2,12 +2,12 @@
 
 Port of ``pulser_tpu/emulator/simulation.py`` (itself behavioral parity
 with reference ``pulser-simulation/pulser_simulation/simulation.py``,
-``QutipEmulator``), for three paths, on a CUDA device unless the CPU is
-asked for:
+``QutipEmulator``), on a CUDA device unless the CPU is asked for:
 
 - noiseless: QuTiP's ``sesolve`` becomes
-  :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4` in the interaction
-  picture;
+  :func:`~pulser_tpu_torch.ops.solver.sesolve_rk4`, in the interaction
+  picture, or in the lab frame with the XY term or the SLM mask's
+  interaction interpolation;
 - noisy with shot-to-shot noise and no collapse operators (SPAM,
   doppler, amplitude): the whole trajectory batch in one
   interaction-picture solve
@@ -20,10 +20,10 @@ asked for:
   operators (SPAM, doppler, amplitude, dephasing) on the interaction-
   picture grid, the row-batched solve runs with the measurement draws
   fused after it (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rows_codes`);
-  with general ones (the effective-noise Pauli channel, for instance) the
-  lab-frame solve returns the states
-  (:func:`~pulser_tpu_torch.ops.solver.mcsolve_rk4_batched`) and the
-  draws run on the host;
+  otherwise :func:`~pulser_tpu_torch.ops.solver.mcsolve_rk4_batched`
+  returns the states (the lab-frame kernel with general collapse
+  operators, or the torch scan: relaxation, other bases, more atoms,
+  float64) and the draws run on the host;
 - the Lindblad master equation: collapse operators without shot-to-shot
   noise, or ``Solver.MESOLVER``, or a density-matrix initial state run
   :func:`~pulser_tpu_torch.ops.solver.mesolve_rk4` (one solve) or
@@ -31,18 +31,19 @@ asked for:
   density matrix per noise trajectory), in the interaction picture on
   the coarsened grid when every collapse operator is diagonal, in the
   lab frame otherwise; the device-memory contract of
-  :mod:`pulser_tpu_torch.parallel.capacity` is checked first.
+  :mod:`pulser_tpu_torch.parallel.capacity` is checked first;
+- ``Solver.MCSOLVER`` without shot-to-shot noise runs the serial
+  quantum-jump solve :func:`~pulser_tpu_torch.ops.solver.mcsolve_rk4`
+  (``n_trajectories`` trajectories averaged into density matrices), and
+  so does each trajectory of a noisy run that does not batch
+  (depolarizing noise, the XY term), one solve per trajectory.
 
 The evaluation-times semantics (Full/Minimal/array/fraction, union with
 {0, T}), the +1 duration extension, the step policy, the noise draws and
 the order in which the numpy global RNG is consumed match the JAX
 package exactly, so both build the same plan and a seeded run gives the
-same counts. The quantum-jump runs outside the two kernels (the serial
-solve, depolarizing under shot-to-shot noise, relaxation and other
-single-matrix-unit operators on the interaction-picture grid), register
-noise, the XY term and interaction interpolation (with noise or a
-density matrix) and the lab-frame sesolve are not ported yet and raise
-``NotImplementedError`` (see ROADMAP.md).
+same counts. Register noise raises ``NotImplementedError`` (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -202,18 +203,6 @@ class _LindbladPrep(NamedTuple):
     mesolve_ip: bool
 
 
-#: Why XY mode and interaction interpolation are refused.
-_LAB_FRAME_REFUSAL = (
-    "XY mode and interaction interpolation need the lab-frame solve"
-    " (ROADMAP.md Queue 1, 'Lab-frame, XY and int_w sesolve')"
-)
-#: Why the serial quantum-jump solve is refused.
-_SERIAL_MCWF_REFUSAL = (
-    "the serial quantum-jump solve mcsolve_rk4 per trajectory is"
-    " ROADMAP.md Queue 1, 'Serial mcsolve_rk4'"
-)
-
-
 def _has_stochastic_noise(noise_model: NoiseModel) -> bool:
     return has_shot_to_shot_except_spam(noise_model) or (
         "SPAM" in noise_model.noise_types
@@ -273,11 +262,8 @@ class TorchEmulator:
         config: (Deprecated) SimConfig; use ``noise_model``.
         evaluation_times: "Full", "Minimal", an array of times (in µs)
             or a float sampling fraction.
-        noise_model: The noise model for the simulation. Ported:
-            the master equation, shot-to-shot noise without collapse
-            operators, and quantum jumps with diagonal collapse
-            operators or with general ones on the lab-frame grid (see
-            the module docstring).
+        noise_model: The noise model for the simulation (register noise
+            is not ported; see the module docstring).
         solver: Solver selection (see :class:`Solver`).
         n_trajectories: The number of noise trajectories to average over
             when the emulation includes stochastic noise.
@@ -387,7 +373,6 @@ class TorchEmulator:
         else:
             self._meas_basis = self.basis_name.replace("_with_error", "")
         self.set_initial_state("all-ground")
-        self._check_noise_ported()
 
     def _get_n_trajectories(
         self, noise_model: NoiseModel, check_value: bool
@@ -413,72 +398,6 @@ class TorchEmulator:
     def n_trajectories(self) -> int | None:
         """The number of trajectories to average over."""
         return self._get_n_trajectories(self.noise_model, check_value=False)
-
-    def _noise_refusal(self) -> str | None:
-        """Why this noise configuration is outside the ported paths, or
-        None when it is inside them.
-
-        Reads only the current trajectory's Hamiltonian, never the
-        numpy global RNG, so it cannot shift a seeded run's draws.
-        """
-        nm = self.noise_model
-        ham = self._current_hamiltonian
-        lindblad = self._hamiltonian_data.lindblad_data
-        is_dm = not self.initial_state.isket
-        has_cops = bool(lindblad.local_collapse_ops)
-        stochastic = _has_stochastic_noise(nm)
-        if ham.xy_mat is not None or ham.int_w is not None:
-            if has_cops or is_dm or stochastic:
-                return _LAB_FRAME_REFUSAL
-            return None  # the noiseless lab-frame sesolve raises in run()
-        if not has_cops or is_dm or not self._lindblad_solver_choice():
-            # sesolve, the pure-state batch, or the master equation
-            # (one solve, the batch, or one solve per trajectory)
-            return None
-        # Quantum jumps
-        if not stochastic:
-            return _SERIAL_MCWF_REFUSAL
-        if lindblad.depolarizing_pauli_2ds:
-            return (
-                "depolarizing noise runs the serial quantum-jump solve"
-                " mcsolve_rk4 per trajectory (ROADMAP.md Queue 1, 'Serial"
-                " mcsolve_rk4')"
-            )
-        mats = ham._local_collapse_mats
-        if _solver_mod._diag_cops_spec(
-            mats
-        ) is None and _solver_mod.mcwf_ip_eligible(mats):
-            return (
-                "relaxation and other single-matrix-unit collapse operators"
-                " run the interaction-picture quantum-jump solve with"
-                " general collapse operators, on the vmapped scan"
-                f" ({_solver_mod._MCWF_SCAN_ITEM})"
-            )
-        hd = self._hamiltonian_data
-        if (
-            hd.basis_data.dim != 2
-            or self._meas_basis != "ground-rydberg"
-            or self._meas_basis not in self.basis_name
-        ):
-            return (
-                "quantum-jump runs are ported for the ground-rydberg basis"
-                " only; other bases run the vmapped scan"
-                f" ({_solver_mod._MCWF_SCAN_ITEM})"
-            )
-        n = hd.n_qudits
-        if not 2 <= n <= _solver_mod.MCWF_MAX_QUBITS:
-            return (
-                f"the quantum-jump kernels take 2 to"
-                f" {_solver_mod.MCWF_MAX_QUBITS} atoms, not {n}; larger"
-                " registers run the vmapped scan"
-                f" ({_solver_mod._MCWF_SCAN_ITEM})"
-            )
-        return None
-
-    def _check_noise_ported(self) -> None:
-        reason = self._noise_refusal()
-        if reason is not None:
-            raise NotImplementedError(f"Not ported: {reason}.")
 
     @property
     def _hamiltonians(self) -> Iterator[HamiltonianWithReps]:
@@ -1155,31 +1074,29 @@ class TorchEmulator:
         return step
 
     def _run_solver(
-        self, hamiltonian: "Hamiltonian | None" = None, **options: Any
+        self,
+        hamiltonian: "Hamiltonian | None" = None,
+        mcsolve_ntraj: int = 1,
+        **options: Any,
     ) -> CoherentResults:
         """Runs one evolution of ``hamiltonian`` (default: the current
-        one): the interaction-picture sesolve of a ket, or the master
-        equation with collapse operators or a density-matrix input."""
+        one): the sesolve of a ket (interaction picture, or the lab frame
+        with the XY term or ``int_w``), the serial quantum-jump solve of
+        ``mcsolve_ntraj`` trajectories, or the master equation with
+        collapse operators or a density-matrix input."""
         if hamiltonian is None:
             hamiltonian = self._current_hamiltonian
-        if hamiltonian.xy_mat is not None or hamiltonian.int_w is not None:
-            raise NotImplementedError(
-                "The lab-frame solve (XY mode, SLM-masked interaction"
-                " interpolation) is not ported yet (ROADMAP.md Queue 1,"
-                " 'Lab-frame, XY and int_w sesolve')."
-            )
-        is_dm = not self.initial_state.isket
-        use_lindblad = len(hamiltonian.lindblad_data.local_collapse_ops) > 0
-        if use_lindblad and not is_dm and self._lindblad_solver_choice():
-            raise NotImplementedError(f"Not ported: {_SERIAL_MCWF_REFUSAL}.")
-        can_use_ip = not use_lindblad and not is_dm
         d = hamiltonian.dim
         n = hamiltonian.n_qudits
         knots = hamiltonian.sampling_times
+        is_dm = not self.initial_state.isket
+        use_lindblad = len(hamiltonian.lindblad_data.local_collapse_ops) > 0
+        lab_only = hamiltonian.xy_mat is not None or hamiltonian.int_w is not None
+        can_use_ip = not lab_only and not use_lindblad and not is_dm
         # Keep steps at or below 1 ns (and below any user max_step, µs).
         # Additionally bound λ_max·h for RK4 stability/accuracy on the
         # drive term; without the interaction picture the full diagonal
-        # adds to the stiffness
+        # and the XY couplings add to the stiffness
         spacings = np.diff(knots)
         lambda_max = float(
             np.sum(
@@ -1190,6 +1107,10 @@ class TorchEmulator:
             lambda_max += float(np.max(np.abs(hamiltonian.int_diag))) + float(
                 np.sum(np.max(np.abs(hamiltonian.det_coeffs), axis=(1, 2)))
             )
+            if hamiltonian.xy_mat is not None:
+                lambda_max += float(
+                    np.max(np.sum(np.abs(hamiltonian.xy_mat[0]), axis=1))
+                )
         base_step = min(
             float(np.median(spacings)) if len(spacings) else 1e-3,
             1e-3,
@@ -1206,23 +1127,42 @@ class TorchEmulator:
             max_step, coarsen = self._coarse_ip_step(
                 "sesolve_coarse", max_step, lambda_max, [hamiltonian], options
             )
-        # The master equation coarsens the same way when every collapse
-        # operator is diagonal (ρ's rotor conjugation then commutes with
-        # the dissipator exactly); the policy reads the NOISELESS
-        # Hamiltonian with the batch margin, as the JAX package's does
+        # The quantum-jump solve and the master equation coarsen the same
+        # way in the interaction picture: the quantum jumps when every
+        # collapse operator is diagonal or a single matrix unit, the
+        # master equation when every one is diagonal (ρ's rotor
+        # conjugation then commutes with the dissipator exactly). The
+        # policy reads the NOISELESS Hamiltonian with the batch margin, as
+        # the JAX package's does, in its order (the noiseless Hamiltonian
+        # draws from the numpy global RNG when first built)
         mats = hamiltonian._local_collapse_mats
-        mesolve_ip = not can_use_ip and _solver_mod.mesolve_ip_eligible(mats)
-        if mesolve_ip:
+        use_mcsolve = (
+            use_lindblad and not is_dm and self._lindblad_solver_choice()
+        )
+        mcwf_ip = (
+            use_mcsolve and not lab_only and _solver_mod.mcwf_ip_eligible(mats)
+        )
+        mesolve_ip = (
+            (use_lindblad or is_dm)
+            and not use_mcsolve
+            and not lab_only
+            and _solver_mod.mesolve_ip_eligible(mats)
+        )
+        if mcwf_ip or mesolve_ip:
             ham0 = self._noiseless_hamiltonian
             lam_drive = float(
                 np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
             )
             max_step, coarsen = self._coarse_ip_step(
-                "mesolve_coarse", max_step, lam_drive, [ham0], options,
-                margin=1.3,
+                "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
+                max_step, lam_drive, [ham0], options, margin=1.3,
             )
-            mesolve_ip = coarsen
+            mcwf_ip = mcwf_ip and coarsen
+            mesolve_ip = mesolve_ip and coarsen
 
+        coeffs = {"amp": hamiltonian.amp_coeffs, "det": hamiltonian.det_coeffs}
+        if hamiltonian.int_w is not None:
+            coeffs["int_w"] = hamiltonian.int_w
         # Repeat runs with an unchanged Hamiltonian and evaluation times
         # reuse the previous plan object — and with it the staged device
         # inputs (see EvolutionPlan.runtime_cache)
@@ -1242,10 +1182,7 @@ class TorchEmulator:
             with torch.profiler.record_function("emulator.build_plan"):
                 plan = build_plan(
                     knots,
-                    {
-                        "amp": hamiltonian.amp_coeffs,
-                        "det": hamiltonian.det_coeffs,
-                    },
+                    coeffs,
                     self._eval_times_array,
                     max_step=max_step,
                     coarsen=coarsen,
@@ -1258,7 +1195,36 @@ class TorchEmulator:
             self._plan_cache = (plan_key, plan, hamiltonian)
 
         cdtype = _default_cdtype()
-        if not can_use_ip:
+        n_eval = len(self._eval_times_array)
+        itemsize = torch.finfo(cdtype).bits // 8
+        xy = dict(xy_static=hamiltonian.xy_mat, xy_indices=hamiltonian.xy_indices)
+        if use_mcsolve:
+            # The trajectories are averaged into (n_eval, dim, dim)
+            # density matrices on the device, so the footprint contract is
+            # the density-matrix model
+            check_capacity(
+                d, n, n_eval=n_eval, itemsize=itemsize, density_matrix=True,
+                what="quantum-jump solve", device=self._torch_device,
+            )
+            with torch.profiler.record_function("emulator.mcsolve"):
+                states_arr = _solver_mod.mcsolve_rk4(
+                    self._initial_ket(),
+                    plan,
+                    hamiltonian.int_diag,
+                    hamiltonian.pairs,
+                    d,
+                    n,
+                    mats,
+                    ntraj=mcsolve_ntraj,
+                    seed=int(np.random.randint(2**31)),
+                    dtype=cdtype,
+                    ip=mcwf_ip,
+                    device=self._torch_device,
+                    **xy,
+                )
+            states = [Qobj(s, dims=[[d] * n, [d] * n]) for s in states_arr]
+            return self._wrap_coherent(states)
+        if not can_use_ip and (use_lindblad or is_dm):
             if is_dm:
                 rho0: Any = np.asarray(
                     self.initial_state.full(),
@@ -1268,13 +1234,8 @@ class TorchEmulator:
                 # ρ = ψψ† is formed on the device
                 rho0 = ("pure", self._initial_ket())
             check_capacity(
-                d,
-                n,
-                n_eval=len(self._eval_times_array),
-                itemsize=torch.finfo(cdtype).bits // 8,
-                density_matrix=True,
-                what="master-equation solve",
-                device=self._torch_device,
+                d, n, n_eval=n_eval, itemsize=itemsize, density_matrix=True,
+                what="master-equation solve", device=self._torch_device,
             )
             with torch.profiler.record_function("emulator.mesolve"):
                 states_arr = _solver_mod.mesolve_rk4(
@@ -1289,9 +1250,14 @@ class TorchEmulator:
                     ip=mesolve_ip,
                     lazy=True,
                     device=self._torch_device,
+                    **xy,
                 )
             shape, dims = (d**n, d**n), [[d] * n, [d] * n]
         else:
+            check_capacity(
+                d, n, n_eval=n_eval, itemsize=itemsize,
+                what="Schrödinger solve", device=self._torch_device,
+            )
             with torch.profiler.record_function("emulator.sesolve"):
                 states_arr = _solver_mod.sesolve_rk4(
                     self._initial_ket(),
@@ -1303,10 +1269,12 @@ class TorchEmulator:
                     dtype=cdtype,
                     # The projector occupancies are synthesized from the
                     # basis index; any non-None value selects the
-                    # interaction picture
-                    ip_occ=True,
+                    # interaction picture, which the XY term and int_w
+                    # rule out
+                    ip_occ=True if can_use_ip else None,
                     lazy=True,
                     device=self._torch_device,
+                    **xy,
                 )
             # Coarse RK4 steps drift the norm by ~1e-6/µs; the evolution
             # is exactly unitary, so the emitted states are renormalized
@@ -1419,11 +1387,12 @@ class TorchEmulator:
         self._validate_options(options)
         if not (progress_bar is True or progress_bar is False or progress_bar is None):
             raise ValueError("`progress_bar` must be a bool.")
-        self._check_noise_ported()
         if not _has_stochastic_noise(self.noise_model):
             if print_progress:
                 print("Emulating Trajectory 1/1")
-            return self._run_solver(**options)
+            return self._run_solver(
+                mcsolve_ntraj=self.n_trajectories or 1, **options
+            )
 
         # The routes in the JAX package's order. The gates build the
         # noiseless Hamiltonian, whose one draw from the numpy global RNG

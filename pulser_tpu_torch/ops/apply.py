@@ -9,17 +9,19 @@ tensors in place of the ``(2, d^N)`` real pairs the TPU needed:
 - the Ising interaction is **diagonal** in the computational basis →
   one precomputed length-``d^N`` diagonal vector.
 
-Single-axis application (:func:`apply_axis_c`, the quantum-jump
-candidates) and :func:`neg_i` serve the lab-frame quantum-jump solve;
-:func:`apply_row_c` and :func:`apply_col_c` apply a one-qudit operator
-to the row and column multi-index of a density matrix (the master
-equation). The XY flip-flop term is not ported yet (see ROADMAP.md).
+Single-axis application (:func:`apply_axis_c`) and :func:`neg_i` serve
+the lab-frame quantum-jump solve, :func:`jump_candidates` its jump
+branch; :func:`apply_row_c` and :func:`apply_col_c` apply a one-qudit
+operator to the row and column multi-index of a density matrix (the
+master equation). The XY flip-flop term (:func:`apply_flip_flop_r`) is
+two index gathers around one coupling matmul, on a state or on the row
+index of a density matrix.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 
@@ -157,6 +159,132 @@ def apply_block_c(
     return out.reshape(out.shape[:-3] + (-1,))
 
 
+_GATHER_TABLES: dict = {}
+
+
+def _digit_swap(
+    d: int, n: int, src: int, dst: int, device: Any
+) -> torch.Tensor:
+    """``(n * d**n,)`` int64 gather indices: entry ``q * dim + i`` is ``i``
+    with its qudit-``q`` digit set to ``src`` where that digit is ``dst``,
+    else ``dim`` (the zero slot appended to the gathered axis)."""
+    dim = d**n
+    idx = torch.arange(dim, device=device)
+    place = d ** torch.arange(n - 1, -1, -1, device=device)[:, None]
+    digit = _digits_of(d, n, device)
+    moved = idx + (src - digit) * place
+    return torch.where(digit == dst, moved, dim).reshape(-1)
+
+
+def _flip_flop_tables(
+    d: int, n: int, up_idx: int, down_idx: int, device: Any
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The lowering and raising gathers of :func:`apply_flip_flop_r`,
+    cached per structure and device: lowering qudit ``q`` reads the
+    ``u`` partner of each ``d`` entry, raising reads the ``d`` partner of
+    each ``u`` entry in block ``q`` of the mixed stack."""
+    key = (d, n, up_idx, down_idx, str(device))
+    hit = _GATHER_TABLES.get(key)
+    if hit is None:
+        dim = d**n
+        lower = _digit_swap(d, n, up_idx, down_idx, device)
+        raise_ = _digit_swap(d, n, down_idx, up_idx, device)
+        block = torch.arange(n, device=device).repeat_interleave(dim) * dim
+        # The zero slot of the stacked (n * dim) axis is n * dim
+        raise_ = torch.where(raise_ == dim, n * dim, raise_ + block)
+        hit = _GATHER_TABLES[key] = (lower, raise_)
+    return hit
+
+
+def apply_flip_flop_r(
+    u_mat: torch.Tensor,
+    x: torch.Tensor,
+    d: int,
+    n: int,
+    up_idx: int,
+    down_idx: int,
+    rows: bool = False,
+) -> torch.Tensor:
+    """Applies the XY flip-flop term ``Σ_{i≠j} U_ij σ_ud^i σ_du^j``.
+
+    Every qudit is lowered at once (one gather from the state with a zero
+    slot appended), the stack is mixed with the couplings (one matmul),
+    and every qudit is raised and summed (one gather and one sum).
+
+    Args:
+        u_mat: ``(..., n, n)`` couplings with a zero diagonal (any leading
+            batch axes of ``x``, or none). Real couplings are cast to
+            ``x``'s dtype; a complex ``U`` (``−iU``, say) is taken as is.
+        x: ``(..., d**n)`` states, or with ``rows`` ``(..., d**n, m)``
+            (the operator acts on the row index of a density matrix).
+        d, n: Qudit dimension and count.
+        up_idx / down_idx: Eigenbasis indices of "u" and "d".
+        rows: Apply to axis -2 instead of the last axis.
+    """
+    if not rows:
+        return apply_flip_flop_r(
+            u_mat, x[..., None], d, n, up_idx, down_idx, rows=True
+        )[..., 0]
+    lower, raise_ = _flip_flop_tables(d, n, up_idx, down_idx, x.device)
+    dim, m = d**n, x.shape[-1]
+    lead = x.shape[:-2]
+
+    def padded(v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([v, torch.zeros_like(v[..., :1, :])], dim=-2)
+
+    low = padded(x).index_select(-2, lower).reshape(*lead, n, dim * m)
+    mixed = torch.matmul(u_mat.to(x.dtype), low).reshape(*lead, n * dim, m)
+    out = padded(mixed).index_select(-2, raise_)
+    return out.reshape(*lead, n, dim, m).sum(-3)
+
+
+def candidate_coefs(ops: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The ``(K, n, d, d**n)`` coefficients of :func:`jump_candidates`:
+    ``coef[k, q, j, i] = L_k[digit_q(i), j]`` for ``(K, d, d)`` operators
+    ``L``."""
+    return ops[:, _digits_of(d, n, ops.device)].permute(0, 1, 3, 2)
+
+
+def _digits_of(d: int, n: int, device: Any) -> torch.Tensor:
+    """``(n, d**n)`` int64: the base-``d`` digits of every basis index,
+    qudit 0 the most significant."""
+    idx = torch.arange(d**n, device=device)
+    place = d ** torch.arange(n - 1, -1, -1, device=device)
+    return (idx[None, :] // place[:, None]) % d
+
+
+def jump_candidates(
+    coef: torch.Tensor, psi: torch.Tensor, d: int, n: int
+) -> torch.Tensor:
+    """Every local operator on every qudit applied to ``psi``.
+
+    Args:
+        coef: The operators' :func:`candidate_coefs`, ``(K, n, d, d**n)``.
+        psi: ``(..., d**n)`` complex states.
+        d, n: Qudit dimension and count.
+
+    Returns:
+        ``(..., K * n, d**n)``: entry ``k * n + q`` is operator ``k`` on
+        qudit ``q`` (the JAX package's candidate order), from one gather of
+        ``psi`` (the digit-``q`` partners of every entry) and one
+        contraction.
+    """
+    key = ("partners", d, n, str(psi.device))
+    flat = _GATHER_TABLES.get(key)
+    dim = d**n
+    if flat is None:
+        # flat[q, j, i]: i with its qudit-q digit set to j
+        idx = torch.arange(dim, device=psi.device)
+        place = d ** torch.arange(n - 1, -1, -1, device=psi.device)
+        digit = _digits_of(d, n, psi.device)
+        j = torch.arange(d, device=psi.device)[None, :, None]
+        part = idx + (j - digit[:, None, :]) * place[:, None, None]
+        flat = _GATHER_TABLES[key] = part.reshape(-1)
+    gathered = psi[..., flat].reshape(*psi.shape[:-1], 1, n, d, dim)
+    out = (coef * gathered).sum(-2)
+    return out.reshape(*psi.shape[:-1], coef.shape[0] * n, dim)
+
+
 def _hpsi(
     psi: torch.Tensor,
     diag: torch.Tensor,
@@ -165,15 +293,19 @@ def _hpsi(
     pairs: tuple[tuple[int, int, int], ...],
     d: int,
     n: int,
+    xy_mat: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
     groups: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
-    """``H(t) @ psi`` for the 1-local drive plus the static diagonal.
+    """``H(t) @ psi``: the 1-local drive, the diagonal and the XY term.
 
     Args:
         psi: ``(d**n,)`` complex state.
         diag: ``(d**n,)`` real diagonal (interaction).
         amp/det: ``(n_bases, n)`` coefficient slices.
         pairs, d, n: Static structure.
+        xy_mat: Optional ``(n, n)`` real XY couplings.
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
         groups: Optional qudit-group sizes (defaults to
             :func:`group_sizes`) for the blocked drive application.
     """
@@ -191,6 +323,9 @@ def _hpsi(
             d ** (n - q0 - g),
         )
         q0 += g
+    if xy_mat is not None:
+        assert xy_indices is not None
+        out = out + apply_flip_flop_r(xy_mat, psi, d, n, *xy_indices)
     return out
 
 
@@ -202,9 +337,11 @@ def hamiltonian_matvec(
     pairs: tuple[tuple[int, int, int], ...],
     d: int,
     n: int,
+    xy_mat: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """One full ``H(t) @ psi`` (exposed for tests)."""
-    return _hpsi(psi, diag, amp, det, pairs, d, n)
+    return _hpsi(psi, diag, amp, det, pairs, d, n, xy_mat, xy_indices)
 
 
 def apply_row_c(

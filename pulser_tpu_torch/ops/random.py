@@ -13,7 +13,8 @@ layout under ``jax_threefry_partitionable`` (the default from JAX 0.5):
 - ``random_bits(key, shape)`` hashes the flat C-order index of each
   element the same way and XORs the two output words;
 - ``uniform`` keeps the top 23 bits as a float32 mantissa in [1, 2) and
-  subtracts 1.
+  subtracts 1; in float64 it joins the two hash words into 64 bits
+  (first word high) and keeps the top 52.
 
 Keys are ``(..., 2)`` ``uint32`` numpy arrays. Everything is vectorized
 over leading key axes, so a whole trajectory batch is drawn in one pass
@@ -104,8 +105,16 @@ def random_bits(key: np.ndarray, shape: tuple[int, ...] = ()) -> np.ndarray:
     return b1 ^ b2
 
 
-def uniform(key: np.ndarray, shape: tuple[int, ...] = ()) -> np.ndarray:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
+def uniform(
+    key: np.ndarray, shape: tuple[int, ...] = (), dtype: type = np.float32
+) -> np.ndarray:
+    """``jax.random.uniform(key, shape, dtype)`` in [0, 1), for float32
+    or float64."""
+    if np.dtype(dtype) == np.float64:
+        b1, b2 = _hash(key, tuple(shape))
+        bits = (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+        mant = (bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
+        return mant.view(np.float64) - 1.0
     bits = random_bits(key, shape)
     mant = (bits >> np.uint32(9)) | np.uint32(0x3F800000)
     return mant.view(np.float32) - np.float32(1.0)

@@ -1,7 +1,7 @@
 """Fixed-step Schrödinger solver over a host-built time grid, in PyTorch.
 
-Port of ``pulser_tpu/ops/solver.py`` (host plan and interaction-picture
-sesolve). QuTiP's adaptive ``sesolve`` is replaced by fixed-step RK4:
+Port of ``pulser_tpu/ops/solver.py``. QuTiP's adaptive ``sesolve`` is
+replaced by fixed-step RK4:
 
 - the Hamiltonian's coefficients are **piecewise linear** between the
   sampling knots (exactly QobjEvo's tlist interpolation), so the three
@@ -9,35 +9,38 @@ sesolve). QuTiP's adaptive ``sesolve`` is replaced by fixed-step RK4:
 - the integration grid is the union of the sampling knots and the
   requested evaluation times (optionally subdivided), so evaluation
   states are exact grid points;
-- the solve runs in the **interaction picture**: the static interaction
-  diagonal and the detuning are rotated away exactly, and RK4 only
-  integrates the drive term.
+- the solve runs in the **interaction picture** where it can: the static
+  interaction diagonal and the detuning are rotated away exactly, and
+  RK4 only integrates the drive term. With the XY term or the SLM mask's
+  interaction interpolation (``int_w``) it runs in the lab frame.
 
 States are native complex tensors; the TPU's ``(2, dim)`` real pairs are
 gone. For 10 ≤ n ≤ 17 qubits in single precision on a CUDA device the
-solve runs through the hand-written kernel of
-:mod:`pulser_tpu_torch.ops.kernels`; every other eligible configuration
-runs the torch loop :func:`_sesolve_scan_ip`.
+interaction-picture solve runs through the hand-written kernel of
+:mod:`pulser_tpu_torch.ops.kernels`; every other configuration runs a
+torch loop (:func:`_scan_segments` over :func:`_ip_terms` or
+:func:`_lab_terms`).
 
 A noise-trajectory batch without collapse operators runs
 :func:`sesolve_rk4_batched`: the same kernel in its trajectory-batched
 mode under the same gate, else the torch loop with a batch axis.
 
-The quantum-jump (MCWF) batch runs one of two hand-written kernels
-(:func:`_mcwf_route`): the row-batched interaction-picture solve with
-diagonal collapse operators, or the lab-frame solve with general local
-2×2 collapse operators; on CPU tensors each runs its plain PyTorch
-version.
+The quantum-jump (MCWF) batch (:func:`mcsolve_rk4_batched`) runs one of
+two hand-written kernels (:func:`_mcwf_route`): the row-batched
+interaction-picture solve with diagonal collapse operators, or the
+lab-frame solve with general local 2×2 collapse operators (on CPU
+tensors each runs its plain PyTorch version); every other configuration
+runs the torch scan :func:`_mcwf_traj_states`, which also serves the
+serial, trajectory-averaged :func:`mcsolve_rk4`.
 
 The Lindblad master equation (:func:`mesolve_rk4`, and
 :func:`mesolve_rk4_batched` for one density matrix per noise trajectory)
 is a torch loop with native complex density matrices
 (:func:`_mesolve_scan`): in the interaction picture on the coarsened
 grid when every collapse operator is diagonal, in the lab frame
-otherwise. The JAX package computes it in XLA, outside any Pallas
-kernel. The lab-frame sesolve (XY, interaction interpolation), the XY
-term of the master equation, sharding over devices and the serial
-quantum-jump solve are not ported yet (see ROADMAP.md).
+otherwise (with the XY term there). The JAX package computes the torch
+loops' solves in XLA, outside any Pallas kernel. Sharding over devices
+is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,10 +53,14 @@ import numpy as np
 import torch
 
 from pulser_tpu_torch.ops.apply import (
+    _digits_of,
     _group_matrix,
     apply_block_c,
+    apply_flip_flop_r,
     build_drive_matrices,
+    candidate_coefs,
     group_sizes,
+    jump_candidates,
 )
 from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
 
@@ -419,6 +426,8 @@ def build_plan(
 
 #: Shape/step metadata of the most recent solve, for telemetry.
 last_solve_info: dict[str, Any] = {}
+#: The ROADMAP item that holds sharding over several devices.
+_PARALLEL_ITEM = "ROADMAP.md Queue 1, 'Backend, JSON, parallel and serving'"
 
 
 def _numpy_dtype(dtype: Any) -> np.dtype:
@@ -426,6 +435,12 @@ def _numpy_dtype(dtype: Any) -> np.dtype:
     if isinstance(dtype, torch.dtype):
         return np.dtype(str(dtype).removeprefix("torch."))
     return np.dtype(dtype)
+
+
+def _complex_dtype(dtype: Any) -> np.dtype:
+    """The complex numpy dtype of a numpy or torch dtype (a real one is
+    promoted: float64 to complex128, float32 to complex64)."""
+    return np.result_type(_numpy_dtype(dtype), np.complex64)
 
 
 def _resolve_device(device: Any) -> torch.device:
@@ -529,6 +544,7 @@ def sesolve_rk4(
     d: int,
     n: int,
     xy_static: np.ndarray | None = None,
+    xy_indices: tuple[int, int] | None = None,
     dtype: Any = None,
     ip_occ: Any = None,
     state_mesh: Any = None,
@@ -540,19 +556,25 @@ def sesolve_rk4(
     Args:
         psi0: The ``(d**n,)`` complex initial state (host numpy).
         plan: The evolution plan (from :func:`build_plan`). Stage arrays
-            must include ``amp`` (n_steps, 3, n_bases, n) complex and
-            the detuning integrals ``det_cum``.
-        static_diag: ``(dim,)`` static interaction diagonal.
+            must include ``amp`` (n_steps, 3, n_bases, n) complex, the
+            detuning integrals ``det_cum`` (interaction picture) or the
+            detunings ``det`` (lab frame), and optionally ``int_w``
+            (n_steps, 3, 2) interaction interpolation weights.
+        static_diag: ``(dim,)`` static interaction diagonal, or ``(2,
+            dim)`` [unmasked, masked] when ``int_w`` is present.
         pairs: Static per-basis (i, j, k) drive index triples.
         d, n: Qudit dimension and count.
-        xy_static: XY couplings; not ported yet.
+        xy_static: Optional ``(nxy, N, N)`` XY couplings (1 or 2
+            configurations, interpolated with ``int_w`` when 2).
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
         dtype: Complex dtype of the evolution (defaults to psi0's).
-        ip_occ: When given (any non-None value), the solve runs in the
-            **interaction picture**: the full diagonal
-            ``D(t) = int_diag − Σ det·occ`` is rotated away exactly
-            (``ψ = e^{-iΦ(t)} φ``, ``Φ = ∫D``), with the projector
-            occupancies synthesized from the basis index. This is the
-            only solve ported so far.
+        ip_occ: When given (any non-None value) and there is neither an
+            XY term nor ``int_w``, the solve runs in the **interaction
+            picture**: the full diagonal ``D(t) = int_diag − Σ det·occ``
+            is rotated away exactly (``ψ = e^{-iΦ(t)} φ``, ``Φ = ∫D``),
+            with the projector occupancies synthesized from the basis
+            index. Otherwise the lab-frame loop :func:`_sesolve_scan`
+            integrates the whole Hamiltonian.
         state_mesh: State sharding; not ported yet.
         lazy: Return a :class:`DeviceStateBatch` (device-resident
             output, fetched on demand) instead of a host array.
@@ -564,26 +586,21 @@ def sesolve_rk4(
         ``(n_eval, dim)`` complex numpy states at the evaluation
         times, or a :class:`DeviceStateBatch` when ``lazy`` is set.
     """
-    has_int_w = "int_w" in plan.stage_arrays
-    if xy_static is not None or has_int_w or ip_occ is None:
-        raise NotImplementedError(
-            "Only the interaction-picture sesolve is ported; the"
-            " lab-frame solve (XY, interaction interpolation) is"
-            " ROADMAP.md Queue 1, 'lab-frame, XY and int_w sesolve'."
-        )
     if state_mesh is not None:
         raise NotImplementedError(
-            "State sharding is not ported yet (ROADMAP.md Queue 1,"
-            " 'Backend, JSON, parallel and serving')."
+            f"State sharding is not ported yet ({_PARALLEL_ITEM})."
         )
-    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    has_int_w = "int_w" in plan.stage_arrays
+    use_ip = ip_occ is not None and xy_static is None and not has_int_w
+    cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
     psi0_np = np.asarray(psi0, dtype=cdtype)
     # The hand-written kernel covers the flagship configuration:
     # qubits (d=2), a single drive basis, single precision, on a card
     if (
-        d == 2
+        use_ip
+        and d == 2
         and len(pairs) == 1
         and tuple(pairs[0]) == (1, 0, 0)
         and 10 <= n <= 17
@@ -600,30 +617,52 @@ def sesolve_rk4(
             dev
         )
 
-    # Phases only matter mod 2π and the occupancies are exactly 0/1,
-    # so the detuning integrals are range-reduced on the host
-    # (sign: D = int_diag − Σ det·occ → Φ gets −∫det terms).
-    two_pi = 2 * np.pi
-    out = _sesolve_scan_ip(
-        to_dev(psi0_np, cdtype),
-        to_dev(plan.seg_stage("amp"), cdtype),
-        to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
-        to_dev(plan.seg_stage("t_stage"), rdtype),
-        np.asarray(plan.seg_dts, dtype=rdtype),
-        to_dev(plan.eval_times - plan.grid[0], rdtype),
-        to_dev((-plan.eval_det_cum) % two_pi, rdtype),
-        to_dev(np.asarray(static_diag).real, rdtype),
-        pairs=tuple(tuple(p) for p in pairs),
-        d=d,
-        n=n,
-    )
+    pairs = tuple(tuple(p) for p in pairs)
+    if use_ip:
+        # Phases only matter mod 2π and the occupancies are exactly 0/1,
+        # so the detuning integrals are range-reduced on the host
+        # (sign: D = int_diag − Σ det·occ → Φ gets −∫det terms).
+        two_pi = 2 * np.pi
+        out = _sesolve_scan_ip(
+            to_dev(psi0_np, cdtype),
+            to_dev(plan.seg_stage("amp"), cdtype),
+            to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
+            to_dev(plan.seg_stage("t_stage"), rdtype),
+            np.asarray(plan.seg_dts, dtype=rdtype),
+            to_dev(plan.eval_times - plan.grid[0], rdtype),
+            to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+            to_dev(np.asarray(static_diag).real, rdtype),
+            pairs=pairs,
+            d=d,
+            n=n,
+        )
+    else:
+        out = _sesolve_scan(
+            to_dev(psi0_np, cdtype),
+            to_dev(plan.seg_stage("amp"), cdtype),
+            to_dev(plan.seg_stage("det").real, rdtype),
+            np.asarray(plan.seg_dts, dtype=rdtype),
+            to_dev(np.asarray(static_diag).real, rdtype),
+            pairs=pairs,
+            d=d,
+            n=n,
+            int_w=(
+                to_dev(plan.seg_stage("int_w"), rdtype) if has_int_w else None
+            ),
+            xy_s=(
+                None
+                if xy_static is None
+                else to_dev(np.asarray(xy_static).real, rdtype)
+            ),
+            xy_indices=xy_indices,
+        )
     last_solve_info.clear()
     last_solve_info.update(
         kind="sesolve_torch_loop",
         dim=d**n,
         n=n,
         n_steps=int(np.count_nonzero(plan.seg_dts)),
-        ip=True,
+        ip=use_ip,
     )
     if lazy:
         return DeviceStateBatch(
@@ -716,8 +755,8 @@ def _sesolve_scan_ip(
 
     Integrates ``dφ/dt = -i e^{iΦ} A(t) e^{-iΦ} φ`` with
     ``Φ(t) = t·int_diag − Σ_{b,q} (∫det_bq) occ_bq`` computed exactly
-    per stage; only the small amplitude term ``A`` is integrated
-    numerically.
+    per stage (:func:`_ip_terms`); only the small amplitude term ``A`` is
+    integrated numerically.
 
     A trajectory batch rides leading axes ``B`` of ``amp``,
     ``det_cum_mod``, ``eval_cum_mod`` and ``diag_static`` (all four, or
@@ -740,74 +779,293 @@ def _sesolve_scan_ip(
     Returns:
         ``(B..., n_seg, dim)`` lab-frame states after each segment.
     """
-    rdtype = diag_static.dtype
-    groups = group_sizes(d, n)
-    phase_at = _make_ip_phase_fn(pairs, d, n, rdtype, psi0.device)
-
-    def rotor(ph: torch.Tensor) -> torch.Tensor:
-        """``e^{-iΦ}``."""
-        return torch.complex(torch.cos(ph), -torch.sin(ph))
-
-    def drive_groups(amp_s: torch.Tensor) -> list[torch.Tensor]:
-        mats = build_drive_matrices(
-            amp_s, torch.zeros_like(amp_s.real), pairs, d, n
-        )
-        out, q0 = [], 0
-        for g in groups:
-            out.append(_group_matrix(mats, q0, q0 + g, d))
-            q0 += g
-        return out
-
-    def amp_apply(psi: torch.Tensor, mats: list[torch.Tensor]) -> torch.Tensor:
-        out = torch.zeros_like(psi)
-        q0 = 0
-        for g, mat in zip(groups, mats):
-            out = out + apply_block_c(
-                mat, psi, d**q0, d**g, d ** (n - q0 - g)
-            )
-            q0 += g
-        return out
-
-    n_seg, seg_len = dts.shape
-    lead = tuple(diag_static.shape[:-1])
-    phi = psi0.expand(lead + tuple(psi0.shape))
-    out = torch.empty(
-        lead + (n_seg,) + tuple(psi0.shape),
-        dtype=psi0.dtype,
-        device=psi0.device,
+    terms = _ip_terms(
+        amp, diag_static, det_cum_mod, t_stage, pairs=pairs, d=d, n=n
     )
-    for s in range(n_seg):
-        for i in range(seg_len):
-            h = float(dts[s, i])
-            if h == 0.0:
-                continue  # start padding of a short segment
-            rots = [
-                rotor(
-                    phase_at(
-                        diag_static,
-                        t_stage[s, i, j],
-                        det_cum_mod[..., s, i, j, :, :],
-                    )
-                )
-                for j in range(3)
-            ]
-            mats = [drive_groups(amp[..., s, i, j, :, :]) for j in range(3)]
-            k = torch.zeros_like(phi)
-            acc = torch.zeros_like(phi)
-            for j in range(4):
-                sidx = _RK_STAGE[j]
-                p = phi + (h * _RK_A[j]) * k
-                w = rots[sidx] * p  # e^{-iΦ} ⊙ φ
-                y = amp_apply(w, mats[sidx])
-                k = -1j * (rots[sidx].conj() * y)  # -i e^{iΦ} ⊙ y
-                acc = acc + _RK_B[j] * k
-            phi = phi + h * acc
-        # Emit in the lab frame: ψ = e^{-iΦ(t_eval)} φ
-        out[..., s, :] = (
-            rotor(phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :]))
-            * phi
+    phase_at = _make_ip_phase_fn(
+        pairs, d, n, diag_static.dtype, psi0.device
+    )
+
+    def emit(s: int, phi: torch.Tensor) -> torch.Tensor:
+        # The lab frame: ψ = e^{-iΦ(t_eval)} φ
+        ph = phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :])
+        return torch.complex(torch.cos(ph), -torch.sin(ph)) * phi
+
+    lead = tuple(diag_static.shape[:-1])
+    return _scan_segments(
+        psi0.expand(lead + tuple(psi0.shape)), dts, *terms, emit
+    )
+
+
+def _rk4_step(
+    psi: torch.Tensor, h: float, deriv_at: Callable[[torch.Tensor, int], Any]
+) -> torch.Tensor:
+    """One classical RK4 step of ``psi`` with ``deriv_at(p, point)``, the
+    derivative at stage point 0, 1 or 2 (t, t+h/2, t+h)."""
+    k = acc = None
+    for j in range(4):
+        p = psi if k is None else torch.add(psi, k, alpha=h * _RK_A[j])
+        k = deriv_at(p, _RK_STAGE[j])
+        acc = _RK_B[j] * k if acc is None else acc.add_(k, alpha=_RK_B[j])
+    return torch.add(psi, acc, alpha=h)
+
+
+def _neg_i_real(x: torch.Tensor) -> torch.Tensor:
+    """``−i·x`` of a real tensor, as a complex one."""
+    return torch.complex(torch.zeros_like(x), -x)
+
+
+def _lab_terms(
+    amp: torch.Tensor,
+    det: torch.Tensor,
+    diag_static: torch.Tensor,
+    *,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    int_w: torch.Tensor | None = None,
+    xy_s: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
+    static_groups: list[torch.Tensor] | None = None,
+) -> tuple[Callable, Callable, int]:
+    """The lab-frame derivative ``k = −iH(t)ψ`` of the torch loops.
+
+    ``H`` is the drive with its detuning, the interaction diagonal (the
+    ``int_w``-weighted sum of its rows with ``int_w``) and the XY term
+    (its two configurations interpolated the same way); ``static_groups``
+    (one ``(D, D)`` matrix per qudit group, the quantum-jump solve's
+    no-jump decay ``−½G``) add to the drive's group matrices.
+
+    Args:
+        amp: ``(B..., n_seg, L, 3, n_bases, n)`` complex drive stages.
+        det: ``(B..., n_seg, L, 3, n_bases, n)`` real detuning stages.
+        diag_static: ``(B..., dim)``, or ``(B..., k, dim)`` with
+            ``int_w``.
+        pairs, d, n: Static structure.
+        int_w: ``(n_seg, L, 3, k)`` interpolation weights.
+        xy_s: ``(1 or k, n, n)`` real XY couplings.
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
+        static_groups: Extra static group matrices.
+
+    Returns:
+        ``(chunk_inputs, deriv, step_bytes)``: ``chunk_inputs(s, sl)``
+        stages the steps ``sl`` of segment ``s`` at once (``−i·`` the
+        group matrices, the diagonal factor and ``−iU``); ``deriv(p,
+        inputs, i, j)`` is the derivative at point ``j`` of step ``i`` of
+        that chunk; ``step_bytes`` what one step of a chunk holds.
+    """
+    groups = group_sizes(d, n)
+    offsets = [sum(groups[:i]) for i in range(len(groups))]
+    lead = tuple(amp.shape[:-5])
+    dim = d**n
+    interp_xy = xy_s is not None and int_w is not None and xy_s.shape[0] > 1
+    fac_static = None if int_w is not None else _neg_i_real(diag_static)
+    u_static = (
+        _neg_i_real(xy_s[0]) if xy_s is not None and not interp_xy else None
+    )
+
+    def chunk_inputs(s: int, sl: slice) -> tuple:
+        mats = build_drive_matrices(
+            amp[..., s, sl, :, :, :], det[..., s, sl, :, :, :], pairs, d, n
         )
-    return out
+        gm = []
+        for k, (q0, g) in enumerate(zip(offsets, groups)):
+            m = -1j * _group_matrix(mats, q0, q0 + g, d)
+            gm.append(m if static_groups is None else m + static_groups[k])
+        fac, ux = fac_static, u_static
+        if int_w is not None:
+            w = int_w[s, sl]  # (c, 3, k)
+            fac = _neg_i_real(torch.einsum("slk,...kd->...sld", w, diag_static))
+            if interp_xy:
+                ux = _neg_i_real(torch.einsum("slk,kij->slij", w, xy_s))
+        return gm, fac, ux
+
+    def deriv(p: torch.Tensor, inputs: tuple, i: int, j: int) -> torch.Tensor:
+        gm, fac, ux = inputs
+        out = (fac if fac is fac_static else fac[..., i, j, :]) * p
+        for q0, g, m in zip(offsets, groups, gm):
+            out = out + apply_block_c(
+                m[..., i, j, :, :], p, d**q0, d**g, d ** (n - q0 - g)
+            )
+        if ux is not None:
+            u = ux if ux is u_static else ux[i, j]
+            out = out + apply_flip_flop_r(u, p, d, n, *xy_indices)
+        return out
+
+    per_step = 3 * sum((d**g) ** 2 for g in groups)
+    if int_w is not None:
+        per_step += 3 * dim
+    per_step *= int(np.prod(lead)) if lead else 1
+    return chunk_inputs, deriv, per_step * 2 * amp.real.element_size()
+
+
+def _ip_terms(
+    amp: torch.Tensor,
+    diag_static: torch.Tensor,
+    cum_mod: torch.Tensor,
+    t_stage: torch.Tensor,
+    *,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    decay: torch.Tensor | None = None,
+) -> tuple[Callable, Callable, int]:
+    """The interaction-picture derivative of the torch loops,
+    ``k = −i e^{iΦ} A(t) (e^{−iΦ} φ) + decay ⊙ φ``: the drive ``A`` without
+    its detuning, which lives in the exact phase integrals of ``Φ``
+    (:func:`_make_ip_phase_fn`), and an optional diagonal ``decay`` (the
+    quantum-jump solve's ``−½ diag(G)``).
+
+    Args:
+        amp: ``(B..., n_seg, L, 3, n_bases, n)`` complex drive stages.
+        diag_static: ``(B..., dim)`` real interaction diagonal.
+        cum_mod: ``(B..., n_seg, L, 3, n_bases, n)`` range-reduced
+            ``−∫det`` stages.
+        t_stage: ``(n_seg, L, 3)`` stage times.
+        pairs, d, n: Static structure.
+        decay: ``(dim,)`` complex diagonal term.
+
+    Returns:
+        ``(chunk_inputs, deriv, step_bytes)`` as :func:`_lab_terms`;
+        ``chunk_inputs(s, sl)`` gives ``(group matrices, rotors)``, the
+        rotors ``e^{−iΦ}`` of the chunk's stage points ``(B..., c, 3,
+        dim)``.
+    """
+    groups = group_sizes(d, n)
+    offsets = [sum(groups[:i]) for i in range(len(groups))]
+    lead = tuple(diag_static.shape[:-1])
+    dim = d**n
+    phase_at = _make_ip_phase_fn(
+        pairs, d, n, diag_static.dtype, diag_static.device
+    )
+
+    def chunk_inputs(s: int, sl: slice) -> tuple:
+        a = amp[..., s, sl, :, :, :]
+        mats = build_drive_matrices(a, torch.zeros_like(a.real), pairs, d, n)
+        gm = [
+            -1j * _group_matrix(mats, q0, q0 + g, d)
+            for q0, g in zip(offsets, groups)
+        ]
+        ph = phase_at(
+            diag_static[..., None, None, :].expand(
+                lead + (sl.stop - sl.start, 3, dim)
+            ),
+            t_stage[s, sl, :, None],
+            cum_mod[..., s, sl, :, :, :],
+        )
+        return gm, torch.complex(torch.cos(ph), -torch.sin(ph))
+
+    def deriv(p: torch.Tensor, inputs: tuple, i: int, j: int) -> torch.Tensor:
+        gm, rot = inputs
+        r = rot[..., i, j, :]
+        w = r * p  # e^{-iΦ} ⊙ φ
+        y = None
+        for q0, g, m in zip(offsets, groups, gm):
+            t = apply_block_c(
+                m[..., i, j, :, :], w, d**q0, d**g, d ** (n - q0 - g)
+            )
+            y = t if y is None else y + t
+        k = r.conj() * y  # e^{iΦ} ⊙ (−i A w)
+        return k if decay is None else torch.addcmul(k, decay, p)
+
+    per_step = 3 * (sum((d**g) ** 2 for g in groups) + 2 * dim)
+    per_step *= int(np.prod(lead)) if lead else 1
+    return chunk_inputs, deriv, per_step * 2 * amp.real.element_size()
+
+
+#: Budget of the drive matrices, rotors and diagonal factors the torch
+#: loops stage for a chunk of steps at once (the steps of a segment go in
+#: chunks).
+_STAGE_CHUNK_BYTES = 1 << 28
+
+
+def _step_chunk(seg_len: int, step_bytes: int) -> int:
+    """Steps of a segment staged at once within :data:`_STAGE_CHUNK_BYTES`."""
+    return max(1, min(seg_len, _STAGE_CHUNK_BYTES // max(1, step_bytes)))
+
+
+def _scan_segments(
+    psi: torch.Tensor,
+    dts: np.ndarray,
+    chunk_inputs: Callable,
+    deriv: Callable,
+    step_bytes: int,
+    emit: Callable[[int, torch.Tensor], torch.Tensor],
+    after_step: Callable | None = None,
+) -> torch.Tensor:
+    """The RK4 loop of the torch solves over the plan's segments.
+
+    The steps of a segment are staged a chunk at once
+    (``chunk_inputs(s, sl)``, within :data:`_STAGE_CHUNK_BYTES` by
+    ``step_bytes``); each nonzero step is one :func:`_rk4_step` with
+    ``deriv(p, inputs, i, point)``, followed by ``after_step(psi, inputs,
+    s, step, i)`` where given (the quantum jumps); zero steps are the start
+    padding of a short segment. ``emit(s, psi)`` is segment ``s``'s output.
+
+    Returns:
+        The outputs stacked on axis -2: ``(B..., n_seg, dim)``.
+    """
+    n_seg, seg_len = dts.shape
+    chunk = _step_chunk(seg_len, step_bytes)
+    outs = []
+    for s in range(n_seg):
+        for c0 in range(0, seg_len, chunk):
+            sl = slice(c0, min(seg_len, c0 + chunk))
+            if not np.any(dts[s, sl]):
+                continue
+            inputs = chunk_inputs(s, sl)
+            for i in range(sl.stop - sl.start):
+                h = float(dts[s, sl.start + i])
+                if h == 0.0:
+                    continue
+                psi = _rk4_step(psi, h, lambda p, j: deriv(p, inputs, i, j))
+                if after_step is not None:
+                    psi = after_step(psi, inputs, s, sl.start + i, i)
+        outs.append(emit(s, psi))
+    return torch.stack(outs, dim=-2)
+
+
+def _sesolve_scan(
+    psi0: torch.Tensor,
+    amp: torch.Tensor,
+    det: torch.Tensor,
+    dts: np.ndarray,
+    diag_static: torch.Tensor,
+    *,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    int_w: torch.Tensor | None = None,
+    xy_s: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """The lab-frame sesolve as a torch loop over segments and steps.
+
+    Integrates ``dψ/dt = −iH(t)ψ`` with the whole Hamiltonian
+    (:func:`_lab_terms`: the drive with its detuning, the interaction
+    diagonal, the XY flip-flop term; with ``int_w`` the diagonal and the
+    couplings interpolated per RK4 stage); the per-step inputs are staged
+    for a chunk of steps at once.
+
+    Args:
+        psi0: ``(dim,)`` complex initial state.
+        amp, det: ``(n_seg, L, 3, n_bases, n)`` drive and detuning
+            stages.
+        dts: ``(n_seg, L)`` host step sizes (0 = padding, skipped).
+        diag_static: ``(dim,)``, or ``(k, dim)`` with ``int_w``.
+        pairs, d, n: Static structure.
+        int_w: ``(n_seg, L, 3, k)`` interpolation weights.
+        xy_s: ``(1 or k, n, n)`` real XY couplings.
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
+
+    Returns:
+        ``(n_seg, dim)`` states after each segment.
+    """
+    terms = _lab_terms(
+        amp, det, diag_static, pairs=pairs, d=d, n=n, int_w=int_w,
+        xy_s=xy_s, xy_indices=xy_indices,
+    )
+    return _scan_segments(psi0, dts, *terms, lambda s, psi: psi)
 
 
 def ip_kernel_inputs(
@@ -1249,7 +1507,7 @@ def sesolve_rk4_batched(
             "Trajectory sharding over devices is not ported yet (ROADMAP.md"
             " Queue 1, 'Backend, JSON, parallel and serving')."
         )
-    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
     psi0_np = np.asarray(psi0, dtype=cdtype)
@@ -1490,13 +1748,11 @@ def _diag_cops_spec(
     return tuple(spec)
 
 
-#: Largest register the quantum-jump solves take: the bound the JAX
+#: Largest register the quantum-jump kernels take: the bound the JAX
 #: package's TPU block ladder admits for the row-batched kernel, kept for
 #: the lab-frame kernel (at n = 13 a trajectory's stage-input planes take
 #: 128 KiB of its block's shared memory).
 MCWF_MAX_QUBITS = 13
-#: The ROADMAP item that holds what the quantum-jump kernels do not take.
-_MCWF_SCAN_ITEM = "ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'"
 
 
 def _n_bases(plans: BatchedPlan) -> int:
@@ -1517,74 +1773,64 @@ def _mcwf_route(
     n: int,
     pairs: tuple,
     rdtype: Any,
-) -> tuple[str | None, str | None]:
+) -> str:
     """Which quantum-jump solve takes this configuration.
 
-    Both take a :class:`BatchedPlan`, qubits (d=2) with one
-    ground-rydberg drive basis, float32, at least one collapse operator
-    and 2 ≤ n ≤ 13. On the interaction-picture grid the operators must
-    all be diagonal: the row-batched solve (K2). On the lab-frame grid
-    they may be any local 2×2: the lab-frame solve (K3).
+    Both kernels take a :class:`BatchedPlan`, qubits (d=2) with one
+    ground-rydberg drive basis, float32 and 2 ≤ n ≤ 13. On the
+    interaction-picture grid the operators must all be diagonal: the
+    row-batched solve (K2). On the lab-frame grid they may be any local
+    2×2: the lab-frame solve (K3). Everything else (relaxation and other
+    single matrix units on the interaction-picture grid, qudits or
+    several bases, more atoms, float64, a list of plans) runs the torch
+    scan :func:`_mcwf_traj_states`.
 
     Returns:
-        ``("rows", None)``, ``("lab", None)``, or ``(None, reason)``
-        when neither takes it (the reason names the ROADMAP item).
+        ``"rows"``, ``"lab"`` or ``"scan"``.
     """
-    if not isinstance(plans, BatchedPlan):
-        return None, (
-            "the quantum-jump kernels take a BatchedPlan; a list of plans"
-            f" runs the vmapped scan ({_MCWF_SCAN_ITEM})"
-        )
-    if not collapse_ops:
-        return None, (
-            "without collapse operators there is no quantum jump to solve:"
-            " such a batch runs sesolve_rk4_batched"
-        )
-    if d != 2 or _n_bases(plans) != 1 or tuple(pairs) != ((1, 0, 0),):
-        return None, (
-            "the quantum-jump kernels take one ground-rydberg basis (d=2);"
-            f" qudits and several bases run the vmapped scan"
-            f" ({_MCWF_SCAN_ITEM})"
-        )
-    if np.dtype(rdtype) != np.float32:
-        return None, (
-            "the quantum-jump kernels run in single precision only; double"
-            f" precision runs the vmapped scan ({_MCWF_SCAN_ITEM})"
-        )
-    if not 2 <= n <= MCWF_MAX_QUBITS:
-        return None, (
-            f"the quantum-jump kernels take 2 <= n <= {MCWF_MAX_QUBITS}"
-            f" qubits, not {n}; larger registers run the vmapped scan"
-            f" ({_MCWF_SCAN_ITEM})"
-        )
+    if not (
+        isinstance(plans, BatchedPlan)
+        and d == 2
+        and _n_bases(plans) == 1
+        and tuple(pairs) == ((1, 0, 0),)
+        and np.dtype(rdtype) == np.float32
+        and 2 <= n <= MCWF_MAX_QUBITS
+    ):
+        return "scan"
     if not ip:
-        return "lab", None
-    if _diag_cops_spec(collapse_ops) is None:
-        return None, (
-            "the interaction-picture quantum-jump solve with non-diagonal"
-            " collapse operators (relaxation and other single matrix"
-            f" units) runs the vmapped scan ({_MCWF_SCAN_ITEM})"
-        )
-    return "rows", None
+        return "lab"
+    return "rows" if _diag_cops_spec(collapse_ops) is not None else "scan"
+
+
+def _traj_uniforms(
+    keys: np.ndarray, seg_shape: tuple[int, int], dtype: Any = np.float32
+) -> tuple[np.ndarray, np.ndarray]:
+    """``(r0 (B,), us (B, S, L, 2))`` of one trajectory key each: the JAX
+    package's ``key, k0, ku = split(key, 3)``, the initial threshold from
+    ``k0`` and the per-step uniforms (channel selector, next threshold)
+    from ``ku``, bit for bit (:mod:`pulser_tpu_torch.ops.random`)."""
+    from pulser_tpu_torch.ops import random as prng
+
+    sub = prng.split(keys, 3)  # (B, 3, 2)
+    r0 = prng.uniform(sub[:, 1], (), dtype)
+    us = prng.uniform(
+        sub[:, 2], tuple(int(x) for x in seg_shape) + (2,), dtype
+    )
+    return r0, us
 
 
 def _mcwf_uniforms(
-    seeds: list[int], seg_shape: tuple[int, int]
+    seeds: list[int], seg_shape: tuple[int, int], dtype: Any = np.float32
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pre-draws ``(r0 (B,), us (B, S, L, 2))`` float32 per trajectory.
+    """Pre-draws ``(r0 (B,), us (B, S, L, 2))`` per trajectory.
 
-    Trajectory ``b`` uses the JAX package's key derivation
-    (``split(PRNGKey(seed), 1)[0]``, then ``split(key, 3)``: the second
-    key draws the initial threshold, the third the per-step uniforms),
-    bit for bit (:mod:`pulser_tpu_torch.ops.random`).
+    Trajectory ``b`` uses the JAX package's key derivation of the batched
+    solve (``split(PRNGKey(seed), 1)[0]``, then :func:`_traj_uniforms`).
     """
     from pulser_tpu_torch.ops import random as prng
 
     key = prng.split(prng.PRNGKey(np.asarray(seeds, dtype=np.int64)), 1)
-    keys = prng.split(key[:, 0], 3)  # (B, 3, 2)
-    r0 = prng.uniform(keys[:, 1])
-    us = prng.uniform(keys[:, 2], tuple(int(x) for x in seg_shape) + (2,))
-    return r0, us
+    return _traj_uniforms(key[:, 0], seg_shape, dtype)
 
 
 def rows_kernel_inputs(
@@ -1849,11 +2095,11 @@ def mcsolve_rows_codes(
         row-batched solve does not take this configuration (the caller
         then runs :func:`mcsolve_rk4_batched` and samples on the host).
     """
-    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
-    route, _ = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
     if (
-        route != "rows"
+        not collapse_ops
+        or _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype) != "rows"
         or plans.raw_coeffs is None
         or plans.plan.stage_knots is None
         or plans.plan.knots is None
@@ -1874,7 +2120,7 @@ def mcsolve_rows_codes(
 
 def mcsolve_rk4_batched(
     psi0: np.ndarray,
-    plans: BatchedPlan,
+    plans: "list[EvolutionPlan] | BatchedPlan",
     diags: np.ndarray,
     pairs: tuple[tuple[int, int, int], ...],
     d: int,
@@ -1888,13 +2134,19 @@ def mcsolve_rk4_batched(
     """One quantum-jump realization per noise trajectory, batched.
 
     Trajectory ``i`` draws from ``seeds[i]`` with the JAX package's key
-    derivation, so seeded runs match it trajectory for trajectory. Two
-    solves are ported (see :func:`_mcwf_route`): the row-batched
-    interaction-picture solve with diagonal collapse operators, and the
-    lab-frame solve with general local 2×2 collapse operators.
+    derivation (``split(PRNGKey(seeds[i]), 1)[0]``, the key the serial
+    solve would give it), so seeded runs match it trajectory for
+    trajectory. :func:`_mcwf_route` picks the solve: the row-batched
+    interaction-picture kernel with diagonal collapse operators, the
+    lab-frame kernel with general local 2×2 ones, or the torch scan
+    (:func:`_mcwf_traj_states` with a trajectory batch) for the rest.
 
     Args:
-        ip: The plan's grid is the interaction-picture (coarsened) one.
+        plans: A :class:`BatchedPlan`, or one plan per trajectory on one
+            grid (the scan).
+        ip: The plan's grid is the interaction-picture (coarsened) one;
+            every collapse operator must then be diagonal or a single
+            matrix unit (:func:`mcwf_ip_eligible`).
         device: The torch device (default: the first CUDA device; without
             one this raises: pass ``"cpu"`` to run on the CPU).
 
@@ -1902,14 +2154,23 @@ def mcsolve_rk4_batched(
         ``(n_traj, n_eval, dim)`` complex states.
 
     Raises:
-        NotImplementedError: Neither solve takes the configuration (the
-            message names the ROADMAP item).
+        ValueError: No collapse operator (such a batch runs
+            :func:`sesolve_rk4_batched`), or ``ip`` with operators the
+            interaction picture does not take.
     """
-    cdtype = _numpy_dtype(dtype or np.asarray(psi0).dtype)
+    if not collapse_ops:
+        raise ValueError(
+            "Without collapse operators there is no quantum jump to solve:"
+            " such a batch runs sesolve_rk4_batched."
+        )
+    if ip and not mcwf_ip_eligible(collapse_ops):
+        raise ValueError(
+            "The interaction picture needs diagonal or single-matrix-unit"
+            " collapse operators."
+        )
+    cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
-    route, reason = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
-    if reason is not None:
-        raise NotImplementedError(f"Not ported: {reason}.")
+    route = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
     psi0_np = np.asarray(psi0, dtype=cdtype)
     dev = _resolve_device(device)
     if route == "rows":
@@ -1917,17 +2178,353 @@ def mcsolve_rk4_batched(
             psi0_np, plans, diags, n, _diag_cops_spec(collapse_ops), seeds,
             cdtype, dev,
         )
-    return _mcsolve_kernel_batched(
-        psi0_np, plans, diags, n, collapse_ops, seeds, cdtype, dev
+    if route == "lab":
+        return _mcsolve_kernel_batched(
+            psi0_np, plans, diags, n, collapse_ops, seeds, cdtype, dev
+        )
+    amp, det, base, n_traj = _mesolve_drive_arrays(plans, rdtype, dev)
+    psi0_t = torch.from_numpy(psi0_np).to(dev)
+    diag_b = _on_device(np.asarray(np.asarray(diags).real, rdtype), dev)
+    dts = np.asarray(base.seg_dts, dtype=rdtype)
+    if ip:
+        cum_b, ev_cum_b = _batched_cum_arrays(plans, rdtype, dev)
+        shared = tuple(
+            _on_device(np.asarray(x, rdtype), dev)
+            for x in (
+                base.seg_stage("t_stage"),
+                base.eval_times - base.grid[0],
+                _embedded_g_diag(collapse_ops, d, n),
+            )
+        )
+    r0, us = _mcwf_uniforms(seeds, dts.shape, rdtype)
+    batch = _chunk_trajectories(
+        n_traj, _mcwf_traj_bytes(collapse_ops, dts.shape[0], d, n, cdtype),
+        dev,
     )
+    outs = []
+    for lo in range(0, n_traj, batch):
+        take = slice(lo, min(lo + batch, n_traj))
+        frame: dict[str, Any] = {"det": det[take]}
+        if ip:
+            t_stage, eval_t, g_diag = shared
+            frame = {
+                "ip_args": (cum_b[take], t_stage, eval_t, ev_cum_b[take], g_diag)
+            }
+        ys = _mcwf_traj_states(
+            psi0_t, amp[take].to(psi0_t.dtype), dts, diag_b[take],
+            collapse_ops, _on_device(r0[take], dev), _on_device(us[take], dev),
+            pairs=tuple(tuple(p) for p in pairs), d=d, n=n, **frame,
+        )
+        outs.append(ys[:, base.eval_map].cpu().numpy())
+        del ys
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind="mcwf_batched_torch",
+        dim=d**n,
+        n=n,
+        n_traj=n_traj,
+        n_steps=int(np.count_nonzero(base.seg_dts)),
+        n_cops=len(collapse_ops),
+        ip=bool(ip),
+        traj_per_call=batch,
+    )
+    return np.concatenate(outs).astype(cdtype, copy=False)
+
+
+def _embedded_g_diag(
+    collapse_ops: "list[np.ndarray]", d: int, n: int
+) -> np.ndarray:
+    """The full ``(d**n,)`` diagonal of ``Σ_{k,q} L†L``.
+
+    Only valid when :func:`mcwf_ip_eligible` holds (each per-qudit
+    ``L†L`` is then diagonal).
+    """
+    g_np = np.zeros((d, d), dtype=np.complex128)
+    for c_np in collapse_ops:
+        c_np = np.asarray(c_np, dtype=np.complex128)
+        g_np += c_np.conj().T @ c_np
+    off = g_np - np.diag(np.diag(g_np))
+    assert not np.any(np.abs(off) > 1e-12), (
+        "G must be diagonal for the IP MCWF path"
+    )
+    gvals = np.diag(g_np).real
+    idx = np.arange(d**n)
+    out = np.zeros(d**n)
+    for q in range(n):
+        out += gvals[(idx // d ** (n - 1 - q)) % d]
+    return out
+
+
+def _mcwf_traj_bytes(
+    collapse_ops: list, n_seg: int, d: int, n: int, cdtype: Any
+) -> int:
+    """Device bytes one trajectory of :func:`_mcwf_traj_states` holds:
+    its live states, its output segments and the jump candidates."""
+    cands = len(collapse_ops) * n * (d + 1)
+    return (LIVE_STATE_BUFFERS + n_seg + cands) * d**n * np.dtype(
+        cdtype
+    ).itemsize
+
+
+def _mcwf_traj_states(
+    psi0: torch.Tensor,
+    amp: torch.Tensor,
+    dts: np.ndarray,
+    diag_static: torch.Tensor,
+    collapse_ops: list[np.ndarray],
+    r0: torch.Tensor,
+    us: torch.Tensor,
+    *,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    det: torch.Tensor | None = None,
+    int_w: torch.Tensor | None = None,
+    xy_s: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
+    ip_args: "tuple[torch.Tensor, ...] | None" = None,
+) -> torch.Tensor:
+    """A batch of quantum-jump (MCWF) trajectories as a torch loop.
+
+    Each trajectory evolves ``dψ/dt = −iH_eff ψ`` with the non-Hermitian
+    ``H_eff = H − (i/2) Σ_{k,q} L†L``. After each RK4 step, the
+    trajectories whose decayed norm has fallen to their threshold jump:
+    every candidate ``L_k`` on qudit ``q`` is formed at once
+    (:func:`~pulser_tpu_torch.ops.apply.jump_candidates`), the channel is
+    chosen ∝ ``‖L ψ‖²`` with the step's first uniform, the state is
+    renormalized and the step's second uniform becomes the new threshold.
+    The jump is a masked update of the whole batch (no host-side branch).
+
+    In the lab frame the derivative is :func:`_lab_terms` with ``−½G``
+    added to the drive's group matrices (the XY term and ``int_w`` ride
+    along). With ``ip_args = (cum_mod, t_stage, eval_t, eval_cum_mod,
+    g_diag)`` the drift integrates in the **interaction picture**
+    (:func:`_ip_terms` with the decay ``−½ g_diag``); the jump rotates to
+    the lab frame with the step's end rotor and back, and emitted states
+    rotate to the lab frame.
+
+    The trajectory batch rides the leading axis of ``r0``/``us``; the
+    drive, detuning, diagonal and IP integrals carry it too (the batched
+    solve) or not (the serial solve, all trajectories on one
+    Hamiltonian).
+
+    Args:
+        psi0: ``(dim,)`` complex initial state.
+        amp: ``([B,] n_seg, L, 3, n_bases, n)`` complex drive stages.
+        dts: ``(n_seg, L)`` host step sizes (0 = padding, skipped: a
+            padded step could not jump, its norm being unchanged).
+        diag_static: ``([B,] dim)``, or ``([B,] k, dim)`` with ``int_w``.
+        collapse_ops: Local ``(d, d)`` collapse operators.
+        r0: ``(B,)`` initial thresholds.
+        us: ``(B, n_seg, L, 2)`` per-step uniforms.
+        pairs, d, n: Static structure.
+        det, int_w, xy_s, xy_indices: The lab frame's detuning stages and
+            optional interaction interpolation and XY term.
+        ip_args: The interaction-picture inputs.
+
+    Returns:
+        ``(B, n_seg, dim)`` normalized states after each segment.
+    """
+    dim = d**n
+    mats = np.stack([np.asarray(c, np.complex128) for c in collapse_ops])
+    dev, cdtype = psi0.device, psi0.dtype
+    coef = candidate_coefs(torch.from_numpy(mats).to(dev, cdtype), d, n)
+    n_cand = len(mats) * n
+    use_ip = ip_args is not None
+    if use_ip:
+        cum_mod, t_stage, eval_t, eval_cum_mod, g_diag = ip_args
+        chunk_inputs, deriv, step_bytes = _ip_terms(
+            amp, diag_static, cum_mod, t_stage, pairs=pairs, d=d, n=n,
+            decay=(-0.5 * g_diag).to(cdtype),
+        )
+        phase_at = _make_ip_phase_fn(pairs, d, n, diag_static.dtype, dev)
+    else:
+        g_sum = np.einsum("kji,kjl->il", mats.conj(), mats)  # Σ L†L
+        g_stack = torch.from_numpy(g_sum).to(dev, cdtype).expand(n, d, d)
+        groups = group_sizes(d, n)
+        decay = [
+            -0.5 * _group_matrix(g_stack, q0, q0 + g, d)
+            for q0, g in zip(
+                [sum(groups[:i]) for i in range(len(groups))], groups
+            )
+        ]
+        chunk_inputs, deriv, step_bytes = _lab_terms(
+            amp, det, diag_static, pairs=pairs, d=d, n=n, int_w=int_w,
+            xy_s=xy_s, xy_indices=xy_indices, static_groups=decay,
+        )
+
+    def jump(
+        psi: torch.Tensor, r: torch.Tensor, u2: torch.Tensor, rot: Any
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The jump branch, applied where ``‖ψ‖² ≤ r``; ``rot`` is the
+        step's end rotor ``e^{−iΦ}`` (interaction picture) or None."""
+        hit = (psi.real.square() + psi.imag.square()).sum(-1) <= r
+        lab = psi if rot is None else rot * psi
+        cands = jump_candidates(coef, lab, d, n)  # (B, K·n, dim)
+        w = (cands.real.square() + cands.imag.square()).sum(-1)
+        cum = torch.cumsum(w, -1)
+        idx = torch.searchsorted(cum, u2[:, :1] * cum[:, -1:])
+        idx = idx.clamp_(max=n_cand - 1)
+        new = cands.gather(1, idx[..., None].expand(-1, -1, dim))[:, 0]
+        new = new / torch.sqrt(torch.clamp_min(w.gather(1, idx), 1e-30))
+        if rot is not None:
+            new = rot.conj() * new
+        return torch.where(hit[:, None], new, psi), torch.where(hit, u2[:, 1], r)
+
+    state = {"r": r0}
+
+    def after_step(psi, inputs, s, step, i):
+        rot = inputs[1][..., i, 2, :] if use_ip else None
+        psi, state["r"] = jump(psi, state["r"], us[:, s, step], rot)
+        return psi
+
+    def emit(s: int, psi: torch.Tensor) -> torch.Tensor:
+        # The normalized state (QuTiP's mcsolve convention)
+        norm2 = (psi.real.square() + psi.imag.square()).sum(-1, keepdim=True)
+        psi_n = psi / torch.sqrt(torch.clamp_min(norm2, 1e-30))
+        if use_ip:
+            ph = phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :])
+            psi_n = torch.complex(torch.cos(ph), -torch.sin(ph)) * psi_n
+        return psi_n
+
+    return _scan_segments(
+        psi0.expand(r0.shape[0], d**n), dts, chunk_inputs, deriv,
+        step_bytes, emit, after_step,
+    )
+
+
+def _avg_density(states: torch.Tensor, denom: int) -> torch.Tensor:
+    """``Σ_t |ψ_t><ψ_t| / denom`` over the trajectory axis of ``(B, n_seg,
+    dim)`` states: ``(n_seg, dim, dim)``."""
+    rho = torch.einsum("tea,teb->eab", states, states.conj())
+    return rho / denom
+
+
+def mcsolve_rk4(
+    psi0: np.ndarray,
+    plan: EvolutionPlan,
+    static_diag: np.ndarray,
+    pairs: tuple[tuple[int, int, int], ...],
+    d: int,
+    n: int,
+    collapse_ops: list[np.ndarray],
+    ntraj: int,
+    seed: int,
+    xy_static: np.ndarray | None = None,
+    xy_indices: tuple[int, int] | None = None,
+    dtype: Any = None,
+    mesh: Any = None,
+    ip: bool = False,
+    device: Any = None,
+) -> np.ndarray:
+    """Quantum-jump Monte-Carlo (MCWF) solve, trajectory-averaged.
+
+    ``ntraj`` trajectories of one Hamiltonian (:func:`_mcwf_traj_states`)
+    averaged into density matrices on the device (QuTiP's
+    ``McResult.states`` average). Every trajectory's key comes from one
+    stream, ``split(PRNGKey(seed), ntraj)``, as in the JAX package, so a
+    seeded solve matches it trajectory for trajectory. The trajectories
+    run in device calls of as many as the free device memory holds
+    (``torch.cuda.mem_get_info``, :func:`_chunk_trajectories`): the calls
+    only split the batch, so they never change the result.
+
+    Args:
+        psi0: ``(dim,)`` complex initial state (host numpy).
+        collapse_ops: Local ``(d, d)`` complex collapse operators, each
+            applied on every qudit.
+        ntraj: The number of Monte-Carlo trajectories.
+        seed: The seed of the trajectories' key stream.
+        xy_static, xy_indices: The XY term (lab frame).
+        mesh: Trajectory sharding over devices; not ported (raises).
+        ip: Integrate in the interaction picture (no XY term or
+            ``int_w``, :func:`mcwf_ip_eligible` operators).
+        device: The torch device (default: the first CUDA device; without
+            one this raises: pass ``"cpu"`` to run on the CPU).
+        (other args as in :func:`sesolve_rk4`)
+
+    Returns:
+        ``(n_eval, dim, dim)`` trajectory-averaged density matrices.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            f"Trajectory sharding over devices is not ported yet"
+            f" ({_PARALLEL_ITEM})."
+        )
+    if not collapse_ops:
+        raise ValueError("The quantum-jump solve needs collapse operators.")
+    has_int_w = "int_w" in plan.stage_arrays
+    if ip and (
+        xy_static is not None
+        or has_int_w
+        or not mcwf_ip_eligible(collapse_ops)
+    ):
+        raise ValueError(
+            "The interaction picture needs a static diagonal, no XY term"
+            " and diagonal or single-matrix-unit collapse operators."
+        )
+    from pulser_tpu_torch.ops import random as prng
+
+    cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
+    rdtype = np.zeros((), dtype=cdtype).real.dtype
+    dev = _resolve_device(device)
+
+    def to_dev(host: Any, dt: Any = rdtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
+
+    two_pi = 2 * np.pi
+    kw: dict[str, Any] = {}
+    if ip:
+        kw["ip_args"] = (
+            to_dev((-plan.seg_stage("det_cum")) % two_pi),
+            to_dev(plan.seg_stage("t_stage")),
+            to_dev(plan.eval_times - plan.grid[0]),
+            to_dev((-plan.eval_det_cum) % two_pi),
+            to_dev(_embedded_g_diag(collapse_ops, d, n)),
+        )
+    else:
+        kw["det"] = to_dev(plan.seg_stage("det").real)
+        if has_int_w:
+            kw["int_w"] = to_dev(plan.seg_stage("int_w"))
+        if xy_static is not None:
+            kw["xy_s"] = to_dev(np.asarray(xy_static).real)
+            kw["xy_indices"] = xy_indices
+    dts = np.asarray(plan.seg_dts, dtype=rdtype)
+    keys = prng.split(prng.PRNGKey(seed), ntraj)
+    r0, us = _traj_uniforms(keys, dts.shape, rdtype)
+    psi0_t = to_dev(psi0, cdtype)
+    amp = to_dev(plan.seg_stage("amp"), cdtype)
+    diag = to_dev(np.asarray(static_diag).real)
+    chunk = _chunk_trajectories(
+        ntraj, _mcwf_traj_bytes(collapse_ops, dts.shape[0], d, n, cdtype),
+        dev,
+    )
+    dim = d**n
+    rho = torch.zeros((dts.shape[0], dim, dim), dtype=psi0_t.dtype, device=dev)
+    for lo in range(0, ntraj, chunk):
+        take = slice(lo, min(ntraj, lo + chunk))
+        states = _mcwf_traj_states(
+            psi0_t, amp, dts, diag, collapse_ops, to_dev(r0[take]),
+            to_dev(us[take]), pairs=tuple(tuple(p) for p in pairs), d=d,
+            n=n, **kw,
+        )
+        rho += _avg_density(states, ntraj)
+        del states
+    last_solve_info.clear()
+    last_solve_info.update(
+        kind="mcwf_serial_torch",
+        dim=dim,
+        n=n,
+        n_traj=ntraj,
+        n_steps=int(np.count_nonzero(plan.seg_dts)),
+        n_cops=len(collapse_ops),
+        ip=bool(ip),
+        traj_per_call=chunk,
+    )
+    return rho.cpu().numpy()[plan.eval_map].astype(cdtype, copy=False)
 
 
 # -- The Lindblad master equation -----------------------------------------
 
-#: The ROADMAP item that holds the lab-frame solves with the XY term.
-_LAB_FRAME_ITEM = "ROADMAP.md Queue 1, 'Lab-frame, XY and int_w sesolve'"
-#: The ROADMAP item that holds sharding over several devices.
-_PARALLEL_ITEM = "ROADMAP.md Queue 1, 'Backend, JSON, parallel and serving'"
 
 
 class CollapseAlgebra(NamedTuple):
@@ -1947,14 +2544,6 @@ class CollapseAlgebra(NamedTuple):
     lrl_idx: list[tuple[int, int, int, int]]
     lrl_coef: list[complex]
     diag_mask: torch.Tensor | None
-
-
-def _digits(d: int, n: int, device: Any) -> torch.Tensor:
-    """``(n, d**n)`` int64: the base-``d`` digits of every basis index,
-    qudit 0 the most significant."""
-    idx = torch.arange(d**n, device=device)
-    place = d ** torch.arange(n - 1, -1, -1, device=device)
-    return (idx[None, :] // place[:, None]) % d
 
 
 def _collapse_algebra(
@@ -1996,7 +2585,7 @@ def _collapse_algebra(
                     lrl_coef.append(complex(c))
     diag_mask = None
     if np.any(np.abs(unit_coef) > 1e-14):
-        dig = _digits(d, n, device)
+        dig = _digits_of(d, n, device)
         coef = torch.as_tensor(unit_coef, device=device).to(cdtype)
         diag_mask = torch.zeros((d**n, d**n), dtype=cdtype, device=device)
         for q in range(n):
@@ -2050,7 +2639,7 @@ def _dissipator_parts(
     cdc = alg.cdc_sum
     dev, cdtype = cdc.device, cdc.dtype
     dim = d**n
-    dig = _digits(d, n, dev)
+    dig = _digits_of(d, n, dev)
     g_vec = torch.zeros(dim, dtype=cdtype, device=dev)
     cdc_diag = torch.diagonal(cdc)
     for q in range(n):
@@ -2087,11 +2676,6 @@ def _row_group(
     return torch.matmul(op.unsqueeze(-3), v).reshape(rho.shape)
 
 
-#: Budget of the drive matrices and rotors :func:`_mesolve_scan` stages
-#: for a chunk of steps at once (the steps of a segment go in chunks).
-_STAGE_CHUNK_BYTES = 1 << 28
-
-
 def _mesolve_scan(
     rho0: torch.Tensor,
     amp: torch.Tensor,
@@ -2104,6 +2688,8 @@ def _mesolve_scan(
     n: int,
     det: torch.Tensor | None = None,
     int_w: torch.Tensor | None = None,
+    xy_s: torch.Tensor | None = None,
+    xy_indices: tuple[int, int] | None = None,
     ip_args: "tuple[torch.Tensor, ...] | None" = None,
 ) -> torch.Tensor:
     """The Lindblad RK4 scan as a torch loop over segments and steps.
@@ -2115,7 +2701,9 @@ def _mesolve_scan(
       completes the commutator as ``X + X†`` (ρ is Hermitian, so
       ``−i[A, ρ] = X + X†`` with ``X = −iAρ``); in the lab frame the
       static (or ``int_w``-interpolated) diagonal is one elementwise
-      factor ``−i(D_r − D_c)``;
+      factor ``−i(D_r − D_c)``, and the XY flip-flop term (Hermitian, its
+      couplings interpolated with ``int_w`` as the diagonal) joins ``A``
+      on the row side (:func:`~pulser_tpu_torch.ops.apply.apply_flip_flop_r`);
     - in the **interaction picture** (``ip_args``), ``ρ_I = R†ρR`` with
       the diagonal rotor ``R = e^{−iθ}``: ``[H_I, ρ_I] = R†[A, σ]R`` with
       ``σ = R ρ_I R†``, so one elementwise phase factor goes in and its
@@ -2142,6 +2730,8 @@ def _mesolve_scan(
             (lab frame).
         int_w: ``(n_seg, L, 3, k)`` interaction-interpolation weights
             (lab frame).
+        xy_s: ``(1 or k, n, n)`` real XY couplings (lab frame).
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
         ip_args: ``(cum_mod, t_stage, eval_t, eval_cum_mod)``: the
             range-reduced ``−∫det`` stages ``(B..., n_seg, L, 3, n_bases,
             n)``, the stage times ``(n_seg, L, 3)``, the evaluation times
@@ -2159,7 +2749,11 @@ def _mesolve_scan(
     mask, g_off, sup = _dissipator_parts(alg, d, n, groups)
     # Diagonal collapse operators only: the IP derivative rotates the
     # coherent part alone
-    assert not (use_ip and (g_off or sup))
+    assert not (use_ip and (g_off or sup or xy_s is not None))
+    interp_xy = xy_s is not None and int_w is not None and xy_s.shape[0] > 1
+    u_static = (
+        _neg_i_real(xy_s[0]) if xy_s is not None and not interp_xy else None
+    )
     if use_ip:
         cum_mod, t_stage, eval_t, eval_cum_mod = ip_args
         phase_at = _make_ip_phase_fn(pairs, d, n, diag_static.dtype, dev)
@@ -2189,7 +2783,7 @@ def _mesolve_scan(
             for q0, g in zip(offsets, groups)
         ]
 
-    def rhs(p: torch.Tensor, mats, fac, ph) -> torch.Tensor:
+    def rhs(p: torch.Tensor, mats, fac, ph, ux) -> torch.Tensor:
         # ρ is Hermitian, so −i[A, ρ] = X + X† with X = −iAρ (the group
         # matrices carry the −i), and −½{G, ρ} = Y + Y† with Y = −½Gρ:
         # one side of group products, and a derivative that is Hermitian
@@ -2199,6 +2793,8 @@ def _mesolve_scan(
         for q0, g, m in zip(offsets, groups, mats):
             t = _row_group(m, x, q0, g, d, n)
             acc_x = t if acc_x is None else acc_x.add_(t)
+        if ux is not None:
+            acc_x.add_(apply_flip_flop_r(ux, x, d, n, *xy_indices, rows=True))
         for q0, g, m in zip(offsets, groups, g_off):
             acc_x.add_(_row_group(m, p, q0, g, d, n))
         k = acc_x + _dag2(acc_x)
@@ -2233,22 +2829,25 @@ def _mesolve_scan(
 
     def point(inputs: tuple, i: int, j: int) -> tuple:
         """Stage point ``j`` of step ``i`` of a chunk: its group matrices,
-        lab-frame factor and IP phase factors ``(R·R†, R†·R)``."""
+        lab-frame factor, IP phase factors ``(R·R†, R†·R)`` and ``−iU``."""
         mats_c, extra = inputs
         mats = [m[..., i, j, :, :] for m in mats_c]
         if use_ip:
             u, uc = extra[0][..., i, j, :], extra[1][..., i, j, :]
-            return mats, None, (outer(u, uc), outer(uc, u))
+            return mats, None, (outer(u, uc), outer(uc, u)), None
         if extra is None:
-            return mats, lab_fac, None
+            return mats, lab_fac, None, u_static
         f = (extra[i, j][:, None, None] * lab_parts).sum(-3)
-        return mats, f if mask is None else f + mask, None
+        ux = u_static
+        if interp_xy:
+            ux = _neg_i_real(torch.einsum("k,kab->ab", extra[i, j], xy_s))
+        return mats, f if mask is None else f + mask, None, ux
 
     n_seg, seg_len = dts.shape
     # The drive matrices and rotors are staged for a chunk of steps at once
     per_step = 3 * (sum((d**g) ** 2 for g in groups) + 2 * dim * use_ip)
     per_step *= (int(np.prod(lead)) if lead else 1) * rho0.element_size()
-    chunk = max(1, min(seg_len, _STAGE_CHUNK_BYTES // per_step))
+    chunk = _step_chunk(seg_len, per_step)
     rho = rho0.expand(lead + (dim, dim)).clone()
     out = torch.empty(lead + (n_seg, dim, dim), dtype=cdtype, device=dev)
     for s in range(n_seg):
@@ -2327,7 +2926,9 @@ def mesolve_rk4(
             ``int_w``).
         collapse_ops: Local ``(d, d)`` complex collapse operators (each
             applied on every qudit).
-        xy_static, xy_indices: The XY term; not ported yet (raises).
+        xy_static: Optional ``(nxy, N, N)`` XY couplings (1 or 2
+            configurations, interpolated with ``int_w`` when 2; lab frame).
+        xy_indices: ``(up_idx, down_idx)`` of the flip-flop term.
         dtype: Complex dtype of the evolution (defaults to rho0's).
         ip: Integrate in the interaction picture (every collapse operator
             diagonal, no ``int_w``).
@@ -2346,20 +2947,19 @@ def mesolve_rk4(
             f"Row sharding of the density matrix is not ported yet"
             f" ({_PARALLEL_ITEM})."
         )
-    if xy_static is not None:
-        raise NotImplementedError(
-            f"The master equation with the XY term needs the lab-frame"
-            f" Hamiltonian application ({_LAB_FRAME_ITEM})."
-        )
     has_int_w = "int_w" in plan.stage_arrays
-    if ip and (has_int_w or not mesolve_ip_eligible(collapse_ops)):
+    if ip and (
+        has_int_w
+        or xy_static is not None
+        or not mesolve_ip_eligible(collapse_ops)
+    ):
         raise ValueError(
-            "The interaction picture needs a static diagonal and diagonal"
-            " collapse operators."
+            "The interaction picture needs a static diagonal, no XY term"
+            " and diagonal collapse operators."
         )
     pure = isinstance(rho0, tuple) and rho0[0] == "pure"
     src = np.asarray(rho0[1] if pure else rho0)
-    cdtype = np.result_type(_numpy_dtype(dtype or src.dtype), np.complex64)
+    cdtype = _complex_dtype(dtype or src.dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
 
@@ -2387,6 +2987,9 @@ def mesolve_rk4(
         kw["det"] = to_dev(plan.seg_stage("det").real, rdtype)
         if has_int_w:
             kw["int_w"] = to_dev(plan.seg_stage("int_w").real, rdtype)
+        if xy_static is not None:
+            kw["xy_s"] = to_dev(np.asarray(xy_static).real, rdtype)
+            kw["xy_indices"] = xy_indices
     out = _mesolve_scan(
         rho0_t,
         to_dev(plan.seg_stage("amp"), cdtype),
@@ -2519,9 +3122,7 @@ def mesolve_rk4_batched(
         raise ValueError(
             "The interaction picture needs diagonal collapse operators."
         )
-    cdtype = np.result_type(
-        _numpy_dtype(dtype or np.asarray(rho0).dtype), np.complex64
-    )
+    cdtype = _complex_dtype(dtype or np.asarray(rho0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
     rho0_t = torch.from_numpy(np.ascontiguousarray(rho0, dtype=cdtype)).to(dev)

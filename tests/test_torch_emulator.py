@@ -214,9 +214,13 @@ def test_results_api(afm10):
 
 
 def test_noise_is_not_ported_yet():
-    """Dephasing alone runs the master equation now; the quantum-jump
-    solver without shot-to-shot noise (the serial solve) still raises,
-    naming its ROADMAP item."""
+    """Dephasing alone runs the master equation; the quantum-jump solver
+    without shot-to-shot noise runs the serial solve of ``n_trajectories``
+    trajectories (interaction picture: dephasing is diagonal), whose
+    averaged density matrices equal the JAX package's on the same seed
+    (complex128, 1e-10)."""
+    from pulser_tpu.emulator.simulation import Solver as JaxSolver
+
     from pulser_tpu_torch.emulator import Solver
 
     seq = _afm_sequence(
@@ -226,12 +230,28 @@ def test_noise_is_not_ported_yet():
     res = _port(seq, noise_model=NoiseModel(dephasing_rate=0.1)).run()
     assert torch_solver.last_solve_info["kind"] == "mesolve_cpu"
     assert res.get_final_state().shape == (16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(
-            seq,
-            noise_model=NoiseModel(dephasing_rate=0.1),
-            solver=Solver.MCSOLVER,
-        )
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        np.random.seed(8)
+        jres = TpuEmulator.from_sequence(
+            seq, noise_model=tpu.NoiseModel(dephasing_rate=2.0),
+            solver=JaxSolver.MCSOLVER, n_trajectories=5,
+        ).run()
+        np.random.seed(8)
+        tres = _port(
+            seq, noise_model=NoiseModel(dephasing_rate=2.0),
+            solver=Solver.MCSOLVER, n_trajectories=5,
+        ).run()
+    finally:
+        torch.set_default_dtype(old)
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_serial_torch" and info["n_traj"] == 5
+    assert info["ip"] is True
+    want = np.stack([s.full() for s in jres.states])
+    got = np.stack([s.full() for s in tres.states])
+    assert got.shape == want.shape and got.shape[1:] == (16, 16)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
 
 
 # -- SPAM measurement errors on coherent results --------------------------

@@ -96,6 +96,20 @@ def _foreign_modules(statements: str) -> list[str]:
         " 11), {'amp': np.ones((1, 2, 11), complex), 'det': np.zeros((1,"
         " 2, 11))}, np.array([0.01]), max_step=1e-3), np.zeros(4),"
         " ((1, 0, 0),), 2, 2, [np.diag([1.0, 0.0])], device='cpu')",
+        "import chip_smoke; chip_smoke.xy16_sequence();"
+        " chip_smoke.relax10_sequence(); chip_smoke.mcdepol10_sequence()",
+        "import numpy as np, torch;"
+        " from pulser_tpu_torch.ops import solver as S, apply as A;"
+        " u = torch.ones(3, 3) - torch.eye(3);"
+        " A.apply_flip_flop_r(u, torch.ones(8, dtype=torch.complex64), 2, 3,"
+        " 0, 1);"
+        " plan = S.build_plan(np.linspace(0, 0.01, 11), {'amp': np.ones((1,"
+        " 3, 11), complex), 'det': np.zeros((1, 3, 11))}, np.array([0.01]),"
+        " max_step=1e-3);"
+        " S.sesolve_rk4(np.eye(8)[0], plan, np.zeros(8), ((0, 1, 1),), 2, 3,"
+        " xy_static=u.numpy()[None], xy_indices=(0, 1), device='cpu');"
+        " S.mcsolve_rk4(np.eye(8)[0], plan, np.zeros(8), ((0, 1, 1),), 2, 3,"
+        " [np.diag([1.0, 0.0])], ntraj=2, seed=1, device='cpu')",
         _EOM_SEQUENCE,
     ],
 )

@@ -419,49 +419,105 @@ def test_fused_codes_match_pallas_away_from_edges(rows_interpret):
     print(f"{len(near)} draws within {EDGE_TOL} of a bin edge: {near.tolist()}")
 
 
-#: The ROADMAP item that holds what the quantum-jump kernels do not take,
-#: quoted by title.
-SCAN_ITEM = r"\(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)"
+RELAXATION = np.sqrt(2.0) * np.array([[0, 1], [0, 0]], complex)
+
+
+def _scan_case(case):
+    """``(jax plans, port plans, diags, psi0, common)`` of a configuration
+    the quantum-jump kernels do not take, in complex128, with collapse
+    operators strong enough that jumps fire."""
+    if case == "n14":
+        # Fourteen atoms for a few steps
+        rng = np.random.default_rng(14)
+        knots, amp, det = _coeffs(rng, 14, 2, knots_count=6)
+        knots = knots / 100  # 0.02 µs: five steps of 4 ns
+        jplans, tplans = (
+            mod.build_plan_batched(
+                knots, {"amp": amp, "det": det}, np.array([0.01, 0.02]),
+                max_step=4e-3, host_stage=False,
+            )
+            for mod in (jax_solver, torch_solver)
+        )
+        diags = rng.uniform(0, 5, (2, 1 << 14))
+        psi0 = np.zeros(1 << 14, complex)
+        psi0[-1] = 1.0
+        common = dict(
+            pairs=((1, 0, 0),), d=2, n=14, seeds=[3, 4], ip=True,
+            collapse_ops=[np.sqrt(30.0) * np.diag([1.0, -1.0]).astype(complex)],
+        )
+        return jplans, tplans, diags, psi0, common
+    jplans, tplans, diags, psi0, common = _batched_case(4, 3, (2.0, 3.0), 5)
+    psi0 = psi0.astype(complex)
+    if case == "relaxation":
+        common["collapse_ops"] = common["collapse_ops"][:1] + [RELAXATION]
+    elif case == "plan_list":
+        # One host-staged plan per trajectory, on one grid
+        rng = np.random.default_rng(5)
+        knots, amp, det = _coeffs(rng, 4, 3)
+        jplans, tplans = (
+            [
+                mod.build_plan(
+                    knots, {"amp": amp[t], "det": det[t]},
+                    np.array([0.0, 1.0, 2.0]), max_step=4e-3,
+                )
+                for t in range(3)
+            ]
+            for mod in (jax_solver, torch_solver)
+        )
+    elif case == "d3":
+        # Qutrits: a single matrix unit and a diagonal operator
+        n = 3
+        rng = np.random.default_rng(6)
+        knots, amp, det = _coeffs(rng, n, 3)
+        jplans, tplans = _plans(knots, amp, det)
+        diags = rng.uniform(0, 5, (3, 27))
+        psi0 = np.zeros(27, complex)
+        psi0[0] = 1.0
+        common.update(
+            d=3, n=n,
+            collapse_ops=[
+                np.sqrt(2.0) * np.eye(3, k=2).astype(complex),
+                np.diag([0.5, -1.0, 1.5]).astype(complex),
+            ],
+        )
+    return jplans, tplans, diags, psi0, common
 
 
 @pytest.mark.parametrize(
-    "change, match",
-    [
-        # No collapse operators: not a quantum-jump solve at all
-        (dict(collapse_ops=[]), "such a batch runs sesolve_rk4_batched"),
-        # Relaxation (a single matrix unit) on the interaction-picture grid
-        (
-            dict(collapse_ops=[0.3 * np.array([[0, 1], [0, 0]], complex)]),
-            "single matrix\n? ?units\\) runs the vmapped scan " + SCAN_ITEM,
-        ),
-        (
-            dict(ip=False, n=14),
-            "2 <= n <= 13 qubits, not 14; larger registers run the vmapped"
-            " scan " + SCAN_ITEM,
-        ),
-        (
-            dict(dtype=np.complex128),
-            "double precision runs the vmapped scan " + SCAN_ITEM,
-        ),
-        (dict(plans="list"), "a list of plans runs the vmapped scan " + SCAN_ITEM),
-        (dict(d=3), "qudits"),
-    ],
-    ids=["no_cops", "relaxation", "n14", "float64", "plan_list", "d3"],
+    "case", ["no_cops", "relaxation", "n14", "float64", "plan_list", "d3"]
 )
-def test_solver_refuses_outside_the_gate(change, match):
-    """Neither quantum-jump solve takes these: the state-returning solve
-    raises quoting the title of the ROADMAP item that holds them (never
-    its number), and the fused one declines (None), as the JAX package's
-    does."""
-    _, tplans, diags, psi0, common = _batched_case(4, 2, (0.1,), 0)
-    if change.pop("plans", None) == "list":
-        tplans = [tplans.plan] * tplans.n_traj
-    common.update(change)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        torch_solver.mcsolve_rk4_batched(
+def test_solver_refuses_outside_the_gate(case):
+    """Neither quantum-jump kernel takes these (relaxation on the
+    interaction-picture grid, 14 atoms, double precision, a list of plans,
+    qutrits): in single precision the route is the torch scan, and in
+    double precision (where the float64 case would take the row-batched
+    kernel in single precision) the scan's states equal the JAX package's vmapped
+    scan trajectory for trajectory (1e-10). The fused solve declines
+    (None), as the JAX package's does. Without collapse operators there
+    is no quantum jump to solve: a ValueError."""
+    jplans, tplans, diags, psi0, common = _scan_case(case)
+    if case == "no_cops":
+        common["collapse_ops"] = []
+        with pytest.raises(ValueError, match="runs sesolve_rk4_batched"):
+            torch_solver.mcsolve_rk4_batched(
+                psi0, tplans, diags, device="cpu", **common
+            )
+    else:
+        route_args = {k: common[k] for k in ("ip", "collapse_ops", "d", "n")}
+        assert torch_solver._mcwf_route(
+            tplans, pairs=common["pairs"], rdtype=np.float32, **route_args
+        ) == ("rows" if case == "float64" else "scan")
+        common["dtype"] = np.complex128
+        want = jax_solver.mcsolve_rk4_batched(
+            psi0, jplans, diags, mesh=None, **common
+        )
+        got = torch_solver.mcsolve_rk4_batched(
             psi0, tplans, diags, device="cpu", **common
         )
-    assert "item" not in str(err.value)
+        info = torch_solver.last_solve_info
+        assert info["kind"] == "mcwf_batched_torch" and info["ip"] is True
+        assert got.shape == want.shape and got.dtype == np.complex128
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
     assert (
         torch_solver.mcsolve_rows_codes(
             psi0, tplans, diags, sample_spec=None, device="cpu", **common

@@ -16,8 +16,9 @@ port's:
   shot-to-shot noise (the seeded counts equal, the RNG stream left at the
   same point);
 - the ``lindblad_dephasing`` golden at the JAX test's bound;
-- the refusals that remain (the XY term with collapse operators, the
-  serial quantum-jump solve, sharding over devices).
+- the XY term with collapse operators and the serial quantum-jump solve
+  without shot-to-shot noise, against the JAX package;
+- the refusal that remains (sharding over devices).
 """
 
 from __future__ import annotations
@@ -495,25 +496,58 @@ def test_lindblad_dephasing_golden(f64):
 # -- what stays refused ---------------------------------------------------
 
 
-def test_xy_with_collapse_operators_raises():
-    reg = tpu.Register.rectangle(1, 3, spacing=8.0, prefix="a")
-    seq = tpu.Sequence(reg, tpu.MockDevice)
+def _xy_sequence(P, shape=(1, 3)):
+    """An XY chain under the ``mw_global`` channel, built with ``P``."""
+    reg = P.Register.rectangle(*shape, spacing=8.0, prefix="a")
+    seq = P.Sequence(reg, P.MockDevice)
     seq.declare_channel("mw", "mw_global")
-    seq.add(tpu.Pulse.ConstantPulse(150, 2.0, 0.0, 0.0), "mw")
-    with pytest.raises(NotImplementedError, match="Lab-frame, XY and int_w"):
-        _port(seq, tpu.NoiseModel(dephasing_rate=0.1))
-    rho0, _, tplan, diag, cops, _ = _single_case({"cops": DIAG_COPS})
-    with pytest.raises(NotImplementedError, match="Lab-frame, XY and int_w"):
-        torch_solver.mesolve_rk4(
-            rho0, tplan, diag, PAIRS, 2, 3, cops, xy_static=np.eye(8)[None],
-            device="cpu",
+    seq.add(P.Pulse.ConstantPulse(150, 2.0, 0.0, 0.0), "mw")
+    return seq
+
+
+def test_xy_with_collapse_operators_raises(f64):
+    """The XY term with collapse operators runs the lab-frame master
+    equation, every evaluation state within 1e-10 of the JAX package's,
+    through the emulator and through ``mesolve_rk4`` with an XY term."""
+    seq = _xy_sequence(tpu)
+    noise = tpu.NoiseModel(dephasing_rate=0.3)
+    jres = TpuEmulator.from_sequence(seq, noise_model=noise).run()
+    tres = _port(seq, noise).run()
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mesolve_cpu" and info["ip"] is False
+    np.testing.assert_allclose(
+        _final_states(tres), _final_states(jres), rtol=0, atol=1e-10
+    )
+    rho0, jplan, tplan, diag, cops, _ = _single_case({"cops": DIAG_COPS})
+    u = np.random.default_rng(2).normal(size=(1, 3, 3))
+    u = u + u.transpose(0, 2, 1)
+    u[0][np.diag_indices(3)] = 0.0
+    kw = dict(xy_static=u, xy_indices=(1, 0), dtype=np.complex128)
+    want = jax_solver.mesolve_rk4(rho0, jplan, diag, PAIRS, 2, 3, cops, **kw)
+    got = torch_solver.mesolve_rk4(
+        rho0, tplan, diag, PAIRS, 2, 3, cops, device="cpu", **kw
+    )
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+
+
+def test_quantum_jumps_without_shot_to_shot_noise_raise(f64):
+    """``Solver.MCSOLVER`` without shot-to-shot noise runs the serial
+    quantum-jump solve in the lab frame under depolarizing noise: the
+    averaged density matrices equal the JAX package's on the same seed."""
+    seq = _sequence()
+    out = []
+    for make, solver in ((TpuEmulator.from_sequence, JaxSolver), (None, Solver)):
+        np.random.seed(12)
+        nm = tpu.NoiseModel(depolarizing_rate=1.5)
+        kw = dict(solver=solver.MCSOLVER, n_trajectories=4)
+        emu = _port(seq, nm, **kw) if make is None else make(
+            seq, noise_model=nm, **kw
         )
-
-
-def test_quantum_jumps_without_shot_to_shot_noise_raise():
-    with pytest.raises(NotImplementedError, match="'Serial mcsolve_rk4'"):
-        _port(_sequence(), tpu.NoiseModel(dephasing_rate=0.1),
-              solver=Solver.MCSOLVER)
+        out.append(_final_states(emu.run()))
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "mcwf_serial_torch" and info["ip"] is False
+    assert info["n_traj"] == 4 and info["n_cops"] == 3
+    np.testing.assert_allclose(out[1], out[0], rtol=0, atol=1e-10)
 
 
 def test_sharding_raises():

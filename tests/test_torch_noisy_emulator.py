@@ -24,9 +24,11 @@ RNG: the stream is left at the same point and the counts are equal, in
 double precision exactly, in single precision up to one draw that may
 sit within float32 rounding of a cumsum bin edge.
 
-Configurations outside the ported slice raise ``NotImplementedError``
-quoting the title of the ROADMAP item that holds them, and no entry
-point moves to the CPU unless it is asked to.
+Depolarizing noise (the serial quantum-jump solve per trajectory),
+relaxation and more atoms than the kernels take (the batched torch scan)
+give the JAX package's seeded counts; register noise raises
+``NotImplementedError`` quoting the title of the ROADMAP item that holds
+it, and no entry point moves to the CPU unless it is asked to.
 """
 
 from __future__ import annotations
@@ -84,15 +86,15 @@ def jax_rows(monkeypatch):
         jax.config.update("jax_enable_x64", True)
 
 
-def _sequence(local=False, shape=(2, 2)):
-    """A 2x2 register (or ``shape``) under a global Rydberg pulse; with
-    ``local``, a second (local) Rydberg channel on the same basis, which
-    takes the emulator's generic coefficient batch instead of the
-    factored one."""
+def _sequence(local=False, shape=(2, 2), duration=400):
+    """A 2x2 register (or ``shape``) under a global Rydberg pulse of
+    ``duration`` ns; with ``local``, a second (local) Rydberg channel on
+    the same basis, which takes the emulator's generic coefficient batch
+    instead of the factored one."""
     reg = tpu.Register.rectangle(*shape, spacing=7.0, prefix="q")
     seq = tpu.Sequence(reg, tpu.MockDevice)
     seq.declare_channel("ryd", "rydberg_global")
-    seq.add(tpu.Pulse.ConstantPulse(400, 2 * np.pi, -1.0, 0.0), "ryd")
+    seq.add(tpu.Pulse.ConstantPulse(duration, 2 * np.pi, -1.0, 0.0), "ryd")
     if local:
         seq.declare_channel("loc", "rydberg_local", initial_target="q0")
         seq.add(tpu.Pulse.ConstantPulse(200, 1.0, 0.5, 0.0), "loc")
@@ -278,46 +280,44 @@ def test_n_trajectories_and_solver_options():
 
 
 @pytest.mark.parametrize(
-    "params, types, shape, match",
+    "params, types, shape, kind",
     [
-        # SPAM and doppler only: no collapse operators. Inside the slice
-        # now: the pure-state batch runs
+        # SPAM and doppler only: no collapse operators, the pure-state
+        # batch
         (
             dict(state_prep_error=0.05, p_false_pos=0.01, temperature=40),
             {"SPAM", "doppler"},
             (2, 2),
-            None,
+            "sesolve_batched_torch",
         ),
-        # depolarizing: the serial quantum-jump solve in the JAX package
+        # depolarizing: the serial quantum-jump solve, one per trajectory
         (
             dict(depolarizing_rate=0.1, temperature=40),
             {"depolarizing", "doppler"},
             (2, 2),
-            "ROADMAP.md Queue 1, 'Serial mcsolve_rk4'",
+            "mcwf_serial_torch",
         ),
-        # relaxation: a single matrix unit, on the interaction-picture grid
+        # relaxation: a single matrix unit on the interaction-picture
+        # grid, the batched torch scan
         (
             dict(relaxation_rate=0.2, temperature=40),
             {"relaxation", "doppler"},
             (2, 2),
-            "general collapse operators, on the vmapped scan"
-            r" \(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)",
+            "mcwf_batched_torch",
         ),
-        # more atoms than the quantum-jump kernels take: the JAX package
-        # runs its vmapped scan
+        # more atoms than the quantum-jump kernels take: the scan
         (
             dict(dephasing_rate=0.1, temperature=40),
             {"dephasing", "doppler"},
             (2, 7),
-            "2 to 13 atoms, not 14; larger registers run the vmapped scan"
-            r" \(ROADMAP.md Queue 1, 'The quantum-jump scan in torch ops'\)",
+            "mcwf_batched_torch",
         ),
         # register (position) noise jitters the atoms in three dimensions
         (
             dict(trap_waist=1.0, trap_depth=150.0, temperature=40),
             {"register", "doppler"},
             (2, 2),
-            "ROADMAP.md Queue 1, 'Register noise and Register3D'",
+            None,
         ),
     ],
     ids=[
@@ -325,19 +325,41 @@ def test_n_trajectories_and_solver_options():
         "register_noise",
     ],
 )
-def test_configurations_outside_the_slice_raise(params, types, shape, match):
+def test_configurations_outside_the_slice_raise(params, types, shape, kind):
+    """Every noisy configuration runs and gives the JAX package's seeded
+    counts (double precision, the RNG stream left at the same point),
+    except register noise, which raises quoting its ROADMAP item's
+    title."""
     noise = _noise(**params, runs=6, samples_per_run=4)
     assert set(noise.noise_types) == types
-    np.random.seed(SEED)
-    if match is None:
-        res = _port_emulator(_sequence(), noise).run()
-        assert isinstance(res, NoisyResults) and res.n_measures == 24
-        assert torch_solver.last_solve_info["kind"] == "sesolve_batched_torch"
+    # Fourteen atoms for 100 ns: a few dozen steps of a 2^14 batch
+    seq = _sequence(shape=shape, duration=100 if shape == (2, 7) else 400)
+    if kind is None:
+        np.random.seed(SEED)
+        with pytest.raises(
+            NotImplementedError,
+            match="ROADMAP.md Queue 1, 'Register noise and Register3D'",
+        ) as err:
+            _port_emulator(seq, noise)
+        # Titles are quoted, never item numbers
+        assert "item" not in str(err.value)
         return
-    with pytest.raises(NotImplementedError, match=match) as err:
-        _port_emulator(_sequence(shape=shape), noise)
-    # Titles are quoted, never item numbers
-    assert "item" not in str(err.value)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)  # complex128, as the JAX side
+    try:
+        np.random.seed(SEED)
+        jres = _jax_emulator(seq, noise).run()
+        j_after = np.random.rand()
+        np.random.seed(SEED)
+        res = _port_emulator(seq, noise).run()
+    finally:
+        torch.set_default_dtype(old)
+    assert np.random.rand() == j_after
+    assert isinstance(res, NoisyResults) and res.n_measures == 24
+    assert torch_solver.last_solve_info["kind"] == kind
+    assert [dict(r.bitstring_counts) for r in res] == [
+        dict(r.bitstring_counts) for r in jres
+    ]
 
 
 @pytest.fixture

@@ -191,22 +191,46 @@ def test_kernel_route_on_cpu_matches_jax(afm10):
     assert np.max(_infidelity(want, got)) <= 1e-6
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        dict(ip_occ=None),
-        dict(ip_occ=True, xy_static=np.zeros((1, 10, 10))),
-        dict(ip_occ=True, state_mesh=object()),
-    ],
-    ids=["lab_frame", "xy", "mesh"],
-)
-def test_outside_the_slice_raises(afm10, kwargs):
-    plan, ham, psi0, _ = afm10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_solver.sesolve_rk4(
-            psi0, plan, ham.int_diag, ham.pairs, 2, 10, device="cpu",
-            **kwargs,
-        )
+@pytest.mark.parametrize("case", ["lab_frame", "xy", "mesh"])
+def test_outside_the_slice_raises(afm10, case):
+    """The lab frame (no ``ip_occ``) and the XY term run the lab-frame
+    loop on 1 ns steps and equal the JAX package's lab-frame solve in
+    complex128 (1e-10); only state sharding still raises, naming its
+    ROADMAP item."""
+    _, ham, psi0, _ = afm10
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            torch_solver.sesolve_rk4(
+                psi0, afm10[0], ham.int_diag, ham.pairs, 2, 10, ip_occ=True,
+                state_mesh=object(), device="cpu",
+            )
+        return
+    kw = {}
+    if case == "xy":
+        u = np.random.default_rng(4).normal(size=(10, 10))
+        u = u + u.T
+        np.fill_diagonal(u, 0.0)
+        kw = dict(xy_static=u[None], xy_indices=(1, 0), ip_occ=True)
+    args = (
+        ham.sampling_times,
+        {"amp": ham.amp_coeffs, "det": ham.det_coeffs},
+        np.array([0.1, 0.6]),
+    )
+    jplan = jax_solver.build_plan(*args, max_step=1e-3)
+    tplan = torch_solver.build_plan(*args, max_step=1e-3)
+    psi0 = psi0.astype(np.complex128)
+    want = jax_solver.sesolve_rk4(
+        psi0, jplan, ham.int_diag, ham.pairs, 2, 10, dtype=np.complex128,
+        **kw,
+    )
+    got = torch_solver.sesolve_rk4(
+        psi0, tplan, ham.int_diag, ham.pairs, 2, 10, dtype=np.complex128,
+        device="cpu", **kw,
+    )
+    info = torch_solver.last_solve_info
+    assert info["kind"] == "sesolve_torch_loop" and info["ip"] is False
+    assert abs(np.linalg.norm(got[-1]) - 1) < 1e-3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
 
 
 def _afm16_plan(monkeypatch):
