@@ -132,10 +132,41 @@ to sample it, median of 3 each, beside the card's name and power limit):
     populations of ``tests/goldens/mcdepol10_reference.json`` within 2e-2.
     Time it as in 16.
 
+19. Run BACKEND_AFM16: the 16-atom sweep through the backend API,
+    ``TorchBackendV2(seq, config=TorchConfig(observables=...)).run()``,
+    with the state and the occupations at 101 relative times and the
+    correlation matrix, the energy and 1000 shots at the end
+    (:func:`_backend_afm16_observables`). One K1 launch; the final state
+    within 1 − F < 1e-6 of the golden; the occupations within 1e-6 of the
+    populations of ``run()``'s states at every time and within 1e-5 of
+    the golden's at the end; the correlation matrix symmetric with the
+    occupations on its diagonal; the energy within 1e-10 (relative) of
+    ⟨ψ|H|ψ⟩ computed with ``hamiltonian_matvec`` on the run's final state,
+    and from the same product on the golden state by no more than the
+    state's distance to it allows (2‖δ‖‖Hψ‖ + ‖δ‖²‖H‖, ‖δ‖ ≤ √(2(1 − F)):
+    the float32 solve misses the golden's energy by about 1e-5 of it); the
+    shots within a total-variation distance of 0.01 of those drawn from
+    the golden's probabilities with the same uniforms; the peak device memory
+    under 2 GiB (no 2^16 × 2^16 matrix). Report the warm backend
+    ``run()`` beside the emulator's (median of 3), the observables' host
+    time and the device's busy share.
+20. Run BACKEND_NOISY10: NOISY10 (:func:`noisy10_sequence`, 100
+    trajectories, seed 1234) through ``TorchBackendV2`` with the
+    occupations at 0.5 and 1.0, the energy, the state (aggregated into a
+    1024 × 1024 ρ) and 1000 shots per trajectory at 1.0. One K2 launch;
+    against the JAX package's backend run
+    (``tests/goldens/backend_noisy10_reference.json``): occupations within
+    1e-3, the energy within 1e-3 (relative), the counts within TV 0.02,
+    ρ's trace within 1e-5 of 1, Hermitian within 1e-6, its diagonal within
+    1e-3. Report the warm ``run()``, the observables' and the
+    aggregation's host time, and the busy share.
+
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
-grid). The master-equation, XY and quantum-jump scan paths run torch
-operations only (the JAX package computes them in XLA, outside any Pallas
+grid). The backend paths report their peak memory, their observables'
+host time and their kernel launches in their ``paths`` entries. The
+master-equation, XY and quantum-jump scan paths run torch operations
+only (the JAX package computes them in XLA, outside any Pallas
 kernel); they report their times, stages, ms and kernel launches per
 stage, the bytes of the state and the device's busy share in the
 ``paths`` entry of the report.
@@ -152,6 +183,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -1870,12 +1902,9 @@ def _head_plan(plan, steps: int):
     )
 
 
-def _timed_run(
-    emu, S, solver_fn: str = "mesolve_rk4", fetch: bool = True
-) -> tuple[float, float]:
-    """Wall seconds of one warm ``run()`` (with the final state fetched if
-    ``fetch``), and of its ``S.<solver_fn>`` call up to the device's
-    completion."""
+def _timed_call(fn, S, solver_fn: str) -> tuple[float, float]:
+    """Wall seconds of ``fn()`` and of the ``S.<solver_fn>`` call inside
+    it, each up to the device's completion."""
     import torch
 
     solve, marks = getattr(S, solver_fn), {}
@@ -1891,13 +1920,26 @@ def _timed_run(
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, marks["solve"]
+    finally:
+        setattr(S, solver_fn, solve)
+
+
+def _timed_run(
+    emu, S, solver_fn: str = "mesolve_rk4", fetch: bool = True
+) -> tuple[float, float]:
+    """Wall seconds of one warm ``run()`` (with the final state fetched if
+    ``fetch``), and of its ``S.<solver_fn>`` call up to the device's
+    completion."""
+
+    def run():
         res = emu.run()
         if fetch:
             res.get_final_state().full()
-        run_s = time.perf_counter() - t0
-    finally:
-        setattr(S, solver_fn, solve)
-    return run_s, marks["solve"]
+
+    return _timed_call(run, S, solver_fn)
 
 
 #: RK4 steps of the traced head of a lab-frame solve (its 40 kernel
@@ -2236,6 +2278,395 @@ def _mcdepol10_path(S, card: str) -> dict:
     )
 
 
+#: The JAX package's run of NOISY10 through its backend API after
+#: ``np.random.seed(1234)`` (the observables of
+#: :func:`_backend_noisy10_observables`; row-batched quantum-jump kernel in
+#: the Pallas interpreter on a CPU, single precision), written by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/backend_references.py``:
+#: the mean occupations, the mean energy, the aggregated ρ's diagonal and
+#: trace, and the final counts.
+_BACKEND_NOISY10_GOLDEN = os.path.join(
+    _ROOT, "tests", "goldens", "backend_noisy10_reference.json"
+)
+#: The backend's Occupation against the populations of ``run()``'s states
+#: (the same solve: float32 state, complex128 arithmetic on both sides).
+BACKEND_OCCUPATION_TOL = 1e-6
+#: ... and against the golden's final state (an independent float64 run).
+BACKEND_GOLDEN_OCCUPATION_TOL = 1e-5
+#: Its 1000 shots against the same shots drawn from the golden's
+#: probabilities with the same uniforms (total variation).
+BACKEND_COUNTS_TV_TOL = 0.01
+#: The backend's peak device memory on AFM16: far below one 2^16 x 2^16
+#: matrix (64 GB in complex128), so none was formed.
+BACKEND_PEAK_BYTES = 2 << 30
+#: NOISY10 through the backend against the JAX package's: the mean
+#: occupations (absolute), the energy (relative), the aggregated ρ's
+#: diagonal (absolute).
+BACKEND_NOISY_TOL = 1e-3
+
+
+def _backend_afm16_observables():
+    """The AFM16 backend configuration's observables: the state and the
+    occupations at 101 evenly spaced relative times, the correlation
+    matrix, the energy and 1000 shots at the end."""
+    from pulser_tpu_torch import (
+        BitStrings,
+        CorrelationMatrix,
+        Energy,
+        Occupation,
+        StateResult,
+    )
+
+    times = np.linspace(0, 1, 101)
+    return [
+        StateResult(evaluation_times=times),
+        Occupation(evaluation_times=times),
+        CorrelationMatrix(evaluation_times=[1.0]),
+        Energy(evaluation_times=[1.0]),
+        BitStrings(evaluation_times=[1.0], num_shots=1000),
+    ]
+
+
+def _backend_noisy10_observables():
+    """NOISY10's backend observables (as ``tools/backend_references.py``):
+    the occupations at 0.5 and 1.0, the energy and the state (aggregated
+    into ρ) at 1.0, and 1000 shots at 1.0 with the SPAM readout errors."""
+    from pulser_tpu_torch import BitStrings, Energy, Occupation, StateResult
+
+    return [
+        Occupation(evaluation_times=[0.5, 1.0]),
+        Energy(evaluation_times=[1.0]),
+        StateResult(evaluation_times=[1.0]),
+        BitStrings(evaluation_times=[1.0], num_shots=1000),
+    ]
+
+
+def _median_timed_call(fn, S, solver_fn: str) -> tuple[float, float]:
+    """:func:`_timed_call`'s two times, median of 3 each."""
+    runs = [_timed_call(fn, S, solver_fn) for _ in range(3)]
+    return (
+        statistics.median(r[0] for r in runs),
+        statistics.median(r[1] for r in runs),
+    )
+
+
+def _backend_run(K, backend, kernel: str) -> tuple:
+    """One ``backend.run()`` with the launch counters set to 0 just before
+    and read just after, and the device's own count of ``kernel``'s
+    launches; returns ``(results, wrapper launches, device launches,
+    seconds)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_launches(K)
+    before = K.device_launches(kernel)
+    t0 = time.perf_counter()
+    res = backend.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (
+        res, _launches(K)[kernel], K.device_launches(kernel) - before, seconds
+    )
+
+
+def _observable_seconds():
+    """A context that times every observable call and ``Results.aggregate``
+    (host seconds, the device synchronized at each end)."""
+    import contextlib
+
+    import torch
+
+    from pulser_tpu_torch.backend.observable import Observable
+    from pulser_tpu_torch.backend.results import Results
+
+    spent = {"observables": 0.0, "aggregate": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+
+        return wrapper
+
+    @contextlib.contextmanager
+    def ctx():
+        call, agg = Observable.__call__, Results.__dict__["aggregate"]
+        Observable.__call__ = timed(call, "observables")
+        Results.aggregate = classmethod(timed(agg.__func__, "aggregate"))
+        try:
+            yield spent
+        finally:
+            Observable.__call__ = call
+            Results.aggregate = agg
+
+    return ctx()
+
+
+def _backend_afm16_path(K, S, card: str) -> dict:
+    """AFM16 through ``TorchBackendV2(seq, config=TorchConfig(...)).run()``
+    on the card: one K1 launch; the state, occupations, correlations,
+    energy and shots against the golden and against ``run()``'s own states;
+    the peak device memory; the warm times and the busy share."""
+    import torch
+
+    from pulser_tpu_torch.emulator import TorchBackendV2, TorchConfig, TorchState
+    from pulser_tpu_torch.ops.apply import hamiltonian_matvec
+
+    _sequence_ms("BACKEND_AFM16", afm16_sequence, card)
+    golden = np.load(_GOLDEN)["final_state"]
+    config = TorchConfig(observables=_backend_afm16_observables())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    backend = TorchBackendV2(afm16_sequence(), config=config)
+    np.random.seed(1234)
+    # The numpy RNG's state where the shots start (the run draws the
+    # noiseless trajectory before them)
+    shots_rng: list = []
+    sample = TorchState.sample
+
+    def recording(self, **kwargs):
+        shots_rng.append(np.random.get_state())
+        return sample(self, **kwargs)
+
+    TorchState.sample = recording
+    try:
+        res, launches, device_launches, run_s = _backend_run(
+            K, backend, "ip_sesolve"
+        )
+    finally:
+        TorchState.sample = sample
+    cold_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    info = dict(S.last_solve_info)
+    print(
+        f"BACKEND_AFM16: {info}, launches={launches} (device"
+        f" {device_launches}), cold {cold_s:.3f} s; peak device memory"
+        f" {peak / 2**20:.1f} MiB ({(peak - base_bytes) / 2**20:.1f} MiB over"
+        f" the {base_bytes / 2**20:.1f} MiB held before) [{card}]"
+    )
+    _check(info.get("kind") == "ip_sesolve_cuda", "backend K1 route")
+    _check(launches == 1 and device_launches == 1, "one K1 launch per run")
+    _check(peak < BACKEND_PEAK_BYTES, f"peak memory {peak} B")
+    times = res.get_result_times("occupation")
+    _check(len(times) == 101, "101 occupation times")
+    _check(res.get_result_times("state") == times, "state times")
+    final = res.final_state
+    _check(isinstance(final, TorchState), "final state type")
+    _check(final.to_tensor().device.type == "cuda", "states stay on the card")
+    fin = final.to_qobj().full()[:, 0]
+    _check(fin.shape == (1 << 16,) and bool(np.isfinite(fin).all()), "final")
+    infid = 1 - _fidelity(golden, fin)
+    occ = np.array(res.occupation, dtype=float)
+    probs_g = np.abs(golden / np.linalg.norm(golden)) ** 2
+    occ_golden = _rydberg_populations(probs_g[None], 16)[0]
+    golden_occ_err = float(np.abs(occ[-1] - occ_golden).max())
+
+    # The same solve's states from run(): their populations at every time
+    emu = backend._sim_obj
+    states = np.stack([s.full()[:, 0] for s in emu.run().states])
+    probs = np.abs(states.astype(np.complex128)) ** 2
+    probs /= probs.sum(axis=1, keepdims=True)
+    run_occ_err = float(np.abs(occ - _rydberg_populations(probs, 16)).max())
+    corr = np.array(res.correlation_matrix[-1], dtype=float)
+    corr_sym = float(np.abs(corr - corr.T).max())
+    corr_diag = float(np.abs(np.diag(corr) - occ[-1]).max())
+
+    ham = emu._get_noiseless_hamiltonian(False)
+    amp, det = ham._coeffs_at(emu.total_duration_ns * 1e-3)
+    dev = torch.device("cuda")
+
+    def h_expect(state: np.ndarray) -> tuple[float, float]:
+        """⟨ψ|H|ψ⟩ and ‖Hψ‖ of the normalized ``state``."""
+        psi = torch.from_numpy(state / np.linalg.norm(state)).to(dev)
+        h_psi = hamiltonian_matvec(
+            psi,
+            torch.from_numpy(np.asarray(ham.int_diag, np.float64)).to(dev),
+            torch.from_numpy(np.asarray(amp, np.complex128)).to(dev),
+            torch.from_numpy(np.asarray(det, np.float64).real).to(dev),
+            ham.pairs, 2, 16,
+        )
+        return (
+            float(torch.vdot(psi, h_psi).real),
+            float(torch.linalg.vector_norm(h_psi)),
+        )
+
+    energy = float(res.energy[-1])
+    energy_ref, h_psi_norm = h_expect(golden)
+    energy_rel = abs(energy - energy_ref) / abs(energy_ref)
+    # The observable itself: the same product on the run's own state
+    energy_own_rel = abs(energy - h_expect(fin)[0]) / abs(energy)
+    # What the state's own distance to the golden allows: with
+    # ‖δ‖ ≤ √(2(1 − F)) after the best phase, |Δ⟨H⟩| ≤ 2‖δ‖‖Hψ‖ + ‖δ‖²‖H‖
+    # (‖H‖ bounded by its diagonal and its drives at the end)
+    h_norm = float(
+        np.abs(ham.int_diag).max()
+        + np.abs(det).sum()
+        + 2 * np.abs(amp).sum()
+    )
+    delta = np.sqrt(2 * max(infid, 0.0))
+    energy_allowed = 2 * delta * h_psi_norm + delta**2 * h_norm
+
+    _check(len(shots_rng) == 1, "one BitStrings sample")
+    np.random.set_state(shots_rng[0])
+    ref_counts = TorchState(
+        torch.from_numpy(golden), eigenstates=("r", "g")
+    ).sample(num_shots=1000)
+    tv = _tv_distance(res.final_bitstrings, ref_counts)
+    print(
+        f"BACKEND_AFM16 checks: final 1-F vs golden {infid:.3e}; occupation"
+        f" vs run()'s states max|d| {run_occ_err:.3e} (101 times), final vs"
+        f" golden {golden_occ_err:.3e}; correlation asymmetry {corr_sym:.3e},"
+        f" diagonal vs occupation {corr_diag:.3e}; energy {energy:.9f} vs"
+        f" <psi|H|psi> on the golden {energy_ref:.9f} (rel {energy_rel:.3e};"
+        f" |d| {abs(energy - energy_ref):.3e}, allowed by the state's 1-F"
+        f" {energy_allowed:.3e} with |H psi| {h_psi_norm:.6f}), on the run's"
+        f" own final state rel {energy_own_rel:.3e};"
+        f" shots TV vs the golden's {tv:.4f}"
+    )
+    _check(infid < FIDELITY_TOL, f"backend final 1-F {infid:.3e}")
+    _check(run_occ_err <= BACKEND_OCCUPATION_TOL, "occupation vs run()")
+    _check(golden_occ_err <= BACKEND_GOLDEN_OCCUPATION_TOL, "occupation")
+    _check(corr_sym <= 1e-12, f"correlation symmetric {corr_sym:.3e}")
+    _check(corr_diag <= 1e-12, f"correlation diagonal {corr_diag:.3e}")
+    _check(energy_own_rel <= 1e-10, f"energy on its state {energy_own_rel:.3e}")
+    _check(
+        abs(energy - energy_ref) <= energy_allowed,
+        f"energy vs golden {abs(energy - energy_ref):.3e}",
+    )
+    _check(sum(res.final_bitstrings.values()) == 1000, "1000 shots")
+    _check(tv <= BACKEND_COUNTS_TV_TOL, f"shots TV {tv:.4f}")
+
+    backend_s, solve_s = _median_timed_call(backend.run, S, "sesolve_rk4")
+    run_only_s, _ = _median_timed_call(
+        lambda: emu.run().states[-1].full(), S, "sesolve_rk4"
+    )
+    with _observable_seconds() as spent:
+        backend.run()
+    wall_s, busy_ms, _ = _device_busy(backend.run)
+    stages = info["n_steps"] * 4
+    print(
+        f"times on {card}: warm backend run() {backend_s * 1e3:.3f} ms"
+        f" (median of 3), of which the K1 solve {solve_s * 1e3:.3f} ms and"
+        f" the observables {spent['observables'] * 1e3:.3f} ms (101"
+        f" evaluation times); warm emulator run() with the final state"
+        f" fetched {run_only_s * 1e3:.3f} ms"
+    )
+    _print_busy("backend AFM16 run()", wall_s, busy_ms)
+    entry = _path_entry(
+        "BACKEND_AFM16", backend_s * 1e3, stages, solve_s * 1e3,
+        device_launches, (1 << 16) * 8, busy_ms / 1e3 / wall_s,
+    )
+    entry.update(
+        peak_bytes=peak,
+        run_ms=run_only_s * 1e3,
+        observables_ms=spent["observables"] * 1e3,
+        launches={"ip_sesolve": launches},
+    )
+    return entry
+
+
+def _backend_noisy10_path(K, S, card: str) -> dict:
+    """NOISY10 through ``TorchBackendV2`` on the card: one K2 launch; the
+    occupations, energy, aggregated ρ and shots against the JAX package's
+    backend run; the host time of the observables, the warm time and the
+    busy share."""
+    import torch
+
+    from pulser_tpu_torch.emulator import TorchBackendV2, TorchConfig
+
+    with open(_BACKEND_NOISY10_GOLDEN) as fh:
+        ref = json.load(fh)
+    _sequence_ms("BACKEND_NOISY10", lambda: noisy10_sequence()[0], card)
+    seq, noise = noisy10_sequence()
+    with warnings.catch_warnings():
+        # The noise model's samples_per_run is ignored by the backend
+        warnings.simplefilter("ignore", UserWarning)
+        config = TorchConfig(
+            observables=_backend_noisy10_observables(),
+            noise_model=noise,
+            n_trajectories=ref["n_trajectories"],
+        )
+    t0 = time.perf_counter()
+    np.random.seed(ref["seed"])
+    backend = TorchBackendV2(seq, config=config)
+    res, launches, device_launches, _ = _backend_run(K, backend, "mcwf_rows")
+    cold_s = time.perf_counter() - t0
+    info = dict(S.last_solve_info)
+    print(
+        f"BACKEND_NOISY10: {info}, launches={launches} (device"
+        f" {device_launches}), cold {cold_s:.3f} s [{card}]"
+    )
+    _check(info.get("kind") == "mcwf_rows_cuda", "backend K2 route")
+    _check(launches == 1 and device_launches == 1, "one K2 launch per run")
+    _check(info["n_steps"] == ref["n_steps"], f"steps {info['n_steps']}")
+    occ_err = max(
+        float(np.abs(np.array(res.get_result("occupation", t)) - want).max())
+        for t, want in zip(ref["occupation_times"], ref["occupation"])
+    )
+    energy = float(res.energy[-1])
+    energy_rel = abs(energy - ref["energy"]) / abs(ref["energy"])
+    rho = res.final_state.to_qobj().full()
+    trace_err = abs(np.trace(rho).real - 1)
+    herm_err = float(np.abs(rho - rho.conj().T).max())
+    diag_err = float(np.abs(np.diag(rho).real - ref["rho_diagonal"]).max())
+    counts = res.final_bitstrings
+    tv = _tv_distance(counts, ref["final_counts"])
+    print(
+        f"BACKEND_NOISY10 vs the JAX package's backend (seed {ref['seed']}):"
+        f" occupations max|d| {occ_err:.3e}; energy {energy:.6f} vs"
+        f" {ref['energy']:.6f} (rel {energy_rel:.3e}); aggregated rho"
+        f" {rho.shape}: |tr-1| {trace_err:.3e}, Hermitian to {herm_err:.3e},"
+        f" diagonal max|d| {diag_err:.3e}; counts TV {tv:.4f}"
+        f" ({sum(counts.values())} shots)"
+    )
+    _check(rho.shape == (1024, 1024), "aggregated rho shape")
+    _check(occ_err <= BACKEND_NOISY_TOL, f"occupations {occ_err:.3e}")
+    _check(energy_rel <= BACKEND_NOISY_TOL, f"energy rel {energy_rel:.3e}")
+    _check(trace_err <= TRACE_TOL, f"trace {trace_err:.3e}")
+    _check(herm_err <= HERMITIAN_TOL, f"Hermitian {herm_err:.3e}")
+    _check(diag_err <= BACKEND_NOISY_TOL, f"rho diagonal {diag_err:.3e}")
+    _check(sum(counts.values()) == 100 * 1000, "1000 shots per trajectory")
+    _check(tv <= COUNTS_TV_TOL, f"counts TV {tv:.4f}")
+
+    def warm():
+        np.random.seed(ref["seed"])
+        return backend.run()
+
+    backend_s, solve_s = _median_timed_call(warm, S, "mcsolve_rk4_batched")
+    with _observable_seconds() as spent:
+        warm()
+    wall_s, busy_ms, _ = _device_busy(warm)
+    n_evals = len(backend._sim_obj.evaluation_times)
+    stages = info["n_steps"] * 4
+    print(
+        f"times on {card}: warm backend run() {backend_s * 1e3:.3f} ms"
+        f" (median of 3), of which the K2 solve with its fetch"
+        f" {solve_s * 1e3:.3f} ms, the observables"
+        f" {spent['observables'] * 1e3:.3f} ms ({ref['n_trajectories']}"
+        f" trajectories x {n_evals} evaluation times) and the aggregation"
+        f" {spent['aggregate'] * 1e3:.3f} ms"
+    )
+    _print_busy("backend NOISY10 run()", wall_s, busy_ms)
+    entry = _path_entry(
+        "BACKEND_NOISY10", backend_s * 1e3, stages, solve_s * 1e3,
+        device_launches, ref["n_trajectories"] * 1024 * 8,
+        busy_ms / 1e3 / wall_s,
+    )
+    entry.update(
+        observables_ms=spent["observables"] * 1e3,
+        aggregate_ms=spent["aggregate"] * 1e3,
+        launches={"mcwf_rows": launches},
+    )
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -2273,6 +2704,8 @@ def main() -> int:
             _pauli10_path(K, S, device, card),  # 9-10
         ],
         "paths": [
+            _backend_afm16_path(K, S, card),  # 19
+            _backend_noisy10_path(K, S, card),  # 20
             _single_rho_path(S, "DEPH10", deph10_sequence, card),  # 13
             _mesolve10_path(S, card),  # 14
             _single_rho_path(S, "EFF8", eff8_sequence, card),  # 15

@@ -3,9 +3,10 @@
 Mirrors ``pulser_tpu``'s module paths with ``Tpu`` replaced by
 ``Torch`` in the public names. A run starts as in the JAX package:
 ``Sequence(register, device)`` → ``declare_channel`` →
-``add(Pulse(...))`` → ``TorchEmulator.from_sequence(seq).run()``.
-Serialization, drawing and device switching are not ported yet (see
-ROADMAP.md).
+``add(Pulse(...))`` → ``TorchEmulator.from_sequence(seq).run()``, or
+through the backend API, ``TorchBackendV2(seq, config=TorchConfig(
+observables=[...])).run()``. Serialization, drawing and device switching
+are not ported yet (see ROADMAP.md).
 """
 
 from pulser_tpu_torch.waveforms import (
@@ -58,7 +59,46 @@ __all__ = [
     "MockDevice",
     "Sequence",
     "sample",
+    "EmulatorConfig",
 ]
+
+#: Names resolved lazily from the backend and emulator subpackages.
+_BACKEND_NAMES = {
+    name: "pulser_tpu_torch.backend"
+    for name in (
+        "AggregationMethod",
+        "BackendConfig",
+        "BitStrings",
+        "Callback",
+        "CorrelationMatrix",
+        "EmulationConfig",
+        "EmulatorConfig",
+        "Energy",
+        "EnergySecondMoment",
+        "EnergyVariance",
+        "Expectation",
+        "Fidelity",
+        "Observable",
+        "Occupation",
+        "Results",
+        "ResultsSequence",
+        "StateResult",
+    )
+} | {
+    name: "pulser_tpu_torch.emulator"
+    for name in (
+        "QutipBackend",
+        "QutipBackendV2",
+        "QutipConfig",
+        "QutipOperator",
+        "QutipState",
+        "TorchBackend",
+        "TorchBackendV2",
+        "TorchConfig",
+        "TorchOperator",
+        "TorchState",
+    )
+}
 
 
 def __getattr__(name: str):
@@ -75,6 +115,12 @@ def __getattr__(name: str):
         import pulser_tpu_torch.sampler as sampler
 
         return sampler
+    if name in _BACKEND_NAMES or name in ("backend", "emulator"):
+        import importlib
+
+        if name in ("backend", "emulator"):
+            return importlib.import_module(f"pulser_tpu_torch.{name}")
+        return getattr(importlib.import_module(_BACKEND_NAMES[name]), name)
     if name == "sequence":
         import importlib
         import sys
@@ -90,5 +136,7 @@ def __getattr__(name: str):
 
 def __dir__():
     return sorted(
-        set(globals()) | {"Sequence", "sample", "sampler", "sequence"}
+        set(globals())
+        | {"Sequence", "sample", "sampler", "sequence", "backend", "emulator"}
+        | set(_BACKEND_NAMES)
     )

@@ -417,26 +417,41 @@ class TorchEmulator:
 
     @property
     def _noiseless_hamiltonian(self) -> Hamiltonian:
-        """The noiseless Hamiltonian, built once (its HamiltonianData
-        draws from the numpy global RNG where the JAX package's does)."""
-        ham = getattr(self, "_noiseless_ham_cache", None)
-        if ham is None:
+        return self._get_noiseless_hamiltonian(False)
+
+    def _get_noiseless_hamiltonian(self, leakage: bool) -> Hamiltonian:
+        """The noiseless Hamiltonian, built once per basis (its
+        HamiltonianData draws from the numpy global RNG where the JAX
+        package's does).
+
+        Args:
+            leakage: Whether to include the leakage state in the basis.
+        """
+        cache = self.__dict__.setdefault("_noiseless_ham_cache", {})
+        if leakage not in cache:
+            if leakage:
+                noise = NoiseModel(
+                    eff_noise_opers=(np.zeros((3, 3)),),
+                    eff_noise_rates=(0.0,),
+                    with_leakage=leakage,
+                )
+            else:
+                noise = NoiseModel()
             noiseless_data = HamiltonianData(
                 self.samples_obj,
                 self._register,
                 self.device,
-                NoiseModel(),
+                noise,
                 n_trajectories=1,
             )
-            ham = Hamiltonian(
+            cache[leakage] = Hamiltonian(
                 noiseless_data.samples,
                 noiseless_data.noise_trajectories[0].trajectory,
                 noiseless_data.basis_data,
                 noiseless_data.lindblad_data,
                 self._sampling_rate,
             )
-            self._noiseless_ham_cache = ham
-        return ham
+        return cache[leakage]
 
     def _one_trajectory_hamiltonian(self, traj: Any) -> Hamiltonian:
         """The full (generic-path) Hamiltonian of ONE trajectory."""
@@ -724,6 +739,126 @@ class TorchEmulator:
         return self._tot_duration
 
     @property
+    def config(self) -> SimConfig:
+        """The current configuration, as a SimConfig instance."""
+        return SimConfig.from_noise_model(
+            self._hamiltonian_data.noise_model
+        )
+
+    def set_config(self, cfg: SimConfig) -> None:
+        """Sets the config (deprecated; prefer a new emulator)."""
+        warnings.warn(
+            "Supplying a 'SimConfig' to the emulator has been"
+            " deprecated. Please instantiate with a 'NoiseModel'"
+            " instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if not isinstance(cfg, SimConfig):
+            raise ValueError(
+                f"Object {cfg} is not a valid `SimConfig`."
+            )
+        not_supported = (
+            set(cfg.noise)
+            - cfg.supported_noises[
+                self._hamiltonian_data.basis_data.interaction_type
+            ]
+        )
+        if not_supported:
+            v = self._hamiltonian_data.basis_data.interaction_type
+            raise NotImplementedError(
+                f"Interaction mode '{v}' "
+                "does not support simulation of noise types:"
+                f"{', '.join(not_supported)}."
+            )
+        former_dim = self.dim
+        former_basis = self.basis
+        noise_model = cfg.to_noise_model()
+        self._noise_trajectories_used = False
+        self._hamiltonian_data = HamiltonianData(
+            self.samples_obj,
+            self._register,
+            self.device,
+            noise_model,
+            self._get_n_trajectories(noise_model, check_value=True),
+        )
+        self._current_hamiltonian = next(self._hamiltonians).hamiltonian
+        if self.dim == former_dim:
+            self.set_initial_state(self._initial_state)
+            return
+        v = self._hamiltonian_data.basis_data.interaction_type
+        if self._initial_state != tensor(
+            [
+                former_basis[("u" if v == "XY" else "g")]
+                for _ in range(self._hamiltonian_data.n_qudits)
+            ]
+        ):
+            warnings.warn(
+                "Current initial state's dimension does not match new"
+                " dimensions. Setting it to 'all-ground'."
+            )
+        self.set_initial_state("all-ground")
+
+    def add_config(self, config: SimConfig) -> None:
+        """Updates the current config with another one (deprecated)."""
+        from dataclasses import asdict
+
+        warnings.warn(
+            "Supplying a 'SimConfig' to the emulator has been"
+            " deprecated. Please instantiate with a 'NoiseModel'"
+            " instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if not isinstance(config, SimConfig):
+            raise ValueError(
+                f"Object {config} is not a valid `SimConfig`"
+            )
+
+        not_supported = (
+            set(config.noise)
+            - config.supported_noises[
+                self._hamiltonian_data.basis_data.interaction_type
+            ]
+        )
+        if not_supported:
+            v = self._hamiltonian_data.basis_data.interaction_type
+            raise NotImplementedError(
+                f"Interaction mode '{v}' "
+                "does not support simulation of noise types: "
+                f"{', '.join(not_supported)}."
+            )
+        noise_model = config.to_noise_model()
+        old_noise_set = set(
+            self._hamiltonian_data.noise_model.noise_types
+        )
+        new_noise_set = old_noise_set.union(noise_model.noise_types)
+        diff_noise_set = new_noise_set - old_noise_set
+        param_dict: dict[str, Any] = asdict(
+            self._hamiltonian_data.noise_model
+        )
+        relevant_params = NoiseModel._find_relevant_params(
+            diff_noise_set,
+            noise_model.state_prep_error,
+            noise_model.amp_sigma,
+            noise_model.laser_waist,
+        )
+        for param in relevant_params:
+            param_dict[param] = getattr(noise_model, param)
+        param_dict.pop("noise_types")
+        self.set_config(
+            SimConfig.from_noise_model(NoiseModel(**param_dict))
+        )
+
+    def show_config(self, solver_options: bool = False) -> None:
+        """Shows current configuration."""
+        print(self.config.__str__(solver_options))
+
+    def reset_config(self) -> None:
+        """Resets configuration to default."""
+        self.set_config(SimConfig())
+
+    @property
     def initial_state(self) -> Qobj:
         """The initial state of the simulation."""
         return self._initial_state
@@ -825,6 +960,47 @@ class TorchEmulator:
             eval_times, [0.0, self._tot_duration * 1e-3]
         )
         self._eval_times_instruction = value
+
+    def build_operator(self, operations: Union[list, tuple]) -> Qobj:
+        """Creates an operator with non-trivial actions on some qubits.
+
+        See :meth:`Hamiltonian.build_operator`.
+        """
+        return self._current_hamiltonian.build_operator(operations)
+
+    def get_hamiltonian(
+        self, time: float, noiseless: bool = False
+    ) -> Qobj:
+        r"""The Hamiltonian created from the sequence at a fixed time.
+
+        Note:
+            The whole Hamiltonian is divided by :math:`\hbar`, so its
+            units are rad/µs.
+
+        Args:
+            time: The time at which to extract the Hamiltonian (in ns).
+            noiseless: If True, returns the Hamiltonian without noise.
+
+        Returns:
+            A dense operator with coefficients extracted from the
+            effective sequence at the specified time.
+        """
+        if time > self._tot_duration:
+            raise ValueError(
+                f"Provided time (`time` = {time}) must be "
+                "less than or equal to the sequence duration "
+                f"({self._tot_duration})."
+            )
+        if time < 0:
+            raise ValueError(
+                f"Provided time (`time` = {time}) must be "
+                "greater than or equal to 0."
+            )
+
+        if noiseless:
+            return self._noiseless_hamiltonian._hamiltonian(time / 1000)
+
+        return self._current_hamiltonian._hamiltonian(time / 1000)
 
     @staticmethod
     def _get_min_variation(ch_sample: ChannelSamples) -> int:
@@ -1286,7 +1462,7 @@ class TorchEmulator:
             Qobj.deferred(functools.partial(states_arr.state, i), shape, dims)
             for i in range(len(states_arr))
         ]
-        return self._wrap_coherent(states)
+        return self._wrap_coherent(states, device_states=states_arr)
 
     @staticmethod
     def _make_ip_occ(hamiltonian: Hamiltonian) -> np.ndarray:
@@ -1304,8 +1480,14 @@ class TorchEmulator:
                 ip_occ[b, q] = digits == k
         return ip_occ
 
-    def _wrap_coherent(self, states: list[Qobj]) -> CoherentResults:
-        """Wraps per-eval-time states into CoherentResults."""
+    def _wrap_coherent(
+        self,
+        states: list[Qobj],
+        device_states: "_solver_mod.DeviceStateBatch | None" = None,
+    ) -> CoherentResults:
+        """Wraps per-eval-time states into CoherentResults; a device-
+        resident batch rides along as ``_device_states`` (the backend's
+        observables read it without fetching the states)."""
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", category=DeprecationWarning)
             results = [
@@ -1326,7 +1508,7 @@ class TorchEmulator:
             if "SPAM" in self.noise_model.noise_types
             else None
         )
-        return CoherentResults(
+        coherent = CoherentResults(
             results,
             self._hamiltonian_data.n_qudits,
             self.basis_name,
@@ -1334,6 +1516,8 @@ class TorchEmulator:
             self._meas_basis,
             meas_errors,
         )
+        coherent._device_states = device_states
+        return coherent
 
     def _validate_options(self, options: Any) -> None:
         if "max_step" not in options:

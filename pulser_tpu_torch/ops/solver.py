@@ -490,10 +490,12 @@ class DeviceStateBatch:
         eval_map: np.ndarray,
         to_complex: Callable[[np.ndarray], np.ndarray],
         normalize: bool = False,
+        to_complex_dev: Callable[[torch.Tensor], torch.Tensor] | None = None,
     ):
         self._dev: torch.Tensor | None = dev
         self._eval_map = np.asarray(eval_map)
         self._to_complex = to_complex
+        self._to_complex_dev = to_complex_dev or (lambda x: x)
         self.normalize = normalize
         self._all: np.ndarray | None = None
         self._cache: dict[int, np.ndarray] = {}
@@ -522,6 +524,18 @@ class DeviceStateBatch:
             host = self._dev[seg].cpu().numpy()
             self._cache[i] = self._post(self._to_complex(host))
         return self._cache[i]
+
+    def device_state(self, i: int) -> torch.Tensor:
+        """The ``(dim,)`` complex state at evaluation index ``i``, on the
+        device (renormalized there when ``normalize`` is set)."""
+        if self._dev is None:
+            # The batch was fetched whole: the states are on the host
+            return torch.from_numpy(self.state(i))
+        vec = self._to_complex_dev(self._dev[int(self._eval_map[int(i)])])
+        if not self.normalize:
+            return vec
+        nrm = torch.linalg.vector_norm(vec)
+        return vec if nrm == 0 else vec / nrm
 
     def fetch_all(self) -> np.ndarray:
         """All states as one host ``(n_eval, dim)`` array (cached)."""
@@ -1159,8 +1173,11 @@ def _sesolve_rk4_kernel(
     def to_complex(h: np.ndarray) -> np.ndarray:
         return (h[0].ravel() + 1j * h[1].ravel()).astype(cdtype)
 
+    def to_complex_dev(h: torch.Tensor) -> torch.Tensor:
+        return torch.complex(h[0].reshape(-1), h[1].reshape(-1))
+
     if lazy:
-        return DeviceStateBatch(out, plan.eval_map, to_complex)
+        return DeviceStateBatch(out, plan.eval_map, to_complex, to_complex_dev=to_complex_dev)
     out_np = out.cpu().numpy()[plan.eval_map]
     return np.stack([to_complex(h) for h in out_np])
 

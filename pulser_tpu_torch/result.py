@@ -17,6 +17,8 @@ from typing import Any
 import numpy as np
 
 import pulser_tpu_torch.backend.results as backend_results
+from pulser_tpu_torch.backend.default_observables import BitStrings
+from pulser_tpu_torch.math.multinomial import multinomial
 
 __all__ = ["Result", "SampledResult"]
 
@@ -51,17 +53,6 @@ def _support(weights: np.ndarray, width: int) -> dict[str, float]:
     """{bitstring: probability} over the nonzero entries only."""
     nz = np.flatnonzero(weights)
     return dict(zip(_labels_of(nz, width), weights[nz].tolist()))
-
-
-def multinomial(n_samples: int, probabilities: np.ndarray) -> np.ndarray:
-    """Indices of ``n_samples`` draws from ``probabilities``.
-
-    Matches the cumsum+searchsorted sampler of the reference
-    (``pulser-core/pulser/math/multinomial.py:18``) and uses the global
-    numpy RNG, so seeded draws agree with it.
-    """
-    rnd = np.random.rand(n_samples)
-    return np.searchsorted(np.cumsum(probabilities), rnd)
 
 
 @dataclass
@@ -144,9 +135,10 @@ class SampledResult(Result):
     def __post_init__(self) -> None:
         super().__post_init__()
         self.n_samples = sum(self.bitstring_counts.values())
-        self._store_raw(
-            uuid=_SHARED_BITSTRINGS_UUID,
-            tag="bitstrings",
+        via_obs = BitStrings(num_shots=self.n_samples)
+        via_obs._uuid = _SHARED_BITSTRINGS_UUID
+        self._store(
+            observable=via_obs,
             time=self.evaluation_time,
             value=Counter(self.bitstring_counts),
         )

@@ -39,6 +39,37 @@ P.emulator.TorchEmulator.from_sequence
 """
 
 
+#: A backend run on the CPU with every default observable, through the
+#: package root's exports.
+_BACKEND_RUN = """
+import numpy as np
+import pulser_tpu_torch as P
+reg = P.Register.square(2, spacing=7.0, prefix="q")
+seq = P.Sequence(reg, P.MockDevice)
+seq.declare_channel("ryd", "rydberg_global")
+seq.add(P.Pulse.ConstantPulse(200, np.pi, 0.0, 0.0), "ryd")
+ref = P.TorchState.from_state_amplitudes(
+    eigenstates=("r", "g"), amplitudes={"gggg": 1.0}
+)
+z = P.TorchOperator.from_operator_repr(
+    eigenstates=("r", "g"), n_qudits=4, operations=[(1.0, [({"rr": 1.0}, {0})])]
+)
+obs = [
+    P.StateResult(), P.BitStrings(num_shots=10), P.Fidelity(ref),
+    P.Expectation(z), P.CorrelationMatrix(), P.Occupation(), P.Energy(),
+    P.EnergyVariance(), P.EnergySecondMoment(),
+]
+res = P.TorchBackendV2(
+    seq, config=P.TorchConfig(observables=obs, torch_device="cpu")
+).run()
+assert len(res.get_result_tags()) == 9
+P.Results, P.ResultsSequence, P.EmulationConfig, P.EmulatorConfig
+P.BackendConfig, P.Callback, P.Observable, P.AggregationMethod
+P.TorchBackend, P.QutipBackend, P.QutipBackendV2, P.QutipConfig
+P.QutipState, P.QutipOperator
+"""
+
+
 def _foreign_modules(statements: str) -> list[str]:
     code = f"import sys\n{statements}\nprint({_FOREIGN})"
     out = subprocess.run(
@@ -111,6 +142,22 @@ def _foreign_modules(statements: str) -> list[str]:
         " S.mcsolve_rk4(np.eye(8)[0], plan, np.zeros(8), ((0, 1, 1),), 2, 3,"
         " [np.diag([1.0, 0.0])], ntraj=2, seed=1, device='cpu')",
         _EOM_SEQUENCE,
+        "import pulser_tpu_torch.backend, pulser_tpu_torch.backend.abc,"
+        " pulser_tpu_torch.backend.aggregators,"
+        " pulser_tpu_torch.backend.config,"
+        " pulser_tpu_torch.backend.default_observables,"
+        " pulser_tpu_torch.backend.observable,"
+        " pulser_tpu_torch.backend.operator,"
+        " pulser_tpu_torch.backend.results, pulser_tpu_torch.backend.state,"
+        " pulser_tpu_torch.backend._classproperty,"
+        " pulser_tpu_torch.exceptions.serialization,"
+        " pulser_tpu_torch.math.multinomial, pulser_tpu_torch.result",
+        "import pulser_tpu_torch.emulator.torch_backend,"
+        " pulser_tpu_torch.emulator.torch_config,"
+        " pulser_tpu_torch.emulator.torch_state,"
+        " pulser_tpu_torch.emulator.torch_op,"
+        " pulser_tpu_torch.emulator.aggregators",
+        _BACKEND_RUN,
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):
