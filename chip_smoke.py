@@ -161,6 +161,30 @@ to sample it, median of 3 each, beside the card's name and power limit):
     1e-3. Report the warm ``run()``, the observables' and the
     aggregation's host time, and the busy share.
 
+21. Run TRI16 (:func:`tri16_sequence`): AFM16's pulses on the 16 atoms of
+    ``AnalogDevice``'s calibrated ``TriangularLatticeLayout(61, 5)``
+    (``hexagonal_register(16)``), designed on ``MockDevice`` and moved
+    with ``seq.with_new_device(AnalogDevice)``. Its ``str`` and samples
+    must equal, bit for bit, those of the same sweep built on
+    ``AnalogDevice`` directly (:func:`tri16_direct_sequence`); it must take
+    K1 (``kind == "ip_sesolve_cuda"``) in exactly one launch, by the
+    wrapper's count and the C library's; its final state must be within
+    1 − F ≤ 1e-12 of the direct build's and its mid-sweep and final states
+    within 1 − F ≤ 1e-6 of ``tests/goldens/tri16_final.npz`` (the JAX
+    package's own ``with_new_device``, ``tools/tri16_reference.py``). Then
+    K1 against its plain version on TRI16's inputs, and the times. Its
+    kernel entry follows AFM16's.
+22. Run REGNOISE10 (:func:`regnoise10_sequence`: NOISY10 with register
+    noise, σ_xy ≈ 0.29 µm, σ_z ≈ 1.51 µm) after ``np.random.seed(1234)``.
+    It must take K2 (``kind == "mcwf_rows_cuda"``) in exactly one launch,
+    hand it 100 distinct interaction diagonals (one per jittered
+    trajectory, as the JAX package's batch has), give 1000 shots per
+    evaluation time and match ``tests/goldens/regnoise10_reference.json``
+    (``tools/regnoise10_reference.py``): trajectory-averaged Rydberg
+    populations within 1e-3, final counts within TV 0.02. K2 against its
+    plain version on the run's own inputs, the times and the busy share
+    as in 8. Its kernel entry follows NOISY10's.
+
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
 grid). The backend paths report their peak memory, their observables'
@@ -171,7 +195,8 @@ kernel); they report their times, stages, ms and kernel launches per
 stage, the bytes of the state and the device's busy share in the
 ``paths`` entry of the report.
 
-Each kernel's line in the report gives its launches on its main path,
+Each kernel's line in the report gives the path it ran (``path``), its
+launches on that path,
 its error against its plain version there, its time and the plain
 version's, and its bound: the larger of the float32 operations its
 algorithm needs on this run's inputs over the H100's published float32
@@ -225,6 +250,16 @@ _MESOLVE_GOLDENS = {
 #: final state, and the norm and mean number of ``d`` excitations at each
 #: evaluation time.
 _XY16_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "xy16_final.npz")
+#: The JAX package's TRI16 states (``tools/tri16_reference.py``) and its
+#: REGNOISE10 figures for seed 1234 (``tools/regnoise10_reference.py``).
+_TRI16_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "tri16_final.npz")
+_REGNOISE10_GOLDEN = os.path.join(
+    _ROOT, "tests", "goldens", "regnoise10_reference.json"
+)
+#: TRI16 switched onto AnalogDevice against the same sweep built on it
+#: directly: the same samples, so the same K1 solve (float32 on the card,
+#: the two runs' rounding the same but for the order of host reductions).
+SWITCH_FIDELITY_TOL = 1e-12
 #: The JAX package's quantum-jump scans for seed 1234 (single precision,
 #: on a CPU), written by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
 #: tools/mcwf_references.py``: RELAX10's step count, per-trajectory final
@@ -427,31 +462,34 @@ NOISY10_REFERENCE = {
 
 def _sweep_sequence(
     register, omega: float, delta_0: float, delta_f: float,
-    t_rise: int, t_sweep: int, t_fall: int,
+    t_rise: int, t_sweep: int, t_fall: int, P=None, device=None,
 ):
-    """A ramp-sweep-ramp ``Sequence`` on ``MockDevice``'s global Rydberg
-    channel, phase 0: an amplitude rise to ``omega`` at ``delta_0``, a
-    detuning sweep to ``delta_f`` at ``omega``, an amplitude fall at
-    ``delta_f`` (the ``Sequence`` calls of ``bench.py``)."""
-    from pulser_tpu_torch import MockDevice, Pulse, RampWaveform, Sequence
+    """A ramp-sweep-ramp ``Sequence`` on ``device``'s (default
+    ``MockDevice``'s) global Rydberg channel, phase 0: an amplitude rise
+    to ``omega`` at ``delta_0``, a detuning sweep to ``delta_f`` at
+    ``omega``, an amplitude fall at ``delta_f`` (the ``Sequence`` calls of
+    ``bench.py``), built with the package namespace ``P`` (default
+    ``pulser_tpu_torch``)."""
+    if P is None:
+        import pulser_tpu_torch as P
 
-    seq = Sequence(register, MockDevice)
+    seq = P.Sequence(register, device or P.MockDevice)
     seq.declare_channel("ryd", "rydberg_global")
     seq.add(
-        Pulse.ConstantDetuning(
-            RampWaveform(t_rise, 0.0, omega), delta_0, 0.0
+        P.Pulse.ConstantDetuning(
+            P.RampWaveform(t_rise, 0.0, omega), delta_0, 0.0
         ),
         "ryd",
     )
     seq.add(
-        Pulse.ConstantAmplitude(
-            omega, RampWaveform(t_sweep, delta_0, delta_f), 0.0
+        P.Pulse.ConstantAmplitude(
+            omega, P.RampWaveform(t_sweep, delta_0, delta_f), 0.0
         ),
         "ryd",
     )
     seq.add(
-        Pulse.ConstantDetuning(
-            RampWaveform(t_fall, omega, 0.0), delta_f, 0.0
+        P.Pulse.ConstantDetuning(
+            P.RampWaveform(t_fall, omega, 0.0), delta_f, 0.0
         ),
         "ryd",
     )
@@ -465,6 +503,10 @@ def _sampled(seq, *rest) -> tuple:
     return (sample(seq), seq.register, seq.device) + rest
 
 
+#: AFM16's pulses: Ω = 2π·2, δ from −2π·6 to 2π·2, 252/2700/252 ns.
+AFM16_SWEEP = (2.0 * 2 * np.pi, -6 * 2 * np.pi, 2 * 2 * np.pi, 252, 2700, 252)
+
+
 def afm16_sequence():
     """The ``Sequence`` of the 16-atom AFM sweep.
 
@@ -476,14 +518,46 @@ def afm16_sequence():
     from pulser_tpu_torch import Register
 
     return _sweep_sequence(
-        Register.square(4, spacing=6.0, prefix="q"),
-        2.0 * 2 * np.pi, -6 * 2 * np.pi, 2 * 2 * np.pi, 252, 2700, 252,
+        Register.square(4, spacing=6.0, prefix="q"), *AFM16_SWEEP
     )
 
 
 def afm16_inputs() -> tuple:
     """``(samples, register, device)`` of :func:`afm16_sequence`."""
     return _sampled(afm16_sequence())
+
+
+def tri16_build(P, direct: bool = False):
+    """The TRI16 ``Sequence`` built with the package namespace ``P``
+    (``pulser_tpu_torch``, or ``pulser_tpu`` for its reference): the 16
+    atoms of ``hexagonal_register(16)`` on ``AnalogDevice``'s calibrated
+    ``TriangularLatticeLayout(61, 5)`` (a triangular lattice at 5 µm) under
+    AFM16's pulses, built on ``MockDevice`` and moved with
+    ``seq.with_new_device(AnalogDevice)``, the usual way to submit a
+    sequence; with ``direct``, built on ``AnalogDevice`` itself."""
+    reg = P.AnalogDevice.pre_calibrated_layouts[0].hexagonal_register(16)
+    if direct:
+        return _sweep_sequence(reg, *AFM16_SWEEP, P=P, device=P.AnalogDevice)
+    seq = _sweep_sequence(reg, *AFM16_SWEEP, P=P)
+    with warnings.catch_warnings():
+        # The Rydberg level changes (70 on MockDevice, 60 on AnalogDevice)
+        warnings.filterwarnings("ignore", "Switching to a device with a")
+        return seq.with_new_device(P.AnalogDevice)
+
+
+def tri16_sequence():
+    """The ``pulser_tpu_torch.Sequence`` of TRI16, switched onto
+    ``AnalogDevice`` (:func:`tri16_build`)."""
+    import pulser_tpu_torch
+
+    return tri16_build(pulser_tpu_torch)
+
+
+def tri16_direct_sequence():
+    """TRI16 built on ``AnalogDevice`` directly (:func:`tri16_build`)."""
+    import pulser_tpu_torch
+
+    return tri16_build(pulser_tpu_torch, direct=True)
 
 
 #: The noise of the noisy 10-atom run (``bench.py::build_noisy_10atom``).
@@ -544,6 +618,21 @@ def noisy10_inputs() -> tuple:
     """``(samples, register, device, noise_model)`` of
     :func:`noisy10_sequence`."""
     return _sampled(*noisy10_sequence())
+
+
+#: The register noise REGNOISE10 adds to NOISY10: traps of waist 1 µm and
+#: depth 150 µK at NOISY10's 50 µK, so σ_xy ≈ 0.29 µm in the plane and
+#: σ_z ≈ 1.51 µm along the trap axis.
+REGNOISE10_TRAP = dict(trap_waist=1.0, trap_depth=150.0)
+
+
+def regnoise10_sequence() -> tuple:
+    """``(sequence, noise_model)`` of REGNOISE10: NOISY10
+    (:func:`noisy10_sequence`) with register noise added
+    (:data:`REGNOISE10_TRAP`). Each trajectory's atoms are jittered in
+    three dimensions, so each of the 100 trajectories has its own
+    interaction diagonal and laser-waist profile."""
+    return _noisy10(**REGNOISE10_TRAP)
 
 
 def pauli10_sequence() -> tuple:
@@ -1260,6 +1349,26 @@ def _barrier_us(K, blocks: int, threads: int, stages: int) -> float:
     return statistics.median(times[1:])
 
 
+def _k1_on_run(K, S, emu, device, what: str) -> tuple:
+    """K1 against its plain version on the inputs of ``emu``'s last
+    16-atom run (its plan, initial state and interaction diagonal):
+    ``(args, kw, K1's states, max |Δ|)``; fails beyond SWEEP_TOL."""
+    import torch
+
+    psi0 = emu._initial_ket().astype(np.complex64)
+    args, kw = S.ip_kernel_inputs(
+        psi0, emu._plan_cache[1], emu._current_hamiltonian.int_diag, 16,
+        device,
+    )
+    got = K.ip_sesolve(*args, **kw)
+    want = K.ip_sesolve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"ip_sesolve vs plain on {what}: max|d| = {err:.3e}")
+    _check(err <= SWEEP_TOL, f"{what} K1: {err:.3e} > {SWEEP_TOL}")
+    return args, kw, got, err
+
+
 def _afm16_path(K, S, device, card: str) -> dict:
     """The noiseless main path at full size, counted, then K1 against its
     plain version on the sweep's own inputs, and the times."""
@@ -1295,15 +1404,7 @@ def _afm16_path(K, S, device, card: str) -> dict:
         _check(value < FIDELITY_TOL, f"{name} 1-F {value:.3e}")
 
     plan = emu._plan_cache[1]
-    psi0 = emu._initial_ket().astype(np.complex64)
-    ham = emu._current_hamiltonian
-    args, kw = S.ip_kernel_inputs(psi0, plan, ham.int_diag, 16, device)
-    got = K.ip_sesolve(*args, **kw)
-    want = K.ip_sesolve_reference(*args, **kw)
-    torch.cuda.synchronize()
-    sweep_err = float((got - want).abs().max())
-    print(f"ip_sesolve vs plain on the sweep: max|d| = {sweep_err:.3e}")
-    _check(sweep_err <= SWEEP_TOL, f"sweep: {sweep_err:.3e} > {SWEEP_TOL}")
+    args, kw, got, sweep_err = _k1_on_run(K, S, emu, device, "AFM16")
     kernel_s = _median_seconds(lambda: K.ip_sesolve(*args, **kw))
     plain_s = _median_seconds(lambda: K.ip_sesolve_reference(*args, **kw))
     run_s = _median_seconds(lambda: emu.run().states[-1].full())
@@ -1338,11 +1439,124 @@ def _afm16_path(K, S, device, card: str) -> dict:
     )
     return {
         "name": "ip_sesolve",
+        "path": "AFM16",
         "route": "cuda",
         "source": "pulser_tpu_torch/csrc/ip_sesolve.cu",
         "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
         "launches": launches,
         "max_abs_err": sweep_err,
+        "ms": kernel_s * 1e3,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def _tri16_path(K, S, device, card: str) -> dict:
+    """TRI16 at full size: the sequence designed on ``MockDevice`` and
+    moved with ``with_new_device(AnalogDevice)`` runs on K1 in one launch;
+    its samples equal the direct build's bit for bit, its final state
+    equals that build's and the JAX package's golden; then K1 against its
+    plain version on TRI16's own inputs, and the times."""
+    import torch
+
+    from pulser_tpu_torch import sample
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    _sequence_ms("TRI16", tri16_sequence, card)
+    seq, direct = tri16_sequence(), tri16_direct_sequence()
+    _check(seq.device.name == "AnalogDevice", "switched onto AnalogDevice")
+    _check(
+        seq.device.register_is_from_calibrated_layout(seq.register),
+        "TRI16's register is on AnalogDevice's calibrated layout",
+    )
+    _check(str(seq) == str(direct), "str(switched) == str(direct build)")
+    got_s, want_s = sample(seq), sample(direct)
+    for ch, cs in want_s.channel_samples.items():
+        for field in ("amp", "det", "phase"):
+            _check(
+                np.array_equal(
+                    np.asarray(getattr(got_s.channel_samples[ch], field)),
+                    np.asarray(getattr(cs, field)),
+                ),
+                f"TRI16 {ch}.{field} samples bit-equal to the direct build",
+            )
+    eval_times = np.linspace(0, seq.get_duration() * 1e-3, 101)
+    golden = np.load(_TRI16_GOLDEN)
+    _reset_launches(K)
+    c_before = K.device_launches("ip_sesolve")
+    t0 = time.perf_counter()
+    emu = TorchEmulator.from_sequence(seq, evaluation_times=eval_times)
+    res = emu.run()
+    mid = res.states[50].full()[:, 0]
+    fin = res.states[-1].full()[:, 0]
+    cold_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = _launches(K)
+    c_launches = K.device_launches("ip_sesolve") - c_before
+    info = dict(S.last_solve_info)
+    print(
+        f"TRI16: {info}, launches={launches}, C library count"
+        f" {c_launches}, cold {cold_s:.3f} s"
+    )
+    _check(info.get("kind") == "ip_sesolve_cuda", "TRI16 takes K1")
+    _check(launches["ip_sesolve"] == 1, "one K1 launch on TRI16")
+    _check(c_launches == 1, "one K1 device launch by the library's count")
+    _check(
+        sum(launches.values()) == 1, f"no other kernel on TRI16: {launches}"
+    )
+    for name, state in (("mid", mid), ("final", fin)):
+        _check(state.shape == (1 << 16,), f"TRI16 {name} state shape")
+        _check(bool(np.isfinite(state).all()), f"TRI16 {name} finite")
+    direct_fin = (
+        TorchEmulator.from_sequence(direct, evaluation_times=eval_times)
+        .run()
+        .states[-1]
+        .full()[:, 0]
+    )
+    vs_direct = 1 - _fidelity(direct_fin, fin)
+    one_minus_f = {
+        "mid": 1 - _fidelity(golden["mid_state"], mid),
+        "final": 1 - _fidelity(golden["final_state"], fin),
+    }
+    print(
+        f"TRI16 1-F vs the direct build: {vs_direct:.3e}; vs the JAX"
+        f" package's golden: {one_minus_f}"
+    )
+    _check(
+        vs_direct <= SWITCH_FIDELITY_TOL,
+        f"TRI16 vs direct build 1-F {vs_direct:.3e}",
+    )
+    for name, value in one_minus_f.items():
+        _check(value <= FIDELITY_TOL, f"TRI16 {name} 1-F {value:.3e}")
+
+    plan = emu._plan_cache[1]
+    args, kw, got, err = _k1_on_run(K, S, emu, device, "TRI16")
+    kernel_s = _median_seconds(lambda: K.ip_sesolve(*args, **kw))
+    plain_s = _median_seconds(lambda: K.ip_sesolve_reference(*args, **kw))
+    run_s = _median_seconds(lambda: emu.run().states[-1].full())
+    n, dim = 16, 1 << 16
+    stages = info["n_steps"] * 4
+    bound_ms, bound_by = _bound(
+        stages * dim * _ops_per_amp_stage("ip_sesolve", n),
+        _nbytes(*args, got),
+    )
+    print(
+        f"times on {card}: TRI16 ip_sesolve {kernel_s * 1e3:.3f} ms"
+        f" ({kernel_s * 1e6 / stages:.3f} us per RK4 stage), plain"
+        f" {plain_s * 1e3:.3f} ms, warm run() {run_s * 1e3:.3f} ms"
+        f" ({info['n_steps']} RK4 steps, {plan.seg_dts.shape[0]} segments);"
+        f" bound {bound_ms:.3f} ms ({bound_by})"
+    )
+    return {
+        "name": "ip_sesolve",
+        "path": "TRI16",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/ip_sesolve.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
+        "launches": launches["ip_sesolve"],
+        "max_abs_err": err,
         "ms": kernel_s * 1e3,
         "plain_ms": plain_s * 1e3,
         "bound_ms": bound_ms,
@@ -1419,6 +1633,37 @@ def _odd_trajectories(per_traj, jumps, jumps_p, tol: float) -> list:
     )
 
 
+def _k2_on_run(K, S, captured, device, what: str) -> tuple:
+    """K2 against its plain version on the inputs of a recorded
+    ``mcsolve_rows_codes`` call, trajectory by trajectory: ``(inputs,
+    collapse spec, K2's states, jump counts, max |Δ|)``. Fails unless all
+    but at most one trajectory (whose jump record may differ) are within
+    MCWF_TOL."""
+    import torch
+
+    psi0_n, plans, diags, _, _, _, cops, seeds, _ = captured["args"]
+    cops_spec = S._diag_cops_spec(cops)
+    margs = S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
+    got, jumps = K.mcwf_rows(*margs, cops=cops_spec)
+    want, jumps_p = K.mcwf_rows_reference(*margs, cops=cops_spec)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(got).all()), f"finite K2 states on {what}")
+    per_traj = (got - want).abs().amax(dim=(1, 2, 3))
+    odd = _odd_trajectories(per_traj, jumps, jumps_p, MCWF_TOL)
+    keep = torch.ones_like(per_traj, dtype=torch.bool)
+    keep[odd] = False
+    err = float(per_traj[keep].max())
+    print(
+        f"mcwf_rows vs plain on {what}: max|d| = {err:.3e}"
+        f" over {int(keep.sum())} trajectories; jump record differs for"
+        f" {odd}; jumps per trajectory: mean"
+        f" {float(jumps.float().mean()):.2f}, max {int(jumps.max())}"
+    )
+    _check(len(odd) <= 1, f"K2 vs plain differ on trajectories {odd}")
+    _check(err <= MCWF_TOL, f"K2 {what}: {err:.3e} > {MCWF_TOL}")
+    return margs, cops_spec, got, jumps, err
+
+
 def _noisy10_path(K, S, device, card: str) -> dict:
     """The noisy main path at full size (K2), against the JAX package's
     figures, then K2 against its plain version on the run's own inputs,
@@ -1442,28 +1687,12 @@ def _noisy10_path(K, S, device, card: str) -> dict:
     final_counts = dict(nres[-1].bitstring_counts)
     tv = _tv_distance(final_counts, NOISY10_REFERENCE["final_counts"])
 
-    psi0_n, plans, diags, _, _, n_q, cops, seeds, sample_spec = captured[
+    psi0_n, plans, diags, _, _, n_q, _, seeds, sample_spec = captured[
         "args"
     ]
-    cops_spec = S._diag_cops_spec(cops)
-    margs = S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
-    got, jumps = K.mcwf_rows(*margs, cops=cops_spec)
-    want, jumps_p = K.mcwf_rows_reference(*margs, cops=cops_spec)
-    torch.cuda.synchronize()
-    _check(bool(torch.isfinite(got).all()), "finite K2 states")
-    per_traj = (got - want).abs().amax(dim=(1, 2, 3))
-    odd = _odd_trajectories(per_traj, jumps, jumps_p, MCWF_TOL)
-    keep = torch.ones_like(per_traj, dtype=torch.bool)
-    keep[odd] = False
-    mcwf_err = float(per_traj[keep].max())
-    print(
-        f"mcwf_rows vs plain on the noisy run: max|d| = {mcwf_err:.3e}"
-        f" over {int(keep.sum())} trajectories; jump record differs for"
-        f" {odd}; jumps per trajectory: mean"
-        f" {float(jumps.float().mean()):.2f}, max {int(jumps.max())}"
+    margs, cops_spec, got, jumps, mcwf_err = _k2_on_run(
+        K, S, captured, device, "NOISY10"
     )
-    _check(len(odd) <= 1, f"K2 vs plain differ on trajectories {odd}")
-    _check(mcwf_err <= MCWF_TOL, f"K2 noisy: {mcwf_err:.3e} > {MCWF_TOL}")
     pops = _rydberg_populations(_plane_probs(got[:, -1]), n_q).mean(axis=0)
     pop_err = float(
         np.max(np.abs(pops - NOISY10_REFERENCE["rydberg_populations"]))
@@ -1531,6 +1760,7 @@ def _noisy10_path(K, S, device, card: str) -> dict:
     _print_busy("noisy run()", *_device_busy(noisy.run)[:2])
     return {
         "name": "mcwf_rows",
+        "path": "NOISY10",
         "route": "cuda",
         "source": "pulser_tpu_torch/csrc/mcwf_rows.cu",
         "replaces": "pulser_tpu/ops/pallas_kernels.py:824",
@@ -1538,6 +1768,112 @@ def _noisy10_path(K, S, device, card: str) -> dict:
         "max_abs_err": mcwf_err,
         "ms": mcwf_s * 1e3,
         "plain_ms": mcwf_plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def _regnoise10_path(K, S, device, card: str) -> dict:
+    """REGNOISE10 at full size: NOISY10 with register noise, 100
+    trajectories with 100 distinct interaction diagonals, on K2 in one
+    launch, against the JAX package's figures for the same seed; then K2
+    against its plain version on the run's own inputs, the times and the
+    device's busy share."""
+    import torch
+
+    with open(_REGNOISE10_GOLDEN) as f:
+        ref = json.load(f)
+    _sequence_ms("REGNOISE10", lambda: regnoise10_sequence()[0], card)
+    seq_noise = regnoise10_sequence()
+    _check(
+        sorted(seq_noise[1].noise_types) == ref["noise_types"],
+        f"REGNOISE10 noise types {sorted(seq_noise[1].noise_types)}",
+    )
+    c_before = K.device_launches("mcwf_rows")
+    emu, res, launches, cold_s, captured = _run_noisy(
+        K, seq_noise, ref["seed"], "mcsolve_rows_codes", S
+    )
+    c_launches = K.device_launches("mcwf_rows") - c_before
+    info = dict(S.last_solve_info)
+    print(
+        f"REGNOISE10: {info}, launches={launches}, C library count"
+        f" {c_launches}, cold {cold_s:.3f} s"
+    )
+    _check(info.get("kind") == "mcwf_rows_cuda", "REGNOISE10 takes K2")
+    _check(launches["mcwf_rows"] == 1, "one K2 launch on REGNOISE10")
+    _check(c_launches == 1, "one K2 device launch by the library's count")
+    _check(
+        sum(launches.values()) == 1,
+        f"no other kernel on REGNOISE10: {launches}",
+    )
+    _check(info["n_steps"] == ref["n_steps"], "the JAX package's grid")
+    _check_shots(res)
+
+    psi0_n, plans, diags, _, _, n_q, _, seeds, _ = captured["args"]
+    margs, cops_spec, got, jumps, err = _k2_on_run(
+        K, S, captured, device, "REGNOISE10"
+    )
+    distinct = int(torch.unique(margs[9], dim=0).shape[0])
+    print(
+        f"REGNOISE10: {distinct} distinct interaction diagonals among the"
+        f" {margs[9].shape[0]} handed to K2 (the JAX package's batch:"
+        f" {ref['distinct_diagonals']})"
+    )
+    _check(
+        distinct == ref["distinct_diagonals"] == plans.n_traj,
+        f"one diagonal per trajectory: {distinct}",
+    )
+    pops = _rydberg_populations(_plane_probs(got[:, -1]), n_q).mean(axis=0)
+    pop_err = float(np.max(np.abs(pops - ref["rydberg_populations"])))
+    tv = _tv_distance(dict(res[-1].bitstring_counts), ref["final_counts"])
+    print(
+        f"REGNOISE10 vs the JAX package (seed {ref['seed']}): Rydberg"
+        f" populations max|d| = {pop_err:.3e}, final counts TV = {tv:.4f}"
+    )
+    _check(
+        pop_err <= POPULATION_TOL, f"REGNOISE10 populations {pop_err:.3e}"
+    )
+    _check(tv <= COUNTS_TV_TOL, f"REGNOISE10 count TV {tv:.4f}")
+
+    mcwf_s = _median_seconds(lambda: K.mcwf_rows(*margs, cops=cops_spec))
+    t0 = time.perf_counter()
+    K.mcwf_rows_reference(*margs, cops=cops_spec)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    run_s = _median_seconds(emu.run)
+    opts: dict = {}
+    emu._validate_options(opts)  # the options run() solves with
+    prep_s = _median_seconds(lambda: emu._lindblad_batch_prep(dict(opts)))
+    stage_s = _median_seconds(
+        lambda: S.rows_kernel_inputs(psi0_n, plans, diags, seeds, device)
+    )
+    n_traj, dim = plans.n_traj, 1 << n_q
+    bound_ms, bound_by = _bound(
+        n_traj * info["n_steps"] * 4 * dim
+        * _ops_per_amp_stage("mcwf_rows", n_q)
+        + int(jumps.sum()) * dim * (2 * n_q + 9),
+        _nbytes(*margs, got, jumps),
+    )
+    print(
+        f"times on {card}: REGNOISE10 mcwf_rows {mcwf_s * 1e3:.3f} ms,"
+        f" plain (once) {plain_s * 1e3:.3f} ms, warm run()"
+        f" {run_s * 1e3:.3f} ms, of which host prep {prep_s * 1e3:.3f} ms"
+        f" and staging {stage_s * 1e3:.3f} ms ({info['n_steps']} RK4"
+        f" steps, {info['n_traj']} trajectories); bound {bound_ms:.3f} ms"
+        f" ({bound_by})"
+    )
+    _print_busy("REGNOISE10 run()", *_device_busy(emu.run)[:2])
+    return {
+        "name": "mcwf_rows",
+        "path": "REGNOISE10",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/mcwf_rows.cu",
+        "replaces": "pulser_tpu/ops/pallas_kernels.py:824",
+        "launches": launches["mcwf_rows"],
+        "max_abs_err": err,
+        "ms": mcwf_s * 1e3,
+        "plain_ms": plain_s * 1e3,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
@@ -1659,6 +1995,7 @@ def _pauli10_path(K, S, device, card: str) -> dict:
     _print_busy("PAULI10 run()", *_device_busy(pauli.run)[:2])
     return {
         "name": "mcwf",
+        "path": "PAULI10",
         "route": "cuda",
         "source": "pulser_tpu_torch/csrc/mcwf.cu",
         "replaces": "pulser_tpu/ops/pallas_kernels.py:412",
@@ -1822,6 +2159,7 @@ def _spd10_path(K, S, device, card: str) -> dict:
     _print_busy("SPD10 run()", *_device_busy(spd.run)[:2])
     return {
         "name": "ip_sesolve_batched",
+        "path": "SPD10",
         "route": "cuda",
         "source": "pulser_tpu_torch/csrc/ip_sesolve_batched.cu",
         "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
@@ -2699,8 +3037,10 @@ def main() -> int:
     report = {
         "kernels": [
             _afm16_path(K, S, device, card),  # 6
+            _tri16_path(K, S, device, card),  # 21
             _spd10_path(K, S, device, card),  # 11-12
             _noisy10_path(K, S, device, card),  # 7-8
+            _regnoise10_path(K, S, device, card),  # 22
             _pauli10_path(K, S, device, card),  # 9-10
         ],
         "paths": [

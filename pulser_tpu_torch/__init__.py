@@ -5,8 +5,8 @@ Mirrors ``pulser_tpu``'s module paths with ``Tpu`` replaced by
 ``Sequence(register, device)`` → ``declare_channel`` →
 ``add(Pulse(...))`` → ``TorchEmulator.from_sequence(seq).run()``, or
 through the backend API, ``TorchBackendV2(seq, config=TorchConfig(
-observables=[...])).run()``. Serialization, drawing and device switching
-are not ported yet (see ROADMAP.md).
+observables=[...])).run()``. Serialization is not ported yet (see
+ROADMAP.md).
 """
 
 from pulser_tpu_torch.waveforms import (
@@ -23,6 +23,7 @@ from pulser_tpu_torch.parametrized import Variable
 from pulser_tpu_torch.register import (
     MappableRegister,
     Register,
+    Register3D,
     RegisterLayout,
 )
 from pulser_tpu_torch.noise_model import NoiseModel
@@ -52,6 +53,7 @@ __all__ = [
     "Variable",
     "MappableRegister",
     "Register",
+    "Register3D",
     "RegisterLayout",
     "NoiseModel",
     "AnalogDevice",

@@ -42,8 +42,7 @@ def _qpu_compatibility_checks(sequence: PulserSequence) -> None:
     if (
         not device.accepts_new_layouts
         and layout is not None
-        # The port's devices do not carry calibrated layouts yet
-        and layout not in getattr(device, "pre_calibrated_layouts", ())
+        and layout not in device.pre_calibrated_layouts
     ):
         raise ValueError(
             f"'{device.name}' does not accept new register layouts so"

@@ -3,8 +3,7 @@
 Behavioral parity with reference
 ``pulser-core/pulser/devices/_device_datacls.py:86-1195``: same frozen
 dataclasses, validation rules, C6/C3 lookup, blockade-radius math, and
-spec pretty-printers. Calibrated layouts (``pre_calibrated_layouts``)
-and serialization are not ported yet (see ROADMAP.md).
+spec pretty-printers. Serialization is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -806,6 +805,9 @@ class Device(BaseDevice):
     max_atom_num: int
     max_radial_distance: int
     requires_layout: bool = True
+    pre_calibrated_layouts: tuple[RegisterLayout, ...] = field(
+        default_factory=tuple
+    )
     accepts_new_layouts: bool = True
 
     def __post_init__(self) -> None:
@@ -821,10 +823,41 @@ class Device(BaseDevice):
                     f" For channel '{ch_id}', please define: "
                     f"'{_sep.join(ch_obj._undefined_fields())}'"
                 )
+        for layout in self.pre_calibrated_layouts:
+            self.validate_layout(layout)
 
     @property
     def _optional_parameters(self) -> tuple[str, ...]:
         return ()
+
+    @property
+    def calibrated_register_layouts(self) -> dict[str, RegisterLayout]:
+        """Register layouts already calibrated on this device."""
+        return {
+            str(layout): layout for layout in self.pre_calibrated_layouts
+        }
+
+    def is_calibrated_layout(self, register_layout: RegisterLayout) -> bool:
+        """Checks whether a layout is within the calibrated layouts."""
+        return any(
+            register_layout == layout
+            for layout in self.calibrated_register_layouts.values()
+        )
+
+    def register_is_from_calibrated_layout(
+        self, register: BaseRegister | MappableRegister
+    ) -> bool:
+        """Checks if a register comes from a calibrated layout."""
+        if not isinstance(register, (BaseRegister, MappableRegister)):
+            raise TypeError(
+                "The register to check must be of type "
+                "BaseRegister or MappableRegister."
+            )
+        if isinstance(register, BaseRegister) and register.layout is None:
+            return False
+        return self.is_calibrated_layout(
+            cast(RegisterLayout, register.layout)
+        )
 
     def to_virtual(self) -> VirtualDevice:
         """Converts the Device into a VirtualDevice."""

@@ -2,8 +2,6 @@
 
 Spec parity with reference ``pulser-core/pulser/devices/_devices.py``
 (the numbers are hardware specifications, part of the public contract).
-``AnalogDevice``'s pre-calibrated ``TriangularLatticeLayout(61, 5)`` is
-left out until register layouts are ported (see ROADMAP.md).
 """
 
 import numpy as np
@@ -11,6 +9,7 @@ import numpy as np
 from pulser_tpu_torch.channels import DMM, Raman, Rydberg
 from pulser_tpu_torch.channels.eom import RydbergBeam, RydbergEOM
 from pulser_tpu_torch.devices._device_datacls import Device
+from pulser_tpu_torch.register.special_layouts import TriangularLatticeLayout
 
 _2PI = 2 * np.pi
 
@@ -71,6 +70,7 @@ AnalogDevice = Device(
     requires_layout=True,
     accepts_new_layouts=True,
     optimal_layout_filling=0.45,
+    pre_calibrated_layouts=(TriangularLatticeLayout(61, 5),),
     max_runs=2000,
     max_sequence_duration=6000,
     channel_objects=(

@@ -4,8 +4,8 @@ Behavioral parity with reference
 ``pulser-simulation/pulser_simulation/simresults.py:38-568``, over
 dense numpy states instead of qutip objects: ``CoherentResults`` and
 ``NoisyResults`` with its pseudo-density expectation path, and the SPAM
-measurement errors of coherent results. Plotting is not ported (see
-ROADMAP.md).
+measurement errors of coherent results, and the plots of expectation
+values (with error bars for noisy results).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import typing
 from abc import ABC, abstractmethod
 from collections import Counter
 from functools import lru_cache
-from typing import Optional, TypeVar, Union, cast
+from typing import Optional, Tuple, TypeVar, Union, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
@@ -162,6 +162,24 @@ class SimulationResults(ABC, ResultsSequence[ResultType]):
         """The result of multiple measurements of the final state."""
         return self.sample_state(self._sim_times[-1], N_samples)
 
+    def plot(
+        self, op: Qobj, fmt: str = "", label: str = ""
+    ) -> None:
+        """Plots the expectation value of a given operator op.
+
+        Args:
+            op: Operator whose expectation value is wanted.
+            fmt: Curve plot format.
+            label: Curve label.
+        """
+        import matplotlib.pyplot as plt
+
+        plt.plot(
+            self._sim_times, self.expect([op])[0], fmt, label=label
+        )
+        plt.xlabel("Time (µs)")
+        plt.ylabel("Expectation value")
+
     def _get_index_from_time(
         self, t_float: float, tol: float = 1.0e-3
     ) -> int:
@@ -266,6 +284,52 @@ class NoisyResults(SimulationResults[SampledResult]):
     def get_final_state(self) -> Qobj:
         """The final state as a diagonal density matrix."""
         return self.get_state(self._sim_times[-1])
+
+    def plot(
+        self,
+        op: Qobj,
+        fmt: str = ".",
+        label: str = "",
+        error_bars: bool = True,
+    ) -> None:
+        """Plots the expectation value of a given (diagonal) operator.
+
+        Args:
+            op: Operator whose expectation value is wanted.
+            fmt: Curve plot format.
+            label: y-Axis label.
+            error_bars: Choose to display error bars.
+        """
+        import matplotlib.pyplot as plt
+
+        def get_error_bars() -> Tuple[ArrayLike, ArrayLike]:
+            moy = self.expect([op])[0]
+            op_arr = np.asarray(
+                op.full() if isinstance(op, Qobj) else op
+            )
+            op2 = op_arr @ op_arr
+            moy2 = self.expect([op2])[0]
+            variance = np.asarray(moy2) - np.asarray(moy) ** 2
+            standard_dev = np.sqrt(
+                np.maximum(variance, 0.0) / self.n_measures
+            )
+            return moy, standard_dev
+
+        if error_bars:
+            moy, st = get_error_bars()
+            plt.errorbar(
+                self._sim_times,
+                moy,
+                st,
+                fmt=fmt,
+                lw=1,
+                capsize=3,
+                label=label,
+            )
+            plt.xlabel("Time (µs)")
+            plt.ylabel("Expectation value")
+        else:
+            super().plot(op, fmt, label)
 
 
 class CoherentResults(SimulationResults[TorchResult]):

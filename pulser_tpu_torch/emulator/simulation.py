@@ -42,8 +42,8 @@ The evaluation-times semantics (Full/Minimal/array/fraction, union with
 {0, T}), the +1 duration extension, the step policy, the noise draws and
 the order in which the numpy global RNG is consumed match the JAX
 package exactly, so both build the same plan and a seeded run gives the
-same counts. Register noise raises ``NotImplementedError`` (see
-ROADMAP.md).
+same counts. Register noise gives each trajectory its own jittered
+``Register3D``, and so its own interaction diagonal and waist profile.
 """
 
 from __future__ import annotations
@@ -262,8 +262,7 @@ class TorchEmulator:
         config: (Deprecated) SimConfig; use ``noise_model``.
         evaluation_times: "Full", "Minimal", an array of times (in µs)
             or a float sampling fraction.
-        noise_model: The noise model for the simulation (register noise
-            is not ported; see the module docstring).
+        noise_model: The noise model for the simulation.
         solver: Solver selection (see :class:`Solver`).
         n_trajectories: The number of noise trajectories to average over
             when the emulation includes stochastic noise.
@@ -2098,6 +2097,31 @@ class TorchEmulator:
         for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
             total_count[v][lab] += c
         return total_count
+
+    def draw(
+        self,
+        draw_phase_area: bool = False,
+        draw_phase_shifts: bool = False,
+        draw_phase_curve: bool = False,
+        fig_name: str | None = None,
+        kwargs_savefig: dict = {},
+    ) -> None:
+        """Draws the samples of the sequence used for the simulation."""
+        import matplotlib.pyplot as plt
+
+        from pulser_tpu_torch.sequence._seq_drawer import draw_samples
+
+        draw_samples(
+            self.samples_obj,
+            self._register,
+            self._sampling_rate,
+            draw_phase_area=draw_phase_area,
+            draw_phase_shifts=draw_phase_shifts,
+            draw_phase_curve=draw_phase_curve,
+        )
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        plt.show()
 
     @classmethod
     def from_sequence(

@@ -15,7 +15,9 @@ from typing import ClassVar, Optional
 
 from pulser_tpu_torch.exceptions.base import PulserError
 
-#: The ROADMAP.md item that brings the JSON layer to the port.
+#: The ROADMAP.md item that brings the JSON layer, the remote backends,
+#: sharding over several devices and serving to the port: the JSON
+#: refusals and the solver's sharding refusals quote it.
 JSON_ROADMAP_ITEM = "JSON, remote backends, parallel and serving"
 
 

@@ -30,6 +30,8 @@ from pulser_tpu_torch.channels.base_channel import STATES_RANK, Channel, States
 from pulser_tpu_torch.devices._device_datacls import COORD_PRECISION, BaseDevice
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.noise_model import _doppler_sigma as doppler_sigma
+from pulser_tpu_torch.noise_model import _register_sigma_xy_z
+from pulser_tpu_torch.register import Register3D
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
 from pulser_tpu_torch.sampler.samples import (
     ChannelSamples,
@@ -96,16 +98,31 @@ def has_shot_to_shot_except_spam(noise_model: NoiseModel) -> bool:
 
 def _noisy_register(
     q_dict: dict[QubitId, pm.AbstractArray], noise_model: NoiseModel
-) -> BaseRegister:
+) -> Register3D:
     """Add Gaussian noise to the positions of the register.
 
-    The jittered positions are three-dimensional, and ``Register3D`` is
-    not ported yet.
+    RNG contract: one (N, 2) in-plane normal draw at σ_xy followed by
+    one (N,) axial draw at σ_z — this exact order reproduces the
+    reference's global-RNG stream under a fixed seed.
     """
-    raise NotImplementedError(
-        "Not ported: register noise needs Register3D (ROADMAP.md Queue 1,"
-        " 'Register noise and Register3D')."
+    sigma_xy, sigma_z = _register_sigma_xy_z(
+        noise_model.temperature,
+        noise_model.trap_waist,
+        cast(float, noise_model.trap_depth),
     )
+    n_atoms = len(q_dict)
+    jitter = np.column_stack(
+        (
+            np.random.normal(0, sigma_xy, (n_atoms, 2)),
+            np.random.normal(0, sigma_z, n_atoms),
+        )
+    )
+    noisy = {}
+    for (qid, pos), dp in zip(q_dict.items(), jitter):
+        if len(pos) == 2:
+            pos = pm.concatenate((pos, [0.0]))
+        noisy[qid] = pos + dp
+    return Register3D(noisy)
 
 
 def _generate_detuning_fluctuations(

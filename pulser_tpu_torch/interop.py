@@ -43,6 +43,17 @@ from pulser_tpu_torch.waveforms import CustomWaveform
 _SRC_PKG = "pulser_tpu"
 _DST_PKG = "pulser_tpu_torch"
 
+#: The constructor arguments of each register layout class, read back
+#: from the attributes of a layout of the JAX package.
+_LAYOUT_ARGS = {
+    "RegisterLayout": ("coords", "slug"),
+    "RectangularLatticeLayout": (
+        "_rows", "_columns", "_col_spacing", "_row_spacing"
+    ),
+    "SquareLatticeLayout": ("_rows", "_columns", "_spacing"),
+    "TriangularLatticeLayout": ("number_of_traps", "_spacing"),
+}
+
 
 def _port_class(obj: Any) -> Any:
     """The port's class with the name and module path of ``obj``'s."""
@@ -67,6 +78,9 @@ def _convert(obj: Any) -> Any:
     name = type(obj).__name__
     if name == "AbstractArray":
         return pm.AbstractArray(np.array(obj.as_array(detach=True)))
+    if name in _LAYOUT_ARGS:
+        args = (_convert(getattr(obj, a)) for a in _LAYOUT_ARGS[name])
+        return _port_class(obj)(*args)
     if name == "DetuningMap":
         return DetuningMap(
             np.array(obj.trap_coordinates), list(obj.weights), obj.slug
@@ -133,11 +147,8 @@ def from_jax_register(register: Any) -> Register:
 
 
 def from_jax_device(device: Any) -> BaseDevice:
-    """The port's Device or VirtualDevice with the same dataclass fields.
-
-    The devices' calibrated layouts are not ported, so
-    ``pre_calibrated_layouts`` is left out.
-    """
+    """The port's Device or VirtualDevice with the same dataclass fields,
+    its calibrated layouts included."""
     ported = _convert(device)
     custom_xy = getattr(device, "_custom_interaction_coeff_xy", None)
     if custom_xy is not None:

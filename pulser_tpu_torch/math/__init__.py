@@ -171,6 +171,16 @@ def pdist(a: AbstractArrayLike) -> AbstractArray:
     return AbstractArray(scipy.spatial.distance.pdist(a.as_array()))
 
 
+def dot(a: AbstractArrayLike, b: AbstractArrayLike) -> AbstractArray:
+    """Dot product of two 1D arrays."""
+    a, b = map(AbstractArray, (a, b))
+    if a.is_tensor or b.is_tensor:
+        ta, tb = a.as_tensor(), b.as_tensor()
+        dtype = torch.promote_types(ta.dtype, tb.dtype)
+        return AbstractArray(torch.dot(ta.to(dtype), tb.to(dtype)))
+    return AbstractArray(np.dot(a.as_array(), b.as_array()))
+
+
 def concatenate(arrs: Sequence[AbstractArrayLike]) -> AbstractArray:
     """Concatenate arrays along the first axis."""
     abst_arrs = tuple(map(AbstractArray, arrs))
@@ -187,6 +197,16 @@ def vstack(arrs: Sequence[AbstractArrayLike]) -> AbstractArray:
             torch.vstack([a.as_tensor() for a in abst_arrs])
         )
     return AbstractArray(np.vstack([a.as_array() for a in abst_arrs]))
+
+
+def hstack(arrs: Sequence[AbstractArrayLike]) -> AbstractArray:
+    """Stack arrays horizontally."""
+    abst_arrs = tuple(map(AbstractArray, arrs))
+    if any(a.is_tensor for a in abst_arrs):
+        return AbstractArray(
+            torch.hstack([a.as_tensor() for a in abst_arrs])
+        )
+    return AbstractArray(np.hstack([a.as_array() for a in abst_arrs]))
 
 
 def flatten(a: AbstractArrayLike) -> AbstractArray:

@@ -62,6 +62,7 @@ from pulser_tpu_torch.ops.apply import (
     group_sizes,
     jump_candidates,
 )
+from pulser_tpu_torch.exceptions.serialization import JSON_ROADMAP_ITEM
 from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
 
 
@@ -427,7 +428,7 @@ def build_plan(
 #: Shape/step metadata of the most recent solve, for telemetry.
 last_solve_info: dict[str, Any] = {}
 #: The ROADMAP item that holds sharding over several devices.
-_PARALLEL_ITEM = "ROADMAP.md Queue 1, 'Backend, JSON, parallel and serving'"
+_PARALLEL_ITEM = f"ROADMAP.md Queue 1, '{JSON_ROADMAP_ITEM}'"
 
 
 def _numpy_dtype(dtype: Any) -> np.dtype:
@@ -1521,8 +1522,8 @@ def sesolve_rk4_batched(
     """
     if mesh is not None:
         raise NotImplementedError(
-            "Trajectory sharding over devices is not ported yet (ROADMAP.md"
-            " Queue 1, 'Backend, JSON, parallel and serving')."
+            f"Trajectory sharding over devices is not ported yet"
+            f" ({_PARALLEL_ITEM})."
         )
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype

@@ -212,6 +212,17 @@ class Pulse:
         phase_c = phase[0] + detuning[0] * 1e-3
         return cls(amplitude, detuning, phase_c, post_phase_shift)
 
+    def draw(self) -> None:
+        """Plots amplitude and detuning on twin axes."""
+        import matplotlib.pyplot as plt
+
+        fig, amp_ax = plt.subplots()
+        det_ax = amp_ax.twinx()
+        self.amplitude._plot(amp_ax, r"$\Omega$ (rad/µs)", color="darkgreen")
+        self.detuning._plot(det_ax, r"$\delta$ (rad/µs)", color="indigo")
+        fig.tight_layout()
+        plt.show()
+
     def fall_time(self, channel: Channel, in_eom_mode: bool = False) -> int:
         """How long the output keeps ringing past the pulse's end."""
         if in_eom_mode:

@@ -1,8 +1,7 @@
 """Register layouts: the trap geometries registers are carved out of.
 
 Behavioral parity with reference
-``pulser-core/pulser/register/register_layout.py:41-298``. Drawing and
-serialization are not ported yet (see ROADMAP.md).
+``pulser-core/pulser/register/register_layout.py:41-298``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Any, Optional
 import numpy as np
 
 import pulser_tpu_torch
+from pulser_tpu_torch.register._reg_drawer import RegDrawer
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
 from pulser_tpu_torch.register.mappable_reg import MappableRegister
 from pulser_tpu_torch.register.traps import Traps
@@ -22,7 +22,7 @@ from pulser_tpu_torch.register.weight_maps import DetuningMap
 
 
 @dataclass(init=False, repr=False, eq=False, frozen=True)
-class RegisterLayout(Traps):
+class RegisterLayout(Traps, RegDrawer):
     """A layout of traps out of which registers can be defined.
 
     A ``RegisterLayout`` defines a register from a set of traps. It is
@@ -88,12 +88,10 @@ class RegisterLayout(Traps):
         ids = self._pick_qubit_ids(trap_ids, qubit_ids)
         qubits = dict(zip(ids, self.sorted_coords[list(trap_ids)]))
         if self.dimensionality == 3:
-            raise NotImplementedError(
-                "Register3D is not ported yet (see ROADMAP.md)."
+            return pulser_tpu_torch.Register3D(
+                qubits, layout=self, trap_ids=trap_ids
             )
-        return pulser_tpu_torch.Register(
-            qubits, layout=self, trap_ids=trap_ids
-        )
+        return pulser_tpu_torch.Register(qubits, layout=self, trap_ids=trap_ids)
 
     def define_detuning_map(
         self,
@@ -116,6 +114,65 @@ class RegisterLayout(Traps):
             )
         targeted = [self.traps_dict[t] for t in detuning_weights]
         return DetuningMap(targeted, list(detuning_weights.values()), slug)
+
+    def draw(
+        self,
+        blockade_radius: Optional[float] = None,
+        draw_graph: bool = False,
+        draw_half_radius: bool = False,
+        projection: bool = True,
+        fig_name: str | None = None,
+        kwargs_savefig: dict = {},
+        show: bool = True,
+    ) -> None:
+        """Draws the entire register layout.
+
+        Args:
+            blockade_radius: The distance (in μm) between atoms below which
+                the Rydberg blockade effect occurs.
+            draw_half_radius: Whether to draw half the blockade radius
+                around each trap.
+            draw_graph: Whether to draw atom interactions as graph edges.
+            projection: If the layout is in 3D, draws it as projections on
+                different planes.
+            fig_name: The name on which to save the figure, if any.
+            kwargs_savefig: Keyword arguments for savefig.
+            show: Whether to call `plt.show()` before returning.
+        """
+        import matplotlib.pyplot as plt
+
+        radius_opts = dict(
+            blockade_radius=blockade_radius,
+            draw_half_radius=draw_half_radius,
+        )
+        self._draw_checks(
+            self.number_of_traps, draw_graph=draw_graph, **radius_opts
+        )
+        trap_labels = [str(i) for i in range(self.number_of_traps)]
+        if self.dimensionality == 3:
+            self._draw_3D(
+                self.coords,
+                trap_labels,
+                projection=projection,
+                with_labels=True,
+                draw_graph=draw_graph,
+                are_traps=True,
+                **radius_opts,
+            )
+        else:
+            _, ax = self._initialize_fig_axes(self.coords, **radius_opts)
+            self._draw_2D(
+                ax,
+                self.coords,
+                trap_labels,
+                draw_graph=draw_graph,
+                are_traps=True,
+                **radius_opts,
+            )
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        if show:
+            plt.show()
 
     def make_mappable_register(
         self, n_qubits: int, prefix: str = "q"

@@ -4,7 +4,6 @@ Behavioral parity with reference
 ``pulser-core/pulser/register/weight_maps.py:46-232``: qubits pick up
 weight from spots either exactly (within coordinate precision) or via a
 Gaussian crosstalk kernel exp(-d^2 / 2 w^2) when a spot waist is given.
-Drawing and serialization are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,16 +12,19 @@ import typing
 import warnings
 from collections.abc import Iterator
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Mapping, TypeVar, cast
+from typing import TYPE_CHECKING, Mapping, Optional, TypeVar, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
 from scipy.spatial.distance import cdist
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.register._reg_drawer import RegDrawer
 from pulser_tpu_torch.register.traps import COORD_PRECISION, Traps
 
 if TYPE_CHECKING:
+    from matplotlib.axes import Axes
+
     from pulser_tpu_torch.register.base_register import QubitId
 
 WEIGHT_PRECISION = 6
@@ -48,7 +50,7 @@ def _checked_weights(
 
 
 @dataclass(init=False, repr=False, eq=False, frozen=True)
-class WeightMap(Traps):
+class WeightMap(Traps, RegDrawer):
     """Defines a generic map of weights on traps.
 
     Args:
@@ -123,6 +125,45 @@ class WeightMap(Traps):
         return type(self)(
             trap_coordinates=shifted, weights=self.weights, slug=self.slug
         )
+
+    def draw(
+        self,
+        labels: typing.Sequence[QubitId] | None = None,
+        fig_name: str | None = None,
+        kwargs_savefig: dict = {},
+        custom_ax: Optional[Axes] = None,
+        show: bool = True,
+    ) -> None:
+        """Draws the detuning map.
+
+        Args:
+            labels: If defined, writes the labels next to each site.
+            fig_name: The name on which to save the figure, if any.
+            kwargs_savefig: Keyword arguments for savefig.
+            custom_ax: Optional pre-existing Axes to draw on.
+            show: Whether to call ``plt.show()`` before returning.
+        """
+        import matplotlib.pyplot as plt
+
+        pos = self.trap_coordinates
+        if custom_ax is None:
+            custom_ax = cast("Axes", self._initialize_fig_axes(pos)[1])
+
+        shown_labels = (
+            [str(i) for i in range(len(pos))] if labels is None else labels
+        )
+        super()._draw_2D(
+            custom_ax,
+            pos,
+            shown_labels,
+            with_labels=labels is not None,
+            are_traps=True,
+            dmm_qubits=dict(zip(shown_labels, self.weights)),
+        )
+        if fig_name is not None:
+            plt.savefig(fig_name, **kwargs_savefig)
+        if show:
+            plt.show()
 
     def _hash_components(self) -> Iterator[bytes]:
         yield from super()._hash_components()

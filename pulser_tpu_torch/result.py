@@ -2,7 +2,7 @@
 
 API parity with the reference ``pulser-core/pulser/result.py`` (the
 deprecated ``Result``/``SampledResult`` pair kept for the legacy
-emulator pipeline); plotting and the observable classes are not ported.
+emulator pipeline), with the bar plot of the bitstring distribution.
 """
 
 from __future__ import annotations
@@ -113,6 +113,30 @@ class Result(ABC, backend_results.Results):
         raise NotImplementedError(
             f"`{self.__class__.__name__}.get_state()` is not implemented."
         )
+
+    def plot_histogram(
+        self,
+        min_rate: float = 0.001,
+        max_n_bitstrings: int | None = None,
+        show: bool = True,
+    ) -> None:
+        """Bar-plots the bitstring distribution.
+
+        Args:
+            min_rate: Bitstrings rarer than this are left out.
+            max_n_bitstrings: Cap on how many bitstrings are shown.
+            show: Whether to call `plt.show()` before returning.
+        """
+        import matplotlib.pyplot as plt
+
+        dist = self.sampling_dist
+        order = sorted(dist, key=dist.get, reverse=True)
+        kept = [b for b in order[:max_n_bitstrings] if dist[b] >= min_rate]
+        plt.bar(kept, [dist[b] for b in kept])
+        plt.xticks(rotation="vertical")
+        plt.ylabel("Probability")
+        if show:
+            plt.show()
 
     def __str__(self) -> str:
         return self.__repr__()

@@ -4,14 +4,14 @@ Behavioral parity with reference
 ``pulser-core/pulser/sequence/sequence.py:81-2586``: channel declaration
 rules, instruction set (add/target/delay/align/phase_shift/measure/
 truncate), EOM mode with phase-drift correction, SLM mask & detuning
-maps, parametrization (declare_variable + call replay) and register
-switching. Device switching, drawing and serialization are not ported
-yet (see ROADMAP.md).
+maps, parametrization (declare_variable + call replay) and device/
+register switching. Serialization is not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import warnings
 from collections.abc import Collection, Mapping
 from typing import (
@@ -733,18 +733,25 @@ class Sequence(Generic[DeviceType]):
     def with_new_device(
         self, new_device: DeviceType, strict: bool = False
     ) -> Sequence:
-        """Replicate the sequence with a different device (not ported)."""
-        raise NotImplementedError(
-            "'Sequence.with_new_device()' is not ported yet: see ROADMAP.md,"
-            " 'Device switching and the sequence drawer'."
+        """Replicate the sequence with a different device.
+
+        Ports the sequence while disturbing its contents as little as
+        possible; under `strict`, the switch errors out whenever content
+        preservation cannot be guaranteed.
+
+        Args:
+            new_device: The device to port to.
+            strict: Demand an exact device/channel match so the pulse
+                sequence is provably unchanged.
+
+        Returns:
+            The sequence on the new device.
+        """
+        from pulser_tpu_torch.sequence.helpers._switch_device import (
+            switch_device,
         )
 
-    def draw(self, *args: Any, **kwargs: Any) -> None:
-        """Draws the sequence (not ported)."""
-        raise NotImplementedError(
-            "'Sequence.draw()' is not ported yet: see ROADMAP.md,"
-            " 'Device switching and the sequence drawer'."
-        )
+        return switch_device(self, new_device, strict)
 
     def switch_device(
         self, new_device: DeviceType, strict: bool = False
@@ -1488,6 +1495,110 @@ class Sequence(Generic[DeviceType]):
             getattr(seq, call.name)(*built_args, **built_kwargs)
 
         return seq
+
+    @seq_decorators.screen
+    def draw(
+        self,
+        mode: str = "input+output",
+        as_phase_modulated: bool = False,
+        draw_phase_area: bool = False,
+        draw_interp_pts: bool = True,
+        draw_phase_shifts: bool = False,
+        draw_register: bool = False,
+        draw_phase_curve: bool = True,
+        draw_detuning_maps: bool = False,
+        draw_qubit_amp: bool = False,
+        draw_qubit_det: bool = False,
+        fig_name: str | None = None,
+        kwargs_savefig: dict = {},
+        show: bool = True,
+    ) -> None:
+        """Draws the sequence in its current state.
+
+        Args:
+            mode: 'input' plots the programmed curves, 'output' the
+                post-modulation expectation, 'input+output' overlays
+                both.
+            as_phase_modulated: Plot the equivalent phase modulation
+                rather than detuning and phase offsets.
+            draw_phase_area: Annotate phase and area values on the plot.
+            draw_interp_pts: Mark InterpolatedWaveform interpolation
+                points.
+            draw_phase_shifts: Annotate phase shifts and references.
+            draw_register: Render the register ahead of the pulse plot
+                (SLM-masked qubits highlighted).
+            draw_phase_curve: Give phase changes their own curve.
+            draw_detuning_maps: Render the detuning maps.
+            draw_qubit_amp: Plot the per-qubit amplitude.
+            draw_qubit_det: Plot the per-qubit detuning.
+            fig_name: File name to save the figure(s) under, if any.
+            kwargs_savefig: Extra keyword arguments for savefig.
+            show: Call `plt.show()` before returning.
+        """
+        import matplotlib.pyplot as plt
+
+        from pulser_tpu_torch.sequence._seq_drawer import draw_sequence
+
+        valid_modes = ("input", "output", "input+output")
+        if mode not in valid_modes:
+            raise ValueError(
+                f"'mode' must be one of {valid_modes}, not '{mode}'."
+            )
+        if mode == "output":
+            # Input-only decorations are meaningless on output curves
+            for opt_name, opt_on in (
+                ("draw_phase_area", draw_phase_area),
+                ("draw_interp_pts", draw_interp_pts),
+            ):
+                if opt_on:
+                    warnings.warn(
+                        f"'{opt_name}' doesn't work in 'output' mode, so"
+                        " it will default to 'False'.",
+                        stacklevel=2,
+                    )
+            draw_phase_area = False
+            draw_interp_pts = False
+        if draw_register and self.is_register_mappable():
+            raise ValueError(
+                "Can't draw the register for a sequence without a defined"
+                " register."
+            )
+        # Flags forwarded under the same name, picked up from locals()
+        passthrough = (
+            "draw_phase_area",
+            "draw_interp_pts",
+            "draw_phase_shifts",
+            "draw_register",
+            "draw_phase_curve",
+            "draw_detuning_maps",
+            "draw_qubit_amp",
+            "draw_qubit_det",
+        )
+        scope = locals()
+        figs = draw_sequence(
+            self,
+            draw_input="input" in mode,
+            draw_modulation="output" in mode,
+            phase_modulated=as_phase_modulated,
+            **{name: scope[name] for name in passthrough},
+        )
+        fig_reg, fig, fig_qubit, fig_legend = figs
+        if fig_name is not None:
+            name, ext = os.path.splitext(fig_name)
+            only_pulses = fig is not None and all(
+                f is None for f in (fig_reg, fig_qubit, fig_legend)
+            )
+            for figure, tag in (
+                (fig, "_pulses" if only_pulses else ""),
+                (fig_reg, "_register"),
+                (fig_qubit, "_per_qubit"),
+                (fig_legend, "_per_qubit_legend"),
+            ):
+                if figure is not None:
+                    figure.savefig(name + tag + ext, **kwargs_savefig)
+
+        if show:
+            plt.show()
 
     def _modulate_slm_mask_dmm(
         self, duration: int, max_amp: float

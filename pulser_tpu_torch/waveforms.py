@@ -39,6 +39,8 @@ from pulser_tpu_torch.parametrized import Parametrized, ParamObj
 from pulser_tpu_torch.parametrized.decorators import parametrize
 
 if TYPE_CHECKING:
+    from matplotlib.axes import Axes
+
     from pulser_tpu_torch.channels.base_channel import Channel
 
 __all__ = [
@@ -312,6 +314,72 @@ class Waveform(ABC):
     @abstractmethod
     def __repr__(self) -> str:
         pass
+
+    # --- Plotting -------------------------------------------------------
+
+    def draw(
+        self,
+        output_channel: Optional[Channel] = None,
+        ylabel: str | None = None,
+    ) -> None:
+        """Plots the waveform (and optionally its modulated output).
+
+        Args:
+            output_channel: When given, the modulated output is drawn
+                on top of the programmed input.
+            ylabel: Optional y-axis label.
+        """
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        if not output_channel:
+            self._plot(ax, ylabel=ylabel)
+        else:
+            self._plot(
+                ax,
+                ylabel=ylabel,
+                label="Input",
+                start_t=self.modulation_buffers(output_channel)[0],
+            )
+            self._plot(ax, channel=output_channel, label="Output")
+        plt.show()
+
+    def _plot(
+        self,
+        ax: Axes,
+        ylabel: Optional[str] = None,
+        color: Optional[str] = None,
+        channel: Optional[Channel] = None,
+        label: str = "",
+        start_t: int = 0,
+    ) -> None:
+        import matplotlib.pyplot as plt
+
+        ax.set_xlabel("t (ns)")
+        samples = (
+            self.samples
+            if channel is None
+            else self.modulated_samples(channel)
+        ).as_array(detach=True)
+        ts = np.arange(len(samples)) + start_t
+        if not channel and start_t:
+            samples = np.pad(samples, 1)
+            ts = np.pad(ts, 1, mode="edge")
+
+        if color:
+            color_kwargs: dict[str, Any] = {"color": color}
+            hline_color = color
+            ax.tick_params(axis="y", labelcolor=color)
+        else:
+            color_kwargs = {}
+            hline_color = "black"
+
+        if ylabel:
+            ax.set_ylabel(ylabel, fontsize=14, **color_kwargs)
+        ax.plot(ts, samples, label=label, **color_kwargs)
+        ax.axhline(0, color=hline_color, linestyle=":", linewidth=0.5)
+        if label:
+            plt.legend()
 
 
 class CompositeWaveform(Waveform):
@@ -863,6 +931,30 @@ class InterpolatedWaveform(Waveform):
         return InterpolatedWaveform(
             new_duration, self._values, **self._kwargs
         )
+
+    def _plot(
+        self,
+        ax: Axes,
+        ylabel: Optional[str] = None,
+        color: Optional[str] = None,
+        channel: Optional[Channel] = None,
+        label: str = "",
+        start_t: int = 0,
+    ) -> None:
+        super()._plot(
+            ax,
+            ylabel,
+            color=color,
+            channel=channel,
+            label=label,
+            start_t=start_t,
+        )
+        if not channel:
+            ax.scatter(
+                self._data_pts[:, 0] + start_t,
+                self._data_pts[:, 1],
+                c=color,
+            )
 
     def __str__(self) -> str:
         coords = [f"({int(x)}, {y:.4g})" for x, y in self.data_points]

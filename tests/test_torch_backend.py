@@ -508,13 +508,7 @@ def output_state_normalization(amp_sigma):
 
 
 def run_twice(ns):
-    config = _config(
-        ns,
-        default_evaluation_times=[1.0],
-        observables=[ns.obs.StateResult(evaluation_times=[1.0])],
-        noise_model=ns.pkg.NoiseModel(temperature=50.0, detuning_sigma=5.0),
-        n_trajectories=10,
-    )
+    config = _register_noise_config(ns)
     backend = ns.BackendV2(sweep_sequence(ns), config=config)
     s1 = backend.run().final_state.to_qobj().full()
     s2 = backend.run().final_state.to_qobj().full()
@@ -523,9 +517,27 @@ def run_twice(ns):
 
 
 def run_twice_register_noise(ns):
-    return ns.BackendV2(
-        sweep_sequence(ns), config=_register_noise_config(ns)
-    ).run()
+    """Register noise alone: each trajectory's atoms jittered in three
+    dimensions, the states aggregated into a density matrix."""
+    noise = ns.pkg.NoiseModel(
+        trap_depth=1.0, trap_waist=1.0, temperature=50.0, disable_doppler=True
+    )
+    config = _config(
+        ns,
+        default_evaluation_times=[1.0],
+        observables=[
+            ns.obs.StateResult(evaluation_times=[1.0]),
+            ns.obs.Occupation(evaluation_times=[0.5, 1.0]),
+        ],
+        noise_model=noise,
+        n_trajectories=6,
+    )
+    results = ns.BackendV2(sweep_sequence(ns), config=config).run()
+    return [
+        sorted(noise.noise_types),
+        results.final_state.to_qobj().full(),
+        [np.asarray(v) for v in results.occupation],
+    ]
 
 
 def dmm_temperature_without_spot_waist(ns):
@@ -615,7 +627,7 @@ V2_NOISY_SCENARIOS = {
     "run_twice": run_twice,
 }
 
-#: The register-noise scenarios, which the port refuses.
+#: The register-noise scenarios.
 REGISTER_NOISE_SCENARIOS = {
     "register_detuning_detection": register_detuning_detection,
     "run_twice_register_noise": run_twice_register_noise,
@@ -667,22 +679,18 @@ def tpu_backend_wrong_config(ns):
     return ns.Backend(_raman_seq(ns), ns.pkg.NoiseModel(), **ns.kw)
 
 
-def _square_register(ns):
-    P = ns.pkg
-    coords = [(5.0 * i, 5.0 * j) for i in range(5) for j in range(5)]
-    layout = P.register.RegisterLayout(coords)
-    return layout.define_register(0, 1, 5, 6, qubit_ids=["q0", "q1", "q2", "q3"])
-
-
 def mimic_qpu(which):
     def case(ns):
         P = ns.pkg
+        layout = P.register.SquareLatticeLayout(5, 5, 5)
         seq = {
             "virtual": lambda: _raman_seq(ns),
-            "no_layout": lambda: _raman_seq(ns, P.DigitalAnalogDevice),
-            "layout": lambda: _raman_seq(
-                ns, P.DigitalAnalogDevice, _square_register(ns)
+            "no_layout": lambda: _raman_seq(ns).with_new_device(
+                P.DigitalAnalogDevice
             ),
+            "layout": lambda: _raman_seq(ns)
+            .with_new_device(P.DigitalAnalogDevice)
+            .with_new_register(layout.square_register(2)),
         }[which]()
         return type(ns.Backend(seq, mimic_qpu=True, **ns.kw)).__name__
 

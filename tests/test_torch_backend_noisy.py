@@ -7,8 +7,7 @@ equivalence with the legacy API, the exact SPAM aggregation, the
 normalization under amplitude noise and the fresh draws of a second
 run. Both packages run on the same inputs and numpy seed, the port in
 complex128 on the CPU, the JAX package on one device; results within
-1e-6, seeded counts equal. Register noise is not ported: its two
-scenarios check that the port refuses it. NOISY10's own route (the
+1e-6, seeded counts equal, register noise included. NOISY10's own route (the
 row-batched quantum-jump solve, single precision) is checked at 4 atoms
 against the JAX package's rows kernel in interpret mode.
 """
@@ -20,7 +19,7 @@ import pytest
 import torch
 
 import test_torch_backend as B
-from torch_parity import JAX, TORCH, assert_parity, outcome
+from torch_parity import assert_parity
 
 from pulser_tpu_torch.ops import solver as torch_solver
 
@@ -43,13 +42,10 @@ def test_backend_v2_noisy_parity(name):
 
 @pytest.mark.parametrize("name", list(B.REGISTER_NOISE_SCENARIOS))
 def test_register_noise_is_refused(name):
-    """Register noise is not ported: the JAX package runs these
-    scenarios, the port raises before any solve."""
-    scenario = B.REGISTER_NOISE_SCENARIOS[name]
-    assert outcome(scenario, JAX)[0] == "ok"
-    ours = outcome(scenario, TORCH)
-    assert ours[:2] == ("raise", "NotImplementedError"), ours
-    assert "register" in ours[2].lower()
+    """Register noise (once refused, hence the name) in both packages:
+    the jittered positions, the density matrix and the occupations of
+    the same seeded trajectories."""
+    B.check_v2(B.REGISTER_NOISE_SCENARIOS[name])
 
 
 def test_noisy_observables_match_on_the_row_batched_route(monkeypatch):

@@ -6,9 +6,10 @@ device's default noise model, the collapse-operator forms), defined in
 ``tests/test_torch_backend.py``, through both packages on the same
 inputs and numpy seed (the port in complex128 on the CPU): the same
 results within 1e-6, equal seeded counts, the same errors and warnings.
-The QPU-mimicking scenario builds each sequence on its device directly
-(the port's ``Sequence.with_new_device`` is not ported). The emulator
-methods the backend slice brought back run here too.
+The QPU-mimicking scenario moves its sequence to ``DigitalAnalogDevice``
+with ``Sequence.with_new_device`` and onto a ``SquareLatticeLayout``
+register, as the JAX test does. The emulator methods the backend slice
+brought back run here too.
 """
 
 from __future__ import annotations

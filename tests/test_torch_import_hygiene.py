@@ -158,7 +158,44 @@ def _foreign_modules(statements: str) -> list[str]:
         " pulser_tpu_torch.emulator.torch_op,"
         " pulser_tpu_torch.emulator.aggregators",
         _BACKEND_RUN,
+        "import pulser_tpu_torch.register.register3d,"
+        " pulser_tpu_torch.register.special_layouts,"
+        " pulser_tpu_torch.register._layout_gen,"
+        " pulser_tpu_torch.register._reg_drawer,"
+        " pulser_tpu_torch.sequence._seq_drawer,"
+        " pulser_tpu_torch.sequence.helpers._switch_device",
+        "import chip_smoke; chip_smoke.regnoise10_sequence();"
+        " chip_smoke.tri16_sequence(); chip_smoke.tri16_direct_sequence()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):
     assert _foreign_modules(statements) == []
+
+
+#: Blocks matplotlib: an import of it then raises ImportError.
+_NO_MATPLOTLIB = "sys.modules['matplotlib'] = None\n"
+
+
+@pytest.mark.parametrize(
+    "statements",
+    [
+        "import pulser_tpu_torch, pulser_tpu_torch.emulator,"
+        " pulser_tpu_torch.register, pulser_tpu_torch.sequence._seq_drawer",
+        # TRI16's switch onto AnalogDevice's calibrated layout, and a
+        # register-noise run on the CPU, draw nothing
+        "import chip_smoke; chip_smoke.tri16_sequence()",
+        "import numpy as np, pulser_tpu_torch as P;"
+        " from pulser_tpu_torch.emulator import TorchEmulator;"
+        " seq = P.Sequence(P.Register.square(2, prefix='q'), P.MockDevice);"
+        " seq.declare_channel('r', 'rydberg_global');"
+        " seq.add(P.Pulse.ConstantPulse(100, 1.0, 0.0, 0.0), 'r');"
+        " noise = P.NoiseModel(trap_waist=1.0, trap_depth=150.0,"
+        " temperature=50.0, runs=2, samples_per_run=1);"
+        " TorchEmulator.from_sequence(seq, noise_model=noise,"
+        " torch_device='cpu').run()",
+    ],
+)
+def test_port_imports_and_runs_without_matplotlib(statements):
+    """The card's machine has no matplotlib: the package imports and
+    runs without it (the drawers import it only when they draw)."""
+    assert _foreign_modules(_NO_MATPLOTLIB + statements) == []

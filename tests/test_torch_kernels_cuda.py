@@ -270,3 +270,59 @@ def test_cuda_mcwf_jumps_every_step(cuda, n):
     assert bool(torch.isfinite(got).all())
     assert int(jumps.min()) == 22 and torch.equal(jumps, jumps_p)
     assert float((got - want).abs().max()) <= MCWF_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_mcwf_rows_on_regnoise10_distinct_diagonals(cuda):
+    """K2 on REGNOISE10's own inputs: 100 trajectories whose jittered
+    registers give 100 distinct interaction diagonals, against the plain
+    version (all but at most one trajectory, whose jump record may
+    differ, within 5e-5)."""
+    from pulser_tpu_torch.ops import solver as S
+
+    captured = chip_smoke._run_noisy(
+        K, chip_smoke.regnoise10_sequence(), 1234, "mcsolve_rows_codes", S
+    )[-1]
+    psi0, plans, diags, _, _, _, cops, seeds, _ = captured["args"]
+    margs = S.rows_kernel_inputs(psi0, plans, diags, seeds, cuda)
+    assert torch.unique(margs[9], dim=0).shape[0] == plans.n_traj == 100
+    spec = S._diag_cops_spec(cops)
+    got, jumps = K.mcwf_rows(*margs, cops=spec)
+    want, jumps_p = K.mcwf_rows_reference(*margs, cops=spec)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    per_traj = (got - want).abs().amax(dim=(1, 2, 3))
+    odd = chip_smoke._odd_trajectories(per_traj, jumps, jumps_p, MCWF_TOL)
+    assert len(odd) <= 1
+    keep = torch.ones_like(per_traj, dtype=torch.bool)
+    keep[odd] = False
+    assert float(per_traj[keep].max()) <= MCWF_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_tri16_plan(cuda):
+    """K1 on TRI16's plan (AFM16's sweep on AnalogDevice's calibrated
+    triangular layout, reached with ``with_new_device``) against its
+    plain version, at the sweep tolerance."""
+    import numpy as np
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+    from pulser_tpu_torch.ops import solver as S
+
+    seq = chip_smoke.tri16_sequence()
+    emu = TorchEmulator.from_sequence(
+        seq, evaluation_times=np.linspace(0, seq.get_duration() * 1e-3, 101)
+    )
+    emu.run()
+    args, kw = S.ip_kernel_inputs(
+        emu._initial_ket().astype(np.complex64),
+        emu._plan_cache[1],
+        emu._current_hamiltonian.int_diag,
+        16,
+        cuda,
+    )
+    got = K.ip_sesolve(*args, **kw)
+    want = K.ip_sesolve_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= chip_smoke.SWEEP_TOL

@@ -25,10 +25,10 @@ double precision exactly, in single precision up to one draw that may
 sit within float32 rounding of a cumsum bin edge.
 
 Depolarizing noise (the serial quantum-jump solve per trajectory),
-relaxation and more atoms than the kernels take (the batched torch scan)
-give the JAX package's seeded counts; register noise raises
-``NotImplementedError`` quoting the title of the ROADMAP item that holds
-it, and no entry point moves to the CPU unless it is asked to.
+relaxation, more atoms than the kernels take (the batched torch scan)
+and register noise (one jittered ``Register3D`` per trajectory) give the
+JAX package's seeded counts, and no entry point moves to the CPU unless
+it is asked to.
 """
 
 from __future__ import annotations
@@ -312,12 +312,13 @@ def test_n_trajectories_and_solver_options():
             (2, 7),
             "mcwf_batched_torch",
         ),
-        # register (position) noise jitters the atoms in three dimensions
+        # register (position) noise jitters the atoms in three
+        # dimensions: one interaction diagonal per trajectory
         (
             dict(trap_waist=1.0, trap_depth=150.0, temperature=40),
             {"register", "doppler"},
             (2, 2),
-            None,
+            "sesolve_batched_torch",
         ),
     ],
     ids=[
@@ -327,23 +328,11 @@ def test_n_trajectories_and_solver_options():
 )
 def test_configurations_outside_the_slice_raise(params, types, shape, kind):
     """Every noisy configuration runs and gives the JAX package's seeded
-    counts (double precision, the RNG stream left at the same point),
-    except register noise, which raises quoting its ROADMAP item's
-    title."""
+    counts (double precision, the RNG stream left at the same point)."""
     noise = _noise(**params, runs=6, samples_per_run=4)
     assert set(noise.noise_types) == types
     # Fourteen atoms for 100 ns: a few dozen steps of a 2^14 batch
     seq = _sequence(shape=shape, duration=100 if shape == (2, 7) else 400)
-    if kind is None:
-        np.random.seed(SEED)
-        with pytest.raises(
-            NotImplementedError,
-            match="ROADMAP.md Queue 1, 'Register noise and Register3D'",
-        ) as err:
-            _port_emulator(seq, noise)
-        # Titles are quoted, never item numbers
-        assert "item" not in str(err.value)
-        return
     old = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)  # complex128, as the JAX side
     try:
