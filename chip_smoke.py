@@ -185,6 +185,31 @@ to sample it, median of 3 each, beside the card's name and power limit):
     plain version on the run's own inputs, the times and the busy share
     as in 8. Its kernel entry follows NOISY10's.
 
+23. Run WIRE_AFM16: AFM16's sequence written with ``to_abstract_repr()``
+    (its sha256 checked against :data:`WIRE_PAYLOAD_SHA256`, which
+    ``tests/test_torch_json.py`` pins after validating the same payload),
+    loaded back with ``Sequence.from_abstract_repr`` and run with
+    ``TorchEmulator.from_sequence(...).run()``: samples bit-equal to the
+    direct build's, one K1 launch by the wrapper's count and the C
+    library's, 1 − F ≤ 1e-12 to the direct run's final state and ≤ 1e-6
+    to the golden. Prints the host ms to write and to load the JSON.
+24. Run WIRE_NOISY10: NOISY10's sequence and its ``EmulationConfig``
+    (noise model, the serializable observables of BACKEND_NOISY10, 100
+    trajectories) through ``to_abstract_repr`` / ``from_abstract_repr``,
+    then ``TorchBackendV2(...).run()`` seeded with 1234: one K2 launch,
+    occupations and counts equal to the same backend run built directly
+    (max |Δ| 0, TV 0), and ``Results.to_abstract_repr()`` of the card's
+    results loads back to equal values.
+25. Run WIRE_TRI16: TRI16 submitted with ``QPUBackend(seq,
+    connection=chip_connection()).run(job_params=[{"runs": 500}])``; the
+    connection lists ``AnalogDevice`` decoded from its JSON, takes the
+    measured sequence as JSON and, on fetch, decodes and emulates it on
+    the card: one K1 launch, the counts equal to sampling the direct
+    build's final state with the same seed.
+
+An earlier line names the JSON-schema validator the host has (the wire
+paths validate every payload with it).
+
 Every kernel also reports its time per RK4 stage; K1 also the cost of
 its grid barrier alone (a cooperative launch of barriers only, on K1's
 grid). The backend paths report their peak memory, their observables'
@@ -507,18 +532,21 @@ def _sampled(seq, *rest) -> tuple:
 AFM16_SWEEP = (2.0 * 2 * np.pi, -6 * 2 * np.pi, 2 * 2 * np.pi, 252, 2700, 252)
 
 
-def afm16_sequence():
+def afm16_sequence(P=None):
     """The ``Sequence`` of the 16-atom AFM sweep.
 
     The configuration of ``bench.py``'s ``build_afm_sequence``: a 4x4
     square register at 6 µm on ``MockDevice``, one global Rydberg
     channel, a 252 ns amplitude rise at δ0 = −2π·6, a 2700 ns detuning
-    sweep to δf = 2π·2 at Ω = 2π·2 and a 252 ns fall, phase 0.
+    sweep to δf = 2π·2 at Ω = 2π·2 and a 252 ns fall, phase 0. Built
+    with the package namespace ``P`` (default ``pulser_tpu_torch``; the
+    tests pass ``pulser_tpu`` for its reference), as every builder here.
     """
-    from pulser_tpu_torch import Register
+    if P is None:
+        import pulser_tpu_torch as P
 
     return _sweep_sequence(
-        Register.square(4, spacing=6.0, prefix="q"), *AFM16_SWEEP
+        P.Register.square(4, spacing=6.0, prefix="q"), *AFM16_SWEEP, P=P
     )
 
 
@@ -583,24 +611,25 @@ PAULIS = (
 )
 
 
-def _noisy10(dephasing: bool = True, **extra) -> tuple:
-    from pulser_tpu_torch import NoiseModel, Register
+def _noisy10(dephasing: bool = True, P=None, **extra) -> tuple:
+    if P is None:
+        import pulser_tpu_torch as P
 
     params = dict(_NOISY10_NOISE)
     if not dephasing:
         del params["dephasing_rate"]
     om = 2 * np.pi * 1.5
     seq = _sweep_sequence(
-        Register.rectangle(2, 5, spacing=7.0, prefix="q"),
-        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400,
+        P.Register.rectangle(2, 5, spacing=7.0, prefix="q"),
+        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400, P=P,
     )
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)  # runs=
-        noise = NoiseModel(**params, **extra)
+        noise = P.NoiseModel(**params, **extra)
     return seq, noise
 
 
-def noisy10_sequence() -> tuple:
+def noisy10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of the noisy run.
 
     The configuration of ``bench.py``'s ``build_noisy_10atom`` (the
@@ -611,7 +640,7 @@ def noisy10_sequence() -> tuple:
     laser waist 175 µm) and dephasing at 0.05 /µs, 100 trajectories of
     10 samples each.
     """
-    return _noisy10()
+    return _noisy10(P=P)
 
 
 def noisy10_inputs() -> tuple:
@@ -626,22 +655,23 @@ def noisy10_inputs() -> tuple:
 REGNOISE10_TRAP = dict(trap_waist=1.0, trap_depth=150.0)
 
 
-def regnoise10_sequence() -> tuple:
+def regnoise10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of REGNOISE10: NOISY10
     (:func:`noisy10_sequence`) with register noise added
     (:data:`REGNOISE10_TRAP`). Each trajectory's atoms are jittered in
     three dimensions, so each of the 100 trajectories has its own
     interaction diagonal and laser-waist profile."""
-    return _noisy10(**REGNOISE10_TRAP)
+    return _noisy10(P=P, **REGNOISE10_TRAP)
 
 
-def pauli10_sequence() -> tuple:
+def pauli10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of the PAULI10 run:
     the noisy 10-atom run of :func:`noisy10_sequence` plus the effective-
     noise Pauli channel (:data:`PAULIS` at :data:`PAULI_RATE` each). Its
     collapse operators are not diagonal, so the quantum-jump solve runs
     in the lab frame, 4000 RK4 steps."""
     return _noisy10(
+        P=P,
         eff_noise_rates=[PAULI_RATE] * 3,
         eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
     )
@@ -653,13 +683,13 @@ def pauli10_inputs() -> tuple:
     return _sampled(*pauli10_sequence())
 
 
-def spd10_sequence() -> tuple:
+def spd10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of the SPD10 run: the
     noisy 10-atom run of :func:`noisy10_sequence` with the dephasing taken
     out and nothing else changed (SPAM, doppler, amplitude noise). It
     has no collapse operators, so the 100 trajectories integrate as one
     pure-state batch on the coarsened interaction-picture grid."""
-    return _noisy10(dephasing=False)
+    return _noisy10(dephasing=False, P=P)
 
 
 def spd10_inputs() -> tuple:
@@ -668,64 +698,67 @@ def spd10_inputs() -> tuple:
     return _sampled(*spd10_sequence())
 
 
-def deph10_sequence() -> tuple:
+def deph10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of DEPH10: the register and pulses of
     :func:`noisy10_sequence` (2x5 at 7 µm, 400/1200/400 ns) under
     dephasing at 0.05 /µs alone. Without shot-to-shot noise the default
     solver runs one master-equation solve of the 1024 x 1024 density
     matrix on the coarsened interaction-picture grid."""
-    from pulser_tpu_torch import NoiseModel
+    if P is None:
+        import pulser_tpu_torch as P
 
-    return _noisy10()[0], NoiseModel(dephasing_rate=0.05)
+    return _noisy10(P=P)[0], P.NoiseModel(dephasing_rate=0.05)
 
 
-def mesolve10_sequence() -> tuple:
+def mesolve10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of MESOLVE10: NOISY10 exactly
     (:func:`noisy10_sequence`), run with ``solver=Solver.MESOLVER``: one
     density matrix per noise trajectory, 100 trajectories, in one batched
     master-equation solve on the interaction-picture grid."""
-    return noisy10_sequence()
+    return noisy10_sequence(P)
 
 
-def eff8_sequence() -> tuple:
+def eff8_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of EFF8: the sweep of
     :func:`noisy10_sequence` on a 2x4 rectangle at 7 µm under PAULI10's
     effective-noise Pauli channel alone (no shot-to-shot noise). The Pauli
     operators are not diagonal, so the master equation runs in the lab
     frame. Eight atoms, so that the JAX package's reference finishes on a
     CPU (``tools/mesolve_references.py``)."""
-    from pulser_tpu_torch import NoiseModel, Register
+    if P is None:
+        import pulser_tpu_torch as P
 
     om = 2 * np.pi * 1.5
     seq = _sweep_sequence(
-        Register.rectangle(2, 4, spacing=7.0, prefix="q"),
-        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400,
+        P.Register.rectangle(2, 4, spacing=7.0, prefix="q"),
+        om, -2 * np.pi * 4, 2 * np.pi * 2, 400, 1200, 400, P=P,
     )
-    noise = NoiseModel(
+    noise = P.NoiseModel(
         eff_noise_rates=[PAULI_RATE] * 3,
         eff_noise_opers=[np.array(p, dtype=complex) for p in PAULIS],
     )
     return seq, noise
 
 
-def relax10_sequence() -> tuple:
+def relax10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of RELAX10: NOISY10
     (:func:`noisy10_sequence`) plus relaxation at 0.1 /µs, the dephasing
     kept. Relaxation is a single matrix unit, so the 100 quantum-jump
     trajectories run the batched torch scan on the interaction-picture
     grid (no kernel takes a non-diagonal operator there)."""
-    return _noisy10(relaxation_rate=0.1)
+    return _noisy10(P=P, relaxation_rate=0.1)
 
 
-def mcdepol10_sequence() -> tuple:
+def mcdepol10_sequence(P=None) -> tuple:
     """``(sequence, noise_model)`` of MCDEPOL10: NOISY10's register and
     pulses under depolarizing noise at 0.05 /µs alone, run with
     ``solver=Solver.MCSOLVER`` and ``n_trajectories=100``: one serial
     quantum-jump solve in the lab frame whose trajectories average into
     density matrices."""
-    from pulser_tpu_torch import NoiseModel
+    if P is None:
+        import pulser_tpu_torch as P
 
-    return _noisy10()[0], NoiseModel(depolarizing_rate=0.05)
+    return _noisy10(P=P)[0], P.NoiseModel(depolarizing_rate=0.05)
 
 
 def xy16_build(P):
@@ -1461,7 +1494,6 @@ def _tri16_path(K, S, device, card: str) -> dict:
     plain version on TRI16's own inputs, and the times."""
     import torch
 
-    from pulser_tpu_torch import sample
     from pulser_tpu_torch.emulator import TorchEmulator
 
     _sequence_ms("TRI16", tri16_sequence, card)
@@ -1472,16 +1504,7 @@ def _tri16_path(K, S, device, card: str) -> dict:
         "TRI16's register is on AnalogDevice's calibrated layout",
     )
     _check(str(seq) == str(direct), "str(switched) == str(direct build)")
-    got_s, want_s = sample(seq), sample(direct)
-    for ch, cs in want_s.channel_samples.items():
-        for field in ("amp", "det", "phase"):
-            _check(
-                np.array_equal(
-                    np.asarray(getattr(got_s.channel_samples[ch], field)),
-                    np.asarray(getattr(cs, field)),
-                ),
-                f"TRI16 {ch}.{field} samples bit-equal to the direct build",
-            )
+    _check_samples_equal(seq, direct, "TRI16")
     eval_times = np.linspace(0, seq.get_duration() * 1e-3, 101)
     golden = np.load(_TRI16_GOLDEN)
     _reset_launches(K)
@@ -2665,11 +2688,15 @@ def _backend_afm16_observables():
     ]
 
 
-def _backend_noisy10_observables():
+def _backend_noisy10_observables(P=None):
     """NOISY10's backend observables (as ``tools/backend_references.py``):
     the occupations at 0.5 and 1.0, the energy and the state (aggregated
-    into ρ) at 1.0, and 1000 shots at 1.0 with the SPAM readout errors."""
-    from pulser_tpu_torch import BitStrings, Energy, Occupation, StateResult
+    into ρ) at 1.0, and 1000 shots at 1.0 with the SPAM readout errors;
+    ``P`` as for the sequence builders."""
+    if P is None:
+        import pulser_tpu_torch as P
+    BitStrings, Energy = P.backend.BitStrings, P.backend.Energy
+    Occupation, StateResult = P.backend.Occupation, P.backend.StateResult
 
     return [
         Occupation(evaluation_times=[0.5, 1.0]),
@@ -3005,6 +3032,446 @@ def _backend_noisy10_path(K, S, card: str) -> dict:
     return entry
 
 
+# -- the wire: abstract-repr JSON in, the card's run out ---------------------
+
+#: The seed and the trajectory count of NOISY10's backend runs, the wire's
+#: included (as ``tests/goldens/backend_noisy10_reference.json``).
+NOISY10_SEED = 1234
+NOISY10_TRAJECTORIES = 100
+#: The shots WIRE_TRI16's job asks the QPU for, and the seed its
+#: server samples them with.
+TRI16_RUNS = 500
+TRI16_SEED = 1234
+#: The sha256 of the sequence payloads the wire paths send
+#: (:func:`wire_payloads`); ``tests/test_torch_json.py`` validates the same
+#: payloads against the schemas on the CPU and holds them to these hashes.
+WIRE_PAYLOAD_SHA256 = {
+    "WIRE_AFM16": (
+        "26e2c871f8142aba89ee68f71810274c5f5ee112da1758e9d3115e61764fee27"
+    ),
+    "WIRE_NOISY10": (
+        "3b92dfbb6ee32930297f6e4d2b5e7072047a9b9b4a749ea602c2f8d3123bb187"
+    ),
+    "WIRE_TRI16": (
+        "320538622a8b9a042a3f4c697f3c10cf0bf1e825d7a1e9c1d78a5da0fa071147"
+    ),
+}
+#: A final state decoded from the wire against the direct build's.
+WIRE_FIDELITY_TOL = 1e-12
+
+
+def _sha256(text: str) -> str:
+    import hashlib
+
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _wire_noisy10_observables(P=None):
+    """BACKEND_NOISY10's observables that the wire carries: the
+    occupations at 0.5 and 1.0, the energy at 1.0 and 1000 shots per
+    trajectory at 1.0 (its ``StateResult`` has no abstract repr: the
+    encoder refuses it, as every remote backend does)."""
+    return [
+        obs
+        for obs in _backend_noisy10_observables(P)
+        if type(obs).__name__ != "StateResult"
+    ]
+
+
+def wire_noisy10_config(noise, P=None):
+    """NOISY10's ``EmulationConfig`` as a client writes it: the noise
+    model, the wire's observables and the trajectory count. (The seed is
+    the job's, not the config's: ``TorchConfig``, like the JAX package's
+    ``TpuConfig``, refuses options it does not know.)"""
+    if P is None:
+        import pulser_tpu_torch as P
+
+    with warnings.catch_warnings():
+        # The noise model's samples_per_run is ignored by the backend
+        warnings.simplefilter("ignore", UserWarning)
+        return P.backend.EmulationConfig(
+            observables=_wire_noisy10_observables(P),
+            noise_model=noise,
+            n_trajectories=NOISY10_TRAJECTORIES,
+        )
+
+
+def wire_payloads() -> dict:
+    """The abstract-repr sequences the wire paths send: AFM16's and
+    NOISY10's as ``to_abstract_repr()`` writes them, and TRI16's as
+    ``QPUBackend`` submits it (with the measurement that
+    ``RemoteConnection._add_measurement_to_sequence`` adds)."""
+    from pulser_tpu_torch.backend.remote import RemoteConnection
+
+    return {
+        "WIRE_AFM16": afm16_sequence().to_abstract_repr(),
+        "WIRE_NOISY10": noisy10_sequence()[0].to_abstract_repr(),
+        "WIRE_TRI16": RemoteConnection._add_measurement_to_sequence(
+            tri16_sequence()
+        ).to_abstract_repr(),
+    }
+
+
+def _check_payload(name: str, payload: str) -> None:
+    got = _sha256(payload)
+    _check(
+        got == WIRE_PAYLOAD_SHA256[name],
+        f"{name} payload sha256 {got} != {WIRE_PAYLOAD_SHA256[name]}",
+    )
+
+
+def _check_samples_equal(got_seq, want_seq, what: str) -> None:
+    """Fails unless two sequences' samples are bit-equal."""
+    from pulser_tpu_torch import sample
+
+    got_s, want_s = sample(got_seq), sample(want_seq)
+    _check(
+        set(got_s.channel_samples) == set(want_s.channel_samples),
+        f"{what} channels",
+    )
+    for ch, cs in want_s.channel_samples.items():
+        for field in ("amp", "det", "phase"):
+            _check(
+                np.array_equal(
+                    np.asarray(getattr(got_s.channel_samples[ch], field)),
+                    np.asarray(getattr(cs, field)),
+                ),
+                f"{what} {ch}.{field} samples bit-equal to the direct build",
+            )
+
+
+def _wire_ms(payload: str, seq, load) -> tuple[float, float]:
+    """Host ms to write ``seq`` as abstract-repr JSON and to load
+    ``payload`` back (validation included), median of 3 each."""
+    return (
+        _median_seconds(seq.to_abstract_repr) * 1e3,
+        _median_seconds(lambda: load(payload)) * 1e3,
+    )
+
+
+def _wire_afm16_path(K, S, card: str) -> dict:
+    """AFM16 through the wire: the sequence is written as abstract-repr
+    JSON, loaded back with ``Sequence.from_abstract_repr`` and run with
+    ``TorchEmulator.from_sequence(...).run()``: samples bit-equal to the
+    direct build's, one K1 launch, the final state equal to the direct
+    run's and within the golden's tolerance."""
+    import torch
+
+    from pulser_tpu_torch import Sequence
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    direct = afm16_sequence()
+    payload = direct.to_abstract_repr()
+    _check_payload("WIRE_AFM16", payload)
+    ser_ms, de_ms = _wire_ms(payload, direct, Sequence.from_abstract_repr)
+    seq = Sequence.from_abstract_repr(payload)
+    _check_samples_equal(seq, direct, "WIRE_AFM16")
+    eval_times = np.linspace(0, seq.get_duration() * 1e-3, 101)
+    fin_direct = (
+        TorchEmulator.from_sequence(direct, evaluation_times=eval_times)
+        .run()
+        .states[-1]
+        .full()[:, 0]
+    )
+    torch.cuda.synchronize()
+    _reset_launches(K)
+    c_before = K.device_launches("ip_sesolve")
+    t0 = time.perf_counter()
+    res = TorchEmulator.from_sequence(seq, evaluation_times=eval_times).run()
+    fin = res.states[-1].full()[:, 0]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _launches(K)
+    c_launches = K.device_launches("ip_sesolve") - c_before
+    info = dict(S.last_solve_info)
+    vs_direct = 1 - _fidelity(fin_direct, fin)
+    vs_golden = 1 - _fidelity(np.load(_GOLDEN)["final_state"], fin)
+    print(
+        f"WIRE_AFM16: {len(payload)} bytes of JSON (sha256 ok), serialize"
+        f" {ser_ms:.3f} ms, deserialize {de_ms:.3f} ms (host, median of 3);"
+        f" {info.get('kind')}, launches={launches} (device {c_launches}),"
+        f" run {run_s * 1e3:.3f} ms; 1-F vs the direct run {vs_direct:.3e},"
+        f" vs the golden {vs_golden:.3e} [{card}]",
+        flush=True,
+    )
+    _check(info.get("kind") == "ip_sesolve_cuda", "WIRE_AFM16 takes K1")
+    _check(launches["ip_sesolve"] == 1, "one K1 launch on WIRE_AFM16")
+    _check(c_launches == 1, "one K1 device launch by the library's count")
+    _check(sum(launches.values()) == 1, f"no other kernel: {launches}")
+    _check(bool(np.isfinite(fin).all()), "WIRE_AFM16 final state finite")
+    _check(vs_direct <= WIRE_FIDELITY_TOL, f"vs direct 1-F {vs_direct:.3e}")
+    _check(vs_golden <= FIDELITY_TOL, f"vs golden 1-F {vs_golden:.3e}")
+    return {
+        "name": "WIRE_AFM16",
+        "ms": run_s * 1e3,
+        "serialize_ms": ser_ms,
+        "deserialize_ms": de_ms,
+        "payload_bytes": len(payload),
+        "launches": {"ip_sesolve": launches["ip_sesolve"]},
+        "one_minus_f_vs_direct": vs_direct,
+        "one_minus_f_vs_golden": vs_golden,
+    }
+
+
+def _as_numpy(value) -> np.ndarray:
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _wire_noisy10_path(K, S, card: str) -> dict:
+    """NOISY10 through the wire: its sequence and its ``EmulationConfig``
+    (noise model, observables, trajectories) are written as abstract-repr
+    JSON, loaded back and run with ``TorchBackendV2`` seeded with
+    :data:`NOISY10_SEED`: one K2 launch, the occupations and counts equal
+    to the same backend run built directly with the same seed, and the
+    results' own abstract repr loads back to equal values."""
+    from pulser_tpu_torch import EmulationConfig, Sequence
+    from pulser_tpu_torch.backend.results import Results
+    from pulser_tpu_torch.emulator import TorchBackendV2
+
+    direct, noise = noisy10_sequence()
+    payload = direct.to_abstract_repr()
+    _check_payload("WIRE_NOISY10", payload)
+    direct_config = wire_noisy10_config(noise)
+    config_json = direct_config.to_abstract_repr()
+    ser_ms, de_ms = _wire_ms(payload, direct, Sequence.from_abstract_repr)
+    seq = Sequence.from_abstract_repr(payload)
+    config = EmulationConfig.from_abstract_repr(config_json)
+    _check(config.noise_model == noise, "WIRE_NOISY10 noise model")
+    _check(
+        config.to_abstract_repr() == config_json,
+        "WIRE_NOISY10 config writes back unchanged",
+    )
+    _check_samples_equal(seq, direct, "WIRE_NOISY10")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # samples_per_run
+        np.random.seed(NOISY10_SEED)
+        want = TorchBackendV2(direct, config=direct_config).run()
+        np.random.seed(NOISY10_SEED)
+        backend = TorchBackendV2(seq, config=config)
+    res, launches, device_launches, run_s = _backend_run(
+        K, backend, "mcwf_rows"
+    )
+    info = dict(S.last_solve_info)
+    occ_err = max(
+        float(
+            np.abs(
+                _as_numpy(res.get_result("occupation", t))
+                - _as_numpy(want.get_result("occupation", t))
+            ).max()
+        )
+        for t in (0.5, 1.0)
+    )
+    counts, want_counts = res.final_bitstrings, want.final_bitstrings
+    tv = _tv_distance(counts, want_counts)
+    t0 = time.perf_counter()
+    results_json = res.to_abstract_repr()
+    back = Results.from_abstract_repr(results_json)
+    results_ms = (time.perf_counter() - t0) * 1e3
+    back_ok = back.get_result_tags() == res.get_result_tags() and all(
+        np.array_equal(
+            _as_numpy(back.get_result(tag, t)),
+            _as_numpy(res.get_result(tag, t)),
+        )
+        for tag in ("occupation", "energy")
+        for t in res.get_result_times(tag)
+    ) and dict(back.final_bitstrings) == dict(counts)
+    print(
+        f"WIRE_NOISY10: sequence {len(payload)} bytes (sha256 ok), config"
+        f" {len(config_json)} bytes; serialize {ser_ms:.3f} ms, deserialize"
+        f" {de_ms:.3f} ms (host, median of 3); {info.get('kind')},"
+        f" launches={launches} (device {device_launches}), run"
+        f" {run_s * 1e3:.3f} ms; vs the direct backend run: occupations"
+        f" max|d| {occ_err:.3e}, counts TV {tv:.4f}; results JSON"
+        f" {len(results_json)} bytes written and loaded in"
+        f" {results_ms:.3f} ms, equal {back_ok} [{card}]",
+        flush=True,
+    )
+    _check(info.get("kind") == "mcwf_rows_cuda", "WIRE_NOISY10 takes K2")
+    _check(launches == 1 and device_launches == 1, "one K2 launch")
+    _check(occ_err == 0.0, f"WIRE_NOISY10 occupations {occ_err:.3e}")
+    _check(tv == 0.0, f"WIRE_NOISY10 counts TV {tv:.4f}")
+    _check(
+        sum(counts.values()) == NOISY10_TRAJECTORIES * 1000,
+        "1000 shots per trajectory",
+    )
+    _check(back_ok, "WIRE_NOISY10 results load back to equal values")
+    return {
+        "name": "WIRE_NOISY10",
+        "ms": run_s * 1e3,
+        "serialize_ms": ser_ms,
+        "deserialize_ms": de_ms,
+        "payload_bytes": len(payload),
+        "results_json_ms": results_ms,
+        "launches": {"mcwf_rows": launches},
+        "occupation_max_abs_diff": occ_err,
+        "counts_tv": tv,
+    }
+
+
+def chip_connection(torch_device=None):
+    """A ``RemoteConnection`` whose far end is this process and the card
+    (or ``torch_device``): it lists ``AnalogDevice`` as decoded from its
+    abstract repr, takes each submitted sequence as abstract-repr JSON,
+    and on fetch decodes it, emulates it with ``TorchEmulator`` and
+    samples each job's runs with :data:`TRI16_SEED`; the results cross
+    back as abstract-repr JSON too."""
+    import pulser_tpu_torch as P
+    from pulser_tpu_torch.backend.remote import (
+        BatchStatus,
+        JobStatus,
+        RemoteConnection,
+        RemoteResults,
+    )
+    from pulser_tpu_torch.backend.results import Results
+    from pulser_tpu_torch.devices import Device
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    class ChipConnection(RemoteConnection):
+        def __init__(self):
+            self.batches: dict[str, list[tuple[str, int]]] = {}
+            self.sent: list[str] = []
+
+        def submit(self, sequence, wait=False, open=False, batch_id=None,
+                   **kwargs):
+            payload = self._add_measurement_to_sequence(
+                sequence
+            ).to_abstract_repr()
+            self.sent.append(payload)
+            bid = batch_id or f"batch{len(self.batches)}"
+            jobs = kwargs.get("job_params") or []
+            self.batches.setdefault(bid, []).extend(
+                (payload, job["runs"]) for job in jobs
+            )
+            return RemoteResults(bid, self)
+
+        def _run_job(self, payload: str, runs: int):
+            seq = P.Sequence.from_abstract_repr(payload)
+            emu = TorchEmulator.from_sequence(
+                seq, evaluation_times="Minimal", torch_device=torch_device
+            )
+            final = emu.run()
+            np.random.seed(TRI16_SEED)
+            counts = final.sample_final_state(runs)
+            wire = Results.from_final_bitstrings(
+                seq.register.qubit_ids, seq.get_duration(), counts
+            ).to_abstract_repr()
+            return Results.from_abstract_repr(wire)
+
+        def _fetch_result(self, batch_id, job_ids):
+            return tuple(
+                self._run_job(payload, runs)
+                for payload, runs in self.batches[batch_id]
+            )
+
+        def _query_job_progress(self, batch_id):
+            return {
+                f"job{i}": (JobStatus.PENDING, None)
+                for i in range(len(self.batches[batch_id]))
+            }
+
+        def _get_batch_status(self, batch_id):
+            return BatchStatus.PENDING
+
+        def _get_job_ids(self, batch_id):
+            return [f"job{i}" for i in range(len(self.batches[batch_id]))]
+
+        def supports_open_batch(self):
+            return False
+
+        def fetch_available_devices(self):
+            return {
+                "AnalogDevice": Device.from_abstract_repr(
+                    P.AnalogDevice.to_abstract_repr()
+                )
+            }
+
+    return ChipConnection()
+
+
+def _wire_tri16_path(K, S, card: str) -> dict:
+    """TRI16 submitted as a QPU job: ``QPUBackend(seq, connection=...)
+    .run(job_params=[{"runs": 500}])`` through :func:`chip_connection`,
+    whose far end emulates it on the card: one K1 launch, and the counts
+    equal to sampling the direct build's final state with the same
+    seed."""
+    import torch
+
+    from pulser_tpu_torch import QPUBackend
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    seq = tri16_sequence()
+    conn = chip_connection()
+    torch.cuda.synchronize()
+    _reset_launches(K)
+    c_before = K.device_launches("ip_sesolve")
+    t0 = time.perf_counter()
+    remote = QPUBackend(seq, connection=conn).run(
+        job_params=[{"runs": TRI16_RUNS}]
+    )
+    submit_s = time.perf_counter() - t0
+    (result,) = remote.results
+    counts = dict(result.final_bitstrings)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = _launches(K)
+    c_launches = K.device_launches("ip_sesolve") - c_before
+    info = dict(S.last_solve_info)
+    (payload,) = conn.sent
+    _check_payload("WIRE_TRI16", payload)
+
+    final = TorchEmulator.from_sequence(
+        tri16_direct_sequence(), evaluation_times="Minimal"
+    ).run()
+    np.random.seed(TRI16_SEED)
+    want = dict(final.sample_final_state(TRI16_RUNS))
+    tv = _tv_distance(counts, want)
+    print(
+        f"WIRE_TRI16: QPUBackend.run() {submit_s * 1e3:.3f} ms (device check,"
+        f" {len(payload)} bytes of JSON submitted, sha256 ok), results"
+        f" {total_s * 1e3:.3f} ms in all; {info.get('kind')},"
+        f" launches={launches} (device {c_launches}); {sum(counts.values())}"
+        f" shots, {len(counts)} bitstrings, TV vs the direct build's final"
+        f" state sampled with the same seed {tv:.4f} [{card}]",
+        flush=True,
+    )
+    _check(info.get("kind") == "ip_sesolve_cuda", "WIRE_TRI16 takes K1")
+    _check(launches["ip_sesolve"] == 1, "one K1 launch on WIRE_TRI16")
+    _check(c_launches == 1, "one K1 device launch by the library's count")
+    _check(sum(launches.values()) == 1, f"no other kernel: {launches}")
+    _check(sum(counts.values()) == TRI16_RUNS, f"{TRI16_RUNS} shots")
+    _check(counts == want, "WIRE_TRI16 counts equal the direct build's")
+    return {
+        "name": "WIRE_TRI16",
+        "ms": total_s * 1e3,
+        "submit_ms": submit_s * 1e3,
+        "payload_bytes": len(payload),
+        "launches": {"ip_sesolve": launches["ip_sesolve"]},
+        "counts_tv": tv,
+    }
+
+
+def _validator_line() -> None:
+    """Names the JSON-schema validator this host has: the loads of the
+    wire paths validate every payload with it."""
+    import importlib
+
+    for name in ("fastjsonschema", "jsonschema"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            continue
+        from importlib.metadata import version
+
+        print(f"schema validator: {name} {version(name)}", flush=True)
+        return
+    print("schema validator: none on this host", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3031,6 +3498,7 @@ def main() -> int:
         "python", sys.version.split()[0], flush=True,
     )
     device = torch.device("cuda")
+    _validator_line()
 
     _build(K)  # 2
     _random_inputs_phase(K, device)  # 3-5
@@ -3052,6 +3520,9 @@ def main() -> int:
             _xy16_path(S, card),  # 16
             _relax10_path(K, S, card),  # 17
             _mcdepol10_path(S, card),  # 18
+            _wire_afm16_path(K, S, card),  # 23
+            _wire_noisy10_path(K, S, card),  # 24
+            _wire_tri16_path(K, S, card),  # 25
         ],
     }
     print(json.dumps(report))

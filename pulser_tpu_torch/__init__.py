@@ -5,9 +5,12 @@ Mirrors ``pulser_tpu``'s module paths with ``Tpu`` replaced by
 ``Sequence(register, device)`` → ``declare_channel`` →
 ``add(Pulse(...))`` → ``TorchEmulator.from_sequence(seq).run()``, or
 through the backend API, ``TorchBackendV2(seq, config=TorchConfig(
-observables=[...])).run()``. Serialization is not ported yet (see
-ROADMAP.md).
+observables=[...])).run()``. A sequence travels as abstract-repr JSON
+(``seq.to_abstract_repr()``, ``Sequence.from_abstract_repr``), and
+``QPUBackend`` submits it through a ``RemoteConnection``.
 """
+
+from pulser_tpu_torch._version import __version__ as __version__
 
 from pulser_tpu_torch.waveforms import (
     CompositeWaveform,
@@ -62,6 +65,7 @@ __all__ = [
     "Sequence",
     "sample",
     "EmulatorConfig",
+    "QPUBackend",
 ]
 
 #: Names resolved lazily from the backend and emulator subpackages.
@@ -82,6 +86,7 @@ _BACKEND_NAMES = {
         "Fidelity",
         "Observable",
         "Occupation",
+        "QPUBackend",
         "Results",
         "ResultsSequence",
         "StateResult",
@@ -117,10 +122,10 @@ def __getattr__(name: str):
         import pulser_tpu_torch.sampler as sampler
 
         return sampler
-    if name in _BACKEND_NAMES or name in ("backend", "emulator"):
+    if name in _BACKEND_NAMES or name in ("backend", "backends", "emulator"):
         import importlib
 
-        if name in ("backend", "emulator"):
+        if name in ("backend", "backends", "emulator"):
             return importlib.import_module(f"pulser_tpu_torch.{name}")
         return getattr(importlib.import_module(_BACKEND_NAMES[name]), name)
     if name == "sequence":
@@ -139,6 +144,14 @@ def __getattr__(name: str):
 def __dir__():
     return sorted(
         set(globals())
-        | {"Sequence", "sample", "sampler", "sequence", "backend", "emulator"}
+        | {
+            "Sequence",
+            "sample",
+            "sampler",
+            "sequence",
+            "backend",
+            "backends",
+            "emulator",
+        }
         | set(_BACKEND_NAMES)
     )

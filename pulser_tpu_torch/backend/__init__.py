@@ -1,7 +1,4 @@
-"""Classes for backend execution.
-
-The QPU and remote backends are not ported yet (see ROADMAP.md).
-"""
+"""Classes for backend execution."""
 
 import pulser_tpu_torch.noise_model as noise_model  # For backwards compat
 from pulser_tpu_torch.noise_model import (  # For backwards compat
@@ -31,6 +28,16 @@ from pulser_tpu_torch.backend.observable import (
     Observable,
 )
 from pulser_tpu_torch.backend.operator import Operator, OperatorRepr
+from pulser_tpu_torch.backend.qpu import QPUBackend
+from pulser_tpu_torch.backend.remote import (
+    BatchStatus,
+    JobParams,
+    JobStatus,
+    RemoteBackend,
+    RemoteConnection,
+    RemoteResults,
+    RemoteResultsError,
+)
 from pulser_tpu_torch.backend.results import Results, ResultsSequence
 from pulser_tpu_torch.backend.state import State, StateRepr
 
@@ -54,6 +61,14 @@ __all__ = [
     "Observable",
     "Operator",
     "OperatorRepr",
+    "QPUBackend",
+    "BatchStatus",
+    "JobParams",
+    "JobStatus",
+    "RemoteBackend",
+    "RemoteConnection",
+    "RemoteResults",
+    "RemoteResultsError",
     "Results",
     "ResultsSequence",
     "State",

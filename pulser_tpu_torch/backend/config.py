@@ -3,13 +3,13 @@
 API parity with reference
 ``pulser-core/pulser/backend/config.py:57-578``. Validation is split
 into focused helpers; the config itself is an immutable bag of options
-exposed through ``__getattr__``. The JSON round trip raises until the
-JSON layer is ported (see ROADMAP.md).
+exposed through ``__getattr__``.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import warnings
 from collections import Counter
 from dataclasses import dataclass, field
@@ -34,7 +34,8 @@ from pulser_tpu_torch.backend._classproperty import classproperty
 from pulser_tpu_torch.backend.observable import Callback, Observable
 from pulser_tpu_torch.backend.operator import Operator, OperatorRepr
 from pulser_tpu_torch.backend.state import State, StateRepr
-from pulser_tpu_torch.exceptions.serialization import json_not_ported
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
 from pulser_tpu_torch.noise_model import NoiseModel
 
 DEFAULT_N_TRAJECTORIES = 40
@@ -427,15 +428,31 @@ class EmulationConfig(BackendConfig, Generic[StateType]):
         return self._backend_options
 
     def to_abstract_repr(self, skip_validation: bool = False) -> str:
-        """Serialize `EmulationConfig` to a JSON formatted str (not
-        ported)."""
-        raise json_not_ported("EmulationConfig.to_abstract_repr()")
+        """Serialize `EmulationConfig` to a JSON formatted str."""
+        obj_str = json.dumps(self, cls=AbstractReprEncoder)
+        if not skip_validation:
+            validate_abstract_repr(obj_str, "config")
+        return obj_str
 
     @classmethod
     def from_abstract_repr(cls, obj_str: str) -> EmulationConfig:
-        """Deserialize an EmulationConfig from an abstract JSON object
-        (not ported)."""
-        raise json_not_ported("EmulationConfig.from_abstract_repr()")
+        """Deserialize an EmulationConfig from an abstract JSON object."""
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized EmulationConfig must be given as a"
+                f" string. Instead, got object of type {type(obj_str)}."
+            )
+        validate_abstract_repr(obj_str, "config")
+        from pulser_tpu_torch.json.abstract_repr.backend import (
+            _deserialize_emulation_config,
+        )
+
+        return _deserialize_emulation_config(
+            json.loads(obj_str),
+            cls,
+            cls.state_type,
+            cls.operator_type,
+        )
 
 
 # Legacy class

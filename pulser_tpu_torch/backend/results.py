@@ -1,13 +1,13 @@
-"""Observable result storage and aggregation.
+"""Observable result storage, serialization and aggregation.
 
 API parity with reference
-``pulser-core/pulser/backend/results.py:52-530``; the JSON round trip
-raises until the JSON layer is ported (see ROADMAP.md).
+``pulser-core/pulser/backend/results.py:52-530``.
 """
 
 from __future__ import annotations
 
 import collections.abc
+import json
 import typing
 import uuid
 import warnings
@@ -18,35 +18,11 @@ from typing import Any, Callable, Type, TypeVar, cast, overload
 from pulser_tpu_torch.backend.aggregators import AGGREGATOR_MAPPING
 from pulser_tpu_torch.backend.observable import AggregationMethod, Observable
 from pulser_tpu_torch.backend.state import State
-from pulser_tpu_torch.exceptions.serialization import (
-    AbstractReprError,
-    json_not_ported,
-)
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
+from pulser_tpu_torch.json.utils import stringify_qubit_ids
 
 ResultsType = TypeVar("ResultsType", bound="Results")
-
-
-def stringify_qubit_ids(qubit_ids: typing.Sequence[Any]) -> list[str]:
-    """Casts qubit IDs to str, refusing casts that collide."""
-    names = [str(id) for id in qubit_ids]
-    non_str_ids = [id for id in qubit_ids if not isinstance(id, str)]
-    if non_str_ids:
-        warnings.warn(
-            "Register serialization to an abstract representation "
-            "irreversibly converts all qubit ID's to strings.",
-            stacklevel=2,
-        )
-        if len(set(names)) < len(names):
-            clashes = [
-                (id, str(id))
-                for id in non_str_ids
-                if str(id) in qubit_ids
-            ]
-            raise AbstractReprError(
-                "Name collisions encountered when converting qubit IDs to "
-                f"strings for IDs: {clashes}"
-            )
-    return names
 
 #: Attributes that only existed on the deprecated SampledResult
 _SAMPLED_RESULT_ATTRS = (
@@ -292,15 +268,53 @@ class Results:
             },
         }
 
+    @classmethod
+    def _from_abstract_repr(cls, obj: dict) -> Results:
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_complex,
+        )
+
+        results = cls(
+            atom_order=tuple(obj["atom_order"]),
+            total_duration=obj["total_duration"],
+        )
+        results._tagmap.update(
+            (k, uuid.UUID(v)) for k, v in obj["tagmap"].items()
+        )
+        results._results.update(
+            (uuid.UUID(k), deserialize_complex(v))
+            for k, v in obj["results"].items()
+        )
+        results._times.update(
+            (uuid.UUID(k), v) for k, v in obj["times"].items()
+        )
+        results._aggregation_methods.update(
+            (uuid.UUID(k), AggregationMethod(v))
+            for k, v in obj.get("aggregation_methods", {}).items()
+        )
+        return results
+
     def to_abstract_repr(self, skip_validation: bool = False) -> str:
-        """Serializes into the abstract-repr JSON string (not ported)."""
-        raise json_not_ported("Results.to_abstract_repr()")
+        """Serializes into the abstract-repr JSON string.
+
+        Arrays are flattened to lists (their original type is not
+        recoverable).
+
+        Args:
+            skip_validation: Skip the schema check on the output.
+        """
+        abstr_str = json.dumps(
+            self._to_abstract_repr(), cls=AbstractReprEncoder
+        )
+        if not skip_validation:
+            validate_abstract_repr(abstr_str, "results")
+        return abstr_str
 
     @classmethod
     def from_abstract_repr(cls, repr: str) -> Results:
-        """Rebuilds a Results from its abstract-repr JSON string (not
-        ported)."""
-        raise json_not_ported("Results.from_abstract_repr()")
+        """Rebuilds a Results from its abstract-repr JSON string."""
+        validate_abstract_repr(repr, "results")
+        return cls._from_abstract_repr(json.loads(repr))
 
     # --- Aggregation ------------------------------------------------------
 

@@ -25,12 +25,19 @@ from pulser_tpu_torch.channels.modulation import (
     calculate_mod_bandwidth_from_amplitude_rise_time,
     validate_mod_bandwidth,
 )
+from pulser_tpu_torch.json.utils import get_dataclass_defaults, obj_to_dict
 from pulser_tpu_torch.pulse import Pulse
 
 # Emit duration-rounding warnings a single time only
 warnings.filterwarnings("once", "A duration of")
 
 ChannelType = TypeVar("ChannelType", bound="Channel")
+
+OPTIONAL_ABSTR_CH_FIELDS = (
+    "min_avg_amp",
+    "custom_phase_jump_time",
+    "propagation_dir",
+)
 
 # State labels, in the order used by the state-vector representation
 States = Literal["u", "d", "r", "g", "h", "x"]
@@ -606,6 +613,23 @@ class Channel(ABC):
     def default_id(self) -> str:
         """Generates the default ID for indexing this channel in a Device."""
         return f"{self.name.lower()}_{self.addressing.lower()}"
+
+    def _to_dict(
+        self, _module: str = "pulser_tpu_torch.channels"
+    ) -> dict[str, Any]:
+        params = {
+            f.name: getattr(self, f.name) for f in fields(self) if f.init
+        }
+        return obj_to_dict(self, _module=_module, **params)
+
+    def _to_abstract_repr(self, id: str) -> dict[str, Any]:
+        all_fields = fields(self)
+        defaults = get_dataclass_defaults(all_fields)
+        params = {f.name: getattr(self, f.name) for f in all_fields}
+        for p in OPTIONAL_ABSTR_CH_FIELDS:
+            if params[p] == defaults[p]:
+                params.pop(p, None)
+        return {"id": id, "basis": self.basis, **params}
 
 
 def __getattr__(name: str) -> Any:

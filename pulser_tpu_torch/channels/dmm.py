@@ -6,15 +6,18 @@ Behavioral parity with reference
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Any, Literal, Optional
 
 import numpy as np
 
 import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.channels.base_channel import Channel
+from pulser_tpu_torch.json.utils import get_dataclass_defaults
 from pulser_tpu_torch.pulse import Pulse
 from pulser_tpu_torch.register.weight_maps import DetuningMap
+
+OPTIONAL_ABSTR_DMM_FIELDS = ["total_bottom_detuning", "min_avg_abs_detuning"]
 
 
 def _frozen(default: Any) -> Any:
@@ -205,6 +208,15 @@ class DMM(Channel):
         self._check_spot_floor(min_round_detuning, detuning_map.weights)
         self._check_total_floor(min_round_detuning, detuning_map.weights)
         self._check_avg_threshold(round_detuning, detuning_map.weights)
+
+    def _to_abstract_repr(self, id: str) -> dict[str, Any]:
+        all_fields = fields(self)
+        defaults = get_dataclass_defaults(all_fields)
+        params = super()._to_abstract_repr(id)
+        for p in OPTIONAL_ABSTR_DMM_FIELDS:
+            if params[p] == defaults[p]:
+                params.pop(p, None)
+        return params
 
 
 def _dmm_id_from_name(dmm_name: str) -> str:

@@ -7,10 +7,10 @@ lightshift physics, beam switching combinations).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from enum import Flag
 from itertools import chain
-from typing import Any, Literal, overload
+from typing import Any, Literal, cast, overload
 
 import numpy as np
 import torch
@@ -19,6 +19,14 @@ import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.channels.modulation import (
     calculate_amplitude_rise_time,
     validate_mod_bandwidth,
+)
+from pulser_tpu_torch.json.utils import get_dataclass_defaults, obj_to_dict
+
+OPTIONAL_ABSTR_EOM_FIELDS = (
+    "multiple_beam_control",
+    "custom_buffer_time",
+    "blue_shift_coeff",
+    "red_shift_coeff",
 )
 
 # RydbergEOM parameters that must be strictly positive
@@ -35,6 +43,12 @@ class RydbergBeam(Flag):
 
     BLUE = 1
     RED = 2
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(self, self.value)
+
+    def _to_abstract_repr(self) -> str:
+        return cast(str, self.name)
 
 
 # The fields are split into defaultless/defaulted base dataclasses so
@@ -79,6 +93,25 @@ class BaseEOM(_BaseEOMDefaults, _BaseEOM):
     def rise_time(self) -> int:
         """The EOM amplitude rise time (in ns)."""
         return calculate_amplitude_rise_time(self.mod_bandwidth)
+
+    def _to_dict(self) -> dict[str, Any]:
+        params = {
+            f.name: getattr(self, f.name) for f in fields(self) if f.init
+        }
+        return obj_to_dict(self, **params)
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        all_fields = fields(self)
+        defaults = get_dataclass_defaults(all_fields)
+        assert set(OPTIONAL_ABSTR_EOM_FIELDS) <= defaults.keys()
+        skippable = set(OPTIONAL_ABSTR_EOM_FIELDS)
+        params = {}
+        for f in all_fields:
+            value = getattr(self, f.name)
+            if f.name in skippable and value == defaults[f.name]:
+                continue
+            params[f.name] = value
+        return params
 
 
 @dataclass(frozen=True)

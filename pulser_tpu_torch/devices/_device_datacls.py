@@ -3,12 +3,13 @@
 Behavioral parity with reference
 ``pulser-core/pulser/devices/_device_datacls.py:86-1195``: same frozen
 dataclasses, validation rules, C6/C3 lookup, blockade-radius math, and
-spec pretty-printers. Serialization is not ported yet (see ROADMAP.md).
+spec pretty-printers.
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import pprint
 import warnings
 from abc import ABC, abstractmethod
@@ -20,6 +21,7 @@ from typing import Any, Callable, Literal, cast, get_args
 import numpy as np
 from scipy.spatial.distance import squareform
 
+import pulser_tpu_torch
 import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.channels.base_channel import (
     Channel,
@@ -30,6 +32,9 @@ from pulser_tpu_torch.channels.dmm import DMM
 from pulser_tpu_torch.devices.interaction_coefficients import c3_dict, c6_dict
 from pulser_tpu_torch.exceptions import sequence as _seq_exc
 from pulser_tpu_torch.exceptions.base import PulserValueError
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
+from pulser_tpu_torch.json.utils import get_dataclass_defaults, obj_to_dict
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
 from pulser_tpu_torch.register.mappable_reg import MappableRegister
@@ -44,6 +49,19 @@ ALWAYS_OPTIONAL_PARAMS = (
     "optimal_layout_filling",
     "max_layout_traps",
 )
+OPTIONAL_IN_ABSTR_REPR = tuple(
+    list(ALWAYS_OPTIONAL_PARAMS)
+    + [
+        "dmm_objects",
+        "noise_model",
+        "requires_layout",
+        "accepts_new_layouts",
+        "min_layout_traps",
+        "min_layout_filling",
+    ]
+)
+PARAMS_WITH_ABSTR_REPR = ("channel_objects", "channel_ids", "dmm_objects")
+
 # Numeric device parameters checked for positivity in __post_init__.
 # 'min_atom_distance' alone admits zero.
 _BOUNDED_PARAMS = (
@@ -384,6 +402,7 @@ class BaseDevice(ABC):
                 invalid=register.dimensionality,
             )
         self._validate_coords(register.qubits, kind="atoms")
+
         if register.layout is not None:
             try:
                 self.validate_layout(register.layout)
@@ -540,6 +559,47 @@ class BaseDevice(ABC):
         if self._custom_interaction_coeff_xy is not None:
             params["interaction_coeff_xy"] = self.interaction_coeff_xy
         return params
+
+    @abstractmethod
+    def _to_dict(self) -> dict[str, Any]:
+        pass
+
+    @abstractmethod
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        defaults = get_dataclass_defaults(fields(self))
+        params = self._params(init_only=False)
+        for p in OPTIONAL_IN_ABSTR_REPR:
+            if p in params and params[p] == defaults[p]:
+                params.pop(p, None)
+        for p in PARAMS_WITH_ABSTR_REPR:
+            params.pop(p, None)
+        params.update(
+            {
+                "version": "1",
+                "pulser_version": pulser_tpu_torch.__version__,
+                "channels": [
+                    ch_obj._to_abstract_repr(ch_name)
+                    for ch_name, ch_obj in self.channels.items()
+                ],
+            }
+        )
+        dmm_list = [
+            dmm_obj._to_abstract_repr(dmm_name)
+            for dmm_name, dmm_obj in self.dmm_channels.items()
+        ]
+        if dmm_list:
+            params["dmm_objects"] = dmm_list
+        if "noise_model" in params:
+            params["default_noise_model"] = params.pop("noise_model")
+        params.pop("_custom_interaction_coeff_xy", None)
+        params["interaction_coeff_xy"] = self.interaction_coeff_xy
+        return params
+
+    def to_abstract_repr(self) -> str:
+        """Serializes the device into an abstract JSON object."""
+        abstr_dev_str = json.dumps(self, cls=AbstractReprEncoder)
+        validate_abstract_repr(abstr_dev_str, "device")
+        return abstr_dev_str
 
     # -- Spec sheets ---------------------------------------------------------
 
@@ -871,6 +931,44 @@ class Device(BaseDevice):
             del params[param]
         return VirtualDevice(**params)
 
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self,
+            _build=False,
+            _module="pulser_tpu_torch.devices",
+            _name=self.name,
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        d = super()._to_abstract_repr()
+        d["is_virtual"] = False
+        return d
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> Device:
+        """Deserialize a Device from an abstract JSON object.
+
+        Raises an error if the JSON string represents a VirtualDevice
+        (use VirtualDevice.from_abstract_repr for that).
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized Device must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_device,
+        )
+
+        device = deserialize_device(obj_str)
+        if not isinstance(device, Device):
+            raise TypeError(
+                "The given schema is not related to a Device, but to a"
+                f" {type(device).__name__}."
+            )
+        return device
+
     # Same rows as the base class, with "Accepts new layout" slotted
     # in right after "Requires layout".
     _LAYOUT_SPEC_ROWS = (
@@ -914,6 +1012,40 @@ class VirtualDevice(BaseDevice):
         r"""Switches the device's Rydberg level (must be in 50..100)."""
         self._validate_rydberg_level(ryd_lvl)
         object.__setattr__(self, "rydberg_level", ryd_lvl)
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self,
+            _module="pulser_tpu_torch.devices",
+            **self._params(init_only=True),
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        d = super()._to_abstract_repr()
+        d["is_virtual"] = True
+        return d
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> VirtualDevice:
+        """Deserialize a VirtualDevice from an abstract JSON object.
+
+        If the JSON string represents a Device, it is converted into a
+        VirtualDevice using `Device.to_virtual`.
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized VirtualDevice must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_device,
+        )
+
+        device = deserialize_device(obj_str)
+        if isinstance(device, Device):
+            return device.to_virtual()
+        return device
 
 
 # Patch __init__ to accept deprecated default_noise_model

@@ -135,6 +135,13 @@ class TorchConfig(EmulationConfig[TorchState]):
             "torch_device",
         }
 
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        # The torch device says where this process emulates, not what:
+        # it stays off the wire, and a loaded config takes the default
+        options = dict(super()._to_abstract_repr())
+        options.pop("torch_device", None)
+        return options
+
     def _get_sampling_indices(
         self, total_duration_ns: int
     ) -> np.ndarray:

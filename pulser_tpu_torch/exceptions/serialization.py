@@ -3,9 +3,7 @@
 API parity with reference
 ``pulser-core/pulser/exceptions/serialization.py`` (same class names
 and message texts), using the template-rendering base shared with the
-sequence errors instead of per-class ``__str__`` methods. The JSON layer
-itself is not ported yet: :func:`json_not_ported` is what its entry
-points raise.
+sequence errors instead of per-class ``__str__`` methods.
 """
 
 from __future__ import annotations
@@ -14,19 +12,6 @@ from dataclasses import dataclass
 from typing import ClassVar, Optional
 
 from pulser_tpu_torch.exceptions.base import PulserError
-
-#: The ROADMAP.md item that brings the JSON layer, the remote backends,
-#: sharding over several devices and serving to the port: the JSON
-#: refusals and the solver's sharding refusals quote it.
-JSON_ROADMAP_ITEM = "JSON, remote backends, parallel and serving"
-
-
-def json_not_ported(what: str) -> NotImplementedError:
-    """The error a JSON entry point of the port raises for now."""
-    return NotImplementedError(
-        f"{what} needs the JSON layer, which is not ported yet (ROADMAP.md:"
-        f" '{JSON_ROADMAP_ITEM}')."
-    )
 
 
 class SerializationError(PulserError):

@@ -107,6 +107,26 @@ class AbstractArray:
             return self._array.cpu().numpy()
         return self._array  # type: ignore[return-value]
 
+    def _to_dict(self) -> dict[str, Any]:
+        from pulser_tpu_torch.json.utils import obj_to_dict
+
+        try:
+            return obj_to_dict(self, self.as_array())
+        except RuntimeError as e:
+            raise NotImplementedError(
+                "A tensor that requires grad can't be serialized"
+                " without losing the computational graph information."
+            ) from e
+
+    def _to_abstract_repr(self) -> Any:
+        try:
+            return self.as_array().tolist()
+        except RuntimeError as e:
+            raise NotImplementedError(
+                "A tensor that requires grad can't be serialized"
+                " without losing the computational graph information."
+            ) from e
+
     def copy(self) -> AbstractArray:
         """Returns a copy of the AbstractArray."""
         return AbstractArray(self._array.clone() if self.is_tensor else self._array.copy())

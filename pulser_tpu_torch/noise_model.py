@@ -3,12 +3,12 @@
 Behavioral parity with reference
 ``pulser-core/pulser/noise_model.py:37-960``: 12 noise types, parameter
 registry, automatic noise-type derivation from non-default parameters,
-validation and human-readable summaries. Serialization is not ported
-yet (see ROADMAP.md).
+validation, serialization round trip and human-readable summaries.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import warnings
 from collections.abc import Collection, Sequence
@@ -21,6 +21,9 @@ import torch
 
 import pulser_tpu_torch.math as pm
 from pulser_tpu_torch.constants import KB, KEFF, MASS, TRAP_WAVELENGTH
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
+from pulser_tpu_torch.json.utils import get_dataclass_defaults
 
 __all__ = ["NoiseModel"]
 
@@ -158,6 +161,10 @@ _LEGACY_DEFAULTS: dict[str, float | int] = {
     for name, spec in _PARAMS.items()
     if spec.legacy is not None
 }
+
+OPTIONAL_IN_ABSTR_REPR = tuple(
+    name for name, spec in _PARAMS.items() if spec.optional_wire
+)
 
 # Noise types whose activation makes trajectory counts meaningful
 _TRAJ_SENSITIVE: set[NoiseTypes] = {
@@ -813,6 +820,33 @@ class NoiseModel:
 
     # -- Serialization ------------------------------------------------------
 
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        all_fields = {}
+        for f in fields(self):
+            value = getattr(self, f.name)
+            if (
+                f.name in OPTIONAL_IN_ABSTR_REPR
+                and get_dataclass_defaults((f,))[f.name] == value
+            ):
+                continue
+            all_fields[f.name] = value
+        # These are deducible from noise_types, so they're dropped
+        all_fields.pop("disable_doppler")
+        all_fields.pop("with_leakage")
+        # The wire format pairs rates with operators
+        eff_noise_rates = all_fields.pop("eff_noise_rates")
+        eff_noise_opers = all_fields.pop("eff_noise_opers")
+        all_fields["eff_noise"] = list(
+            zip(eff_noise_rates, eff_noise_opers)
+        )
+
+        if "detuning_hf_psd" in all_fields:
+            det_hf_psd = all_fields.pop("detuning_hf_psd")
+            det_hf_freqs = all_fields.pop("detuning_hf_omegas")
+            all_fields["detuning_hf"] = list(zip(det_hf_psd, det_hf_freqs))
+
+        return all_fields
+
     def __repr__(self) -> str:
         relevant_params = self._find_relevant_params(
             self.noise_types,
@@ -828,6 +862,32 @@ class NoiseModel:
             if f.name in relevant_params
         ]
         return f"{self.__class__.__name__}({', '.join(params_list)})"
+
+    def to_abstract_repr(self) -> str:
+        """Serializes the noise model into an abstract JSON object."""
+        abstr_str = json.dumps(self, cls=AbstractReprEncoder)
+        validate_abstract_repr(abstr_str, "noise")
+        return abstr_str
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> NoiseModel:
+        """Deserialize a noise model from an abstract JSON object.
+
+        Args:
+            obj_str: the JSON string representing the noise model encoded
+                in the abstract JSON format.
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized noise model must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_abstract_noise_model,
+        )
+
+        return deserialize_abstract_noise_model(obj_str)
 
     # -- Human-readable summaries -------------------------------------------
 

@@ -62,7 +62,6 @@ from pulser_tpu_torch.ops.apply import (
     group_sizes,
     jump_candidates,
 )
-from pulser_tpu_torch.exceptions.serialization import JSON_ROADMAP_ITEM
 from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
 
 
@@ -427,8 +426,10 @@ def build_plan(
 
 #: Shape/step metadata of the most recent solve, for telemetry.
 last_solve_info: dict[str, Any] = {}
-#: The ROADMAP item that holds sharding over several devices.
-_PARALLEL_ITEM = f"ROADMAP.md Queue 1, '{JSON_ROADMAP_ITEM}'"
+#: The title of the ROADMAP.md item that brings sharding over several
+#: devices and serving to the port; the sharding refusals quote it.
+PARALLEL_ROADMAP_ITEM = "Parallel and serving"
+_PARALLEL_ITEM = f"ROADMAP.md Queue 1, '{PARALLEL_ROADMAP_ITEM}'"
 
 
 def _numpy_dtype(dtype: Any) -> np.dtype:

@@ -24,3 +24,6 @@ class Parametrized(ABC):
     def build(self) -> Any:
         """Builds the object."""
 
+    @abstractmethod
+    def _to_dict(self) -> dict[str, Any]:
+        """Serializes the object in a dictionary."""

@@ -19,6 +19,15 @@ from typing import TYPE_CHECKING, Any, Union
 import numpy as np
 
 import pulser_tpu_torch.math as pm
+import pulser_tpu_torch.parametrized
+from pulser_tpu_torch.exceptions.serialization import AbstractReprError
+from pulser_tpu_torch.json.abstract_repr.serializer import abstract_repr
+from pulser_tpu_torch.json.abstract_repr.signatures import (
+    BINARY_OPERATORS,
+    SIGNATURES,
+    UNARY_OPERATORS,
+)
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.parametrized.paramabc import Parametrized
 
 if TYPE_CHECKING:
@@ -184,6 +193,15 @@ class ParamObj(Parametrized, OpSupport):
         """Every variable this call (transitively) depends on."""
         return self._variables
 
+    @property
+    def _default_kwargs(self) -> dict[str, Any]:
+        """Default values of the callable's keyword parameters."""
+        defaults = {}
+        for name, p in inspect.signature(self.cls).parameters.items():
+            if p.default is not p.empty:
+                defaults[name] = p.default
+        return defaults
+
     def build(self) -> Any:
         """Evaluates the call with the variables' current values.
 
@@ -199,6 +217,147 @@ class ParamObj(Parametrized, OpSupport):
             **{key: _evaluated(v) for key, v in self.kwargs.items()},
         )
         return self._instance
+
+    def _is_classmethod_call(self) -> bool:
+        """Whether this records ``SomeClass.some_classmethod(...)``."""
+        return bool(
+            self.args
+            and hasattr(self.args[0], self.cls.__name__)
+            and inspect.isfunction(self.cls)
+            and self.cls.__module__ != "pulser_tpu_torch.math"
+        )
+
+    def _callable_ref(self, fn: Callable) -> dict[str, Any]:
+        """Legacy-JSON pointer to a callable (not a built object)."""
+        module = "numpy" if isinstance(fn, np.ufunc) else fn.__module__
+        return obj_to_dict(
+            self, _build=False, _name=fn.__name__, _module=module
+        )
+
+    def _to_dict(self) -> dict[str, Any]:
+        if isinstance(self.cls, Parametrized):
+            raise ValueError(
+                "Serialization of calls to parametrized objects is not "
+                "supported."
+            )
+        if not self._is_classmethod_call():
+            return obj_to_dict(
+                self, self._callable_ref(self.cls), *self.args, **self.kwargs
+            )
+        owner = self.args[0]
+        if not inspect.isclass(owner):
+            raise NotImplementedError(
+                "Instance or static method serialization is not supported."
+            )
+        method_ref = obj_to_dict(
+            self,
+            _build=False,
+            _name=self.cls.__name__,
+            _module=owner.__module__,
+            _submodule=owner.__name__,
+        )
+        return obj_to_dict(
+            self,
+            method_ref,
+            self._callable_ref(owner),
+            *self.args[1:],
+            **self.kwargs,
+        )
+
+    # Pulse convenience constructors lower to a plain "Pulse" whose
+    # constant leg becomes a zero-duration ConstantWaveform marker.
+    _CONSTANT_LEG = {
+        "Pulse.ConstantAmplitude": "amplitude",
+        "Pulse.ConstantDetuning": "detuning",
+    }
+
+    def _classmethod_abstract_repr(self) -> dict[str, Any]:
+        """Wire format of a recorded classmethod call."""
+        owner = self.args[0]
+        if not inspect.isclass(owner):
+            raise NotImplementedError(
+                "Instance or static method serialization is not supported."
+            )
+        name = f"{owner.__name__}.{self.cls.__name__}"
+        lowers_to_pulse = name in self._CONSTANT_LEG or name == (
+            "Pulse.ConstantPulse"
+        )
+        signature = SIGNATURES["Pulse" if lowers_to_pulse else name]
+        assert (
+            signature.var_pos is None
+        ), "Unexpected signature with VAR_POSITIONAL arguments."
+        all_args = {
+            **self._default_kwargs,
+            **dict(zip(signature.all_pos_args(), self.args[1:])),
+            **self.kwargs,
+        }
+        leg = self._CONSTANT_LEG.get(name)
+        if leg is not None:
+            all_args[leg] = abstract_repr(
+                "ConstantWaveform", 0, all_args[leg]
+            )
+            name = "Pulse"
+        return abstract_repr(name, **all_args)
+
+    def _signature_abstract_repr(self) -> dict[str, Any]:
+        """Wire format of a call with a registered signature."""
+        op_name = self.cls.__name__
+        signature = SIGNATURES[op_name]
+        filtered_defaults = {
+            key: value
+            for key, value in self._default_kwargs.items()
+            if key in signature.keyword
+        }
+        full_kwargs = {**filtered_defaults, **self.kwargs}
+        if signature.var_pos is not None:
+            return abstract_repr(op_name, *self.args, **full_kwargs)
+
+        all_args = {
+            **full_kwargs,
+            **dict(zip(signature.all_pos_args(), self.args)),
+        }
+        if op_name == "InterpolatedWaveform" and all_args["times"] is None:
+            # The wire format always carries explicit times
+            if isinstance(
+                all_args["values"], pulser_tpu_torch.parametrized.Variable
+            ):
+                num_values = all_args["values"].size
+            else:
+                try:
+                    num_values = len(all_args["values"])
+                except TypeError:
+                    raise AbstractReprError(
+                        "An InterpolatedWaveform with 'values' of unknown "
+                        "length and unspecified 'times' can't be "
+                        "serialized to the abstract representation. To "
+                        "keep the same argument for 'values', provide "
+                        "compatible 'times' explicitly."
+                    )
+            all_args["times"] = np.linspace(0, 1, num=num_values)
+        return abstract_repr(op_name, **all_args)
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        if isinstance(self.cls, Parametrized):
+            raise ValueError(
+                "Serialization of calls to parametrized objects is not "
+                "supported."
+            )
+        op_name = self.cls.__name__
+        if self._is_classmethod_call():
+            return self._classmethod_abstract_repr()
+        if op_name in SIGNATURES:
+            return self._signature_abstract_repr()
+        if op_name in UNARY_OPERATORS:
+            return dict(expression=op_name, lhs=self.args[0])
+        if op_name in BINARY_OPERATORS:
+            return dict(
+                expression=op_name,
+                lhs=self.args[0],
+                rhs=self.args[1],
+            )
+        raise AbstractReprError(
+            f"No abstract representation for '{op_name}'."
+        )
 
     def __call__(self, *args: Any, **kwargs: Any) -> ParamObj:
         """Records a call on the (future) result of this ParamObj."""

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import collections.abc as abc
 import dataclasses
-from typing import Iterator, Union, cast
+from typing import Any, Iterator, Union, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.parametrized.paramabc import Parametrized
 from pulser_tpu_torch.parametrized.paramobj import OpSupport
 
@@ -96,6 +97,14 @@ class Variable(Parametrized, OpSupport):
             raise ValueError(f"No value assigned to variable '{self.name}'.")
         return cast(pm.AbstractArray, self.value)
 
+    def _to_dict(self) -> dict[str, Any]:
+        out = obj_to_dict(self, _build=False)
+        out.update(dataclasses.asdict(self))
+        return out
+
+    def _to_abstract_repr(self) -> dict[str, str]:
+        return {"variable": self.name}
+
     def __str__(self) -> str:
         return self.name
 
@@ -156,6 +165,18 @@ class VariableItem(Parametrized, OpSupport):
     def build(self) -> pm.AbstractArray:
         """The selected entries of the parent variable's value."""
         return self.var.build()[self.key]
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self, self.var, self.key, _module="operator", _name="getitem"
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        if isinstance(self.key, abc.Sequence):
+            picked: Union[int, list[int]] = list(self.key)
+        else:
+            picked = list(range(self.var.size))[self.key]
+        return {"expression": "index", "lhs": self.var, "rhs": picked}
 
     def __str__(self) -> str:
         if isinstance(self.key, slice):

@@ -14,6 +14,8 @@ import numpy as np
 
 import pulser_tpu_torch
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.json.abstract_repr.serializer import abstract_repr
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.parametrized import ParamObj, Parametrized
 from pulser_tpu_torch.parametrized.decorators import parametrize
 from pulser_tpu_torch.waveforms import (
@@ -258,6 +260,24 @@ class Pulse:
                 "The given channel does not support EOM mode operation."
             )
         return self.duration + self.fall_time(channel, in_eom_mode)
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self,
+            self.amplitude,
+            self.detuning,
+            self.phase,
+            post_phase_shift=self.post_phase_shift,
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        return abstract_repr(
+            "Pulse",
+            self.amplitude,
+            self.detuning,
+            self.phase,
+            post_phase_shift=self.post_phase_shift,
+        )
 
     def __str__(self) -> str:
         return (

@@ -1,23 +1,26 @@
 """Abstract register: an ordered qubit-id -> position mapping.
 
 Behavioral parity with reference
-``pulser-core/pulser/register/base_register.py:58-332``. Serialization
-is not ported yet (see ROADMAP.md).
+``pulser-core/pulser/register/base_register.py:58-332``.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
 from abc import ABC, abstractmethod
 from collections.abc import Iterable, Mapping
 from collections.abc import Sequence as abcSequence
 from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Type
-from typing import TypeVar, cast
+from typing import TypeVar, Union, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.register._coordinates import CoordsCollection
 from pulser_tpu_torch.register.weight_maps import DetuningMap
 
@@ -267,3 +270,42 @@ class BaseRegister(ABC, CoordsCollection):
             )
         spots = pm.vstack([self.qubits[qid] for qid in detuning_weights])
         return DetuningMap(spots, list(detuning_weights.values()), slug)
+
+    # --- serialization -------------------------------------------------
+
+    @abstractmethod
+    def _to_dict(self) -> dict[str, Any]:
+        """Serializes the object via from_coordinates."""
+        cls_dict = obj_to_dict(
+            None,
+            _build=False,
+            _name=self.__class__.__name__,
+            _module=self.__class__.__module__,
+        )
+        layout_kwargs = (
+            self._layout_info._asdict() if self._layout_info else {}
+        )
+        return obj_to_dict(
+            self,
+            cls_dict,
+            [pos.tolist() for pos in self._coords_arr],
+            False,
+            None,
+            self._ids,
+            **layout_kwargs,
+            _submodule=self.__class__.__name__,
+            _name="from_coordinates",
+        )
+
+    @abstractmethod
+    def _to_abstract_repr(self) -> list[dict[str, Union[QubitId, float]]]:
+        pass
+
+    def to_abstract_repr(self) -> str:
+        """Serializes the register into an abstract JSON object."""
+        payload: dict[str, Any] = dict(register=self._to_abstract_repr())
+        if self.layout is not None:
+            payload["layout"] = self.layout
+        as_str = json.dumps(payload, cls=AbstractReprEncoder)
+        validate_abstract_repr(as_str, "register")
+        return as_str

@@ -7,8 +7,10 @@ Behavioral parity with reference
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Any
 from typing import Sequence as abcSequence
+
+from pulser_tpu_torch.json.utils import obj_to_dict, stringify_qubit_ids
 
 if TYPE_CHECKING:
     from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
@@ -110,3 +112,11 @@ class MappableRegister:
             A DetuningMap putting each weight on the matching trap.
         """
         return self._layout.define_detuning_map(detuning_weights, slug)
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(self, self._layout, *self._qubit_ids)
+
+    def _to_abstract_repr(self) -> list[dict[str, str]]:
+        return [
+            dict(qid=qid) for qid in stringify_qubit_ids(self.qubit_ids)
+        ]

@@ -13,6 +13,7 @@ import numpy as np
 from numpy.typing import ArrayLike
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.json.utils import stringify_qubit_ids
 from pulser_tpu_torch.register._patterns import square_rect
 from pulser_tpu_torch.register._reg_drawer import RegDrawer
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
@@ -176,3 +177,32 @@ class Register3D(BaseRegister, RegDrawer):
         if fig_name is not None:
             plt.savefig(fig_name, **kwargs_savefig)
         plt.show()
+
+    def _to_dict(self) -> dict[str, Any]:
+        return super()._to_dict()
+
+    def _to_abstract_repr(self) -> list[dict[str, Union[QubitId, float]]]:
+        names = stringify_qubit_ids(self._ids)
+        return [
+            {"name": name, "x": x, "y": y, "z": z}
+            for name, (x, y, z) in zip(names, self._coords_arr.tolist())
+        ]
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> Register3D:
+        """Deserialize a 3D register from an abstract JSON object.
+
+        Args:
+            obj_str: the JSON string representing the register encoded in
+                the abstract JSON format.
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized register must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_abstract_register,
+        )
+
+        return deserialize_abstract_register(obj_str, expected_dim=3)

@@ -6,14 +6,18 @@ Behavioral parity with reference
 
 from __future__ import annotations
 
+import json
 from collections.abc import Iterator, Mapping
 from collections.abc import Sequence as abcSequence
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, cast
 
 import numpy as np
 
 import pulser_tpu_torch
+from pulser_tpu_torch.json.abstract_repr.serializer import AbstractReprEncoder
+from pulser_tpu_torch.json.abstract_repr.validation import validate_abstract_repr
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.register._reg_drawer import RegDrawer
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
 from pulser_tpu_torch.register.mappable_reg import MappableRegister
@@ -206,3 +210,44 @@ class RegisterLayout(Traps, RegDrawer):
 
     def __hash__(self) -> int:
         return hash(self._safe_hash())
+
+    def _to_dict(self) -> dict[str, Any]:
+        # Allows serialization of subclasses without a special _to_dict()
+        return obj_to_dict(
+            self,
+            self._coords_arr.tolist(),
+            slug=self.slug,
+            _module=__name__,
+            _name="RegisterLayout",
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        out: dict = {"coordinates": cast(list, self.coords.tolist())}
+        if self.slug is not None:
+            out["slug"] = self.slug
+        return out
+
+    def to_abstract_repr(self) -> str:
+        """Serializes the layout into an abstract JSON object."""
+        as_str = json.dumps(self, cls=AbstractReprEncoder)
+        validate_abstract_repr(as_str, "layout")
+        return as_str
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> RegisterLayout:
+        """Deserialize a layout from an abstract JSON object.
+
+        Args:
+            obj_str: the JSON string representing the layout encoded in
+                the abstract JSON format.
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized layout must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_abstract_layout,
+        )
+
+        return deserialize_abstract_layout(obj_str)

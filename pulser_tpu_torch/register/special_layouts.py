@@ -8,11 +8,12 @@ traps and numbers the qubits with a prefix.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, cast
+from typing import TYPE_CHECKING, Any, cast
 
 import numpy as np
 
 import pulser_tpu_torch.register._patterns as patterns
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.register.register_layout import RegisterLayout
 
 if TYPE_CHECKING:
@@ -114,6 +115,15 @@ class RectangularLatticeLayout(RegisterLayout):
             prefix,
         )
 
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self,
+            self._rows,
+            self._columns,
+            self._col_spacing,
+            self._row_spacing,
+        )
+
 
 class SquareLatticeLayout(RectangularLatticeLayout):
     """A rectangular grid of traps with one common pitch.
@@ -135,6 +145,9 @@ class SquareLatticeLayout(RectangularLatticeLayout):
             f"SquareLatticeLayout({self._rows}x{self._columns}, "
             f"{self._spacing}µm)",
         )
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(self, self._rows, self._columns, self._spacing)
 
 
 class TriangularLatticeLayout(RegisterLayout):
@@ -202,3 +215,6 @@ class TriangularLatticeLayout(RegisterLayout):
             patterns.triangular_rect(rows, atoms_per_row) * self._spacing,
             prefix,
         )
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(self, self.number_of_traps, self._spacing)

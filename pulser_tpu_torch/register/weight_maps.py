@@ -12,13 +12,14 @@ import typing
 import warnings
 from collections.abc import Iterator
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Mapping, Optional, TypeVar, cast
+from typing import TYPE_CHECKING, Any, Mapping, Optional, TypeVar, cast
 
 import numpy as np
 from numpy.typing import ArrayLike
 from scipy.spatial.distance import cdist
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.register._reg_drawer import RegDrawer
 from pulser_tpu_torch.register.traps import COORD_PRECISION, Traps
 
@@ -173,6 +174,24 @@ class WeightMap(Traps, RegDrawer):
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}_{self._safe_hash().hex()}"
+
+    def _to_dict(self) -> dict[str, Any]:
+        return obj_to_dict(
+            self,
+            trap_coordinates=self.trap_coordinates,
+            weights=self.weights,
+            slug=self.slug,
+        )
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        spots = [
+            {"weight": w, "x": x, "y": y}
+            for w, (x, y) in zip(self.sorted_weights, self.sorted_coords)
+        ]
+        out: dict[str, Any] = dict(traps=spots)
+        if self.slug is not None:
+            out["slug"] = self.slug
+        return out
 
 
 @dataclass(init=False, repr=False, eq=False, frozen=True)

@@ -5,12 +5,13 @@ Behavioral parity with reference
 rules, instruction set (add/target/delay/align/phase_shift/measure/
 truncate), EOM mode with phase-drift correction, SLM mask & detuning
 maps, parametrization (declare_variable + call replay) and device/
-register switching. Serialization is not ported yet (see ROADMAP.md).
+register switching.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 import warnings
 from collections.abc import Collection, Mapping
@@ -30,6 +31,7 @@ from typing import (
 import numpy as np
 from numpy.typing import ArrayLike
 
+import pulser_tpu_torch
 import pulser_tpu_torch.math as pm
 import pulser_tpu_torch.sequence._decorators as seq_decorators
 import pulser_tpu_torch.sequence._eom_mode as _eom_mode
@@ -40,6 +42,8 @@ from pulser_tpu_torch.channels.base_channel import (
 )
 from pulser_tpu_torch.channels.dmm import DMM, _dmm_id_from_name, _get_dmm_name
 from pulser_tpu_torch.devices._device_datacls import BaseDevice
+from pulser_tpu_torch.exceptions.serialization import AbstractReprError
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.parametrized import Parametrized, Variable
 from pulser_tpu_torch.parametrized.variable import VariableItem
 from pulser_tpu_torch.pulse import Pulse
@@ -56,6 +60,7 @@ from pulser_tpu_torch.sequence._schedule import (
     _TimeSlot,
 )
 from pulser_tpu_torch.sequence.helpers._seq_str import seq_to_str
+from pulser_tpu_torch.sequence.metadata import _get_metadata
 from pulser_tpu_torch.waveforms import Waveform
 
 DeviceType = TypeVar("DeviceType", bound=BaseDevice)
@@ -1496,6 +1501,104 @@ class Sequence(Generic[DeviceType]):
 
         return seq
 
+    def _serialize(self, **kwargs: Any) -> str:
+        """Serializes the Sequence into a JSON formatted string."""
+        from pulser_tpu_torch.json.coders import PulserEncoder
+
+        return json.dumps(self, cls=PulserEncoder, **kwargs)
+
+    def to_abstract_repr(
+        self,
+        seq_name: str = "pulser-exported",
+        json_dumps_options: dict[str, Any] = {},
+        skip_validation: bool = False,
+        **defaults: Any,
+    ) -> str:
+        """Serializes the Sequence into an abstract JSON object.
+
+        Keyword Args:
+            seq_name: A label for the serialized sequence.
+            json_dumps_options: Extra ``json.dumps()`` options as a
+                mapping ("cls" excluded).
+            skip_validation: Bypass the JSON-schema validation step.
+            defaults: Per-variable default values, keyed by name. With a
+                MappableRegister, also pass the qubit-to-trap mapping as
+                the `qubits` keyword.
+
+        Returns:
+            The sequence encoded as an abstract JSON object.
+        """
+        from pulser_tpu_torch.json.abstract_repr.serializer import (
+            serialize_abstract_sequence,
+        )
+
+        from pulser_tpu_torch.exceptions.serialization import (
+            SchemaValidationError,
+        )
+
+        try:
+            return serialize_abstract_sequence(
+                self,
+                seq_name=seq_name,
+                json_dumps_options=json_dumps_options,
+                skip_validation=skip_validation,
+                metadata=_get_metadata(),
+                **defaults,
+            )
+        except SchemaValidationError as e:
+            # Only schema-validation failures hint at build-time-only
+            # errors in a parametrized sequence; everything else (e.g.
+            # invalid 'defaults') surfaces as-is.
+            if self.is_parametrized():
+                raise AbstractReprError(
+                    "The serialization of the parametrized sequence"
+                    " failed, potentially due to an error that only"
+                    " appears at build time. Check that no errors appear"
+                    " when building with `Sequence.build()` or when"
+                    " providing the `defaults` to"
+                    " `Sequence.to_abstract_repr()`."
+                ) from e
+            raise
+            raise e
+
+    @staticmethod
+    def _deserialize(obj: str, **kwargs: Any) -> Sequence:
+        """Deserializes a (legacy) JSON formatted string."""
+        if not isinstance(obj, str):
+            raise TypeError(
+                "The serialized sequence must be given as a string. "
+                f"Instead, got object of type {type(obj)}."
+            )
+        if "Sequence" not in obj:
+            raise ValueError(
+                "The given JSON formatted string does not encode a"
+                " Sequence."
+            )
+        from pulser_tpu_torch.json.coders import PulserDecoder
+
+        return cast(
+            Sequence, json.loads(obj, cls=PulserDecoder, **kwargs)
+        )
+
+    @staticmethod
+    def from_abstract_repr(obj_str: str) -> Sequence:
+        """Deserializes a sequence from an abstract JSON object.
+
+        Args:
+            obj_str: The abstract-format JSON string encoding the
+                sequence.
+        """
+        if not isinstance(obj_str, str):
+            raise TypeError(
+                "The serialized sequence must be given as a string. "
+                f"Instead, got object of type {type(obj_str)}."
+            )
+        from pulser_tpu_torch.json.abstract_repr.deserializer import (
+            deserialize_abstract_sequence,
+        )
+
+        return deserialize_abstract_sequence(obj_str)
+
     @seq_decorators.screen
     def draw(
         self,
@@ -1857,6 +1960,21 @@ class Sequence(Generic[DeviceType]):
         return [
             self._basis_ref[basis][q].phase.last_time for q in targets
         ]
+
+    def _to_dict(
+        self, _module: str = "pulser_tpu_torch.sequence"
+    ) -> dict[str, Any]:
+        d = obj_to_dict(
+            self,
+            *self._calls[0].args,
+            _module=_module,
+            **self._calls[0].kwargs,
+        )
+        d["__version__"] = pulser_tpu_torch.__version__
+        d["calls"] = self._calls[1:]
+        d["vars"] = self._variables
+        d["to_build_calls"] = self._to_build_calls
+        return d
 
     def __str__(self) -> str:
         return seq_to_str(self)

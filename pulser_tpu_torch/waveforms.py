@@ -35,6 +35,9 @@ import torch
 from numpy.typing import ArrayLike
 
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch.exceptions.serialization import AbstractReprError
+from pulser_tpu_torch.json.abstract_repr.serializer import abstract_repr
+from pulser_tpu_torch.json.utils import obj_to_dict
 from pulser_tpu_torch.parametrized import Parametrized, ParamObj
 from pulser_tpu_torch.parametrized.decorators import parametrize
 
@@ -239,6 +242,22 @@ class Waveform(ABC):
         """Untrimmed modulated samples (cached per channel)."""
         return channel.modulate(self._samples, eom=eom)
 
+    # --- Serialization hooks -----------------------------------------
+    # Most waveforms serialize as their constructor values; each class
+    # lists those in _serial_args and both wire formats derive from it.
+
+    @abstractmethod
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        """(args, kwargs) reconstructing this waveform."""
+
+    def _to_dict(self) -> dict[str, Any]:
+        args, kwargs = self._serial_args()
+        return obj_to_dict(self, *args, **kwargs)
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        args, kwargs = self._serial_args()
+        return abstract_repr(type(self).__name__, *args, **kwargs)
+
     # --- Indexing ------------------------------------------------------
 
     def __getitem__(
@@ -418,6 +437,9 @@ class CompositeWaveform(Waveform):
         """The component waveforms, in order."""
         return list(self._waveforms)
 
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return tuple(self._waveforms), {}
+
     def __str__(self) -> str:
         pieces = ", ".join(repr(wf) for wf in self._waveforms)
         return f"Composite({pieces})"
@@ -452,6 +474,9 @@ class CustomWaveform(Waveform):
     @cached_property
     def _samples(self) -> pm.AbstractArray:
         return self._samples_arr
+
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._samples,), {}
 
     def __str__(self) -> str:
         return "Custom"
@@ -500,6 +525,9 @@ class ConstantWaveform(Waveform):
     def truncated(self, new_duration: int) -> ConstantWaveform:
         """A shortened copy (still a ConstantWaveform)."""
         return self.with_new_duration(min(new_duration, self.duration))
+
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._duration, self._value), {}
 
     def __str__(self) -> str:
         return f"{float(self._value):.3g}"
@@ -578,6 +606,9 @@ class RampWaveform(Waveform):
     def with_new_duration(self, new_duration: int) -> RampWaveform:
         """The same endpoints over a different duration."""
         return RampWaveform(new_duration, self._start, self._stop)
+
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._duration, self._start, self._stop), {}
 
     def __str__(self) -> str:
         return f"Ramp({float(self._start):.3g}->{float(self._stop):.3g})"
@@ -738,6 +769,9 @@ class BlackmanWaveform(_WindowWaveform):
     def with_new_duration(self, new_duration: int) -> BlackmanWaveform:
         """The same area spread over a different duration."""
         return BlackmanWaveform(new_duration, self._area)
+
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._duration, self._area), {}
 
     def __str__(self) -> str:
         return f"Blackman(Area: {float(self._area):.3g})"
@@ -956,6 +990,26 @@ class InterpolatedWaveform(Waveform):
                 c=color,
             )
 
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._duration, self._values), dict(self._kwargs)
+
+    def _to_abstract_repr(self) -> dict[str, Any]:
+        non_default = set(self._kwargs) - {"times", "interpolator"}
+        if (
+            self._kwargs["interpolator"] != "PchipInterpolator"
+            or non_default
+        ):
+            raise AbstractReprError(
+                "Export of an InterpolatedWaveform is only supported for the "
+                "'PchipInterpolator' and without any 'interpolator_kwargs'."
+            )
+        return abstract_repr(
+            "InterpolatedWaveform",
+            self._duration,
+            self._values,
+            times=self._times,
+        )
+
     def __str__(self) -> str:
         coords = [f"({int(x)}, {y:.4g})" for x, y in self.data_points]
         return f"InterpolatedWaveform(Points: {', '.join(coords)})"
@@ -1070,6 +1124,9 @@ class KaiserWaveform(_WindowWaveform):
     def with_new_duration(self, new_duration: int) -> KaiserWaveform:
         """The same area/beta over a different duration."""
         return KaiserWaveform(new_duration, self._area, self._beta)
+
+    def _serial_args(self) -> tuple[tuple, dict[str, Any]]:
+        return (self._duration, self._area), {"beta": self._beta}
 
     def __str__(self) -> str:
         return (

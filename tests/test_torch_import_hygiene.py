@@ -166,6 +166,22 @@ def _foreign_modules(statements: str) -> list[str]:
         " pulser_tpu_torch.sequence.helpers._switch_device",
         "import chip_smoke; chip_smoke.regnoise10_sequence();"
         " chip_smoke.tri16_sequence(); chip_smoke.tri16_direct_sequence()",
+        "import pulser_tpu_torch.json.coders,"
+        " pulser_tpu_torch.json.supported, pulser_tpu_torch.json.utils,"
+        " pulser_tpu_torch.json.abstract_repr.serializer,"
+        " pulser_tpu_torch.json.abstract_repr.deserializer,"
+        " pulser_tpu_torch.json.abstract_repr.validation,"
+        " pulser_tpu_torch.json.abstract_repr.signatures,"
+        " pulser_tpu_torch.json.abstract_repr.backend,"
+        " pulser_tpu_torch.abstract_repr, pulser_tpu_torch.sequence.metadata,"
+        " pulser_tpu_torch.backend.remote, pulser_tpu_torch.backend.qpu,"
+        " pulser_tpu_torch.backends",
+        "import pulser_tpu_torch as P; P.QPUBackend;"
+        " P.backends.QPUBackend, P.backends.TorchBackendV2,"
+        " P.backends.QutipBackendV2",
+        "import chip_smoke; chip_smoke.wire_payloads();"
+        " chip_smoke.wire_noisy10_config("
+        "chip_smoke.noisy10_sequence()[1]).to_abstract_repr()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):
@@ -199,3 +215,70 @@ def test_port_imports_and_runs_without_matplotlib(statements):
     """The card's machine has no matplotlib: the package imports and
     runs without it (the drawers import it only when they draw)."""
     assert _foreign_modules(_NO_MATPLOTLIB + statements) == []
+
+
+def test_decoding_foreign_json_imports_neither(tmp_path):
+    """Legacy JSON that names ``pulser_tpu.*`` modules (the JAX
+    package's) or ``pulser.*`` modules (the reference's), and abstract
+    reprs the JAX package wrote, decode into the port's classes without
+    importing ``jax`` or ``pulser_tpu``."""
+    import warnings
+
+    import pulser_tpu as tpu
+    from test_torch_sequence import SCENARIOS, _rng
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # phase shifts on all qubits
+        seq = SCENARIOS["global_local"](tpu, _rng(3))
+        legacy = seq._serialize()
+        files = {
+            "jax.json": legacy,
+            "ref.json": legacy.replace('"pulser_tpu.', '"pulser.'),
+            "sequence.json": seq.to_abstract_repr(),
+            "device.json": tpu.AnalogDevice.to_abstract_repr(),
+            "noise.json": tpu.NoiseModel(
+                dephasing_rate=0.1
+            ).to_abstract_repr(),
+        }
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+    code = f"""
+import pathlib, warnings
+warnings.simplefilter("ignore")
+import pulser_tpu_torch as P
+d = pathlib.Path({str(tmp_path)!r})
+for name in ("jax.json", "ref.json"):
+    seq = P.Sequence._deserialize((d / name).read_text())
+    assert type(seq) is P.Sequence and '"pulser_tpu_torch.' in seq._serialize()
+seq = P.Sequence.from_abstract_repr((d / "sequence.json").read_text())
+assert seq.to_abstract_repr() == (d / "sequence.json").read_text()
+assert P.devices.Device.from_abstract_repr((d / "device.json").read_text())
+assert P.NoiseModel.from_abstract_repr((d / "noise.json").read_text())
+"""
+    assert _foreign_modules(code) == []
+
+
+#: Blocks both JSON-schema validators.
+_NO_VALIDATOR = (
+    "sys.modules['fastjsonschema'] = None\n"
+    "sys.modules['jsonschema'] = None\n"
+)
+
+
+def test_port_imports_without_a_schema_validator():
+    """``import pulser_tpu_torch`` needs no validator; asking for a
+    validation without one raises the ``ImportError`` that names both
+    packages (nothing is skipped), and ``skip_validation`` still writes."""
+    code = _NO_VALIDATOR + """
+import pulser_tpu_torch as P
+seq = P.Sequence(P.Register.square(1, prefix="q"), P.MockDevice)
+seq.declare_channel("ryd", "rydberg_global")
+assert seq.to_abstract_repr(skip_validation=True)
+try:
+    seq.to_abstract_repr()
+except ImportError as e:
+    assert "'fastjsonschema'" in str(e) and "'jsonschema'" in str(e), e
+else:
+    raise AssertionError("validated without a validator")
+"""
+    assert _foreign_modules(code) == []

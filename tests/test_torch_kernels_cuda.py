@@ -326,3 +326,22 @@ def test_cuda_kernel_on_tri16_plan(cuda):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= chip_smoke.SWEEP_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "path,kernel",
+    [("afm16", "ip_sesolve"), ("noisy10", "mcwf_rows"), ("tri16", "ip_sesolve")],
+)
+def test_cuda_wire_path_one_launch(cuda, path, kernel):
+    """The wire paths of ``chip_smoke.py``: a sequence (and NOISY10's
+    config) written as abstract-repr JSON and loaded back runs its kernel
+    in one launch, and its final state (AFM16), its occupations and
+    counts (NOISY10) or its QPU job's counts (TRI16, through
+    ``QPUBackend``) equal the direct build's; each check raises."""
+    from pulser_tpu_torch.ops import solver as S
+
+    entry = getattr(chip_smoke, f"_wire_{path}_path")(
+        K, S, torch.cuda.get_device_name(0)
+    )
+    assert entry["launches"] == {kernel: 1}

@@ -57,18 +57,19 @@ QUOTED = _quoted_titles()
 
 
 def test_the_scan_finds_the_shared_titles():
-    """The scan sees the JSON layer's and the solver's sharding refusals
-    (both quote the one shared constant) and no stale title."""
-    from pulser_tpu_torch.exceptions.serialization import JSON_ROADMAP_ITEM
+    """The scan sees the solver's sharding refusals (they quote
+    ``PARALLEL_ROADMAP_ITEM``) and no stale title: neither the JSON
+    layer's item, ported, nor an older one."""
     from pulser_tpu_torch.ops import solver
 
-    modules = {m for m, t in QUOTED if t == JSON_ROADMAP_ITEM}
-    assert {
-        "pulser_tpu_torch.exceptions.serialization",
-        "pulser_tpu_torch.ops.solver",
-    } <= modules
-    assert solver._PARALLEL_ITEM.endswith(f"'{JSON_ROADMAP_ITEM}'")
+    assert solver.PARALLEL_ROADMAP_ITEM == "Parallel and serving"
+    modules = {m for m, t in QUOTED if t == solver.PARALLEL_ROADMAP_ITEM}
+    assert "pulser_tpu_torch.ops.solver" in modules
+    assert solver._PARALLEL_ITEM.endswith(
+        f"'{solver.PARALLEL_ROADMAP_ITEM}'"
+    )
     assert not any("Backend, JSON" in t for _, t in QUOTED)
+    assert not any(t.startswith("JSON") for _, t in QUOTED)
 
 
 @pytest.mark.parametrize(

@@ -477,7 +477,8 @@ def test_device_switching_and_drawing_are_not_ported():
     """Once refused (hence the name), device switching and drawing now
     run in the port as in pulser_tpu: the switched sequences are equal,
     the deprecated ``switch_device`` warns alike, and ``draw`` makes the
-    same number of figures. Serialization is still not ported."""
+    same number of figures. Serialization is ported too: the switched
+    sequences write the same abstract repr."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -503,4 +504,10 @@ def test_device_switching_and_drawing_are_not_ported():
         plt.close("all")
     assert_same(*facts)
     assert facts[1][1] and facts[1][2] > 0
-    assert not hasattr(both("global_local", 0)[1], "to_abstract_repr")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        jax_str, port_str = (
+            seq.with_new_device(P.MockDevice).to_abstract_repr()
+            for P, seq in zip(PACKAGES, both("global_local", 0))
+        )
+    assert port_str == jax_str
