@@ -207,6 +207,33 @@ to sample it, median of 3 each, beside the card's name and power limit):
     the card: one K1 launch, the counts equal to sampling the direct
     build's final state with the same seed.
 
+26. Start the port's resident solve daemon on the card in a thread of
+    this process (``serving.serve(path, device="cuda")``, AFM16's request
+    as its warm request) and send it, through the port's ``SolveClient``,
+    SERVE_AFM16 (AFM16's abstract repr, its final state only: 1 − F ≤ 1e-6
+    to the golden, ≤ 1e-12 to this script's direct run, one K1 launch by
+    the wrapper's and the C library's count, ``kind ==
+    "ip_sesolve_cuda"``), SERVE_AFM16_ALL (all 101 states in one frame,
+    each within 1 − F ≤ 1e-12 of the direct run's), SERVE_NOISY10
+    (NOISY10's ``run_backend`` with :func:`wire_noisy10_config` and seed
+    1234: occupations and counts equal to the direct backend run, one K2
+    launch) and SERVE_TRI16 (500 shots seeded with 1234, equal to the
+    direct build's, one K1 launch) (:func:`serve_requests`). Each warm
+    request's wall time (median of 3) is split into the daemon's decode,
+    solve and encode phases, and the daemon's ``profiling.phase_report()``
+    of the requests is printed.
+27. Two fresh processes, spawn to exit: (a) ``serving.py`` loaded by its
+    path with ``torch`` and ``jax`` blocked sends SERVE_AFM16 to the warm
+    daemon (1 − F ≤ 1e-6 to the golden); (b) ``import pulser_tpu_torch``
+    and the same request run by ``TorchEmulator`` on the card.
+28. ``SolveClient(...).ensure_server()`` spawns ``python -m
+    pulser_tpu_torch.serving`` on the card: the time to its first ping,
+    its first (cold) and second (warm) SERVE_AFM16, both equal to the
+    in-process daemon's answer; after ``shutdown()`` it must exit with 0.
+    Any failed check, any ``ok: false`` answer and any child exiting
+    non-zero fails the script. K1's and K2's kernel entries list the
+    launches on the served paths under ``also_on``.
+
 An earlier line names the JSON-schema validator the host has (the wire
 paths validate every payload with it).
 
@@ -3455,6 +3482,502 @@ def _wire_tri16_path(K, S, card: str) -> dict:
     }
 
 
+#: The launches each served request must make, by kernel.
+SERVE_KERNELS = {
+    "SERVE_AFM16": "ip_sesolve",
+    "SERVE_AFM16_ALL": "ip_sesolve",
+    "SERVE_NOISY10": "mcwf_rows",
+    "SERVE_TRI16": "ip_sesolve",
+}
+
+
+def serve_requests() -> dict:
+    """The requests of the serving phase, as a client sends them:
+    ``{name: (SolveClient method, keyword arguments)}``, every sequence
+    and config already serialized. SERVE_AFM16 asks for AFM16's final
+    state at its 101 evaluation times (SERVE_AFM16_ALL for all 101
+    states), SERVE_NOISY10 for NOISY10's backend run with
+    :func:`wire_noisy10_config` seeded with :data:`NOISY10_SEED`, and
+    SERVE_TRI16 for :data:`TRI16_RUNS` shots of TRI16 seeded with
+    :data:`TRI16_SEED`."""
+    afm16 = afm16_sequence()
+    afm16_run = dict(
+        sequence=afm16.to_abstract_repr(),
+        evaluation_times=np.linspace(
+            0, afm16.get_duration() * 1e-3, 101
+        ).tolist(),
+    )
+    noisy10, noise = noisy10_sequence()
+    return {
+        "SERVE_AFM16": ("run", dict(afm16_run, final_only=True)),
+        "SERVE_AFM16_ALL": ("run", afm16_run),
+        "SERVE_NOISY10": (
+            "run_backend",
+            dict(
+                sequence=noisy10.to_abstract_repr(),
+                config=wire_noisy10_config(noise).to_abstract_repr(),
+                seed=NOISY10_SEED,
+                deserialize=False,
+            ),
+        ),
+        "SERVE_TRI16": (
+            "run",
+            dict(
+                sequence=tri16_sequence().to_abstract_repr(),
+                evaluation_times="Minimal",
+                seed=TRI16_SEED,
+                n_samples=TRI16_RUNS,
+            ),
+        ),
+    }
+
+
+def _serve_once(K, S, client, name: str, request: tuple) -> dict:
+    """One request with the launch counters set to 0 just before it and
+    read just after: its answer, wall seconds (client side, to the decoded
+    answer), the daemon's phases, launches and route."""
+    import torch
+
+    from pulser_tpu_torch import profiling
+
+    method, kwargs = request
+    kernel = SERVE_KERNELS[name]
+    torch.cuda.synchronize()
+    profiling.reset_phases()
+    _reset_launches(K)
+    c_before = K.device_launches(kernel)
+    t0 = time.perf_counter()
+    answer = getattr(client, method)(**kwargs)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {
+        "answer": answer,
+        "wall_s": wall_s,
+        "phases": profiling.phase_report(reset=True),
+        "launches": _launches(K),
+        "device_launches": K.device_launches(kernel) - c_before,
+        "kind": S.last_solve_info.get("kind"),
+    }
+
+
+def _serve_timed(K, S, client, name: str, request: tuple, card: str,
+                 repeats: int = 3) -> tuple[list, dict]:
+    """``repeats`` warm requests; checks that each launched its kernel once
+    (by the wrapper's and the C library's count) on the kernel route, and
+    prints the wall time (median) split into the daemon's decode, solve
+    and encode (medians), and the daemon's phase report of the requests.
+    Returns the calls and the entry's timing keys."""
+    calls = [_serve_once(K, S, client, name, request) for _ in range(repeats)]
+    kernel = SERVE_KERNELS[name]
+    for call in calls:
+        _check(
+            call["kind"] == f"{kernel}_cuda", f"{name} route {call['kind']}"
+        )
+        _check(
+            call["launches"][kernel] == 1 and call["device_launches"] == 1,
+            f"{name}: one {kernel} launch ({call['launches']}, device"
+            f" {call['device_launches']})",
+        )
+        _check(
+            sum(call["launches"].values()) == 1,
+            f"{name}: no other kernel {call['launches']}",
+        )
+
+    def part(key: str) -> float:
+        return statistics.median(
+            c["phases"].get(key, {"total_s": 0.0})["total_s"] for c in calls
+        ) * 1e3
+
+    timing = {
+        "ms": statistics.median(c["wall_s"] for c in calls) * 1e3,
+        "decode_ms": part("serving.decode"),
+        "solve_ms": part("serving.solve"),
+        "encode_ms": part("serving.encode"),
+    }
+    how = f"median of {repeats}" if repeats > 1 else "one request"
+    report: dict = {}
+    for call in calls:
+        for phase, v in call["phases"].items():
+            r = report.setdefault(phase, {"total_ms": 0.0, "calls": 0})
+            r["total_ms"] = round(r["total_ms"] + v["total_s"] * 1e3, 3)
+            r["calls"] += int(v["calls"])
+    print(
+        f"{name}: warm request {timing['ms']:.3f} ms ({how}, to the decoded"
+        f" answer): decode"
+        f" {timing['decode_ms']:.3f}, solve {timing['solve_ms']:.3f},"
+        f" encode {timing['encode_ms']:.3f} ms in the daemon (the rest: JSON,"
+        f" socket, the client's decode); {calls[0]['kind']}, one {kernel} launch per"
+        f" request (device {calls[0]['device_launches']}) [{card}]\n"
+        f"  daemon phase_report over the {repeats} requests:"
+        f" {json.dumps(report)}",
+        flush=True,
+    )
+    return calls, timing
+
+
+def _serve_afm16(K, S, client, requests: dict, card: str) -> list:
+    """SERVE_AFM16 and SERVE_AFM16_ALL against the golden and the direct
+    run of the same sequence."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    seq = afm16_sequence()
+    direct = TorchEmulator.from_sequence(
+        seq, evaluation_times=np.asarray(
+            requests["SERVE_AFM16"][1]["evaluation_times"]
+        )
+    ).run()
+    # Compared in complex128: the answers are complex64, and 1 - F in
+    # float32 arithmetic would round to about 1e-7
+    want = np.stack([s.full()[:, 0] for s in direct.states]).astype(
+        np.complex128
+    )
+    golden = np.load(_GOLDEN)["final_state"]
+    calls, timing = _serve_timed(
+        K, S, client, "SERVE_AFM16", requests["SERVE_AFM16"], card
+    )
+    states = [c["answer"]["states"] for c in calls]
+    _check(
+        all(s.shape == (1, 1 << 16) and s.dtype == np.complex64
+            for s in states),
+        "SERVE_AFM16 answers one complex64 state",
+    )
+    _check(
+        all(np.array_equal(s, states[0]) for s in states),
+        "SERVE_AFM16 answers alike",
+    )
+    fin = states[0][0].astype(np.complex128)
+    _check(bool(np.isfinite(fin).all()), "SERVE_AFM16 state finite")
+    vs_golden = 1 - _fidelity(golden, fin)
+    vs_direct = 1 - _fidelity(want[-1], fin)
+    print(
+        f"SERVE_AFM16: 1-F vs the golden {vs_golden:.3e}, vs the direct run"
+        f" {vs_direct:.3e}",
+        flush=True,
+    )
+    _check(vs_golden <= FIDELITY_TOL, f"SERVE_AFM16 vs golden {vs_golden}")
+    _check(vs_direct <= WIRE_FIDELITY_TOL, f"vs direct {vs_direct}")
+
+    (all_call,), all_timing = _serve_timed(
+        K, S, client, "SERVE_AFM16_ALL", requests["SERVE_AFM16_ALL"], card,
+        repeats=1,
+    )
+    wire_bytes = int(all_call["answer"]["states"].nbytes)
+    got = all_call["answer"]["states"].astype(np.complex128)
+    _check(got.shape == want.shape, f"SERVE_AFM16_ALL shape {got.shape}")
+    worst = max(1 - _fidelity(w, g) for w, g in zip(want, got))
+    print(
+        f"SERVE_AFM16_ALL: {wire_bytes} bytes of states in one frame,"
+        f" worst 1-F vs the direct run {worst:.3e}",
+        flush=True,
+    )
+    _check(worst <= WIRE_FIDELITY_TOL, f"SERVE_AFM16_ALL 1-F {worst}")
+    return [
+        {
+            "name": "SERVE_AFM16",
+            **timing,
+            "launches": {"ip_sesolve": calls[0]["launches"]["ip_sesolve"]},
+            "one_minus_f_vs_golden": vs_golden,
+            "one_minus_f_vs_direct": vs_direct,
+        },
+        {
+            "name": "SERVE_AFM16_ALL",
+            **all_timing,
+            "state_bytes": wire_bytes,
+            "launches": {
+                "ip_sesolve": all_call["launches"]["ip_sesolve"]
+            },
+            "worst_one_minus_f_vs_direct": worst,
+        },
+    ]
+
+
+def _serve_noisy10(K, S, client, requests: dict, card: str) -> dict:
+    """SERVE_NOISY10 against the same backend run made directly."""
+    from pulser_tpu_torch.backend.results import Results
+    from pulser_tpu_torch.emulator import TorchBackendV2
+
+    seq, noise = noisy10_sequence()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # samples_per_run
+        np.random.seed(NOISY10_SEED)
+        want = TorchBackendV2(seq, config=wire_noisy10_config(noise)).run()
+    calls, timing = _serve_timed(
+        K, S, client, "SERVE_NOISY10", requests["SERVE_NOISY10"], card
+    )
+    occ_err, tv = 0.0, 0.0
+    for call in calls:
+        res = Results.from_abstract_repr(call["answer"])
+        occ_err = max(
+            occ_err,
+            *(
+                float(
+                    np.abs(
+                        _as_numpy(res.get_result("occupation", t))
+                        - _as_numpy(want.get_result("occupation", t))
+                    ).max()
+                )
+                for t in (0.5, 1.0)
+            ),
+        )
+        tv = max(tv, _tv_distance(res.final_bitstrings,
+                                  want.final_bitstrings))
+    print(
+        f"SERVE_NOISY10: vs the direct backend run with the same seed:"
+        f" occupations max|d| {occ_err:.3e}, counts TV {tv:.4f}; results"
+        f" JSON {len(calls[0]['answer'])} bytes",
+        flush=True,
+    )
+    _check(occ_err == 0.0, f"SERVE_NOISY10 occupations {occ_err:.3e}")
+    _check(tv == 0.0, f"SERVE_NOISY10 counts TV {tv:.4f}")
+    return {
+        "name": "SERVE_NOISY10",
+        **timing,
+        "launches": {"mcwf_rows": calls[0]["launches"]["mcwf_rows"]},
+        "occupation_max_abs_diff": occ_err,
+        "counts_tv": tv,
+    }
+
+
+def _serve_tri16(K, S, client, requests: dict, card: str) -> dict:
+    """SERVE_TRI16 against sampling the direct build's final state with
+    the same seed (seeded before the emulator is built, as the daemon
+    seeds)."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    np.random.seed(TRI16_SEED)
+    want = dict(
+        TorchEmulator.from_sequence(
+            tri16_direct_sequence(), evaluation_times="Minimal"
+        )
+        .run()
+        .sample_final_state(TRI16_RUNS)
+    )
+    calls, timing = _serve_timed(
+        K, S, client, "SERVE_TRI16", requests["SERVE_TRI16"], card
+    )
+    counts = [c["answer"]["counts"] for c in calls]
+    print(
+        f"SERVE_TRI16: {sum(counts[0].values())} shots on {len(counts[0])}"
+        f" bitstrings, equal to the direct build's"
+        f" {all(c == want for c in counts)}",
+        flush=True,
+    )
+    _check(all(c == want for c in counts), "SERVE_TRI16 counts equal")
+    return {
+        "name": "SERVE_TRI16",
+        **timing,
+        "launches": {"ip_sesolve": calls[0]["launches"]["ip_sesolve"]},
+        "counts_tv": _tv_distance(counts[0], want),
+    }
+
+
+#: A fresh client: ``serving.py`` loaded by its path with ``torch`` and
+#: ``jax`` blocked; sends the request in argv[3] to the daemon at argv[2]
+#: and prints the final state's 1 − F against the golden in argv[4].
+_FRESH_CLIENT = """
+import importlib.util, json, sys
+sys.modules["torch"] = None
+sys.modules["jax"] = None
+spec = importlib.util.spec_from_file_location("serving", sys.argv[1])
+serving = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(serving)
+import numpy as np
+request = json.load(open(sys.argv[3]))
+state = serving.SolveClient(sys.argv[2]).run(**request)["states"][-1]
+state = state.astype(np.complex128)
+golden = np.load(sys.argv[4])["final_state"]
+f = abs(np.vdot(golden / np.linalg.norm(golden),
+                state / np.linalg.norm(state))) ** 2
+print(json.dumps({"one_minus_f": 1 - float(f), "modules": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("torch", "jax")
+    and sys.modules[m] is not None)}))
+"""
+
+#: A fresh direct run: the package imported, the request in argv[1] run
+#: with ``TorchEmulator`` on the card and the final state fetched.
+_FRESH_DIRECT = """
+import json, sys
+import numpy as np
+from pulser_tpu_torch import Sequence
+from pulser_tpu_torch.emulator import TorchEmulator
+request = json.load(open(sys.argv[1]))
+seq = Sequence.from_abstract_repr(request["sequence"])
+state = TorchEmulator.from_sequence(
+    seq, evaluation_times=np.asarray(request["evaluation_times"])
+).run().states[-1].full()[:, 0].astype(np.complex128)
+golden = np.load(sys.argv[2])["final_state"]
+f = abs(np.vdot(golden / np.linalg.norm(golden),
+                state / np.linalg.norm(state))) ** 2
+print(json.dumps({"one_minus_f": 1 - float(f)}))
+"""
+
+
+def _fresh_process(args: list, what: str) -> tuple[dict, float]:
+    """Runs ``python -c ...`` from spawn to exit: its last line as JSON
+    and the wall seconds; fails unless it exits with 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", *args],
+        capture_output=True,
+        text=True,
+        timeout=300,
+        cwd=_ROOT,
+        env=dict(os.environ, PYTHONPATH=_ROOT),
+    )
+    wall_s = time.perf_counter() - t0
+    _check(
+        out.returncode == 0,
+        f"{what} exited {out.returncode}: {out.stderr[-2000:]}",
+    )
+    return json.loads(out.stdout.strip().splitlines()[-1]), wall_s
+
+
+def _fresh_processes(socket_path: str, request: dict, tmp: str,
+                     card: str) -> list:
+    """(a) a fresh thin client against the warm daemon, (b) a fresh
+    process that runs the same request itself; both from spawn to exit."""
+    request_path = os.path.join(tmp, "serve_afm16.json")
+    with open(request_path, "w") as f:
+        json.dump(request, f)
+    serving_py = os.path.join(_ROOT, "pulser_tpu_torch", "serving.py")
+    client, client_s = _fresh_process(
+        [_FRESH_CLIENT, serving_py, socket_path, request_path, _GOLDEN],
+        "the fresh client",
+    )
+    direct, direct_s = _fresh_process(
+        [_FRESH_DIRECT, request_path, _GOLDEN], "the fresh direct run"
+    )
+    print(
+        f"fresh processes, spawn to exit: (a) a thin client (serving.py by"
+        f" path, torch and jax blocked) answered by the warm daemon"
+        f" {client_s * 1e3:.3f} ms, 1-F vs the golden"
+        f" {client['one_minus_f']:.3e}; (b) import pulser_tpu_torch and"
+        f" run TorchEmulator on the card {direct_s * 1e3:.3f} ms, 1-F"
+        f" {direct['one_minus_f']:.3e} [{card}]",
+        flush=True,
+    )
+    _check(client["modules"] == [], f"the thin client loaded {client}")
+    _check(client["one_minus_f"] <= FIDELITY_TOL, "fresh client 1-F")
+    _check(direct["one_minus_f"] <= FIDELITY_TOL, "fresh direct 1-F")
+    return [
+        {"name": "FRESH_CLIENT", "ms": client_s * 1e3,
+         "one_minus_f_vs_golden": client["one_minus_f"]},
+        {"name": "FRESH_DIRECT", "ms": direct_s * 1e3,
+         "one_minus_f_vs_golden": direct["one_minus_f"]},
+    ]
+
+
+def _module_entry(socket_path: str, request: tuple, want: np.ndarray,
+                  card: str) -> dict:
+    """``SolveClient.ensure_server()`` spawns ``python -m
+    pulser_tpu_torch.serving`` on the card: the time to its first ping,
+    its first (cold) and second (warm) SERVE_AFM16 answers, equal to the
+    in-process daemon's; then ``shutdown()``, and the child exits 0."""
+    from pulser_tpu_torch import serving
+
+    client = serving.SolveClient(socket_path)
+    method, kwargs = request
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    try:
+        t0 = time.perf_counter()
+        up = client.ensure_server(spawn_timeout=300, env=env)
+        ping_s = time.perf_counter() - t0
+        _check(up, "the spawned daemon answers a ping")
+        answers, times = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            answers.append(getattr(client, method)(**kwargs)["states"])
+            times.append(time.perf_counter() - t0)
+    finally:
+        client.shutdown()
+        if client.process is not None:
+            try:
+                code = client.process.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                client.process.kill()
+                code = client.process.wait()
+    print(
+        f"python -m pulser_tpu_torch.serving: first ping"
+        f" {ping_s * 1e3:.3f} ms after the spawn, first (cold) SERVE_AFM16"
+        f" {times[0] * 1e3:.3f} ms, second (warm) {times[1] * 1e3:.3f} ms;"
+        f" exit code {code} [{card}]",
+        flush=True,
+    )
+    _check(
+        all(np.array_equal(a, want) for a in answers),
+        "the spawned daemon answers as the in-process one",
+    )
+    _check(code == 0, f"the spawned daemon exits {code}")
+    return {
+        "name": "SERVE_MODULE",
+        "first_ping_ms": ping_s * 1e3,
+        "cold_ms": times[0] * 1e3,
+        "ms": times[1] * 1e3,
+        "exit_code": code,
+    }
+
+
+def _serving_phase(K, S, card: str) -> list:
+    """The resident daemon on the card: started in this process with
+    SERVE_AFM16 as its warm request, it answers SERVE_AFM16 (and all 101
+    states), SERVE_NOISY10 and SERVE_TRI16 through the port's
+    ``SolveClient``; then two fresh processes and the module entry."""
+    import tempfile
+    import threading
+
+    from pulser_tpu_torch import serving
+
+    requests = serve_requests()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    path = os.path.join(tmp, "daemon.sock")
+    ready = threading.Event()
+    failed: list = []
+
+    def daemon() -> None:
+        try:
+            serving.serve(
+                path,
+                device="cuda",
+                ready_event=ready,
+                warm_request=dict(requests["SERVE_AFM16"][1],
+                                  kind="run_sequence"),
+            )
+        except Exception as err:  # noqa: BLE001 — reported below
+            failed.append(err)
+            ready.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=daemon, daemon=True)
+    thread.start()
+    _check(ready.wait(300) and not failed, f"the daemon is up: {failed}")
+    up_s = time.perf_counter() - t0
+    print(
+        f"serving: in-process daemon on the card, up and warm (one AFM16"
+        f" request) in {up_s * 1e3:.3f} ms [{card}]",
+        flush=True,
+    )
+    client = serving.SolveClient(path)
+    try:
+        entries = _serve_afm16(K, S, client, requests, card)
+        entries.append(_serve_noisy10(K, S, client, requests, card))
+        entries.append(_serve_tri16(K, S, client, requests, card))
+        want = client.run(**requests["SERVE_AFM16"][1])["states"]
+        entries += _fresh_processes(path, requests["SERVE_AFM16"][1], tmp,
+                                    card)
+    finally:
+        client.shutdown()
+        thread.join(timeout=60)
+    _check(not thread.is_alive() and not failed, "the daemon stopped")
+    entries.append(
+        _module_entry(
+            os.path.join(tmp, "spawned.sock"), requests["SERVE_AFM16"],
+            want, card,
+        )
+    )
+    entries[0]["daemon_up_ms"] = up_s * 1e3
+    return entries
+
+
 def _validator_line() -> None:
     """Names the JSON-schema validator this host has: the loads of the
     wire paths validate every payload with it."""
@@ -3525,6 +4048,15 @@ def main() -> int:
             _wire_tri16_path(K, S, card),  # 25
         ],
     }
+    serve = _serving_phase(K, S, card)  # 26-28
+    report["paths"] += serve
+    launches = {e["name"]: e["launches"] for e in serve if "launches" in e}
+    k1, k2 = report["kernels"][0], report["kernels"][3]
+    k1["also_on"] = {
+        name: launches[name]["ip_sesolve"]
+        for name in ("SERVE_AFM16", "SERVE_TRI16")
+    }
+    k2["also_on"] = {"SERVE_NOISY10": launches["SERVE_NOISY10"]["mcwf_rows"]}
     print(json.dumps(report))
     print(
         json.dumps(

@@ -76,6 +76,7 @@ from pulser_tpu_torch.hamiltonian_data import (
     HamiltonianData,
     has_shot_to_shot_except_spam,
 )
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.ops import solver as _solver_mod
 from pulser_tpu_torch.ops.solver import build_plan
@@ -707,10 +708,10 @@ class TorchEmulator:
     @property
     def sampling_times(self) -> np.ndarray:
         """The times at which the hamiltonian is sampled."""
-        if self.noise_model.noise_types:
-            # As in the JAX package (and with its RNG draw)
-            return self._noiseless_hamiltonian.sampling_times
-        return self._current_hamiltonian.sampling_times
+        # As in the JAX package, with its RNG draw: the noiseless
+        # Hamiltonian's data draws its one trajectory from numpy's global
+        # generator, so a seeded noiseless run samples the same counts
+        return self._noiseless_hamiltonian.sampling_times
 
     @property
     def dim(self) -> int:
@@ -1354,7 +1355,7 @@ class TorchEmulator:
         ):
             plan = cached[1]
         else:
-            with torch.profiler.record_function("emulator.build_plan"):
+            with profiling.phase("emulator.build_plan"):
                 plan = build_plan(
                     knots,
                     coeffs,
@@ -1381,7 +1382,7 @@ class TorchEmulator:
                 d, n, n_eval=n_eval, itemsize=itemsize, density_matrix=True,
                 what="quantum-jump solve", device=self._torch_device,
             )
-            with torch.profiler.record_function("emulator.mcsolve"):
+            with profiling.phase("emulator.mcsolve"):
                 states_arr = _solver_mod.mcsolve_rk4(
                     self._initial_ket(),
                     plan,
@@ -1412,7 +1413,7 @@ class TorchEmulator:
                 d, n, n_eval=n_eval, itemsize=itemsize, density_matrix=True,
                 what="master-equation solve", device=self._torch_device,
             )
-            with torch.profiler.record_function("emulator.mesolve"):
+            with profiling.phase("emulator.mesolve"):
                 states_arr = _solver_mod.mesolve_rk4(
                     rho0,
                     plan,
@@ -1433,7 +1434,7 @@ class TorchEmulator:
                 d, n, n_eval=n_eval, itemsize=itemsize,
                 what="Schrödinger solve", device=self._torch_device,
             )
-            with torch.profiler.record_function("emulator.sesolve"):
+            with profiling.phase("emulator.sesolve"):
                 states_arr = _solver_mod.sesolve_rk4(
                     self._initial_ket(),
                     plan,
@@ -1704,7 +1705,7 @@ class TorchEmulator:
         )
         # One plan for the whole batch, staged on the host in float64:
         # the grid is shared, only the coefficient values differ
-        with torch.profiler.record_function("emulator.build_plan_batched"):
+        with profiling.phase("emulator.build_plan_batched"):
             plans = _solver_mod.build_plan_batched(
                 knots,
                 {"amp": batch.amp, "det": batch.det},
@@ -1716,7 +1717,7 @@ class TorchEmulator:
                 ),
             )
         cdtype = _solver_mod._numpy_dtype(_default_cdtype())
-        with torch.profiler.record_function("emulator.sesolve_batched"):
+        with profiling.phase("emulator.sesolve_batched"):
             states_batch = _solver_mod.sesolve_rk4_batched(
                 np.asarray(self._initial_ket(), dtype=cdtype),
                 plans,
@@ -1805,7 +1806,7 @@ class TorchEmulator:
                 ti = cres._get_index_from_time(t, 1.0e-3)
                 weight_rows.append(cres[ti]._weights())
                 ns.append(spr * reps)
-        with torch.profiler.record_function("emulator.host_sampling"):
+        with profiling.phase("emulator.sample_counts"):
             return _sample_weight_rows(
                 np.stack(weight_rows),
                 ns,
@@ -1847,30 +1848,37 @@ class TorchEmulator:
         stiffness and the breakpoint marks come straight from the
         profile rows; the dense batch never materializes.
         """
-        self._refresh_trajectories()
-        batch = self._noisy_coeff_batch()
+        with profiling.phase("emulator.noise_trajectories"):
+            with profiling.phase("emulator.traj_draw"):
+                self._refresh_trajectories()
+            with profiling.phase("emulator.coeff_batch"):
+                batch = self._noisy_coeff_batch()
         first = batch.template
         d, n = first.dim, first.n_qudits
         knots = first.sampling_times
         # Shared step cap across trajectories: full (lab-frame)
         # stiffness
-        factored = (
-            batch.amp_factors is not None and batch.det_factors is not None
-        )
-        sharp_times: Any = None
-        diag_stiff = np.max(
-            np.abs(batch.diags.reshape(len(batch.reps), -1)), axis=1
-        )
-        if factored:
-            amp_stiff, det_stiff, sharp_times = self._factored_policy(
-                batch, knots
+        with profiling.phase("emulator.step_policy"):
+            factored = (
+                batch.amp_factors is not None
+                and batch.det_factors is not None
             )
-        else:
-            amp_stiff = np.sum(
-                2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1
+            sharp_times: Any = None
+            diag_stiff = np.max(
+                np.abs(batch.diags.reshape(len(batch.reps), -1)), axis=1
             )
-            det_stiff = np.sum(np.max(np.abs(batch.det), axis=(2, 3)), axis=1)
-        lambda_max = float(np.max(amp_stiff + diag_stiff + det_stiff))
+            if factored:
+                amp_stiff, det_stiff, sharp_times = self._factored_policy(
+                    batch, knots
+                )
+            else:
+                amp_stiff = np.sum(
+                    2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1
+                )
+                det_stiff = np.sum(
+                    np.max(np.abs(batch.det), axis=(2, 3)), axis=1
+                )
+            lambda_max = float(np.max(amp_stiff + diag_stiff + det_stiff))
         base_step = min(
             float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
             1e-3,
@@ -1919,7 +1927,7 @@ class TorchEmulator:
             }
         else:
             coeffs_for_plan = {"amp": batch.amp, "det": batch.det}
-        with torch.profiler.record_function("emulator.build_plan_batched"):
+        with profiling.phase("emulator.build_plan_batched"):
             plans = _solver_mod.build_plan_batched(
                 knots,
                 coeffs_for_plan,
@@ -1969,7 +1977,7 @@ class TorchEmulator:
         if self._lindblad_solver_choice():
             # The per-trajectory seed draws of the serial loop
             seeds = [int(np.random.randint(2**31)) for _ in p.batch.reps]
-            with torch.profiler.record_function("emulator.mcsolve_batched"):
+            with profiling.phase("emulator.mcsolve_batched"):
                 states_batch = _solver_mod.mcsolve_rk4_batched(
                     p.psi0, p.plans, p.batch.diags, p.pairs, d, n,
                     p.collapse_mats, seeds, dtype=cdtype, ip=p.mcwf_ip,
@@ -1986,7 +1994,7 @@ class TorchEmulator:
                 what="master-equation solve of one trajectory",
                 device=self._torch_device,
             )
-            with torch.profiler.record_function("emulator.mesolve_batched"):
+            with profiling.phase("emulator.mesolve_batched"):
                 states_batch = _solver_mod.mesolve_rk4_batched(
                     np.outer(p.psi0, p.psi0.conj()),
                     p.plans, p.batch.diags, p.pairs, d, n, p.collapse_mats,
@@ -1995,8 +2003,10 @@ class TorchEmulator:
             dims = [[d] * n, [d] * n]
         self._current_hamiltonian = p.batch.last_ham()
         for reps, states_t in zip(p.batch.reps, states_batch):
-            states_q = [Qobj(s, dims=dims) for s in states_t]
-            yield self._wrap_coherent(states_q), reps
+            with profiling.phase("emulator.wrap_results"):
+                states_q = [Qobj(s, dims=dims) for s in states_t]
+                res = self._wrap_coherent(states_q)
+            yield res, reps
 
     def _print_batched_progress(self) -> None:
         print(
@@ -2061,7 +2071,7 @@ class TorchEmulator:
         solve_kw = dict(
             dtype=p.psi0.dtype, ip=p.mcwf_ip, device=self._torch_device
         )
-        with torch.profiler.record_function("emulator.mcsolve_rows"):
+        with profiling.phase("emulator.mcsolve_batched"):
             codes_pad = _solver_mod.mcsolve_rows_codes(
                 *solve_args, (u_pad, row_traj, row_ti), **solve_kw
             )
@@ -2070,32 +2080,37 @@ class TorchEmulator:
             # bitstring order is their reversal
             codes = (d**n - 1) - np.asarray(codes_pad, dtype=np.int64)[valid]
         else:
-            with torch.profiler.record_function("emulator.mcsolve_batched"):
+            with profiling.phase("emulator.mcsolve_batched"):
                 states = _solver_mod.mcsolve_rk4_batched(
                     *solve_args, **solve_kw
                 )
-            with torch.profiler.record_function("emulator.host_sampling"):
+            with profiling.phase("emulator.sample_counts"):
                 codes = _host_sample_codes(states, ns, rnd)
         self._current_hamiltonian = p.batch.last_ham()
 
-        width = hd.n_qudits
-        bit_pos = np.arange(width - 1, -1, -1)
-        bits = (codes[:, None] >> bit_pos) & 1
-        nm = self.noise_model
-        if "SPAM" in nm.noise_types and (
-            nm.p_false_pos != 0.0 or nm.p_false_neg != 0.0
-        ):
-            flip_probs = np.where(bits == 1, nm.p_false_neg, nm.p_false_pos)
-            flips = np.random.uniform(size=bits.shape) < flip_probs
-            bits = bits ^ flips
-        out_codes = bits @ (1 << bit_pos)
-        total_count = np.array([Counter() for _ in eval_ts])
-        draw_ti = np.repeat(row_ti, ns)
-        combo = (draw_ti << width) + out_codes
-        vals, cnts = np.unique(combo, return_counts=True)
-        labels = _labels_of(vals & ((1 << width) - 1), width)
-        for v, lab, c in zip((vals >> width).tolist(), labels, cnts.tolist()):
-            total_count[v][lab] += c
+        with profiling.phase("emulator.sample_counts"):
+            width = hd.n_qudits
+            bit_pos = np.arange(width - 1, -1, -1)
+            bits = (codes[:, None] >> bit_pos) & 1
+            nm = self.noise_model
+            if "SPAM" in nm.noise_types and (
+                nm.p_false_pos != 0.0 or nm.p_false_neg != 0.0
+            ):
+                flip_probs = np.where(
+                    bits == 1, nm.p_false_neg, nm.p_false_pos
+                )
+                flips = np.random.uniform(size=bits.shape) < flip_probs
+                bits = bits ^ flips
+            out_codes = bits @ (1 << bit_pos)
+            total_count = np.array([Counter() for _ in eval_ts])
+            draw_ti = np.repeat(row_ti, ns)
+            combo = (draw_ti << width) + out_codes
+            vals, cnts = np.unique(combo, return_counts=True)
+            labels = _labels_of(vals & ((1 << width) - 1), width)
+            for v, lab, c in zip(
+                (vals >> width).tolist(), labels, cnts.tolist()
+            ):
+                total_count[v][lab] += c
         return total_count
 
     def draw(

@@ -427,8 +427,8 @@ def build_plan(
 #: Shape/step metadata of the most recent solve, for telemetry.
 last_solve_info: dict[str, Any] = {}
 #: The title of the ROADMAP.md item that brings sharding over several
-#: devices and serving to the port; the sharding refusals quote it.
-PARALLEL_ROADMAP_ITEM = "Parallel and serving"
+#: devices to the port; the sharding refusals quote it.
+PARALLEL_ROADMAP_ITEM = "Trajectory and state sharding"
 _PARALLEL_ITEM = f"ROADMAP.md Queue 1, '{PARALLEL_ROADMAP_ITEM}'"
 
 
@@ -461,6 +461,11 @@ def _resolve_device(device: Any) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+#: The public name of :func:`_resolve_device`, for scripts that resolve
+#: their ``--device`` as the entry points do.
+resolve_device = _resolve_device
 
 
 class DeviceStateBatch:

@@ -182,6 +182,8 @@ def _foreign_modules(statements: str) -> list[str]:
         "import chip_smoke; chip_smoke.wire_payloads();"
         " chip_smoke.wire_noisy10_config("
         "chip_smoke.noisy10_sequence()[1]).to_abstract_repr()",
+        "import pulser_tpu_torch.serving, pulser_tpu_torch.profiling;"
+        " import chip_smoke; chip_smoke.serve_requests()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

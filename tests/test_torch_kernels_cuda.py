@@ -345,3 +345,58 @@ def test_cuda_wire_path_one_launch(cuda, path, kernel):
         K, S, torch.cuda.get_device_name(0)
     )
     assert entry["launches"] == {kernel: 1}
+
+
+@pytest.fixture
+def card_daemon(cuda, tmp_path):
+    """The port's solve daemon on the card, in a thread of this process."""
+    import threading
+
+    from pulser_tpu_torch import serving
+
+    path = str(tmp_path / "daemon.sock")
+    ready = threading.Event()
+    thread = threading.Thread(
+        target=serving.serve,
+        args=(path,),
+        kwargs={"device": "cuda", "ready_event": ready},
+        daemon=True,
+    )
+    thread.start()
+    assert ready.wait(120), "the daemon did not come up"
+    client = serving.SolveClient(path)
+    yield client
+    client.shutdown()
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+
+
+@pytest.mark.cuda
+def test_cuda_daemon_answers_afm16(card_daemon):
+    """``chip_smoke.py``'s SERVE_AFM16: the daemon answers AFM16's final
+    state (and all 101 states) with one K1 launch per request, equal to
+    the direct run's and within the golden's tolerance; each check
+    raises."""
+    from pulser_tpu_torch.ops import solver as S
+
+    entries = chip_smoke._serve_afm16(
+        K, S, card_daemon, chip_smoke.serve_requests(),
+        torch.cuda.get_device_name(0),
+    )
+    assert [e["launches"] for e in entries] == [{"ip_sesolve": 1}] * 2
+
+
+@pytest.mark.cuda
+def test_cuda_daemon_answers_noisy10_backend(card_daemon):
+    """``chip_smoke.py``'s SERVE_NOISY10: NOISY10's backend run, shipped
+    as JSON with seed 1234, in one K2 launch per request, its occupations
+    and counts equal to the direct backend run's."""
+    from pulser_tpu_torch.ops import solver as S
+
+    entry = chip_smoke._serve_noisy10(
+        K, S, card_daemon, chip_smoke.serve_requests(),
+        torch.cuda.get_device_name(0),
+    )
+    assert entry["launches"] == {"mcwf_rows": 1}
+    assert entry["occupation_max_abs_diff"] == 0.0
+    assert entry["counts_tv"] == 0.0

@@ -552,7 +552,7 @@ def test_quantum_jumps_without_shot_to_shot_noise_raise(f64):
 
 def test_sharding_raises():
     rho0, _, tplan, diag, cops, _ = _single_case({"cops": DIAG_COPS})
-    match = "'Parallel and serving'"
+    match = "'Trajectory and state sharding'"
     with pytest.raises(NotImplementedError, match=match):
         torch_solver.mesolve_rk4(rho0, tplan, diag, PAIRS, 2, 3, cops,
                                  state_mesh=object(), device="cpu")

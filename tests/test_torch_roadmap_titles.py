@@ -62,7 +62,7 @@ def test_the_scan_finds_the_shared_titles():
     layer's item, ported, nor an older one."""
     from pulser_tpu_torch.ops import solver
 
-    assert solver.PARALLEL_ROADMAP_ITEM == "Parallel and serving"
+    assert solver.PARALLEL_ROADMAP_ITEM == "Trajectory and state sharding"
     modules = {m for m, t in QUOTED if t == solver.PARALLEL_ROADMAP_ITEM}
     assert "pulser_tpu_torch.ops.solver" in modules
     assert solver._PARALLEL_ITEM.endswith(
@@ -70,6 +70,7 @@ def test_the_scan_finds_the_shared_titles():
     )
     assert not any("Backend, JSON" in t for _, t in QUOTED)
     assert not any(t.startswith("JSON") for _, t in QUOTED)
+    assert not any("serving" in t for _, t in QUOTED)  # ported
 
 
 @pytest.mark.parametrize(

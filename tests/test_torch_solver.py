@@ -425,7 +425,7 @@ def test_sesolve_batched_refuses_a_mesh_and_needs_a_device():
     n, d, pairs = 4, 2, ((1, 0, 0),)
     knots, coeffs, eval_times, diags, psi0 = _batched_case(n, d, pairs)
     plans = torch_solver.build_plan_batched(knots, coeffs, eval_times)
-    with pytest.raises(NotImplementedError, match="Parallel and serving"):
+    with pytest.raises(NotImplementedError, match="Trajectory and state sharding"):
         torch_solver.sesolve_rk4_batched(
             psi0, plans, diags, pairs, d, n, True, mesh=object(), device="cpu"
         )
