@@ -5,6 +5,10 @@ Run from the root of the repository, on a machine with a CUDA card and
 
     python3 chip_smoke.py
 
+On a host with several cards, ``python3 chip_smoke.py --across-cards``
+runs only SHARD_STATE24 over NCCL, one rank a card (see
+``_across_cards_phase``).
+
 Phases (each one raises on failure, and the script then exits non-zero;
 each main path builds its ``pulser_tpu_torch.Sequence`` with the same
 calls as ``bench.py``, enters through ``TorchEmulator.from_sequence``,
@@ -233,6 +237,28 @@ to sample it, median of 3 each, beside the card's name and power limit):
     Any failed check, any ``ok: false`` answer and any child exiting
     non-zero fails the script. K1's and K2's kernel entries list the
     launches on the served paths under ``also_on``.
+29. The sharding phase (:func:`_sharding_phase`): rank processes spawned
+    from this script (``pulser_tpu_torch.parallel.RankPool``: a
+    ``FileStore`` in a temporary directory, one torch thread per rank,
+    every rank's tensors on the card) run, through
+    ``TorchEmulator.from_sequence``: SHARD_STATE24, the distributed
+    demo's 24 atoms with the state over 2 gloo ranks (1 − F ≤ 1e-6 in
+    complex128 to this process's unsharded solve, |norm − 1| ≤ 1e-5), and
+    its twin over an explicit one-rank NCCL mesh (1 − F ≤ 1e-12);
+    SHARD_NOISY10, NOISY10's trajectories over 2 ranks on the
+    quantum-jump scan (populations within 1e-3 of
+    :data:`NOISY10_REFERENCE`, counts within TV 0.02 of
+    :data:`SHARD_NOISY10_REFERENCE`); SHARD_DEPH10, DEPH10's ρ rows over 2
+    ranks (DEPH10's checks); SHARD2D_SPD10, SPD10 on a 2 × 2 trajectory ×
+    state mesh (counts within TV 0.02 of SPD10's golden). Gloo moves host
+    buffers, so the collectives on the card's tensors are staged through
+    host memory (``parallel.comm.host_staged_collective``). Every case
+    prints its ranks, backend, route, wall ms and the bytes a rank
+    exchanged per RK4 stage and its peak device memory (SHARD_STATE24's
+    must stay below the unsharded run's: a rank's share leaves the card
+    before the ranks assemble the result); the ranks must agree bit for
+    bit and load no JAX module; any failed rank fails the script. The ``paths`` entries
+    gain the five cases.
 
 An earlier line names the JSON-schema validator the host has (the wire
 paths validate every payload with it).
@@ -3978,6 +4004,612 @@ def _serving_phase(K, S, card: str) -> list:
     return entries
 
 
+#: The JAX package's run of NOISY10 with its trajectories sharded over a
+#: mesh of two devices, seed 1234 (its quantum-jump scan, then the
+#: measurement draws on the host in bitstring order; single precision on
+#: a CPU), printed by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tools/shard_noisy10_reference.py``: the populations of
+#: :data:`NOISY10_REFERENCE` to 1e-7, and the counts of that route. The
+#: row-batched kernel draws in state order instead, so its counts are
+#: another sample of the same distribution (TV 0.155 between the two).
+SHARD_NOISY10_REFERENCE = {
+    "seed": 1234,
+    "n_steps": 501,
+    "rydberg_populations": [
+        0.464656344972354,
+        0.2982658230709378,
+        0.375744515138521,
+        0.305061540958549,
+        0.44385191374330296,
+        0.45848762182598546,
+        0.2903524365644879,
+        0.383933457549652,
+        0.2867388963919257,
+        0.47287673687374865,
+    ],
+    "final_counts": {
+        "0000010001": 3,
+        "0000010010": 1,
+        "0000010100": 2,
+        "0000010101": 21,
+        "0000100010": 1,
+        "0000100100": 2,
+        "0000101000": 2,
+        "0000101010": 1,
+        "0000110000": 7,
+        "0000110010": 14,
+        "0000110100": 11,
+        "0000110101": 1,
+        "0000110110": 1,
+        "0000111010": 1,
+        "0001000001": 1,
+        "0001000101": 7,
+        "0001001001": 2,
+        "0001010000": 1,
+        "0001010001": 5,
+        "0001010100": 5,
+        "0001010101": 60,
+        "0001011001": 1,
+        "0001110000": 1,
+        "0001110100": 1,
+        "0001110101": 1,
+        "0010000001": 2,
+        "0010000010": 1,
+        "0010001000": 1,
+        "0010001001": 4,
+        "0010001010": 1,
+        "0010010000": 5,
+        "0010010001": 8,
+        "0010010010": 6,
+        "0010100000": 1,
+        "0010100010": 3,
+        "0010101000": 2,
+        "0010101010": 9,
+        "0010110000": 14,
+        "0010110010": 29,
+        "0010110100": 1,
+        "0010111010": 2,
+        "0100000001": 3,
+        "0100000101": 4,
+        "0100010000": 2,
+        "0100010001": 9,
+        "0100010010": 4,
+        "0100010100": 2,
+        "0100010101": 38,
+        "0100010111": 1,
+        "0100100010": 6,
+        "0100100100": 5,
+        "0100101100": 1,
+        "0100110000": 7,
+        "0100110010": 28,
+        "0100110100": 41,
+        "0100110110": 1,
+        "0100111010": 1,
+        "0101000001": 7,
+        "0101000100": 3,
+        "0101000101": 9,
+        "0101010000": 6,
+        "0101010001": 44,
+        "0101010100": 9,
+        "0101010101": 72,
+        "0101010110": 1,
+        "0101010111": 1,
+        "0101011001": 1,
+        "0101110101": 1,
+        "0110010001": 1,
+        "0110110000": 1,
+        "0110110010": 1,
+        "0111010101": 2,
+        "1000000001": 1,
+        "1000000010": 1,
+        "1000000100": 1,
+        "1000000101": 20,
+        "1000001000": 1,
+        "1000001001": 10,
+        "1000001010": 3,
+        "1000010100": 1,
+        "1000010101": 1,
+        "1000011010": 1,
+        "1000100000": 3,
+        "1000100010": 5,
+        "1000100100": 9,
+        "1000101000": 5,
+        "1000101010": 28,
+        "1000110000": 1,
+        "1001000000": 1,
+        "1001000001": 11,
+        "1001000100": 3,
+        "1001000101": 35,
+        "1001001000": 5,
+        "1001001001": 36,
+        "1001001111": 1,
+        "1001010101": 1,
+        "1001100000": 1,
+        "1001100001": 1,
+        "1001100100": 1,
+        "1001100101": 1,
+        "1010000000": 3,
+        "1010000001": 19,
+        "1010000010": 6,
+        "1010001000": 5,
+        "1010001001": 43,
+        "1010001010": 18,
+        "1010001101": 1,
+        "1010100000": 26,
+        "1010100010": 38,
+        "1010100011": 1,
+        "1010100110": 1,
+        "1010101000": 35,
+        "1010101001": 2,
+        "1010101010": 49,
+        "1010101011": 2,
+        "1010101110": 1,
+        "1011000001": 1,
+        "1011001001": 1,
+        "1011100000": 1,
+        "1011100010": 3,
+        "1011101000": 1,
+        "1011101010": 1,
+    },
+}
+
+#: The sharding phase's tolerances: SHARD_STATE24 against the unsharded
+#: solve of the same sequence on the card (1 − F in complex128, and the
+#: distributed demo's own norm check), its one-rank NCCL twin against the
+#: direct run; SHARD_NOISY10, SHARD_DEPH10 and SHARD2D_SPD10 are held to
+#: NOISY10's, DEPH10's and SPD10's own tolerances.
+SHARD_STATE_FIDELITY_TOL = 1e-6
+SHARD_TWIN_FIDELITY_TOL = 1e-12
+SHARD_NORM_TOL = 1e-5
+#: The atoms of SHARD_STATE24 and the distributed demo's threshold.
+SHARD_STATE_ATOMS = 24
+SHARD_STATE_MIN_QUBITS = 20
+
+
+def shard_state_sequence(n_atoms: int = SHARD_STATE_ATOMS, P=None):
+    """The sequence of ``examples_torch/distributed_statevector_demo.py``:
+    ``n_atoms`` at 7 µm on a truncated ``rows × cols`` grid (4×6 for 24),
+    ``ConstantPulse(52, 2π, 1, 0)`` on ``MockDevice``."""
+    if P is None:
+        import pulser_tpu_torch as P
+
+    rows = int(np.floor(np.sqrt(n_atoms)))
+    cols = -(-n_atoms // rows)
+    coords = [(7.0 * c, 7.0 * r) for r in range(rows) for c in range(cols)]
+    reg = P.Register.from_coordinates(coords[:n_atoms], prefix="q")
+    seq = P.Sequence(reg, P.devices.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    seq.add(P.Pulse.ConstantPulse(52, 2 * np.pi, 1.0, 0.0), "ryd")
+    return seq
+
+
+def _foreign_modules() -> list:
+    """The modules of JAX or of the JAX package this process has loaded."""
+    return sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pulser_tpu")
+    )
+
+
+def _shard_rank(case: str, env: dict, n_atoms: int, device=None) -> dict:
+    """One rank's run of a sharding case through ``TorchEmulator``, on the
+    card unless ``device`` says otherwise: its route, wall ms, the bytes it
+    exchanged in the loop and gathered at the end, the modules of JAX it
+    loaded (none), and what the checks need (rank 0 returns the arrays,
+    the others their checksum)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+    from pulser_tpu_torch.ops import solver as S
+    from pulser_tpu_torch.parallel import comm, mesh2d, state_sharding
+
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    captured: dict = {}
+    restore = []
+    if case == "STATE_TWIN":
+        # The one-rank mesh, explicitly (the default mesh needs two ranks)
+        orig = state_sharding.default_state_mesh
+        state_sharding.default_state_mesh = lambda n, axis_name="state": (
+            comm.make_mesh((1,), (axis_name,))
+        )
+        restore.append(lambda: setattr(state_sharding, "default_state_mesh", orig))
+    if case == "NOISY10":
+        solve, record = _recording(S, "mcsolve_rk4_batched", captured)
+        S.mcsolve_rk4_batched = record
+        restore.append(lambda: setattr(S, "mcsolve_rk4_batched", solve))
+    if case == "SPD10_2D":
+        solve, record = _recording(mesh2d, "sesolve_ip_2d_sharded", captured)
+        mesh2d.sesolve_ip_2d_sharded = record
+        restore.append(
+            lambda: setattr(mesh2d, "sesolve_ip_2d_sharded", solve)
+        )
+    try:
+        kw = {"evaluation_times": "Minimal", "torch_device": device}
+        if case in ("STATE24", "STATE_TWIN"):
+            seq, noise, seed = shard_state_sequence(n_atoms), None, None
+        elif case == "NOISY10":
+            (seq, noise), seed = noisy10_sequence(), NOISY10_REFERENCE["seed"]
+        elif case == "DEPH10":
+            (seq, noise), seed = deph10_sequence(), None
+        else:
+            (seq, noise), seed = spd10_sequence(), 1234
+        comm.EXCHANGED.update(bytes=0, gathered=0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if seed is not None:
+            np.random.seed(seed)
+        emu = TorchEmulator.from_sequence(seq, noise_model=noise, **kw)
+        res = emu.run()
+        if case == "DEPH10":
+            arrays = {"final": res.get_final_state().full()}
+        elif case in ("STATE24", "STATE_TWIN"):
+            out = res.get_final_state(ignore_global_phase=False).full()
+            arrays = {"final": out[:, 0]}
+        else:
+            states = np.asarray(captured["out"])
+            arrays = {"final_states": states[:, -1]}
+        peak = None
+        if device != "cpu":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for undo in restore:
+            undo()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    info = dict(S.last_solve_info)
+    counts = None
+    if case in ("NOISY10", "SPD10_2D"):
+        counts = dict(res[-1].bitstring_counts)
+        _check_shots(res)
+    digest = hashlib.sha256(
+        b"".join(np.ascontiguousarray(a).tobytes() for a in arrays.values())
+    ).hexdigest()
+    return {
+        "rank": dist.get_rank(),
+        "backend": str(dist.get_backend()),
+        "staged": comm.stages_through_host(None, emu._torch_device),
+        "device": str(emu._torch_device),
+        "info": info,
+        "ms": wall_ms,
+        "peak_bytes": peak,
+        "exchanged": comm.EXCHANGED["bytes"],
+        "gathered": comm.EXCHANGED["gathered"],
+        "foreign": _foreign_modules(),
+        "digest": digest,
+        "counts": counts,
+        "arrays": arrays if dist.get_rank() == 0 else None,
+    }
+
+
+def _shard_run(pool, case: str, env: dict, n_atoms: int, device=None) -> dict:
+    """``case`` on every rank of ``pool``: the ranks must agree bit for
+    bit and load nothing of JAX; rank 0's answer, with the per-stage
+    bytes."""
+    outs = pool.run(_shard_rank, case, env, n_atoms, device)
+    for out in outs:
+        _check(out["foreign"] == [], f"rank {out['rank']} loaded {out['foreign']}")
+        _check(
+            out["digest"] == outs[0]["digest"],
+            f"{case}: rank {out['rank']} differs from rank 0",
+        )
+    out = outs[0]
+    stages = 4 * out["info"]["n_steps"]
+    out["stages"] = stages
+    out["exchanged_per_stage"] = out["exchanged"] / stages
+    out["world"] = len(outs)
+    return out
+
+
+def _bytes_or_not_measured(n) -> str:
+    return "not measured" if n is None else f"{n} B"
+
+
+def _shard_line(name: str, out: dict, check: str, card: str) -> dict:
+    """Prints a case's line and returns its ``paths`` entry."""
+    info = out["info"]
+    print(
+        f"{name}: {out['world']} rank(s), {out['backend']}"
+        f"{' (host-staged)' if out['staged'] else ''} on {out['device']},"
+        f" route {info.get('kind')} over {info.get('ranks')} rank(s),"
+        f" {out['ms']:.3f} ms wall (cold run()), {out['stages']} RK4 stages,"
+        f" {out['exchanged_per_stage']:.0f} B exchanged per RK4 stage per rank,"
+        f" {out['gathered']} B gathered at the end, peak device memory"
+        f" {_bytes_or_not_measured(out['peak_bytes'])} a rank; {check}"
+        f" [{card}]",
+        flush=True,
+    )
+    return {
+        "name": name,
+        "ranks": out["world"],
+        "backend": out["backend"],
+        "host_staged": out["staged"],
+        "route": info.get("kind"),
+        "ms": out["ms"],
+        "stages": out["stages"],
+        "exchanged_bytes_per_stage": out["exchanged_per_stage"],
+        "gathered_bytes": out["gathered"],
+        "peak_device_bytes": out["peak_bytes"],
+    }
+
+
+def _unsharded_state(n_atoms: int, device=None) -> tuple:
+    """SHARD_STATE's unsharded reference, solved in this process: the
+    final state in complex128 and the device memory the run took at its
+    peak (None on the CPU)."""
+    import torch
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+    from pulser_tpu_torch.ops import solver as S
+
+    emu = TorchEmulator.from_sequence(
+        shard_state_sequence(n_atoms), evaluation_times="Minimal",
+        torch_device=device,
+    )
+    peak = None
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    direct = emu.run().get_final_state(ignore_global_phase=False)
+    direct = direct.full()[:, 0].astype(np.complex128)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+    direct_ms = (time.perf_counter() - t1) * 1e3
+    print(
+        f"SHARD_STATE{n_atoms} reference: unsharded"
+        f" {dict(S.last_solve_info)} in {direct_ms:.3f} ms (cold run()),"
+        f" peak device memory {_bytes_or_not_measured(peak)}",
+        flush=True,
+    )
+    return direct, peak
+
+
+def _state_case(
+    pool, name: str, env: dict, n_atoms: int, device, direct, direct_peak,
+    card: str,
+) -> dict:
+    """SHARD_STATE on every rank of ``pool``, held to the unsharded
+    ``direct`` state: 1 − F, the norm, and on the card a peak device
+    memory a rank below the unsharded run's (each rank's share of the
+    result leaves the card before the ranks assemble it)."""
+    out = _shard_run(pool, "STATE24", env, n_atoms, device)
+    got = out["arrays"]["final"].astype(np.complex128)
+    infid = 1 - _fidelity(direct, got)
+    norm_err = abs(np.linalg.norm(got) - 1)
+    _check(
+        out["info"].get("kind") == "sesolve_state_sharded_torch"
+        and out["info"].get("ranks") == out["world"],
+        f"{name} route {out['info']}",
+    )
+    _check(infid <= SHARD_STATE_FIDELITY_TOL, f"{name} 1 - F {infid:.3e}")
+    _check(norm_err <= SHARD_NORM_TOL, f"{name} norm {norm_err:.3e}")
+    check = (
+        f"1 - F = {infid:.3e} to the unsharded solve (≤"
+        f" {SHARD_STATE_FIDELITY_TOL:g}), |norm - 1| = {norm_err:.3e} (≤"
+        f" {SHARD_NORM_TOL:g})"
+    )
+    if direct_peak is not None:
+        _check(
+            out["peak_bytes"] < direct_peak,
+            f"{name} peak {out['peak_bytes']} B a rank, unsharded"
+            f" {direct_peak} B",
+        )
+        check += (
+            f", peak device memory {out['peak_bytes'] / direct_peak:.3f}"
+            " of the unsharded run's"
+        )
+    return _shard_line(name, out, check, card)
+
+
+def _sharding_phase(card: str, device=None, n_atoms: int = SHARD_STATE_ATOMS):
+    """Trajectory and state sharding on ranks spawned from this script
+    (:class:`pulser_tpu_torch.parallel.RankPool`: a ``FileStore`` in a
+    temporary directory, one torch thread per rank, every rank's tensors
+    on the card): SHARD_STATE24 over 2 gloo ranks and its one-rank NCCL
+    twin, SHARD_NOISY10 and SHARD_DEPH10 over 2 gloo ranks, SHARD2D_SPD10
+    on a 2 × 2 gloo mesh. Gloo moves host buffers, so on the card its
+    collectives are staged through host memory by
+    ``pulser_tpu_torch.parallel.comm.host_staged_collective``. ``device``
+    and ``n_atoms`` let the phase be rehearsed on the CPU at a small
+    size."""
+    import tempfile
+
+    from pulser_tpu_torch.parallel import RankPool
+
+    cpu = device == "cpu"
+    print(
+        "sharding phase: ranks spawned with torch.multiprocessing (spawn),"
+        " FileStore rendezvous, 1 torch thread per rank; gloo collectives on"
+        f" {'host' if cpu else 'CUDA'} tensors"
+        + (
+            ""
+            if cpu
+            else " staged through host memory by"
+            " pulser_tpu_torch.parallel.comm.host_staged_collective"
+        ),
+        flush=True,
+    )
+    state_env = {
+        "PULSER_TPU_STATE_SHARD_MIN_QUBITS": str(
+            min(SHARD_STATE_MIN_QUBITS, n_atoms)
+        )
+    }
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pools = {
+            "gloo2": RankPool(2, os.path.join(tmp, "g2"), "gloo"),
+            "nccl1": None if cpu else RankPool(1, os.path.join(tmp, "n1"), "nccl"),
+            "gloo4": RankPool(4, os.path.join(tmp, "g4"), "gloo"),
+        }
+        try:
+            direct, direct_peak = _unsharded_state(n_atoms, device)
+            entries.append(
+                _state_case(
+                    pools["gloo2"], f"SHARD_STATE{n_atoms}", state_env,
+                    n_atoms, device, direct, direct_peak, card,
+                )
+            )
+            if pools["nccl1"] is not None:
+                out = _shard_run(
+                    pools["nccl1"], "STATE_TWIN", state_env, n_atoms, device
+                )
+                got = out["arrays"]["final"].astype(np.complex128)
+                infid = 1 - _fidelity(direct, got)
+                _check(
+                    out["info"].get("kind") == "sesolve_state_sharded_torch"
+                    and "nccl" in out["backend"],
+                    f"twin route {out['info']} on {out['backend']}",
+                )
+                _check(infid <= SHARD_TWIN_FIDELITY_TOL, f"twin 1 - F {infid:.3e}")
+                entries.append(
+                    _shard_line(
+                        f"SHARD_STATE{n_atoms}_NCCL1", out,
+                        f"1 - F = {infid:.3e} to the direct run (≤"
+                        f" {SHARD_TWIN_FIDELITY_TOL:g})",
+                        card,
+                    )
+                )
+
+            out = _shard_run(pools["gloo2"], "NOISY10", {}, n_atoms, device)
+            n_q = out["info"]["n"]
+            probs = np.abs(out["arrays"]["final_states"].astype(np.complex128)) ** 2
+            probs /= probs.sum(axis=1, keepdims=True)
+            pops = _rydberg_populations(probs, n_q).mean(axis=0)
+            pop_err = float(
+                np.max(np.abs(pops - NOISY10_REFERENCE["rydberg_populations"]))
+            )
+            tv = _tv_distance(
+                out["counts"], SHARD_NOISY10_REFERENCE["final_counts"]
+            )
+            tv_rows = _tv_distance(
+                out["counts"], NOISY10_REFERENCE["final_counts"]
+            )
+            _check(
+                out["info"].get("kind") == "mcwf_batched_torch"
+                and out["info"].get("ranks") == 2
+                and out["info"]["n_steps"] == NOISY10_REFERENCE["n_steps"],
+                f"SHARD_NOISY10 route {out['info']}",
+            )
+            _check(pop_err <= POPULATION_TOL, f"populations {pop_err:.3e}")
+            _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
+            entries.append(
+                _shard_line(
+                    "SHARD_NOISY10", out,
+                    f"vs the JAX package (seed {NOISY10_REFERENCE['seed']}):"
+                    f" Rydberg populations max|d| = {pop_err:.3e} (≤"
+                    f" {POPULATION_TOL:g}) to NOISY10's, final counts TV ="
+                    f" {tv:.4f} (≤ {COUNTS_TV_TOL:g}) to its sharded route's"
+                    f" (TV {tv_rows:.4f} to NOISY10's row-kernel draws, drawn"
+                    " in state order)",
+                    card,
+                )
+            )
+
+            with open(_MESOLVE_GOLDENS["deph10"]) as f:
+                ref = json.load(f)
+            out = _shard_run(
+                pools["gloo2"], "DEPH10",
+                {"PULSER_TPU_RHO_SHARD_MIN_QUBITS": "10"}, n_atoms, device,
+            )
+            info = out["info"]
+            _check(
+                info.get("kind", "").startswith("mesolve_")
+                and info.get("ranks") == 2
+                and info["ip"] == ref["interaction_picture"]
+                and info["n_steps"] == ref["n_steps"],
+                f"SHARD_DEPH10 route {info}",
+            )
+            _rho_checks(out["arrays"]["final"], ref, "SHARD_DEPH10")
+            entries.append(
+                _shard_line(
+                    "SHARD_DEPH10", out,
+                    f"ρ rows 2 × {info['dim'] // 2}, checks as DEPH10's", card,
+                )
+            )
+
+            with open(_SPD10_GOLDEN) as f:
+                ref = json.load(f)
+            out = _shard_run(
+                pools["gloo4"], "SPD10_2D",
+                {
+                    "PULSER_TPU_TRAJ_STATE_MESH": "2x2",
+                    "PULSER_TPU_STATE_SHARD_MIN_QUBITS": "10",
+                },
+                n_atoms, device,
+            )
+            tv = _tv_distance(out["counts"], ref["final_counts"])
+            _check(
+                out["info"].get("kind") == "sesolve_2d_sharded_torch"
+                and tuple(out["info"].get("mesh", ())) == (2, 2),
+                f"SHARD2D_SPD10 route {out['info']}",
+            )
+            _check(tv <= COUNTS_TV_TOL, f"count TV {tv:.4f}")
+            entries.append(
+                _shard_line(
+                    "SHARD2D_SPD10", out,
+                    f"vs the JAX package (seed {ref['seed']}): final counts TV"
+                    f" = {tv:.4f} (≤ {COUNTS_TV_TOL:g}),"
+                    f" {out['info']['n_traj'] // 2} trajectories per traj group",
+                    card,
+                )
+            )
+        finally:
+            for pool in pools.values():
+                if pool is not None:
+                    pool.close()
+        print(
+            f"sharding phase: {time.perf_counter() - t0:.3f} s with the"
+            " ranks' start-up",
+            flush=True,
+        )
+    return entries
+
+
+def _across_cards_phase(card: str) -> list:
+    """SHARD_STATE24 over NCCL, one rank a card (``--across-cards``, on a
+    host with several cards): over 2 ranks and over the largest
+    power-of-two count of the visible cards, each held to this process's
+    unsharded solve as in the sharding phase. NCCL moves device buffers,
+    so the ranks' shares cross the card in pieces on their way to the
+    host (``parallel.comm.gather_to_host``)."""
+    import tempfile
+
+    import torch
+
+    from pulser_tpu_torch.parallel import RankPool
+
+    n_cards = torch.cuda.device_count()
+    _check(n_cards >= 2, f"--across-cards needs several cards, not {n_cards}")
+    env = {"PULSER_TPU_STATE_SHARD_MIN_QUBITS": str(SHARD_STATE_MIN_QUBITS)}
+    direct, direct_peak = _unsharded_state(SHARD_STATE_ATOMS)
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in sorted({2, 1 << (n_cards.bit_length() - 1)}):
+            with RankPool(world, os.path.join(tmp, f"n{world}"), "nccl") as pool:
+                entries.append(
+                    _state_case(
+                        pool, f"SHARD_STATE{SHARD_STATE_ATOMS}_NCCL{world}",
+                        env, SHARD_STATE_ATOMS, None, direct, direct_peak,
+                        card,
+                    )
+                )
+    return entries
+
+
 def _validator_line() -> None:
     """Names the JSON-schema validator this host has: the loads of the
     wire paths validate every payload with it."""
@@ -4021,6 +4653,28 @@ def main() -> int:
         "python", sys.version.split()[0], flush=True,
     )
     device = torch.device("cuda")
+    if sys.argv[1:] == ["--across-cards"]:
+        report = {"paths": _across_cards_phase(card)}
+    else:
+        report = _main_path(K, S, device, card)
+    print(json.dumps(report))
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+    return 0
+
+
+def _main_path(K, S, device, card: str) -> dict:
+    """Every phase of the script on one card: the report line's object."""
     _validator_line()
 
     _build(K)  # 2
@@ -4050,6 +4704,7 @@ def main() -> int:
     }
     serve = _serving_phase(K, S, card)  # 26-28
     report["paths"] += serve
+    report["paths"] += _sharding_phase(card)  # 29
     launches = {e["name"]: e["launches"] for e in serve if "launches" in e}
     k1, k2 = report["kernels"][0], report["kernels"][3]
     k1["also_on"] = {
@@ -4057,20 +4712,7 @@ def main() -> int:
         for name in ("SERVE_AFM16", "SERVE_TRI16")
     }
     k2["also_on"] = {"SERVE_NOISY10": launches["SERVE_NOISY10"]["mcwf_rows"]}
-    print(json.dumps(report))
-    print(
-        json.dumps(
-            {
-                "ok": True,
-                "device": {
-                    "platform": "gpu",
-                    "kind": torch.cuda.get_device_name(0),
-                    "count": torch.cuda.device_count(),
-                },
-            }
-        )
-    )
-    return 0
+    return report
 
 
 if __name__ == "__main__":

@@ -80,6 +80,12 @@ from pulser_tpu_torch import profiling
 from pulser_tpu_torch.noise_model import NoiseModel
 from pulser_tpu_torch.ops import solver as _solver_mod
 from pulser_tpu_torch.ops.solver import build_plan
+from pulser_tpu_torch.parallel import (
+    comm,
+    mesh2d,
+    state_sharding,
+    trajectories,
+)
 from pulser_tpu_torch.parallel.capacity import check_capacity
 from pulser_tpu_torch.register.base_register import BaseRegister
 from pulser_tpu_torch.result import SampledResult, _labels_of
@@ -1394,6 +1400,7 @@ class TorchEmulator:
                     ntraj=mcsolve_ntraj,
                     seed=int(np.random.randint(2**31)),
                     dtype=cdtype,
+                    mesh=trajectories.default_mesh(),
                     ip=mcwf_ip,
                     device=self._torch_device,
                     **xy,
@@ -1409,9 +1416,16 @@ class TorchEmulator:
             else:
                 # ρ = ψψ† is formed on the device
                 rho0 = ("pure", self._initial_ket())
+            # ρ costs 4^N: beyond roughly half the statevector's qubit
+            # ceiling its rows shard over the ranks
+            rho_mesh = None
+            if d == 2 and n >= state_sharding.rho_shard_min_qubits():
+                rho_mesh = state_sharding.default_state_mesh(n)
             check_capacity(
-                d, n, n_eval=n_eval, itemsize=itemsize, density_matrix=True,
-                what="master-equation solve", device=self._torch_device,
+                d, n, n_eval=n_eval, itemsize=itemsize,
+                n_devices=_solver_mod._mesh_size(rho_mesh),
+                density_matrix=True, what="master-equation solve",
+                device=self._torch_device,
             )
             with profiling.phase("emulator.mesolve"):
                 states_arr = _solver_mod.mesolve_rk4(
@@ -1424,14 +1438,22 @@ class TorchEmulator:
                     mats,
                     dtype=cdtype,
                     ip=mesolve_ip,
+                    state_mesh=rho_mesh,
                     lazy=True,
                     device=self._torch_device,
                     **xy,
                 )
             shape, dims = (d**n, d**n), [[d] * n, [d] * n]
         else:
+            # Beyond the single-device threshold the 2^N axis itself
+            # shards over the ranks
+            state_mesh = state_sharding.solve_state_mesh(
+                d, n, can_use_ip, hamiltonian.xy_mat,
+                hamiltonian.int_w is not None,
+            )
             check_capacity(
                 d, n, n_eval=n_eval, itemsize=itemsize,
+                n_devices=_solver_mod._mesh_size(state_mesh),
                 what="Schrödinger solve", device=self._torch_device,
             )
             with profiling.phase("emulator.sesolve"):
@@ -1448,6 +1470,7 @@ class TorchEmulator:
                     # interaction picture, which the XY term and int_w
                     # rule out
                     ip_occ=True if can_use_ip else None,
+                    state_mesh=state_mesh,
                     lazy=True,
                     device=self._torch_device,
                     **xy,
@@ -1703,12 +1726,26 @@ class TorchEmulator:
         max_step, coarsen = self._coarse_ip_step(
             "sesolve_batch_coarse", max_step, lambda_max, batch.shims, options
         )
+        # Beyond the state-sharding threshold, noisy runs use both
+        # parallel axes at once: trajectories × state blocks on a 2-D
+        # mesh (the collectives ride the state axis only)
+        diags = batch.diags
+        n_traj_true = len(batch.reps)
+        mesh2 = None
+        if d == 2 and all({i, j} == {0, 1} for i, j, _ in first.pairs):
+            mesh2 = mesh2d.default_2d_mesh(n, n_traj_true)
+        amp_b, det_b = batch.amp, batch.det
+        if mesh2 is not None:
+            (amp_b, det_b, diags), _ = trajectories.pad_to_multiple(
+                (np.asarray(amp_b), np.asarray(det_b), diags),
+                comm.axis_size(mesh2, "traj"),
+            )
         # One plan for the whole batch, staged on the host in float64:
         # the grid is shared, only the coefficient values differ
         with profiling.phase("emulator.build_plan_batched"):
             plans = _solver_mod.build_plan_batched(
                 knots,
-                {"amp": batch.amp, "det": batch.det},
+                {"amp": amp_b, "det": det_b},
                 self._eval_times_array,
                 max_step=max_step,
                 coarsen=coarsen,
@@ -1717,18 +1754,28 @@ class TorchEmulator:
                 ),
             )
         cdtype = _solver_mod._numpy_dtype(_default_cdtype())
+        psi0 = np.asarray(self._initial_ket(), dtype=cdtype)
         with profiling.phase("emulator.sesolve_batched"):
-            states_batch = _solver_mod.sesolve_rk4_batched(
-                np.asarray(self._initial_ket(), dtype=cdtype),
-                plans,
-                batch.diags,
-                first.pairs,
-                d,
-                n,
-                True,
-                dtype=cdtype,
-                device=self._torch_device,
-            )
+            if mesh2 is not None:
+                states_batch = mesh2d.sesolve_ip_2d_sharded(
+                    psi0, plans, diags, first.pairs, n, mesh2, dtype=cdtype,
+                    device=self._torch_device,
+                )[:n_traj_true]
+            else:
+                # Trajectories shard over every rank when the world has
+                # more than one
+                states_batch = _solver_mod.sesolve_rk4_batched(
+                    psi0,
+                    plans,
+                    diags,
+                    first.pairs,
+                    d,
+                    n,
+                    True,
+                    dtype=cdtype,
+                    mesh=trajectories.default_mesh(),
+                    device=self._torch_device,
+                )
         if coarsen:
             # As on the coherent path: unitary evolution, renormalize
             norms = np.linalg.norm(states_batch, axis=-1, keepdims=True)
@@ -1980,7 +2027,8 @@ class TorchEmulator:
             with profiling.phase("emulator.mcsolve_batched"):
                 states_batch = _solver_mod.mcsolve_rk4_batched(
                     p.psi0, p.plans, p.batch.diags, p.pairs, d, n,
-                    p.collapse_mats, seeds, dtype=cdtype, ip=p.mcwf_ip,
+                    p.collapse_mats, seeds, dtype=cdtype,
+                    mesh=trajectories.default_mesh(), ip=p.mcwf_ip,
                     device=self._torch_device,
                 )
             dims = [[d] * n, [1] * n]
@@ -1998,7 +2046,8 @@ class TorchEmulator:
                 states_batch = _solver_mod.mesolve_rk4_batched(
                     np.outer(p.psi0, p.psi0.conj()),
                     p.plans, p.batch.diags, p.pairs, d, n, p.collapse_mats,
-                    dtype=cdtype, ip=p.mesolve_ip, device=self._torch_device,
+                    dtype=cdtype, mesh=trajectories.default_mesh(),
+                    ip=p.mesolve_ip, device=self._torch_device,
                 )
             dims = [[d] * n, [d] * n]
         self._current_hamiltonian = p.batch.last_ham()
@@ -2069,7 +2118,8 @@ class TorchEmulator:
             seeds,
         )
         solve_kw = dict(
-            dtype=p.psi0.dtype, ip=p.mcwf_ip, device=self._torch_device
+            dtype=p.psi0.dtype, mesh=trajectories.default_mesh(),
+            ip=p.mcwf_ip, device=self._torch_device,
         )
         with profiling.phase("emulator.mcsolve_batched"):
             codes_pad = _solver_mod.mcsolve_rows_codes(

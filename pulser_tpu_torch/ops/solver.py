@@ -39,14 +39,21 @@ is a torch loop with native complex density matrices
 (:func:`_mesolve_scan`): in the interaction picture on the coarsened
 grid when every collapse operator is diagonal, in the lab frame
 otherwise (with the XY term there). The JAX package computes the torch
-loops' solves in XLA, outside any Pallas kernel. Sharding over devices
-is not ported yet (see ROADMAP.md).
+loops' solves in XLA, outside any Pallas kernel.
+
+Every solve takes the JAX package's sharding arguments: ``mesh`` splits
+a trajectory batch over the ranks of a ``torch.distributed`` mesh,
+``state_mesh`` the state's ``2^N`` axis (or ρ's rows); see
+:mod:`pulser_tpu_torch.parallel`. A mesh of more than one rank runs the
+torch loops, never a kernel (as the JAX package turns its Pallas routes
+off under a mesh), and every rank returns the whole result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -63,6 +70,7 @@ from pulser_tpu_torch.ops.apply import (
     jump_candidates,
 )
 from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
+from pulser_tpu_torch.parallel.comm import mesh_size as _mesh_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,10 +434,6 @@ def build_plan(
 
 #: Shape/step metadata of the most recent solve, for telemetry.
 last_solve_info: dict[str, Any] = {}
-#: The title of the ROADMAP.md item that brings sharding over several
-#: devices to the port; the sharding refusals quote it.
-PARALLEL_ROADMAP_ITEM = "Trajectory and state sharding"
-_PARALLEL_ITEM = f"ROADMAP.md Queue 1, '{PARALLEL_ROADMAP_ITEM}'"
 
 
 def _numpy_dtype(dtype: Any) -> np.dtype:
@@ -445,8 +449,18 @@ def _complex_dtype(dtype: Any) -> np.dtype:
     return np.result_type(_numpy_dtype(dtype), np.complex64)
 
 
+def _torch_dtype(dtype: Any) -> torch.dtype:
+    """The torch dtype matching a numpy dtype."""
+    return torch.from_numpy(np.zeros(0, dtype=_numpy_dtype(dtype))).dtype
+
+
 def _resolve_device(device: Any) -> torch.device:
-    """The given device; ``None`` means the first CUDA device.
+    """The given device; ``None`` means this process's CUDA device.
+
+    Under an initialized ``torch.distributed`` process group that is the
+    rank's card: ``cuda:{LOCAL_RANK}`` when the launcher numbered it
+    among the visible cards, else the current CUDA device (ranks that
+    share one card all use it). Without a group, the first CUDA device.
 
     Raises:
         RuntimeError: ``device`` is None and no CUDA device is visible
@@ -459,6 +473,13 @@ def _resolve_device(device: Any) -> torch.device:
                 " torch_device='cpu' (TorchEmulator) or device='cpu' (the"
                 " solver functions)."
             )
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            local = os.environ.get("LOCAL_RANK")
+            if local is not None and int(local) < torch.cuda.device_count():
+                return torch.device("cuda", int(local))
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cuda")
     return torch.device(device)
 
@@ -596,7 +617,11 @@ def sesolve_rk4(
             with the projector occupancies synthesized from the basis
             index. Otherwise the lab-frame loop :func:`_sesolve_scan`
             integrates the whole Hamiltonian.
-        state_mesh: State sharding; not ported yet.
+        state_mesh: A ``torch.distributed`` mesh to shard the state's
+            ``2^N`` axis over (:mod:`pulser_tpu_torch.parallel.
+            state_sharding`): qubits and qudits (d=3, 4) in the
+            interaction picture, and XY mode with one static coupling
+            matrix; other configurations solve unsharded.
         lazy: Return a :class:`DeviceStateBatch` (device-resident
             output, fetched on demand) instead of a host array.
         device: The torch device to solve on (default: the first CUDA
@@ -607,16 +632,25 @@ def sesolve_rk4(
         ``(n_eval, dim)`` complex numpy states at the evaluation
         times, or a :class:`DeviceStateBatch` when ``lazy`` is set.
     """
-    if state_mesh is not None:
-        raise NotImplementedError(
-            f"State sharding is not ported yet ({_PARALLEL_ITEM})."
-        )
     has_int_w = "int_w" in plan.stage_arrays
     use_ip = ip_occ is not None and xy_static is None and not has_int_w
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
     psi0_np = np.asarray(psi0, dtype=cdtype)
+    if state_mesh is not None:
+        sharded = _sesolve_state_sharded(
+            psi0_np, plan, static_diag, pairs, d, n, xy_static, xy_indices,
+            use_ip, has_int_w, state_mesh, cdtype, dev,
+        )
+        if sharded is not None:
+            if lazy:
+                return DeviceStateBatch(
+                    torch.from_numpy(sharded),
+                    np.arange(len(sharded)),
+                    lambda h: h,
+                )
+            return sharded
     # The hand-written kernel covers the flagship configuration:
     # qubits (d=2), a single drive basis, single precision, on a card
     if (
@@ -640,18 +674,9 @@ def sesolve_rk4(
 
     pairs = tuple(tuple(p) for p in pairs)
     if use_ip:
-        # Phases only matter mod 2π and the occupancies are exactly 0/1,
-        # so the detuning integrals are range-reduced on the host
-        # (sign: D = int_diag − Σ det·occ → Φ gets −∫det terms).
-        two_pi = 2 * np.pi
         out = _sesolve_scan_ip(
             to_dev(psi0_np, cdtype),
-            to_dev(plan.seg_stage("amp"), cdtype),
-            to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
-            to_dev(plan.seg_stage("t_stage"), rdtype),
-            np.asarray(plan.seg_dts, dtype=rdtype),
-            to_dev(plan.eval_times - plan.grid[0], rdtype),
-            to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+            *_ip_stage_arrays(plan, rdtype, cdtype, dev),
             to_dev(np.asarray(static_diag).real, rdtype),
             pairs=pairs,
             d=d,
@@ -690,6 +715,68 @@ def sesolve_rk4(
             out, plan.eval_map, lambda h: h.astype(cdtype)
         )
     return out.cpu().numpy()[plan.eval_map].astype(cdtype)
+
+
+def _ip_stage_arrays(
+    plan: EvolutionPlan, rdtype: Any, cdtype: Any, dev: torch.device
+) -> tuple:
+    """The interaction-picture stage arrays of one plan on ``dev``:
+    ``(amp, −∫det mod 2π, t_stage, dts (host), eval_t, −∫det(eval) mod
+    2π)``. Phases only matter mod 2π and the occupancies are exactly 0/1,
+    so the detuning integrals are range-reduced in float64 on the host
+    before the cast (sign: D = int_diag − Σ det·occ, so Φ gets the −∫det
+    terms)."""
+    two_pi = 2 * np.pi
+
+    def to_dev(host: np.ndarray, dt: Any) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
+
+    return (
+        to_dev(plan.seg_stage("amp"), cdtype),
+        to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
+        to_dev(plan.seg_stage("t_stage"), rdtype),
+        np.asarray(plan.seg_dts, dtype=rdtype),
+        to_dev(plan.eval_times - plan.grid[0], rdtype),
+        to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+    )
+
+
+def _sesolve_state_sharded(
+    psi0_np: np.ndarray,
+    plan: EvolutionPlan,
+    static_diag: np.ndarray,
+    pairs: tuple,
+    d: int,
+    n: int,
+    xy_static: Any,
+    xy_indices: Any,
+    use_ip: bool,
+    has_int_w: bool,
+    state_mesh: Any,
+    cdtype: Any,
+    dev: torch.device,
+) -> "np.ndarray | None":
+    """The state-sharded solve of :func:`sesolve_rk4` (the JAX package's
+    routing), or None when the configuration solves unsharded."""
+    from pulser_tpu_torch.parallel import state_sharding as SS
+
+    route = SS.sharded_route(d, use_ip, xy_static, has_int_w)
+    if route == "ip":
+        return SS.sesolve_ip_statevector_sharded(
+            psi0_np, plan, static_diag, pairs, n, state_mesh, dtype=cdtype,
+            device=dev,
+        )
+    if route == "qudit":
+        return SS.qudit_sesolve_ip_statevector_sharded(
+            psi0_np, plan, static_diag, pairs, n, state_mesh, d,
+            dtype=cdtype, device=dev,
+        )
+    if route == "xy" and xy_indices is not None:
+        return SS.xy_sesolve_statevector_sharded(
+            psi0_np, plan, static_diag, np.asarray(xy_static)[0], pairs, n,
+            state_mesh, xy_indices, dtype=cdtype, device=dev,
+        )
+    return None
 
 
 def _make_ip_phase_fn(
@@ -1518,7 +1605,11 @@ def sesolve_rk4_batched(
             runs in the interaction picture, the occupancies synthesized
             from the basis index.
         dtype: Complex dtype of the evolution (defaults to psi0's).
-        mesh: Trajectory sharding over devices; not ported.
+        mesh: A ``torch.distributed`` mesh to split the trajectories
+            over (:func:`~pulser_tpu_torch.parallel.trajectories.
+            sesolve_ip_states_sharded`; padded to a multiple of its
+            ranks): each rank runs the torch loop on its block, never the
+            kernel.
         device: The torch device to solve on (default: the first CUDA
             device; without one this raises: pass ``"cpu"`` to run on
             the CPU).
@@ -1526,19 +1617,16 @@ def sesolve_rk4_batched(
     Returns:
         ``(T, n_eval, dim)`` complex states at the evaluation times.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"Trajectory sharding over devices is not ported yet"
-            f" ({_PARALLEL_ITEM})."
-        )
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
     psi0_np = np.asarray(psi0, dtype=cdtype)
     pairs = tuple(tuple(p) for p in pairs)
-    # The same gate as sesolve_rk4's: on a card it alone decides
+    # The same gate as sesolve_rk4's: on a card it alone decides (and a
+    # mesh of several ranks never takes the kernel)
     if (
         isinstance(plans, BatchedPlan)
+        and _mesh_size(mesh) == 1
         and d == 2
         and pairs == ((1, 0, 0),)
         and 10 <= n <= 17
@@ -1561,19 +1649,40 @@ def sesolve_rk4_batched(
         eval_cum = plans.eval_det_cum_b
     else:
         eval_cum = np.stack([p.eval_det_cum for p in plans])
-    out = _sesolve_scan_ip(
-        to_dev(psi0_np, cdtype),
-        to_dev(staged["amp"], cdtype),
-        to_dev((-staged["det_cum"]) % two_pi, rdtype),
+    per_traj = (
+        staged["amp"],
+        (-staged["det_cum"]) % two_pi,
+        (-eval_cum) % two_pi,
+        np.asarray(static_diags).real,
+    )
+    sharded = mesh is not None and n_traj > 1
+    if sharded:
+        from pulser_tpu_torch.parallel.trajectories import pad_to_multiple
+
+        per_traj, _ = pad_to_multiple(per_traj, _mesh_size(mesh))
+    amp, cum, ev_cum, diags = (
+        to_dev(x, dt)
+        for x, dt in zip(per_traj, (cdtype, rdtype, rdtype, rdtype))
+    )
+    shared = (
         to_dev(base.seg_stage("t_stage"), rdtype),
         np.asarray(base.seg_dts, dtype=rdtype),
         to_dev(base.eval_times - base.grid[0], rdtype),
-        to_dev((-eval_cum) % two_pi, rdtype),
-        to_dev(np.asarray(static_diags).real, rdtype),
-        pairs=pairs,
-        d=d,
-        n=n,
     )
+    if sharded:
+        from pulser_tpu_torch.parallel.trajectories import (
+            sesolve_ip_states_sharded,
+        )
+
+        out = sesolve_ip_states_sharded(
+            mesh, to_dev(psi0_np, cdtype), amp, cum, *shared, ev_cum, diags,
+            pairs=pairs, d=d, n=n,
+        )
+    else:
+        out = _sesolve_scan_ip(
+            to_dev(psi0_np, cdtype), amp, cum, *shared, ev_cum, diags,
+            pairs=pairs, d=d, n=n,
+        )
     last_solve_info.clear()
     last_solve_info.update(
         kind="sesolve_batched_torch",
@@ -1581,9 +1690,11 @@ def sesolve_rk4_batched(
         n=n,
         n_traj=n_traj,
         n_steps=int(np.count_nonzero(base.seg_dts)),
+        ranks=_mesh_size(mesh) if sharded else 1,
     )
     # (T, n_seg, dim) -> the requested evaluation times, one transfer
-    return out.cpu().numpy()[:, base.eval_map].astype(cdtype)
+    # (padded trajectories, if any, are sliced off)
+    return out.cpu().numpy()[:n_traj, base.eval_map].astype(cdtype)
 
 
 def ip_batched_kernel_inputs(
@@ -2098,6 +2209,7 @@ def mcsolve_rows_codes(
     seeds: list[int],
     sample_spec: tuple,
     dtype: Any = None,
+    mesh: Any = None,
     ip: bool = False,
     device: Any = None,
 ) -> "np.ndarray | None":
@@ -2111,6 +2223,8 @@ def mcsolve_rows_codes(
     Args:
         sample_spec: ``(samp_u, row_traj, row_ti)`` — per-draw uniforms,
             trajectory index and (requested) evaluation-time index.
+        mesh: The trajectory mesh: the kernel runs only without one or
+            on one rank (the JAX package's rows gate).
         device: The torch device (default: the first CUDA device; without
             one this raises: pass ``"cpu"`` to run on the CPU).
 
@@ -2123,6 +2237,7 @@ def mcsolve_rows_codes(
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     if (
         not collapse_ops
+        or _mesh_size(mesh) > 1
         or _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype) != "rows"
         or plans.raw_coeffs is None
         or plans.plan.stage_knots is None
@@ -2152,6 +2267,7 @@ def mcsolve_rk4_batched(
     collapse_ops: list[np.ndarray],
     seeds: list[int],
     dtype: Any = None,
+    mesh: Any = None,
     ip: bool = False,
     device: Any = None,
 ) -> np.ndarray:
@@ -2168,6 +2284,9 @@ def mcsolve_rk4_batched(
     Args:
         plans: A :class:`BatchedPlan`, or one plan per trajectory on one
             grid (the scan).
+        mesh: A ``torch.distributed`` mesh to split the trajectories over:
+            with more than one rank the batch runs the torch scan (never a
+            kernel), each rank on its block, gathered on every rank.
         ip: The plan's grid is the interaction-picture (coarsened) one;
             every collapse operator must then be diagonal or a single
             matrix unit (:func:`mcwf_ip_eligible`).
@@ -2195,6 +2314,8 @@ def mcsolve_rk4_batched(
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     route = _mcwf_route(plans, ip, collapse_ops, d, n, pairs, rdtype)
+    if _mesh_size(mesh) > 1 and len(seeds) > 1:
+        route = "scan"
     psi0_np = np.asarray(psi0, dtype=cdtype)
     dev = _resolve_device(device)
     if route == "rows":
@@ -2225,22 +2346,27 @@ def mcsolve_rk4_batched(
         n_traj, _mcwf_traj_bytes(collapse_ops, dts.shape[0], d, n, cdtype),
         dev,
     )
-    outs = []
-    for lo in range(0, n_traj, batch):
-        take = slice(lo, min(lo + batch, n_traj))
-        frame: dict[str, Any] = {"det": det[take]}
+    eval_map = torch.as_tensor(base.eval_map, device=dev)
+
+    def solve(a, dg, r0_b, us_b, x1, x2=None):
+        frame: dict[str, Any] = {"det": x1}
         if ip:
             t_stage, eval_t, g_diag = shared
-            frame = {
-                "ip_args": (cum_b[take], t_stage, eval_t, ev_cum_b[take], g_diag)
-            }
+            frame = {"ip_args": (x1, t_stage, eval_t, x2, g_diag)}
         ys = _mcwf_traj_states(
-            psi0_t, amp[take].to(psi0_t.dtype), dts, diag_b[take],
-            collapse_ops, _on_device(r0[take], dev), _on_device(us[take], dev),
+            psi0_t, a.to(psi0_t.dtype), dts, dg, collapse_ops, r0_b, us_b,
             pairs=tuple(tuple(p) for p in pairs), d=d, n=n, **frame,
         )
-        outs.append(ys[:, base.eval_map].cpu().numpy())
-        del ys
+        return ys.index_select(1, eval_map)
+
+    per_traj = (
+        amp, diag_b, _on_device(r0, dev), _on_device(us, dev),
+        *((cum_b, ev_cum_b) if ip else (det,)),
+    )
+    out = _run_trajectory_blocks(
+        mesh, per_traj, solve, batch,
+        shared=(psi0_t, dts, *collapse_ops, *(shared if ip else ())),
+    )
     last_solve_info.clear()
     last_solve_info.update(
         kind="mcwf_batched_torch",
@@ -2251,8 +2377,50 @@ def mcsolve_rk4_batched(
         n_cops=len(collapse_ops),
         ip=bool(ip),
         traj_per_call=batch,
+        ranks=_mesh_size(mesh) if n_traj > 1 else 1,
     )
-    return np.concatenate(outs).astype(cdtype, copy=False)
+    return out.astype(cdtype, copy=False)
+
+
+def _run_trajectory_blocks(
+    mesh: Any,
+    per_traj: tuple[torch.Tensor, ...],
+    solve: Callable[..., torch.Tensor],
+    batch: int,
+    shared: tuple[Any, ...] = (),
+) -> np.ndarray:
+    """``solve`` over a trajectory batch, ``batch`` trajectories per call.
+
+    ``per_traj`` are the per-trajectory tensors (leading axis); ``solve``
+    takes a slice of each and returns that slice's states, and one call's
+    states at a time leave the device. With a mesh of several ranks the
+    batch is padded to a multiple of its ranks (the last trajectory
+    repeated), each rank solves its block so, and the blocks are gathered
+    on the host (:func:`~pulser_tpu_torch.parallel.trajectories.
+    trajectory_sharded`, which checks that the ranks share ``per_traj``
+    and the ``shared`` inputs ``solve`` closes over); the padding is
+    sliced off.
+    """
+    n_traj = per_traj[0].shape[0]
+
+    def on_host(*xs: torch.Tensor) -> torch.Tensor:
+        return torch.cat(
+            [
+                solve(*(x[lo : lo + batch] for x in xs)).cpu()
+                for lo in range(0, xs[0].shape[0], batch)
+            ]
+        )
+
+    if _mesh_size(mesh) > 1 and n_traj > 1:
+        from pulser_tpu_torch.parallel.trajectories import (
+            pad_to_multiple,
+            trajectory_sharded,
+        )
+
+        padded, _ = pad_to_multiple(per_traj, _mesh_size(mesh))
+        out = trajectory_sharded(mesh, on_host, padded, shared=shared)
+        return out[:n_traj].numpy()
+    return on_host(*per_traj).numpy()
 
 
 def _embedded_g_diag(
@@ -2459,7 +2627,12 @@ def mcsolve_rk4(
         ntraj: The number of Monte-Carlo trajectories.
         seed: The seed of the trajectories' key stream.
         xy_static, xy_indices: The XY term (lab frame).
-        mesh: Trajectory sharding over devices; not ported (raises).
+        mesh: A ``torch.distributed`` mesh to split the trajectories
+            over: each device call's chunk is rounded up to a multiple of
+            its ranks and padded with zero-weight copies of the last key,
+            each rank sums its share's weighted density matrices and one
+            ``all_reduce`` completes the average, so sharded equals serial
+            up to the reduction's rounding, whatever the chunk size.
         ip: Integrate in the interaction picture (no XY term or
             ``int_w``, :func:`mcwf_ip_eligible` operators).
         device: The torch device (default: the first CUDA device; without
@@ -2469,11 +2642,6 @@ def mcsolve_rk4(
     Returns:
         ``(n_eval, dim, dim)`` trajectory-averaged density matrices.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"Trajectory sharding over devices is not ported yet"
-            f" ({_PARALLEL_ITEM})."
-        )
     if not collapse_ops:
         raise ValueError("The quantum-jump solve needs collapse operators.")
     has_int_w = "int_w" in plan.stage_arrays
@@ -2523,16 +2691,47 @@ def mcsolve_rk4(
         dev,
     )
     dim = d**n
+    ranks = _mesh_size(mesh)
+    rank = 0
+    if ranks > 1:
+        from pulser_tpu_torch.parallel import comm
+
+        comm.check_same_inputs(
+            mesh, "quantum-jump solve", seed, ntraj, psi0, static_diag,
+            pairs, *collapse_ops, *comm.plan_arrays(plan),
+        )
+        # Each rank takes an equal share of every chunk
+        chunk = -(-chunk // ranks) * ranks
+        rank = comm.axis_rank(mesh, "traj")
+    share = chunk // ranks
     rho = torch.zeros((dts.shape[0], dim, dim), dtype=psi0_t.dtype, device=dev)
     for lo in range(0, ntraj, chunk):
-        take = slice(lo, min(ntraj, lo + chunk))
+        if ranks == 1:
+            idx = np.arange(lo, min(ntraj, lo + chunk))
+            weight = np.ones(len(idx), dtype=rdtype)
+        else:
+            # This rank's share of the chunk; past the last trajectory,
+            # zero-weight copies of it (no collective in the loop: a share
+            # of padding alone is skipped)
+            idx = lo + rank * share + np.arange(share)
+            weight = (idx < ntraj).astype(rdtype)
+            idx = np.minimum(idx, ntraj - 1)
+            if not weight.any():
+                continue
         states = _mcwf_traj_states(
-            psi0_t, amp, dts, diag, collapse_ops, to_dev(r0[take]),
-            to_dev(us[take]), pairs=tuple(tuple(p) for p in pairs), d=d,
+            psi0_t, amp, dts, diag, collapse_ops, to_dev(r0[idx]),
+            to_dev(us[idx]), pairs=tuple(tuple(p) for p in pairs), d=d,
             n=n, **kw,
         )
-        rho += _avg_density(states, ntraj)
+        if weight.all():
+            rho += _avg_density(states, ntraj)
+        else:
+            rho += _avg_density(
+                states * to_dev(weight)[:, None, None], ntraj
+            )
         del states
+    if ranks > 1:
+        rho = comm.all_reduce_sum(rho, comm.axis_group(mesh, "traj"))
     last_solve_info.clear()
     last_solve_info.update(
         kind="mcwf_serial_torch",
@@ -2543,6 +2742,7 @@ def mcsolve_rk4(
         n_cops=len(collapse_ops),
         ip=bool(ip),
         traj_per_call=chunk,
+        ranks=ranks,
     )
     return rho.cpu().numpy()[plan.eval_map].astype(cdtype, copy=False)
 
@@ -2576,6 +2776,7 @@ def _collapse_algebra(
     n: int,
     cdtype: torch.dtype,
     device: Any,
+    cols: slice = slice(None),
 ) -> CollapseAlgebra:
     """The collapse algebra of local ``d×d`` operators on every qudit.
 
@@ -2584,7 +2785,8 @@ def _collapse_algebra(
     block of the qudit's (row, column) digits to ``(i_a, i_b)``. Terms
     whose units are both diagonal collapse into one elementwise mask
     ``W``, built on the device from the digit vectors: its entries are
-    ``Σ_q C[digit_q(r), digit_q(c)]`` with ``C[i1, i2] = Σ_t c_t``.
+    ``Σ_q C[digit_q(r), digit_q(c)]`` with ``C[i1, i2] = Σ_t c_t``; with
+    ``cols``, only those columns of it (a row-sharded ρ's block).
     """
     cdc_sum = np.zeros((d, d), dtype=np.complex128)
     lrl_idx: list[tuple[int, int, int, int]] = []
@@ -2610,10 +2812,13 @@ def _collapse_algebra(
     diag_mask = None
     if np.any(np.abs(unit_coef) > 1e-14):
         dig = _digits_of(d, n, device)
+        dig_c = dig[:, cols]
         coef = torch.as_tensor(unit_coef, device=device).to(cdtype)
-        diag_mask = torch.zeros((d**n, d**n), dtype=cdtype, device=device)
+        diag_mask = torch.zeros(
+            (d**n, dig_c.shape[1]), dtype=cdtype, device=device
+        )
         for q in range(n):
-            diag_mask += coef[dig[q][:, None], dig[q][None, :]]
+            diag_mask += coef[dig[q][:, None], dig_c[q][None, :]]
     return CollapseAlgebra(
         torch.as_tensor(cdc_sum, device=device).to(cdtype),
         lrl_idx,
@@ -2642,7 +2847,11 @@ def mesolve_ip_eligible(collapse_ops: "list[np.ndarray]") -> bool:
 
 
 def _dissipator_parts(
-    alg: CollapseAlgebra, d: int, n: int, groups: tuple[int, ...]
+    alg: CollapseAlgebra,
+    d: int,
+    n: int,
+    groups: tuple[int, ...],
+    cols: slice = slice(None),
 ) -> tuple[torch.Tensor | None, list[torch.Tensor], list[tuple]]:
     """The dissipator in the scan's layout: ``(mask, g_off_groups, S)``.
 
@@ -2659,6 +2868,9 @@ def _dissipator_parts(
       Pauli channel partly do, drop out). Each entry moves the ``(j1,
       j2)`` block of a qudit's (row, column) digits to ``(i1, i2)``: one
       strided in-place add per entry and qudit.
+
+    With ``cols`` the mask holds only those columns (the
+    ``alg.diag_mask`` of :func:`_collapse_algebra` with the same ``cols``).
     """
     cdc = alg.cdc_sum
     dev, cdtype = cdc.device, cdc.dtype
@@ -2670,7 +2882,7 @@ def _dissipator_parts(
         g_vec += cdc_diag[dig[q]]
     mask = alg.diag_mask
     if bool((cdc_diag != 0).any()):
-        anti = -0.5 * (g_vec[:, None] + g_vec[None, :])
+        anti = -0.5 * (g_vec[:, None] + g_vec[None, cols])
         mask = anti if mask is None else mask + anti
     g_off_groups: list[torch.Tensor] = []
     off = cdc - torch.diag(cdc_diag)
@@ -2694,9 +2906,10 @@ def _row_group(
     op: torch.Tensor, rho: torch.Tensor, q0: int, g: int, d: int, n: int
 ) -> torch.Tensor:
     """``(op on qudits [q0, q0+g)) @ rho`` on the row multi-index; ``op``
-    is ``(B..., d**g, d**g)`` with the batch axes of ``rho``."""
-    lead, dim = rho.shape[:-2], d**n
-    v = rho.reshape(*lead, d**q0, d**g, d ** (n - q0 - g) * dim)
+    is ``(B..., d**g, d**g)`` with the batch axes of ``rho``, whose
+    columns may be any block."""
+    lead, width = rho.shape[:-2], rho.shape[-1]
+    v = rho.reshape(*lead, d**q0, d**g, d ** (n - q0 - g) * width)
     return torch.matmul(op.unsqueeze(-3), v).reshape(rho.shape)
 
 
@@ -2715,6 +2928,7 @@ def _mesolve_scan(
     xy_s: torch.Tensor | None = None,
     xy_indices: tuple[int, int] | None = None,
     ip_args: "tuple[torch.Tensor, ...] | None" = None,
+    shard: Any = None,
 ) -> torch.Tensor:
     """The Lindblad RK4 scan as a torch loop over segments and steps.
 
@@ -2741,6 +2955,12 @@ def _mesolve_scan(
     A trajectory batch rides leading axes ``B`` of ``amp``, ``det``,
     the IP integrals and ``diag_static`` (all of them, or none); the
     grid, the initial state and the collapse algebra are shared.
+
+    With ``shard`` (a :class:`~pulser_tpu_torch.parallel.state_sharding.
+    RhoColumns`) ρ is row-sharded: ``rho0`` and the result hold this
+    rank's block ``ρ[:, R_r]`` (``(dim, B)``), ``alg`` was built for those
+    columns, and the transpose of ``X + X†`` and the column side of the
+    superoperator on sharded digits exchange blocks with the other ranks.
 
     Args:
         rho0: ``(dim, dim)`` complex initial density matrix.
@@ -2770,7 +2990,8 @@ def _mesolve_scan(
     groups = group_sizes(d, n)
     offsets = [sum(groups[:i]) for i in range(len(groups))]
     lead = tuple(amp.shape[:-5])
-    mask, g_off, sup = _dissipator_parts(alg, d, n, groups)
+    cs = slice(None) if shard is None else shard.cols
+    mask, g_off, sup = _dissipator_parts(alg, d, n, groups, cs)
     # Diagonal collapse operators only: the IP derivative rotates the
     # coherent part alone
     assert not (use_ip and (g_off or sup or xy_s is not None))
@@ -2784,7 +3005,7 @@ def _mesolve_scan(
     else:
         # −i(D_r − D_c): one factor with the mask folded in, or with
         # int_w one part per interpolation weight, combined per point
-        diff = diag_static[..., :, None] - diag_static[..., None, :]
+        diff = diag_static[..., :, None] - diag_static[..., None, cs]
         lab_parts = torch.complex(torch.zeros_like(diff), -diff)
         lab_fac = lab_parts if mask is None else lab_parts + mask
 
@@ -2821,7 +3042,7 @@ def _mesolve_scan(
             acc_x.add_(apply_flip_flop_r(ux, x, d, n, *xy_indices, rows=True))
         for q0, g, m in zip(offsets, groups, g_off):
             acc_x.add_(_row_group(m, p, q0, g, d, n))
-        k = acc_x + _dag2(acc_x)
+        k = acc_x + (_dag2(acc_x) if shard is None else shard.dag(acc_x))
         if use_ip:
             k = ph[1] * k
             if mask is not None:
@@ -2829,6 +3050,9 @@ def _mesolve_scan(
         else:
             k = torch.addcmul(k, fac, p)
         for q in range(n if sup else 0):
+            if shard is not None:
+                shard.sup_add(k, p, q, sup, d, n)
+                continue
             shape5 = (*lead, d**q, d, d ** (n - 1), d, d ** (n - q - 1))
             kv, pv = k.view(shape5), p.view(shape5)
             for i1, i2, j1, j2, c in sup:
@@ -2858,7 +3082,8 @@ def _mesolve_scan(
         mats = [m[..., i, j, :, :] for m in mats_c]
         if use_ip:
             u, uc = extra[0][..., i, j, :], extra[1][..., i, j, :]
-            return mats, None, (outer(u, uc), outer(uc, u)), None
+            phases = (outer(u, uc[..., cs]), outer(uc, u[..., cs]))
+            return mats, None, phases, None
         if extra is None:
             return mats, lab_fac, None, u_static
         f = (extra[i, j][:, None, None] * lab_parts).sum(-3)
@@ -2872,8 +3097,10 @@ def _mesolve_scan(
     per_step = 3 * (sum((d**g) ** 2 for g in groups) + 2 * dim * use_ip)
     per_step *= (int(np.prod(lead)) if lead else 1) * rho0.element_size()
     chunk = _step_chunk(seg_len, per_step)
-    rho = rho0.expand(lead + (dim, dim)).clone()
-    out = torch.empty(lead + (n_seg, dim, dim), dtype=cdtype, device=dev)
+    rho = rho0.expand(lead + tuple(rho0.shape)).clone()
+    out = torch.empty(
+        lead + (n_seg,) + tuple(rho0.shape), dtype=cdtype, device=dev
+    )
     for s in range(n_seg):
         for c0 in range(0, seg_len, chunk):
             sl = slice(c0, min(seg_len, c0 + chunk))
@@ -2900,7 +3127,7 @@ def _mesolve_scan(
             u, uc = rotors(
                 phase_at(diag_static, eval_t[s], eval_cum_mod[..., s, :, :])
             )
-            out[..., s, :, :] = outer(u, uc) * rho
+            out[..., s, :, :] = outer(u, uc[..., cs]) * rho
         else:
             out[..., s, :, :] = rho
     return out
@@ -2956,7 +3183,10 @@ def mesolve_rk4(
         dtype: Complex dtype of the evolution (defaults to rho0's).
         ip: Integrate in the interaction picture (every collapse operator
             diagonal, no ``int_w``).
-        state_mesh: Row sharding of ρ over devices; not ported (raises).
+        state_mesh: A ``torch.distributed`` mesh to shard ρ's rows over
+            (:class:`~pulser_tpu_torch.parallel.state_sharding.RhoColumns`;
+            its size must divide ``d**n``); every rank returns the whole
+            result.
         lazy: Return a :class:`DeviceStateBatch` of the ``(dim, dim)``
             states instead of a host array.
         device: The torch device (default: the first CUDA device; without
@@ -2966,10 +3196,11 @@ def mesolve_rk4(
         ``(n_eval, dim, dim)`` complex density matrices at the evaluation
         times (host numpy), or a :class:`DeviceStateBatch`.
     """
-    if state_mesh is not None:
-        raise NotImplementedError(
-            f"Row sharding of the density matrix is not ported yet"
-            f" ({_PARALLEL_ITEM})."
+    dim = d**n
+    n_dev = _mesh_size(state_mesh)
+    if state_mesh is not None and dim % n_dev:
+        raise ValueError(
+            f"cannot shard a dim-{dim} density matrix over {n_dev} devices"
         )
     has_int_w = "int_w" in plan.stage_arrays
     if ip and (
@@ -2990,14 +3221,30 @@ def mesolve_rk4(
     def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
 
+    shard = None
+    if state_mesh is not None:
+        from pulser_tpu_torch.parallel import comm
+        from pulser_tpu_torch.parallel.state_sharding import RhoColumns
+
+        if not comm.in_mesh(state_mesh):
+            # A rank the mesh leaves out receives the result
+            out = comm.broadcast_from(
+                None, state_mesh, (plan.seg_dts.shape[0], dim, dim),
+                _torch_dtype(cdtype),
+            )
+            return _mesolve_result(out, plan, cdtype, lazy)
+        comm.check_same_inputs(
+            state_mesh, "master-equation solve", src, static_diag, pairs,
+            *collapse_ops, *comm.plan_arrays(plan),
+        )
+        shard = RhoColumns(state_mesh, dim)
+    cols = slice(None) if shard is None else shard.cols
     if pure:
         psi = to_dev(src, cdtype)
-        rho0_t = psi[:, None] * psi.conj()[None, :]
+        rho0_t = psi[:, None] * psi.conj()[None, cols]
     else:
-        rho0_t = to_dev(src, cdtype)
-    alg = _collapse_algebra(
-        collapse_ops, d, n, rho0_t.dtype, dev
-    )
+        rho0_t = to_dev(np.asarray(src)[:, cols], cdtype)
+    alg = _collapse_algebra(collapse_ops, d, n, rho0_t.dtype, dev, cols)
     two_pi = 2 * np.pi
     kw: dict[str, Any] = {}
     if ip:
@@ -3023,8 +3270,16 @@ def mesolve_rk4(
         pairs=tuple(tuple(p) for p in pairs),
         d=d,
         n=n,
+        shard=shard,
         **kw,
     )
+    if shard is not None:
+        # (n_seg, dim, B) blocks -> the whole (n_seg, dim, dim) in every
+        # rank's host memory (and in those the mesh leaves out); the card
+        # holds only its block
+        parts = comm.gather_to_host(out, shard.group)  # (P, n_seg, dim, B)
+        out = torch.movedim(parts, 0, -2).reshape(out.shape[0], dim, dim)
+        out = comm.broadcast_from(out, state_mesh, tuple(out.shape), out.dtype)
     last_solve_info.clear()
     last_solve_info.update(
         kind=f"mesolve_{dev.type}",
@@ -3033,7 +3288,16 @@ def mesolve_rk4(
         n_steps=int(np.count_nonzero(plan.seg_dts)),
         n_cops=len(collapse_ops),
         ip=bool(ip),
+        ranks=n_dev,
     )
+    return _mesolve_result(out, plan, cdtype, lazy)
+
+
+def _mesolve_result(
+    out: torch.Tensor, plan: EvolutionPlan, cdtype: Any, lazy: bool
+) -> "np.ndarray | DeviceStateBatch":
+    """:func:`mesolve_rk4`'s ``(n_seg, dim, dim)`` states at the
+    evaluation times: a :class:`DeviceStateBatch`, or host numpy."""
     if lazy:
         return DeviceStateBatch(out, plan.eval_map, lambda h: h.astype(cdtype))
     return out.cpu().numpy()[plan.eval_map].astype(cdtype)
@@ -3128,7 +3392,9 @@ def mesolve_rk4_batched(
         diags: ``(T, dim)`` per-trajectory interaction diagonals.
         collapse_ops: Local ``(d, d)`` collapse operators.
         dtype: Complex dtype of the evolution (defaults to rho0's).
-        mesh: Trajectory sharding over devices; not ported (raises).
+        mesh: A ``torch.distributed`` mesh to split the trajectories
+            over: padded to a multiple of its ranks, each rank solves its
+            block, gathered on every rank.
         ip: Integrate in the interaction picture (diagonal collapse
             operators).
         device: The torch device (default: the first CUDA device; without
@@ -3137,11 +3403,6 @@ def mesolve_rk4_batched(
     Returns:
         ``(n_traj, n_eval, dim, dim)`` complex density matrices.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"Trajectory sharding over devices is not ported yet"
-            f" ({_PARALLEL_ITEM})."
-        )
     if ip and not mesolve_ip_eligible(collapse_ops):
         raise ValueError(
             "The interaction picture needs diagonal collapse operators."
@@ -3169,25 +3430,22 @@ def mesolve_rk4_batched(
     n_seg = dts.shape[0]
     per_traj = (LIVE_STATE_BUFFERS + n_seg) * dim * dim * rho0_t.element_size()
     batch = _chunk_trajectories(n_traj, per_traj, dev)
-    outs = []
-    for lo in range(0, n_traj, batch):
-        take = slice(lo, min(lo + batch, n_traj))
-        frame: dict[str, Any] = {"det": det[take]}
+    eval_map = torch.as_tensor(base.eval_map, device=dev)
+
+    def solve(a, dg, x1, x2=None):
+        frame: dict[str, Any] = {"det": x1}
         if ip:
-            frame = {"ip_args": (cum_b[take], t_stage, eval_t, ev_cum_b[take])}
+            frame = {"ip_args": (x1, t_stage, eval_t, x2)}
         ys = _mesolve_scan(
-            rho0_t,
-            amp[take],
-            dts,
-            diag_b[take],
-            alg,
-            pairs=tuple(tuple(p) for p in pairs),
-            d=d,
-            n=n,
-            **frame,
+            rho0_t, a, dts, dg, alg, pairs=tuple(tuple(p) for p in pairs),
+            d=d, n=n, **frame,
         )
-        outs.append(ys[:, base.eval_map].cpu().numpy())
-        del ys
+        return ys.index_select(1, eval_map)
+
+    out = _run_trajectory_blocks(
+        mesh, (amp, diag_b, *((cum_b, ev_cum_b) if ip else (det,))), solve,
+        batch, shared=(rho0_t, dts, *collapse_ops),
+    )
     last_solve_info.clear()
     last_solve_info.update(
         kind=f"mesolve_batched_{dev.type}",
@@ -3198,5 +3456,6 @@ def mesolve_rk4_batched(
         n_cops=len(collapse_ops),
         ip=bool(ip),
         traj_per_call=batch,
+        ranks=_mesh_size(mesh) if n_traj > 1 else 1,
     )
-    return np.concatenate(outs).astype(cdtype, copy=False)
+    return out.astype(cdtype, copy=False)

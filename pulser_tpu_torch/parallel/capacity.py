@@ -1,8 +1,15 @@
 """Device-memory capacity model for the statevector/density-matrix solvers.
 
-Port of ``pulser_tpu/parallel/capacity.py`` for one CUDA device. The
-sharded regimes of the JAX package (state and ρ rows split over a mesh)
-are not ported, so the ceiling is one device's memory.
+Port of ``pulser_tpu/parallel/capacity.py``. Every basis has a sharded
+path (:mod:`.state_sharding`: ``d=2`` states split on the qubit bits,
+``d=3``/``d=4`` on the flat ``4^n`` index, density matrices on rows), so
+the model has two regimes against the same memory accounting:
+
+- **below the sharding threshold** (``state_shard_min_qubits()`` /
+  ``rho_shard_min_qubits()``) the solve runs on one device and the
+  ceiling is one card's memory;
+- **at or above it** the state divides evenly across the mesh, so the
+  ceiling is (per-card memory) × (mesh ranks).
 
 :func:`check_capacity` turns the model into an upfront contract: the
 emulator consults it before each master-equation solve, so an
@@ -106,35 +113,41 @@ def check_capacity(
     *,
     n_eval: int = 1,
     itemsize: int = 4,
+    n_devices: int = 1,
     density_matrix: bool = False,
     what: str = "solve",
     device: "object | None" = None,
 ) -> None:
     """Raise :class:`CapacityError` if a solve exceeds the memory budget.
 
-    Skips silently where no device memory is measured (the CPU): there
-    the model's constants do not apply.
+    A density matrix over ``n`` dim-``d`` qudits counts as a
+    ``d^(2n)``-amplitude state. When the solve shards (``n_devices >
+    1``, the ranks of its mesh) the state divides evenly, so the budget
+    scales with the mesh. Skips silently where no device memory is
+    measured (the CPU): there the model's constants do not apply.
     """
     mem = measured_memory_bytes(device)
     if mem is None:
         return
     eff_n = 2 * n if density_matrix else n
     need = solve_bytes(d, eff_n, n_eval=n_eval, itemsize=itemsize)
-    budget = mem * MEMORY_BUDGET_FRACTION
+    ranks = max(1, int(n_devices))
+    budget = mem * MEMORY_BUDGET_FRACTION * ranks
     if need <= budget:
         return
     kind = "density-matrix" if density_matrix else "statevector"
-    ceiling = single_chip_ceiling(d, mem, n_eval, itemsize)
+    ceiling = single_chip_ceiling(d, mem * ranks, n_eval, itemsize)
     if density_matrix:
         ceiling //= 2
     raise CapacityError(
         f"The requested {what} needs ~{_human_bytes(need)} of device memory"
         f" for an n={n}, d={d} {kind} ({n_eval} evaluation state(s) kept on"
         f" the device), but the modeled budget is {_human_bytes(budget)}"
-        f" ({MEMORY_BUDGET_FRACTION:.0%} of {_human_bytes(mem)}). The"
-        f" modeled ceiling at this configuration is n={ceiling}. Reduce the"
-        " atom count or the number of evaluation times (sharding the state"
-        " over several devices is not ported yet)."
+        f" ({MEMORY_BUDGET_FRACTION:.0%} of {ranks} × {_human_bytes(mem)})."
+        f" The modeled ceiling at this configuration is n={ceiling}. Reduce"
+        " the atom count or the number of evaluation times, or run on more"
+        " ranks (the state shards across cards; see"
+        " pulser_tpu_torch.parallel)."
     )
 
 

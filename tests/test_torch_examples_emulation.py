@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import pytest
 
-from torch_examples import run_ok
+from torch_examples import run_example, run_ok
 
 
 def test_xy_spin_exchange_example():
@@ -85,3 +85,19 @@ def test_noisy_simulation_example():
     purity = float(out.rsplit("mesolve: purity=", 1)[1].split()[0])
     assert purity < 1.0
     assert "trajectories:" in out and "with SPAM:" in out
+
+
+def test_distributed_statevector_demo_example(monkeypatch):
+    """12 atoms over 2 CPU ranks, the sharding threshold lowered to 10:
+    the demo's own lines, its sharded route asserted inside, and no JAX
+    module loaded."""
+    monkeypatch.setenv("PULSER_TPU_STATE_SHARD_MIN_QUBITS", "10")
+    rc, out, err = run_example(
+        "distributed_statevector_demo.py", timeout=300, extra=("12", "--ranks", "2")
+    )
+    assert rc == 0, err[-2000:]
+    assert "devices: 2 (cpu)" in out
+    assert "Hilbert-space dim: 2^12 = 4,096" in out
+    norm = float(out.rsplit("final-state norm:", 1)[1].split()[0])
+    assert abs(norm - 1.0) < 1e-5
+    assert "OK: distributed statevector solve completed" in out

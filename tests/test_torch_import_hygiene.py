@@ -70,6 +70,22 @@ P.QutipState, P.QutipOperator
 """
 
 
+#: A world of two spawned ranks solving a state-sharded 10-atom run
+#: (``chip_smoke``'s sharding case on the CPU); every rank reports the
+#: JAX modules it loaded.
+_SHARDED_RANKS = """
+import os, tempfile, chip_smoke
+from pulser_tpu_torch.parallel import RankPool
+with RankPool(2, os.path.join(tempfile.mkdtemp(), "store")) as pool:
+    outs = pool.run(
+        chip_smoke._shard_rank, "STATE24",
+        {"PULSER_TPU_STATE_SHARD_MIN_QUBITS": "10"}, 10, "cpu",
+    )
+assert [o["foreign"] for o in outs] == [[], []], outs
+assert outs[0]["info"]["kind"] == "sesolve_state_sharded_torch"
+"""
+
+
 def _foreign_modules(statements: str) -> list[str]:
     code = f"import sys\n{statements}\nprint({_FOREIGN})"
     out = subprocess.run(
@@ -184,6 +200,15 @@ def _foreign_modules(statements: str) -> list[str]:
         "chip_smoke.noisy10_sequence()[1]).to_abstract_repr()",
         "import pulser_tpu_torch.serving, pulser_tpu_torch.profiling;"
         " import chip_smoke; chip_smoke.serve_requests()",
+        "import pulser_tpu_torch.parallel, pulser_tpu_torch.parallel.comm,"
+        " pulser_tpu_torch.parallel.launch,"
+        " pulser_tpu_torch.parallel.trajectories,"
+        " pulser_tpu_torch.parallel.state_sharding,"
+        " pulser_tpu_torch.parallel.mesh2d, runpy;"
+        " runpy.run_path('examples_torch/distributed_statevector_demo.py',"
+        " run_name='demo'); chip_smoke = __import__('chip_smoke');"
+        " chip_smoke.shard_state_sequence()",
+        _SHARDED_RANKS,
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

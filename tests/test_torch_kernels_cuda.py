@@ -400,3 +400,117 @@ def test_cuda_daemon_answers_noisy10_backend(card_daemon):
     assert entry["launches"] == {"mcwf_rows": 1}
     assert entry["occupation_max_abs_diff"] == 0.0
     assert entry["counts_tv"] == 0.0
+
+
+# -- the sharded solves on the card (ranks sharing it over gloo) ----------
+
+
+def _sharded_case(
+    n: int, n_traj: int, seed: int = 3, t_end: float = 0.2, n_eval: int = 2
+):
+    """Plans of ``n_traj`` random trajectories on one grid of ``t_end``
+    µs with ``n_eval`` evaluation times, their diagonals and the initial
+    state."""
+    import numpy as np
+
+    from pulser_tpu_torch.ops import solver as S
+
+    rng = np.random.default_rng(seed)
+    knots = np.linspace(0.0, t_end, 11)
+    evals = np.linspace(t_end / n_eval, t_end, n_eval)
+    plans = []
+    for _ in range(n_traj):
+        amp = rng.uniform(1, 5, size=(1, n, 11)) * np.exp(
+            1j * rng.uniform(0, 2 * np.pi, size=(1, n, 1))
+        )
+        det = rng.normal(0, 3, size=(1, n, 11))
+        plans.append(
+            S.build_plan(knots, {"amp": amp, "det": det}, evals, max_step=2e-3)
+        )
+    diags = rng.uniform(0, 20, size=(n_traj, 2**n))
+    psi0 = np.zeros(2**n, complex)
+    psi0[-1] = 1.0
+    return plans, diags, psi0
+
+
+def _card_state_solve(n: int, sharded: bool, **case):
+    """The state of ``n`` qubits solved on this rank's card, its ``2^n``
+    axis sharded over the world or not."""
+    from pulser_tpu_torch.ops import solver as S
+    from pulser_tpu_torch.parallel import default_state_mesh
+
+    plans, diags, psi0 = _sharded_case(n, 1, **case)
+    return S.sesolve_rk4(
+        psi0, plans[0], diags[0], ((1, 0, 0),), 2, n, ip_occ=True,
+        dtype="complex64",
+        state_mesh=default_state_mesh(n) if sharded else None,
+    ), dict(S.last_solve_info)
+
+
+def _card_state_peak(n: int, sharded: bool, **case) -> int:
+    """The device memory :func:`_card_state_solve` takes at its peak on
+    this rank's card, beyond what the rank held before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _card_state_solve(n, sharded, **case)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def _card_batch_solve(n: int, n_traj: int, sharded: bool):
+    """A trajectory batch (a list of plans: the torch loop) solved on this
+    rank's card, split over the world or not."""
+    from pulser_tpu_torch.ops import solver as S
+    from pulser_tpu_torch.parallel import default_mesh
+
+    plans, diags, psi0 = _sharded_case(n, n_traj)
+    return S.sesolve_rk4_batched(
+        psi0, plans, diags, ((1, 0, 0),), 2, n, True, dtype="complex64",
+        mesh=default_mesh() if sharded else None,
+    ), dict(S.last_solve_info)
+
+
+@pytest.fixture(scope="module")
+def card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the ranks put their tensors on it)")
+    from pulser_tpu_torch.parallel import RankPool
+
+    with RankPool(2, str(tmp_path_factory.mktemp("w") / "store")) as pool:
+        yield pool
+
+
+@pytest.mark.cuda
+def test_cuda_state_sharded_solve_equals_direct(card_world):
+    """14 qubits over 2 ranks sharing the card (gloo, host-staged): every
+    rank's state equals the direct solve's on the card."""
+    want, _ = _card_state_solve(14, False)
+    for got, info in card_world.run(_card_state_solve, 14, True):
+        assert info["kind"] == "sesolve_state_sharded_torch"
+        assert info["ranks"] == 2
+        assert float(abs(got - want).max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_state_sharded_solve_holds_less_device_memory(card_world):
+    """24 qubits over 2 ranks sharing the card, 8 evaluation times (10
+    steps): each rank's peak device memory stays below the unsharded
+    solve's, since a rank's share of the states leaves the card before
+    the ranks assemble them on the host."""
+    case = {"t_end": 0.02, "n_eval": 8}
+    want = _card_state_peak(24, False, **case)
+    for got in card_world.run(_card_state_peak, 24, True, **case):
+        assert got < want, (got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_trajectory_sharded_batch_equals_direct(card_world):
+    """5 trajectories of 10 qubits over 2 ranks (padded to 6): every
+    rank's batch equals the direct torch loop's on the card."""
+    want, _ = _card_batch_solve(10, 5, False)
+    for got, info in card_world.run(_card_batch_solve, 10, 5, True):
+        assert info["kind"] == "sesolve_batched_torch"
+        assert info["ranks"] == 2
+        assert got.shape == want.shape == (5, 2, 1024)
+        assert float(abs(got - want).max()) <= TOL

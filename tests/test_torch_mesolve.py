@@ -48,6 +48,8 @@ from pulser_tpu_torch.ops import apply as torch_apply
 from pulser_tpu_torch.ops import solver as torch_solver
 from pulser_tpu_torch.parallel import capacity
 
+from torch_parity import StubMesh
+
 torch.set_num_threads(1)
 
 TOL = {np.complex128: 1e-10, np.complex64: 1e-5}
@@ -551,15 +553,22 @@ def test_quantum_jumps_without_shot_to_shot_noise_raise(f64):
 
 
 def test_sharding_raises():
-    rho0, _, tplan, diag, cops, _ = _single_case({"cops": DIAG_COPS})
-    match = "'Trajectory and state sharding'"
-    with pytest.raises(NotImplementedError, match=match):
+    """The JAX package's refusal of a row-sharded ρ whose rank count does
+    not divide ``d**n`` (8 rows over 3 ranks), in both packages
+    (``tests/test_parallel.py::test_mesolve_rho_sharded_rejects_bad_mesh``;
+    the sharded solves themselves run in ``test_torch_parallel_*.py``)."""
+    import jax
+    from jax.sharding import Mesh
+
+    rho0, jplan, tplan, diag, cops, _ = _single_case({"cops": DIAG_COPS})
+    match = "cannot shard a dim-8 density matrix over 3 devices"
+    with pytest.raises(ValueError, match=match):
         torch_solver.mesolve_rk4(rho0, tplan, diag, PAIRS, 2, 3, cops,
-                                 state_mesh=object(), device="cpu")
-    _, tplans, diags, rho0 = _batched_case()
-    with pytest.raises(NotImplementedError, match=match):
-        torch_solver.mesolve_rk4_batched(rho0, tplans, diags, PAIRS, 2, 3,
-                                         cops, mesh=object(), device="cpu")
+                                 state_mesh=StubMesh(3), device="cpu")
+    mesh = Mesh(np.array(jax.devices()[:3]), axis_names=("state",))
+    with pytest.raises(ValueError, match=match):
+        jax_solver.mesolve_rk4(rho0, jplan, diag, PAIRS, 2, 3, cops,
+                               state_mesh=mesh)
 
 
 # -- the capacity contract ------------------------------------------------

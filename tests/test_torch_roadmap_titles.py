@@ -57,20 +57,20 @@ QUOTED = _quoted_titles()
 
 
 def test_the_scan_finds_the_shared_titles():
-    """The scan sees the solver's sharding refusals (they quote
-    ``PARALLEL_ROADMAP_ITEM``) and no stale title: neither the JSON
-    layer's item, ported, nor an older one."""
+    """No refusal quotes a ported item's title: not the sharding item
+    (ported, its refusals and ``PARALLEL_ROADMAP_ITEM`` gone), nor the
+    JSON layer's, nor an older one; the scan still reads a quoted title
+    and resolves a placeholder against its module."""
     from pulser_tpu_torch.ops import solver
 
-    assert solver.PARALLEL_ROADMAP_ITEM == "Trajectory and state sharding"
-    modules = {m for m, t in QUOTED if t == solver.PARALLEL_ROADMAP_ITEM}
-    assert "pulser_tpu_torch.ops.solver" in modules
-    assert solver._PARALLEL_ITEM.endswith(
-        f"'{solver.PARALLEL_ROADMAP_ITEM}'"
-    )
+    assert not hasattr(solver, "PARALLEL_ROADMAP_ITEM")
+    assert not any("sharding" in t.lower() for _, t in QUOTED)
     assert not any("Backend, JSON" in t for _, t in QUOTED)
     assert not any(t.startswith("JSON") for _, t in QUOTED)
     assert not any("serving" in t for _, t in QUOTED)  # ported
+    text = _JOIN.sub("", 'x = ("see ROADMAP.md Queue 1, "\n    "\'{NAME}\'")')
+    (raw,) = _QUOTED.findall(text)
+    assert _PLACEHOLDER.sub(lambda m: "Item", raw) == "Item"
 
 
 @pytest.mark.parametrize(

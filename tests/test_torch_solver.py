@@ -32,6 +32,8 @@ from pulser_tpu_torch.emulator import TorchEmulator
 from pulser_tpu_torch.ops import apply as torch_apply
 from pulser_tpu_torch.ops import solver as torch_solver
 
+from torch_parity import StubMesh
+
 torch.set_num_threads(1)
 
 
@@ -195,14 +197,25 @@ def test_kernel_route_on_cpu_matches_jax(afm10):
 def test_outside_the_slice_raises(afm10, case):
     """The lab frame (no ``ip_occ``) and the XY term run the lab-frame
     loop on 1 ns steps and equal the JAX package's lab-frame solve in
-    complex128 (1e-10); only state sharding still raises, naming its
-    ROADMAP item."""
+    complex128 (1e-10); a state mesh that is not a hypercube (3 ranks)
+    is refused by both packages alike (the sharded solves run in
+    ``test_torch_parallel_state.py``)."""
     _, ham, psi0, _ = afm10
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        import jax
+        from jax.sharding import Mesh
+
+        match = "mesh size must be a power of two, got 3"
+        with pytest.raises(ValueError, match=match):
             torch_solver.sesolve_rk4(
                 psi0, afm10[0], ham.int_diag, ham.pairs, 2, 10, ip_occ=True,
-                state_mesh=object(), device="cpu",
+                state_mesh=StubMesh(3), device="cpu",
+            )
+        mesh = Mesh(np.array(jax.devices()[:3]), axis_names=("state",))
+        with pytest.raises(ValueError, match=match):
+            jax_solver.sesolve_rk4(
+                psi0, afm10[0], ham.int_diag, ham.pairs, 2, 10, ip_occ=True,
+                state_mesh=mesh,
             )
         return
     kw = {}
@@ -422,12 +435,19 @@ def test_sesolve_batched_kernel_route_on_cpu_matches_jax():
 
 
 def test_sesolve_batched_refuses_a_mesh_and_needs_a_device():
+    """A state mesh the qubits cannot split over (4 qubits, 16 ranks: the
+    JAX package's ``test_statevector_sharded_rejects_bad_mesh``), and no
+    card without ``device='cpu'``."""
     n, d, pairs = 4, 2, ((1, 0, 0),)
     knots, coeffs, eval_times, diags, psi0 = _batched_case(n, d, pairs)
     plans = torch_solver.build_plan_batched(knots, coeffs, eval_times)
-    with pytest.raises(NotImplementedError, match="Trajectory and state sharding"):
-        torch_solver.sesolve_rk4_batched(
-            psi0, plans, diags, pairs, d, n, True, mesh=object(), device="cpu"
+    plan = torch_solver.build_plan(
+        knots, {k: v[0] for k, v in coeffs.items()}, eval_times
+    )
+    with pytest.raises(ValueError, match="cannot shard 4 qubits over 16"):
+        torch_solver.sesolve_rk4(
+            psi0, plan, diags[0], pairs, d, n, ip_occ=True,
+            state_mesh=StubMesh(16), device="cpu",
         )
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -26,10 +26,16 @@ print(json.dumps(sorted(
 """
 
 
-def run_example(example: str, timeout: int = 420, device: str | None = "cpu"):
+def run_example(
+    example: str,
+    timeout: int = 420,
+    device: str | None = "cpu",
+    extra: tuple[str, ...] = (),
+):
     """``(returncode, stdout without the module line, stderr)``; with a
-    return code of 0, also requires that no JAX module was loaded."""
-    args = [os.path.join(REPO, "examples_torch", example)]
+    return code of 0, also requires that no JAX module was loaded.
+    ``extra`` are the script's own arguments."""
+    args = [os.path.join(REPO, "examples_torch", example), *extra]
     if device is not None:
         args += ["--device", device]
     out = subprocess.run(

@@ -205,3 +205,14 @@ def assert_parity(
     else:
         _assert_close(ref[1], ours[1], tol, "value")
     return ours
+
+
+class StubMesh:
+    """A mesh of ``size`` ranks, for the refusals of a malformed mesh,
+    which read only its size (no process group is needed to be refused)."""
+
+    def __init__(self, size: int):
+        self._size = size
+
+    def size(self) -> int:
+        return self._size
