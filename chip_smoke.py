@@ -260,6 +260,31 @@ to sample it, median of 3 each, beside the card's name and power limit):
     bit and load no JAX module; any failed rank fails the script. The ``paths`` entries
     gain the five cases.
 
+30. The tutorials phase (:func:`_tutorials_phase`, after the paths of
+    19-25): the six tutorials of ``docs/tutorials_torch`` run on the card
+    through ``tools/build_tutorials_torch.py`` (``DEVICE = "cuda"``, into
+    a temporary directory, every cell's assert held; without matplotlib
+    on this host ``build_tutorials_torch``'s inert stand-in takes the
+    drawing calls), each from the numpy seed of
+    ``tests/goldens/tutorials_reference.json``
+    (``tools/tutorial_references.py``: the JAX tutorials on a CPU), whose
+    values they are held to: final states 1 − F ≤ 1e-6, ρ within 1e-4
+    with |tr ρ − 1| ≤ 1e-5, populations within 1e-3, seeded counts
+    within TV 0.02. TUT02's quantum-jump cell must launch K2 exactly once
+    (the wrapper's and the C library's counts; K2's ``also_on``). Each
+    tutorial's wall time and the phase's seconds are printed.
+31. The scale phase (:func:`_scale_phase`): SCALE24, SCALE25 and SCALE26
+    through ``tools/scale_ladder_torch.py``'s ``run_size`` (one card, the
+    unsharded interaction-picture torch loop): |norm − 1| ≤ 1e-4, the
+    peak device memory at most the capacity contract's ``solve_bytes``,
+    1 − F ≤ 1e-6 against a complex128 solve of the same sequence on the
+    card; then SCALE_CEIL, one cold solve at ``single_chip_ceiling(2,
+    measured_memory_bytes())`` qubits (29 on an 80 GB card) with the norm
+    and memory checks. Each case's ``paths`` entry has its wall, stages,
+    ms per stage, peak memory, ``solve_bytes`` and route.
+
+Phases 30 and 31 run after 25, before the serving phase.
+
 An earlier line names the JSON-schema validator the host has (the wire
 paths validate every payload with it).
 
@@ -4610,6 +4635,255 @@ def _across_cards_phase(card: str) -> list:
     return entries
 
 
+#: The JAX package's values of the six tutorials (``docs/tutorials/src``,
+#: each after ``np.random.seed`` of the file's ``seed``, single precision,
+#: the quantum-jump batch on the row-batched kernel interpreted on a
+#: CPU), written by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+#: tools/tutorial_references.py``: for each key of
+#: ``tools/build_tutorials_torch.py::KEY_VALUES``, its kind and value
+#: (TUT01's final state alone has 512 amplitudes, so they are a golden
+#: file, not literals).
+_TUTORIALS_GOLDEN = os.path.join(
+    _ROOT, "tests", "goldens", "tutorials_reference.json"
+)
+#: PERF.md §2's limits, by kind of key value (``exact``: equal).
+TUTORIAL_TOL = {
+    "state": FIDELITY_TOL,
+    "rho": RHO_TOL,
+    "populations": POPULATION_TOL,
+    "counts": COUNTS_TV_TOL,
+    "exact": 0.0,
+}
+
+
+def _tutorial_line(name: str, wall_s: float, cells: int, counts: dict,
+                   checks: dict, card: str) -> dict:
+    shown = ", ".join(
+        f"{key} {kind} {err:.3e}" for key, (kind, err) in checks.items()
+    )
+    print(
+        f"{name}: {cells} code cells, every assert held, {wall_s:.3f} s wall,"
+        f" kernel launches {counts}; against the JAX tutorial: {shown}"
+        f" [{card}]",
+        flush=True,
+    )
+    return {
+        "name": name,
+        "ms": wall_s * 1e3,
+        "launches": counts,
+        "checks": {key: err for key, (_, err) in checks.items()},
+    }
+
+
+def _tutorials_phase(K, S, card: str) -> tuple[list, int]:
+    """The six tutorials of ``docs/tutorials_torch`` on the card, through
+    ``tools/build_tutorials_torch.py`` with ``DEVICE = "cuda"`` into a
+    temporary directory (this host has no matplotlib: the cells draw on
+    ``build_tutorials_torch``'s inert stand-in, every assert runs). Each
+    tutorial starts from the golden's numpy seed; its key values are held
+    to the JAX package's (:data:`TUTORIAL_TOL`, and |tr ρ − 1| ≤
+    TRACE_TOL). TUT02's quantum-jump cell (``nm_both``: dephasing with amplitude and
+    Doppler noise, 60 trajectories of 4 atoms) must take K2 in exactly
+    one launch, by the wrapper's count and the C library's. Returns the
+    ``paths`` entries and that cell's K2 launches."""
+    import tempfile
+
+    import torch
+
+    from tools import build_tutorials_torch as B
+
+    with open(_TUTORIALS_GOLDEN) as f:
+        golden = json.load(f)
+    entries, k2_launches = [], None
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for index, name in enumerate(B.names(), start=1):
+            cells = []
+
+            def on_cell(_, code, seconds, cells=cells):
+                torch.cuda.synchronize()
+                cells.append(
+                    (
+                        code,
+                        _launches(K),
+                        {k: K.device_launches(k) for k in _COUNTERS},
+                        dict(S.last_solve_info),
+                    )
+                )
+
+            _reset_launches(K)
+            lib0 = {k: K.device_launches(k) for k in _COUNTERS}
+            np.random.seed(golden["seed"])
+            t0 = time.perf_counter()
+            ns = B.execute(name, "cuda", tmp, on_cell)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            _check(
+                os.path.exists(os.path.join(tmp, f"{name}.md")),
+                f"{name} wrote no page",
+            )
+            want = B.decode(golden["tutorials"][name])
+            got = B.KEY_VALUES[name](ns)
+            checks = {}
+            for key, (kind, value) in want.items():
+                err = B.difference(kind, value, got[key][1])
+                checks[key] = (kind, err)
+                _check(
+                    err <= TUTORIAL_TOL[kind],
+                    f"{name} {key}: {kind} {err:.3e} > {TUTORIAL_TOL[kind]}",
+                )
+                if kind == "rho":
+                    tr_err = abs(np.trace(got[key][1]).real - 1)
+                    checks[f"{key}_trace"] = ("trace", tr_err)
+                    _check(tr_err <= TRACE_TOL, f"{name} trace {tr_err:.3e}")
+            label = f"TUT{index:02d}"
+            if name == "02_noisy_simulation":
+                prev_w, prev_l = dict.fromkeys(_COUNTERS, 0), lib0
+                for code, wrapper, lib, info in cells:
+                    if "nm_both = ptt.NoiseModel(" in code:
+                        k2 = wrapper["mcwf_rows"] - prev_w["mcwf_rows"]
+                        k2_lib = lib["mcwf_rows"] - prev_l["mcwf_rows"]
+                        _check(
+                            k2 == 1 and k2_lib == 1
+                            and info.get("kind") == "mcwf_rows_cuda",
+                            f"TUT02 nm_both: {k2} K2 launches by the wrapper,"
+                            f" {k2_lib} by the library, route {info}",
+                        )
+                        k2_launches = k2
+                        print(
+                            f"TUT02 nm_both: one K2 launch (wrapper and"
+                            f" library), route {info}",
+                            flush=True,
+                        )
+                    prev_w, prev_l = wrapper, lib
+                _check(k2_launches == 1, "TUT02 has no nm_both cell")
+            entries.append(
+                _tutorial_line(label, wall_s, len(cells), _launches(K),
+                               checks, card)
+            )
+    print(
+        f"tutorials phase: {time.perf_counter() - t_phase:.3f} s [{card}]",
+        flush=True,
+    )
+    return entries, k2_launches
+
+
+#: The ladder's sizes on one card (the JAX ladder's).
+SCALE_SIZES = (24, 25, 26)
+
+
+def _complex128_state(seq, device) -> "torch.Tensor":
+    """The final state of ``seq`` solved in complex128 on ``device``
+    (the torch default dtype set to float64 for the run)."""
+    import torch
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        emu = TorchEmulator.from_sequence(
+            seq, evaluation_times="Minimal", torch_device=device
+        )
+        batch = emu.run()._device_states
+        state = batch.device_state(len(batch) - 1)
+        _check(state.dtype == torch.complex128, f"reference dtype {state.dtype}")
+        return state
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def _scale_line(name: str, rec: dict, check: str, card: str) -> dict:
+    print(
+        f"{name}: {rec['n_atoms']} atoms, route {rec['solver_kind']}, build"
+        f" {rec['build_s'] * 1e3:.3f} ms, cold run() {rec['cold_solve_s'] * 1e3:.3f}"
+        f" ms, warm {[round(t * 1e3, 3) for t in rec['warm_solve_s']]} ms,"
+        f" {rec['stages']} RK4 stages, {rec['ms_per_stage']:.4f} ms a stage,"
+        f" peak device memory {rec['peak_bytes']} B against solve_bytes"
+        f" {rec['solve_bytes']} B ({rec['peak_bytes'] / rec['solve_bytes']:.3f}),"
+        f" {rec['telemetry']}; {check} [{card}]",
+        flush=True,
+    )
+    return {
+        "name": name,
+        "atoms": rec["n_atoms"],
+        "route": rec["solver_kind"],
+        "ms": rec["warm_median_s"] * 1e3,
+        "cold_ms": rec["cold_solve_s"] * 1e3,
+        "stages": rec["stages"],
+        "ms_per_stage": rec["ms_per_stage"],
+        "peak_device_bytes": rec["peak_bytes"],
+        "solve_bytes": rec["solve_bytes"],
+    }
+
+
+def _scale_phase(card: str) -> list:
+    """The scale ladder on the card (``tools/scale_ladder_torch.py``'s
+    ``run_size``): SCALE24, SCALE25 and SCALE26, each with build, cold
+    and warm (median of 3) solves, |norm − 1| ≤ 1e-4, a peak device
+    memory at most the capacity contract's ``solve_bytes`` and 1 − F ≤
+    1e-6 against a complex128 solve of the same sequence on the card;
+    then SCALE_CEIL, one cold solve at ``single_chip_ceiling(2,
+    measured_memory_bytes())`` qubits, with the norm and memory checks."""
+    import torch
+
+    from tools import scale_ladder_torch as L
+
+    entries = []
+    t_phase = time.perf_counter()
+    for n in SCALE_SIZES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = L.run_size(n, "cuda")
+        got = rec.pop("state").to(torch.complex128)
+        ref = _complex128_state(L.ladder_sequence(n), "cuda")
+        infid = 1 - float(
+            abs(torch.vdot(ref, got)) ** 2
+            / (torch.vdot(ref, ref).real * torch.vdot(got, got).real)
+        )
+        del got, ref
+        _check(
+            rec["peak_bytes"] <= rec["solve_bytes"],
+            f"SCALE{n} peak {rec['peak_bytes']} B > solve_bytes"
+            f" {rec['solve_bytes']} B",
+        )
+        _check(infid <= FIDELITY_TOL, f"SCALE{n} 1 - F {infid:.3e}")
+        entries.append(
+            _scale_line(
+                f"SCALE{n}", rec,
+                f"|norm - 1| = {abs(rec['norm'] - 1):.3e} (≤ {L.NORM_TOL:g}),"
+                f" 1 - F = {infid:.3e} to the complex128 solve (≤"
+                f" {FIDELITY_TOL:g})",
+                card,
+            )
+        )
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = L.ceiling_size()
+    rec = L.run_size(n, "cuda", warm_runs=0)
+    del rec["state"]
+    _check(
+        rec["peak_bytes"] <= rec["solve_bytes"],
+        f"SCALE_CEIL peak {rec['peak_bytes']} B > solve_bytes"
+        f" {rec['solve_bytes']} B",
+    )
+    entries.append(
+        _scale_line(
+            "SCALE_CEIL", rec,
+            f"the ceiling single_chip_ceiling(2, {torch.cuda.mem_get_info()[1]}"
+            f" B) = {n} qubits, |norm - 1| = {abs(rec['norm'] - 1):.3e}",
+            card,
+        )
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(
+        f"scale phase: {time.perf_counter() - t_phase:.3f} s [{card}]",
+        flush=True,
+    )
+    return entries
+
+
 def _validator_line() -> None:
     """Names the JSON-schema validator this host has: the loads of the
     wire paths validate every payload with it."""
@@ -4702,6 +4976,9 @@ def _main_path(K, S, device, card: str) -> dict:
             _wire_tri16_path(K, S, card),  # 25
         ],
     }
+    tutorials, tut02_k2 = _tutorials_phase(K, S, card)  # 30
+    report["paths"] += tutorials
+    report["paths"] += _scale_phase(card)  # 31
     serve = _serving_phase(K, S, card)  # 26-28
     report["paths"] += serve
     report["paths"] += _sharding_phase(card)  # 29
@@ -4711,7 +4988,10 @@ def _main_path(K, S, device, card: str) -> dict:
         name: launches[name]["ip_sesolve"]
         for name in ("SERVE_AFM16", "SERVE_TRI16")
     }
-    k2["also_on"] = {"SERVE_NOISY10": launches["SERVE_NOISY10"]["mcwf_rows"]}
+    k2["also_on"] = {
+        "SERVE_NOISY10": launches["SERVE_NOISY10"]["mcwf_rows"],
+        "TUT02": tut02_k2,
+    }
     return report
 
 

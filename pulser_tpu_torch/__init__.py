@@ -34,6 +34,7 @@ from pulser_tpu_torch.devices import (
     AnalogDevice,
     DigitalAnalogDevice,
     MockDevice,
+    WeightedAnalogDevice,
 )
 
 from pulser_tpu_torch import (
@@ -62,6 +63,7 @@ __all__ = [
     "AnalogDevice",
     "DigitalAnalogDevice",
     "MockDevice",
+    "WeightedAnalogDevice",
     "Sequence",
     "sample",
     "EmulatorConfig",

@@ -60,7 +60,6 @@ import numpy as np
 import torch
 from numpy.typing import ArrayLike
 
-import pulser_tpu_torch.sampler as sampler
 from pulser_tpu_torch.channels.base_channel import States
 from pulser_tpu_torch.devices._device_datacls import BaseDevice
 from pulser_tpu_torch.emulator.hamiltonian import Hamiltonian
@@ -2219,45 +2218,8 @@ class TorchEmulator:
                 the first CUDA device; without one the call raises, and
                 ``"cpu"`` must be asked for).
         """
-        if not isinstance(sequence, Sequence):
-            raise TypeError(
-                "The provided sequence has to be a valid "
-                "pulser.Sequence instance."
-            )
-        if (
-            sequence.is_parametrized()
-            or sequence.is_register_mappable()
-        ):
-            raise ValueError(
-                "The provided sequence needs to be built to be"
-                " simulated. Call `Sequence.build()` with the necessary"
-                " parameters."
-            )
-        if not sequence._schedule:
-            raise ValueError(
-                "The provided sequence has no declared channels."
-            )
-        if all(
-            sequence._schedule[x][-1].tf == 0
-            for x in sequence.declared_channels
-        ):
-            raise ValueError(
-                "No instructions given for the channels in the"
-                " sequence."
-            )
-        if with_modulation and sequence._slm_mask_targets:
-            raise NotImplementedError(
-                "Simulation of sequences combining an SLM mask and"
-                " output modulation is not supported."
-            )
         return cls(
-            sampler.sample(
-                sequence,
-                modulation=with_modulation,
-                extended_duration=sequence.get_duration(
-                    include_fall_time=with_modulation
-                ),
-            ),
+            HamiltonianData._sequence_samples(sequence, with_modulation),
             sequence.register,
             sequence.device,
             sampling_rate,

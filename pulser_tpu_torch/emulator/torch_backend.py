@@ -30,8 +30,14 @@ from pulser_tpu_torch.register.base_register import BaseRegister
 from pulser_tpu_torch.sampler.samples import SequenceSamples
 from pulser_tpu_torch.emulator.aggregators import density_matrix_aggregator
 from pulser_tpu_torch.emulator.torch_config import TorchConfig
-from pulser_tpu_torch.emulator.torch_op import HamiltonianOperator
-from pulser_tpu_torch.emulator.torch_state import unit_state
+from pulser_tpu_torch.emulator.torch_op import (
+    HamiltonianOperator,
+    TorchOperator as TorchOperator,
+)
+from pulser_tpu_torch.emulator.torch_state import (
+    TorchState as TorchState,
+    unit_state,
+)
 from pulser_tpu_torch.emulator.simresults import (
     CoherentResults,
     SimulationResults,

@@ -22,7 +22,7 @@ from __future__ import annotations
 import functools
 import math
 from collections import Counter, defaultdict
-from collections.abc import Mapping, Sequence
+from collections.abc import Collection, Mapping, Sequence
 from typing import Any, Type, TypeVar, Union
 
 import numpy as np
@@ -76,6 +76,10 @@ def _basis_labels(n_qudits: int, eigenstates: tuple) -> np.ndarray:
 
 
 TorchStateType = TypeVar("TorchStateType", bound="TorchState")
+
+QuditOp = Mapping[str, complex]
+TensorOp = Sequence[tuple[QuditOp, Collection[int]]]
+FullOp = Sequence[tuple[complex, TensorOp]]
 
 #: The dtype of the device-side arithmetic (overlaps, expectations).
 WORK_DTYPE = torch.complex128

@@ -33,12 +33,14 @@ from pulser_tpu_torch.noise_model import _doppler_sigma as doppler_sigma
 from pulser_tpu_torch.noise_model import _register_sigma_xy_z
 from pulser_tpu_torch.register import Register3D
 from pulser_tpu_torch.register.base_register import BaseRegister, QubitId
+from pulser_tpu_torch.sampler import sampler
 from pulser_tpu_torch.sampler.samples import (
     ChannelSamples,
     DMMSamples,
     SequenceSamples,
     _PulseTargetSlot,
 )
+from pulser_tpu_torch.sequence import Sequence
 
 
 class TrajectoryWithReps(NamedTuple):
@@ -271,6 +273,84 @@ class HamiltonianData:
         return replace(samples, samples_list=samples_list)
 
     # -- Constructors -----------------------------------------------------
+
+    @classmethod
+    def from_sequence(
+        cls,
+        sequence: Sequence,
+        *,
+        with_modulation: bool = False,
+        noise_model: NoiseModel | None = None,
+        n_trajectories: int | None = None,
+    ) -> HamiltonianData:
+        """Creates the HamiltonianData from a Sequence.
+
+        Args:
+            sequence: A built Sequence to extract the data from.
+            with_modulation: Whether to use the modulated samples.
+            noise_model: The noise model for the simulation.
+            n_trajectories: The number of noise trajectories to sample.
+        """
+        return cls(
+            cls._sequence_samples(sequence, with_modulation),
+            sequence.register,
+            sequence.device,
+            noise_model or NoiseModel(),
+            n_trajectories,
+        )
+
+    @staticmethod
+    def _sequence_samples(
+        sequence: Sequence, with_modulation: bool
+    ) -> SequenceSamples:
+        """Checks that ``sequence`` can be simulated and samples it (the
+        step :meth:`from_sequence` and ``TorchEmulator.from_sequence``
+        share)."""
+        if not isinstance(sequence, Sequence):
+            raise TypeError(
+                "The provided sequence has to be a valid "
+                "pulser.Sequence instance."
+            )
+        # Sequence preconditions, checked in order: (predicate that
+        # must hold, error class, message).
+        preconditions = (
+            (
+                not sequence.is_parametrized()
+                and not sequence.is_register_mappable(),
+                ValueError,
+                "The provided sequence needs to be built to be simulated."
+                " Call `Sequence.build()` with the necessary parameters.",
+            ),
+            (
+                bool(sequence._schedule),
+                ValueError,
+                "The provided sequence has no declared channels.",
+            ),
+            (
+                any(
+                    sequence._schedule[x][-1].tf != 0
+                    for x in sequence.declared_channels
+                ),
+                ValueError,
+                "No instructions given for the channels in the sequence.",
+            ),
+            (
+                not (with_modulation and sequence._slm_mask_targets),
+                NotImplementedError,
+                "Simulation of sequences combining an SLM mask and output "
+                "modulation is not supported.",
+            ),
+        )
+        for holds, exc, message in preconditions:
+            if not holds:
+                raise exc(message)
+        return sampler.sample(
+            sequence,
+            modulation=with_modulation,
+            extended_duration=sequence.get_duration(
+                include_fall_time=with_modulation
+            ),
+        )
 
     # -- Simple accessors ---------------------------------------------------
 

@@ -20,6 +20,7 @@ from pulser_tpu_torch.math.abstract_array import (
     AbstractArrayLike as AbstractArrayLike,
     TensorLike as TensorLike,
 )
+from pulser_tpu_torch.math.multinomial import multinomial as multinomial
 
 
 def _unary(np_fn: Any, torch_fn: Any) -> Any:
@@ -44,6 +45,22 @@ tan = _unary(np.tan, torch.tan)
 tanh = _unary(np.tanh, torch.tanh)
 ceil = _unary(np.ceil, torch.ceil)
 floor = _unary(np.floor, torch.floor)
+
+
+def norm(a: AbstractArrayLike) -> AbstractArray:
+    """Return the norm of the array."""
+    a = AbstractArray(a)
+    if a.is_tensor:
+        return AbstractArray(torch.linalg.norm(a.as_tensor()))
+    return AbstractArray(np.linalg.norm(a.as_array()))
+
+
+def zeros_like(a: AbstractArrayLike) -> AbstractArray:
+    """An array of zeros with the same shape/dtype."""
+    a = AbstractArray(a)
+    if a.is_tensor:
+        return AbstractArray(torch.zeros_like(a.as_tensor()))
+    return AbstractArray(np.zeros_like(a.as_array()))
 
 
 def pad(

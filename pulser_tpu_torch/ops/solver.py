@@ -69,7 +69,10 @@ from pulser_tpu_torch.ops.apply import (
     group_sizes,
     jump_candidates,
 )
-from pulser_tpu_torch.parallel.capacity import LIVE_STATE_BUFFERS
+from pulser_tpu_torch.parallel.capacity import (
+    LIVE_STATE_BUFFERS,
+    STAGE_CHUNK_BYTES,
+)
 from pulser_tpu_torch.parallel.comm import mesh_size as _mesh_size
 
 
@@ -463,16 +466,19 @@ def _resolve_device(device: Any) -> torch.device:
     share one card all use it). Without a group, the first CUDA device.
 
     Raises:
-        RuntimeError: ``device`` is None and no CUDA device is visible
-            (the entry points never move to the CPU on their own).
+        RuntimeError: ``device`` is None or a CUDA device, and no CUDA
+            device is visible (the entry points never move to the CPU on
+            their own).
     """
+    if (device is None or torch.device(device).type == "cuda") and (
+        not torch.cuda.is_available()
+    ):
+        raise RuntimeError(
+            "No CUDA device is visible. To run on the CPU, ask for it:"
+            " torch_device='cpu' (TorchEmulator) or device='cpu' (the"
+            " solver functions)."
+        )
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "No CUDA device is visible. To run on the CPU, ask for it:"
-                " torch_device='cpu' (TorchEmulator) or device='cpu' (the"
-                " solver functions)."
-            )
         import torch.distributed as dist
 
         if dist.is_available() and dist.is_initialized():
@@ -531,6 +537,12 @@ class DeviceStateBatch:
     def __len__(self) -> int:
         return len(self._eval_map)
 
+    def sync(self) -> None:
+        """Blocks until the device computation that wrote the states has
+        finished (a no-op once they have been fetched, and on the CPU)."""
+        if self._dev is not None and self._dev.device.type == "cuda":
+            torch.cuda.synchronize(self._dev.device)
+
     def _post(self, vec: np.ndarray) -> np.ndarray:
         if not self.normalize:
             return vec
@@ -564,6 +576,15 @@ class DeviceStateBatch:
             return vec
         nrm = torch.linalg.vector_norm(vec)
         return vec if nrm == 0 else vec / nrm
+
+    def device_norm(self, i: int) -> torch.Tensor:
+        """The norm of the state at evaluation index ``i`` as the solver
+        left it (before any renormalization), reduced on the device; a
+        0-d tensor. Once the batch was fetched whole, the host copy's."""
+        if self._dev is None:
+            return torch.linalg.vector_norm(torch.from_numpy(self.state(i)))
+        vec = self._to_complex_dev(self._dev[int(self._eval_map[int(i)])])
+        return torch.linalg.vector_norm(vec)
 
     def fetch_all(self) -> np.ndarray:
         """All states as one host ``(n_eval, dim)`` array (cached)."""
@@ -1081,15 +1102,10 @@ def _ip_terms(
     return chunk_inputs, deriv, per_step * 2 * amp.real.element_size()
 
 
-#: Budget of the drive matrices, rotors and diagonal factors the torch
-#: loops stage for a chunk of steps at once (the steps of a segment go in
-#: chunks).
-_STAGE_CHUNK_BYTES = 1 << 28
-
-
 def _step_chunk(seg_len: int, step_bytes: int) -> int:
-    """Steps of a segment staged at once within :data:`_STAGE_CHUNK_BYTES`."""
-    return max(1, min(seg_len, _STAGE_CHUNK_BYTES // max(1, step_bytes)))
+    """Steps of a segment staged at once within
+    :data:`~pulser_tpu_torch.parallel.capacity.STAGE_CHUNK_BYTES`."""
+    return max(1, min(seg_len, STAGE_CHUNK_BYTES // max(1, step_bytes)))
 
 
 def _scan_segments(
@@ -1104,7 +1120,7 @@ def _scan_segments(
     """The RK4 loop of the torch solves over the plan's segments.
 
     The steps of a segment are staged a chunk at once
-    (``chunk_inputs(s, sl)``, within :data:`_STAGE_CHUNK_BYTES` by
+    (``chunk_inputs(s, sl)``, within ``STAGE_CHUNK_BYTES`` by
     ``step_bytes``); each nonzero step is one :func:`_rk4_step` with
     ``deriv(p, inputs, i, point)``, followed by ``after_step(psi, inputs,
     s, step, i)`` where given (the quantum jumps); zero steps are the start

@@ -17,10 +17,12 @@ over-capacity request raises :class:`CapacityError` with the modeled
 footprint instead of running out of memory mid-solve.
 
 Memory model: the torch RK4 loops keep the state as native complex
-tensors and hold :data:`LIVE_STATE_BUFFERS` state-sized buffers at peak,
-plus one ``(n_eval, dim)`` output block and the ``(dim,)`` interaction
-diagonal. A density matrix over ``n`` qudits counts as a
-``d^(2n)``-amplitude state.
+tensors and hold :data:`STATEVECTOR_LIVE_BUFFERS` (a statevector) or
+:data:`LIVE_STATE_BUFFERS` (a density matrix) state-sized buffers at
+peak, plus one ``(n_eval, dim)`` output block, the ``(dim,)``
+interaction diagonal and the inputs they stage for a chunk of steps
+(:data:`STAGE_CHUNK_BYTES`, twice over while the chunk is built). A
+density matrix over ``n`` qudits counts as a ``d^(2n)``-amplitude state.
 """
 
 from __future__ import annotations
@@ -40,6 +42,26 @@ class CapacityError(PulserError, MemoryError):
 #: stage points, the rotated state, the group products and headroom.
 LIVE_STATE_BUFFERS = 16
 
+#: Live state-sized complex buffers the statevector loop
+#: (``ops.solver.sesolve_rk4``'s torch loop, the route past 17 qubits)
+#: holds at peak beside its evaluation states and the diagonal. Measured
+#: on an H100 80GB HBM3 at 700 W (``tools/scale_ladder_torch.py``, two
+#: evaluation states in complex64): 116.0 bytes per amplitude at 25, 26
+#: and 29 qubits, 12 buffers; a rank of the state-sharded loop
+#: (``parallel.state_sharding``, its exchange buffers included) held
+#: 128.4 bytes per amplitude of its share, 13.5 buffers. Fourteen covers
+#: both.
+STATEVECTOR_LIVE_BUFFERS = 14
+
+#: Budget of the drive matrices, rotors and diagonal factors the torch
+#: loops stage for a chunk of steps at once (the steps of a segment go in
+#: chunks, at least one step each: past about 22 qubits a step's rotors
+#: alone exceed it, and :data:`STATEVECTOR_LIVE_BUFFERS` counts them).
+#: Building a chunk holds its phases, their cosines and sines beside the
+#: rotors, up to twice the budget: 478 782 976 B at 20 qubits on an H100
+#: 80GB HBM3 at 700 W, where the state is 8 MiB.
+STAGE_CHUNK_BYTES = 1 << 28
+
 #: Fraction of the device memory a solve may plan for (the rest covers
 #: the staged coefficients, the allocator's slack and the runtime).
 MEMORY_BUDGET_FRACTION = 0.9
@@ -49,21 +71,33 @@ MEMORY_BUDGET_FRACTION = 0.9
 H100_MEMORY_BYTES = 80 * 1024**3
 
 
-def solve_bytes(d: int, n: int, n_eval: int = 1, itemsize: int = 4) -> int:
+def solve_bytes(
+    d: int,
+    n: int,
+    n_eval: int = 1,
+    itemsize: int = 4,
+    density_matrix: bool = False,
+) -> int:
     """Peak device footprint of an ``n``-qudit, dim-``d`` solve.
 
     Args:
         d: Qudit dimension (2 = qubits, 3 = qutrits, 4 = leakage).
-        n: Qudit count.
+        n: Qudit count (of the state: a density matrix over ``m`` qudits
+            passes ``n = 2m``).
         n_eval: Evaluation-time states kept on the device.
         itemsize: Real dtype size (4 = float32 ≙ complex64).
+        density_matrix: Whether the master-equation loop holds the
+            state (:data:`LIVE_STATE_BUFFERS`) rather than the
+            statevector loop (:data:`STATEVECTOR_LIVE_BUFFERS`).
     """
     dim = d**n
     state = 2 * dim * itemsize
+    live = LIVE_STATE_BUFFERS if density_matrix else STATEVECTOR_LIVE_BUFFERS
     return (
-        LIVE_STATE_BUFFERS * state
+        live * state
         + n_eval * state
         + dim * itemsize  # interaction diagonal
+        + 2 * STAGE_CHUNK_BYTES
     )
 
 
@@ -75,7 +109,7 @@ def single_chip_ceiling(
 ) -> int:
     """Largest ``n`` whose statevector solve fits one device's memory."""
     budget = memory_bytes * MEMORY_BUDGET_FRACTION
-    per_amp = (LIVE_STATE_BUFFERS + n_eval) * 2 * itemsize + itemsize
+    per_amp = (STATEVECTOR_LIVE_BUFFERS + n_eval) * 2 * itemsize + itemsize
     n = int(math.floor(math.log(budget / per_amp, d)))
     while solve_bytes(d, n + 1, n_eval, itemsize) <= budget:
         n += 1
@@ -130,7 +164,10 @@ def check_capacity(
     if mem is None:
         return
     eff_n = 2 * n if density_matrix else n
-    need = solve_bytes(d, eff_n, n_eval=n_eval, itemsize=itemsize)
+    need = solve_bytes(
+        d, eff_n, n_eval=n_eval, itemsize=itemsize,
+        density_matrix=density_matrix,
+    )
     ranks = max(1, int(n_devices))
     budget = mem * MEMORY_BUDGET_FRACTION * ranks
     if need <= budget:
@@ -139,6 +176,10 @@ def check_capacity(
     ceiling = single_chip_ceiling(d, mem * ranks, n_eval, itemsize)
     if density_matrix:
         ceiling //= 2
+        while ceiling > 0 and solve_bytes(
+            d, 2 * ceiling, n_eval, itemsize, density_matrix=True
+        ) > budget:
+            ceiling -= 1
     raise CapacityError(
         f"The requested {what} needs ~{_human_bytes(need)} of device memory"
         f" for an n={n}, d={d} {kind} ({n_eval} evaluation state(s) kept on"

@@ -7,12 +7,13 @@ emulator pipeline), with the bar plot of the bitstring distribution.
 
 from __future__ import annotations
 
+import collections.abc
 import uuid
 import warnings
 from abc import ABC, abstractmethod
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Type
 
 import numpy as np
 
@@ -47,6 +48,28 @@ def _binomial_sem(p: float, n: int) -> float:
 # A fixed observable UUID makes two SampledResults with equal counts
 # compare equal (the auto-generated per-instance UUID would not).
 _SHARED_BITSTRINGS_UUID = uuid.UUID(int=0)
+
+_MOVED_TO_BACKEND = {
+    "Results": "ResultsSequence",
+    "ResultType": "ResultsType",
+}
+
+
+def __getattr__(name: str) -> Any:
+    try:
+        new_name = _MOVED_TO_BACKEND[name]
+    except KeyError:
+        raise AttributeError(
+            f"Module {__name__!r} has no attribute {name!r}."
+        ) from None
+    warnings.warn(
+        f"The 'pulser.result.{name}' class has been renamed to "
+        f"'{new_name}' and moved to 'pulser.backend.results'. "
+        f"Importing it as '{name}' from 'pulser.results' is deprecated.",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+    return getattr(backend_results, new_name)
 
 
 def _support(weights: np.ndarray, width: int) -> dict[str, float]:
@@ -140,6 +163,18 @@ class Result(ABC, backend_results.Results):
 
     def __str__(self) -> str:
         return self.__repr__()
+
+    @classmethod
+    def from_final_bitstrings(
+        cls: Type[Result],
+        atom_order: collections.abc.Sequence[str],
+        total_duration: int,
+        final_bitstrings: collections.abc.Mapping[str, int],
+    ) -> Result:
+        """[Not Implemented] Creates a Result from final bitstrings."""
+        raise NotImplementedError(
+            f"'{cls.__name__}.from_final_bitstrings()' is not implemented."
+        )
 
 
 @dataclass

@@ -209,6 +209,13 @@ def _foreign_modules(statements: str) -> list[str]:
         " run_name='demo'); chip_smoke = __import__('chip_smoke');"
         " chip_smoke.shard_state_sequence()",
         _SHARDED_RANKS,
+        "import tools.build_tutorials_torch, tools.scale_ladder_torch,"
+        " tools.gen_api_docs_torch",
+        "from tools import scale_ladder_torch as L;"
+        " L.run_size(8, 'cpu', warm_runs=0)",
+        "import pulser_tpu_torch.ops as O; O.sesolve_rk4, O.EvolutionPlan;"
+        " assert 'pulser_tpu_torch.ops.kernels' not in sys.modules;"
+        " import torch; assert not torch.cuda.is_initialized()",
     ],
 )
 def test_port_imports_neither_jax_nor_pulser_tpu(statements):

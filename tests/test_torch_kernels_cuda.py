@@ -514,3 +514,60 @@ def test_cuda_trajectory_sharded_batch_equals_direct(card_world):
         assert info["ranks"] == 2
         assert got.shape == want.shape == (5, 2, 1024)
         assert float(abs(got - want).max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_tutorial02_quantum_jumps_one_k2_launch(cuda):
+    """Tutorial 02 on the card: its quantum-jump cell (dephasing with
+    amplitude and Doppler noise, 60 trajectories of 4 atoms) takes K2 in
+    one launch, and its counts are within TV 0.02 of the JAX package's
+    (``tests/goldens/tutorials_reference.json``)."""
+    import json
+
+    import numpy as np
+
+    from pulser_tpu_torch.ops import solver as S
+    from tools import build_tutorials_torch as B
+
+    with open(chip_smoke._TUTORIALS_GOLDEN) as f:
+        golden = json.load(f)
+    seen = []
+
+    def on_cell(_, code, seconds):
+        torch.cuda.synchronize()
+        seen.append((code, K.MCWF_ROWS_LAUNCHES, K.device_launches("mcwf_rows"),
+                     dict(S.last_solve_info)))
+
+    name = "02_noisy_simulation"
+    np.random.seed(golden["seed"])
+    B.execute(name, "cuda", on_cell=on_cell)  # builds the kernels first
+    np.random.seed(golden["seed"])
+    seen.clear()
+    before = (K.MCWF_ROWS_LAUNCHES, K.device_launches("mcwf_rows"))
+    ns = B.execute(name, "cuda", on_cell=on_cell)
+    for code, wrapper, lib, info in seen:
+        if "nm_both = ptt.NoiseModel(" in code:
+            assert (wrapper - before[0], lib - before[1]) == (1, 1)
+            assert info["kind"] == "mcwf_rows_cuda"
+            break
+        before = (wrapper, lib)
+    else:
+        raise AssertionError("no nm_both cell")
+    kind, want = B.decode(golden["tutorials"][name])["counts_jumps"]
+    got = B.KEY_VALUES[name](ns)["counts_jumps"][1]
+    assert B.difference(kind, want, got) <= chip_smoke.COUNTS_TV_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_scale_ladder_20_atoms_within_solve_bytes(cuda):
+    """The ladder's sequence at 20 atoms on one card: the unsharded
+    torch loop, the norm held, the peak device memory within the
+    capacity contract's ``solve_bytes``."""
+    from pulser_tpu_torch.parallel import capacity
+    from tools import scale_ladder_torch as L
+
+    rec = L.run_size(20, "cuda", warm_runs=1)
+    assert rec["solver_kind"] == L.LADDER_KIND
+    assert abs(rec["norm"] - 1) <= L.NORM_TOL
+    assert 0 < rec["peak_bytes"] <= capacity.solve_bytes(2, 20)
+    assert rec["peak_bytes"] <= rec["solve_bytes"]
