@@ -21,15 +21,22 @@ to sample it, median of 3 each, beside the card's name and power limit):
    per source, started together) and print the registers, shared memory
    and spills of each instantiation: the interaction-picture sesolve K1
    (``pulser_tpu_torch/csrc/ip_sesolve.cu``), its trajectory-batched mode
-   with one block per trajectory (``ip_sesolve_batched.cu``), the
+   with one block or one thread-block cluster per trajectory
+   (``ip_sesolve_batched.cu``), the
    row-batched quantum-jump solve K2 (``mcwf_rows.cu``) and the lab-frame
    quantum-jump solve with general collapse operators K3 (``mcwf.cu``).
 3. Hold K1 against its plain PyTorch version on random inputs at n = 10,
    13, 16 and 17 qubits (2 segments x 8 steps): max |Δ| ≤ 1e-5. Then its
    trajectory-batched mode at n = 10, 12, 13 (one block per trajectory),
-   14 and 17 (the cooperative kernel) with 3 trajectories of 2 segments,
-   drives, phase integrals and diagonals all different: max |Δ| ≤ 2e-5
-   and one device launch per batch by the library's count.
+   14 and 17 (one cluster per trajectory) with 3 trajectories of 2
+   segments, drives, phase integrals and diagonals all different, and
+   at n = 14, 15, 16 and 17 with 100 trajectories or, where more, one
+   more than two waves of the clusters the card runs at once (2
+   segments x 4 steps): max |Δ| ≤
+   2e-5 and one device launch per batch by the library's count. For
+   n = 14 to 17 the library's shape (blocks and threads a trajectory,
+   shared memory, trajectories at once by the occupancy API) must be the
+   wrapper's table's.
 4. Hold K2 against its plain PyTorch version on random inputs at n = 1,
    2, 4, 7, 10, 11, 12 and 13 qubits, 8 trajectories (2 segments x 8
    steps, strong jumps; rotors carried in the first segment, recomputed
@@ -283,7 +290,18 @@ to sample it, median of 3 each, beside the card's name and power limit):
     and memory checks. Each case's ``paths`` entry has its wall, stages,
     ms per stage, peak memory, ``solve_bytes`` and route.
 
-Phases 30 and 31 run after 25, before the serving phase.
+32. Run SPD16 (:func:`spd16_sequence`: the 16-atom AFM sweep under
+    SPD10's noise, :data:`SPD16_RUNS` trajectories of 2^16 amplitudes)
+    after
+    ``np.random.seed(1234)`` and check and time it as SPD10 in 11 and 12
+    (``tests/goldens/spd16_reference.json``,
+    ``tools/spd16_reference.py``): K1's trajectory-batched mode, one
+    thread-block cluster a trajectory, in exactly one launch; also the
+    trajectories the card runs at once. Its kernel entry comes last, and
+    SPD10's entry lists its launches under ``also_on``.
+
+Phases 30 and 31 run after 25, before the serving phase; 32 runs after
+10.
 
 An earlier line names the JSON-schema validator the host has (the wire
 paths validate every payload with it).
@@ -339,6 +357,10 @@ _PAULI10_GOLDEN = os.path.join(
 #: count, the final Rydberg population of each atom per trajectory and
 #: averaged, and the final-time bitstring counts.
 _SPD10_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "spd10_reference.json")
+#: The JAX package's SPD16 figures for seed 1234, printed by
+#: ``JAX_PLATFORMS=cpu PYTHONPATH=. python tools/spd16_reference.py`` (as
+#: SPD10's, on the 16-atom sweep).
+_SPD16_GOLDEN = os.path.join(_ROOT, "tests", "goldens", "spd16_reference.json")
 #: The JAX package's master-equation figures (double precision, on a CPU),
 #: written by ``JAX_PLATFORMS=cpu PYTHONPATH=. python
 #: tools/mesolve_references.py``: the step count, the final ρ diagonal, the
@@ -774,6 +796,31 @@ def spd10_inputs() -> tuple:
     """``(samples, register, device, noise_model)`` of
     :func:`spd10_sequence`."""
     return _sampled(*spd10_sequence())
+
+
+#: SPD16's trajectories. The JAX package's reference of 100 (its vmapped
+#: XLA scan over 100 × 2^16 amplitudes on a CPU) does not finish in 90
+#: minutes, so the golden and the card's run both take 20 trajectories of
+#: 50 samples: the same 1000 shots as SPD10's 100 of 10.
+SPD16_RUNS = 20
+
+
+def spd16_sequence(P=None, runs: int = SPD16_RUNS) -> tuple:
+    """``(sequence, noise_model)`` of the SPD16 run: the 16-atom AFM
+    sweep of :func:`afm16_sequence` under SPD10's noise (SPAM, doppler at
+    50 µK, amplitude σ 0.02 with a 175 µm waist; no dephasing), ``runs``
+    trajectories of ``1000 // runs`` samples. It has no collapse
+    operators, so the trajectories integrate as one pure-state batch of
+    2^16 amplitudes each on the interaction-picture grid."""
+    if P is None:
+        import pulser_tpu_torch as P
+
+    params = dict(_NOISY10_NOISE, runs=runs, samples_per_run=1000 // runs)
+    del params["dephasing_rate"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # runs=
+        noise = P.NoiseModel(**params)
+    return afm16_sequence(P), noise
 
 
 def deph10_sequence(P=None) -> tuple:
@@ -1371,10 +1418,19 @@ def _random_inputs_phase(K, device) -> None:
         _check(bool(torch.isfinite(got).all()), f"finite output, n={n}")
         _check(err <= KERNEL_TOL, f"n={n}: {err:.3e} > {KERNEL_TOL}")
     # Batched K1: one block per trajectory (1, 4 and 8 amplitudes per
-    # thread), then the cooperative kernel (1 and 2 per thread); every
-    # trajectory with its own drives, phase integrals and diagonal
-    for n in (10, 12, 13, 14, 17):
-        args, kw = random_batched_kernel_inputs(n, seed=200 + n, device=device)
+    # thread), then one cluster per trajectory (2 to 16 blocks); every
+    # trajectory with its own drives, phase integrals and diagonal. Then
+    # n = 14 to 17 with 100 trajectories, or more than two waves of the
+    # clusters the card runs at once, 2 segments of 4 steps
+    cases = [(n, 3, 8) for n in (10, 12, 13, 14, 17)]
+    for n in range(14, 18):
+        print(f"ip_sesolve batched, n={n}: {_batched_shape_line(K, n)}")
+        waves = 2 * K.ip_sesolve_batched_config(n)["active"] + 1
+        cases.append((n, max(100, waves), 4))
+    for n, n_traj, seg_len in cases:
+        args, kw = random_batched_kernel_inputs(
+            n, seed=200 + n, device=device, n_traj=n_traj, seg_len=seg_len
+        )
         lib = K.ip_sesolve_batched_library(n)
         before = K.device_launches(lib)
         got = K.ip_sesolve(*args, **kw)
@@ -1384,12 +1440,13 @@ def _random_inputs_phase(K, device) -> None:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         print(
-            f"ip_sesolve batched vs plain, n={n}, 3 trajectories:"
+            f"ip_sesolve batched vs plain, n={n}, {n_traj} trajectories:"
             f" max|d| = {err:.3e}, {counted} device launch(es) per batch"
         )
         _check(bool(torch.isfinite(got).all()), f"finite batched output, n={n}")
         _check(err <= BATCHED_TOL, f"batched n={n}: {err:.3e} > {BATCHED_TOL}")
         _check(counted == 1, f"batched n={n}: {counted} device launches")
+        del got, want
     # K2: sub-warp states (n = 1, 2, 4), one amplitude per thread (7, 10),
     # then 2, 4 and 8 (11, 12, 13); carried rotors in segment 0,
     # recomputed ones in segment 1. Last, thresholds of 1: every
@@ -2148,33 +2205,37 @@ def _timed_parts(emu, S, sim, solver_fn: str = "sesolve_rk4_batched") -> dict:
     }
 
 
-def _spd10_path(K, S, device, card: str) -> dict:
-    """The noisy main path without collapse operators at full size (K1's
-    trajectory-batched mode): SPD10 against the JAX package's figures,
-    then the kernel against its plain version on the run's own inputs,
-    the times and the device's busy share."""
+def _spd_path(K, S, device, card: str, name: str, build, golden: str) -> dict:
+    """A noisy main path without collapse operators at full size (K1's
+    trajectory-batched mode: SPD10, a block a trajectory, and SPD16, a
+    thread-block cluster a trajectory): ``build()``'s ``(sequence,
+    noise)`` against the JAX package's figures in ``golden``, then the
+    kernel against its plain version on the run's own inputs, the times,
+    the bound, the trajectories the card runs at once and the device's
+    busy share."""
     import torch
 
     from pulser_tpu_torch.emulator import simulation as sim
 
-    with open(_SPD10_GOLDEN) as f:
+    with open(golden) as f:
         ref = json.load(f)
-    _sequence_ms("SPD10", lambda: spd10_sequence()[0], card)
+    _sequence_ms(name, lambda: build()[0], card)
     spd, sres, launches, cold_s, captured = _run_noisy(
-        K, spd10_sequence(), ref["seed"], "sesolve_rk4_batched", S
+        K, build(), ref["seed"], "sesolve_rk4_batched", S
     )
     k1b_launches = launches["ip_sesolve_batched"]
     sinfo = dict(S.last_solve_info)
-    print(f"SPD10 path: {sinfo}, launches={launches}, cold {cold_s:.3f} s")
+    n_q = sinfo["n"]
+    lib = K.ip_sesolve_batched_library(n_q)
+    print(f"{name} path: {sinfo}, launches={launches}, cold {cold_s:.3f} s")
     _check(sinfo.get("kind") == "ip_sesolve_batched_cuda", "batched K1 route")
-    _check(k1b_launches > 0, "batched ip_sesolve launched on the SPD10 path")
+    _check(k1b_launches > 0, f"batched ip_sesolve launched on the {name} path")
     _check(sinfo["n_steps"] == ref["n_steps"], f"steps {sinfo['n_steps']}")
     _check(sinfo["n_traj"] == ref["n_traj"], f"trajectories {sinfo['n_traj']}")
     _check_shots(sres)
     tv = _tv_distance(dict(sres[-1].bitstring_counts), ref["final_counts"])
     states = captured["out"]  # (B, n_eval, dim) complex64
-    _check(bool(np.isfinite(states).all()), "finite SPD10 states")
-    n_q = sinfo["n"]
+    _check(bool(np.isfinite(states).all()), f"finite {name} states")
     probs = np.abs(states[:, -1].astype(np.complex128)) ** 2
     probs /= probs.sum(axis=1, keepdims=True)  # as run() renormalizes
     pops = _rydberg_populations(probs, n_q)
@@ -2205,38 +2266,41 @@ def _spd10_path(K, S, device, card: str) -> dict:
     _check(bool(torch.isfinite(got).all()), "finite batched K1 states")
     g = got.reshape(n_traj, -1, 2, dim).double()
     w = want.reshape(n_traj, -1, 2, dim).double()
+    del want
     per_traj = (g - w).abs().amax(dim=(1, 2, 3))
     k1b_err = float(per_traj.max())
     gf = torch.complex(g[:, -1, 0], g[:, -1, 1])
     wf = torch.complex(w[:, -1, 0], w[:, -1, 1])
+    del g, w
     fid = (wf.conj() * gf).sum(1).abs() ** 2 / (
         gf.abs().pow(2).sum(1) * wf.abs().pow(2).sum(1)
     )
     infid = float((1 - fid).max())
     print(
-        f"ip_sesolve batched vs plain on the SPD10 run: max|d| ="
+        f"ip_sesolve batched vs plain on the {name} run: max|d| ="
         f" {k1b_err:.3e} over {n_traj} trajectories (worst trajectory"
         f" {int(per_traj.argmax())}), final states 1-F <= {infid:.3e}"
     )
-    _check(k1b_err <= BATCHED_TOL, f"SPD10: {k1b_err:.3e} > {BATCHED_TOL}")
-    _check(infid <= FIDELITY_TOL, f"SPD10 1-F {infid:.3e}")
+    _check(k1b_err <= BATCHED_TOL, f"{name}: {k1b_err:.3e} > {BATCHED_TOL}")
+    _check(infid <= FIDELITY_TOL, f"{name} 1-F {infid:.3e}")
 
     k1b_s = _median_seconds(lambda: K.ip_sesolve(*bargs, **bkw))
-    lib = K.ip_sesolve_batched_library(n_q)
     counted, launched = launches_per_call(
         K, lib, lambda: K.ip_sesolve(*bargs, **bkw)
     )
     stages = sinfo["n_steps"] * 4
+    shape = _batched_shape_line(K, n_q)
     print(
         f"ip_sesolve batched per call: {counted} device kernel launch(es)"
-        f" counted, traced {sorted(set(launched))}; {k1b_s * 1e6 / stages:.3f}"
-        f" us per RK4 stage ({stages} stages per trajectory, all"
-        f" trajectories at once; {card})"
+        f" counted, traced {sorted(set(launched))}; {shape};"
+        f" {k1b_s * 1e6 / stages:.3f} us per RK4 stage of the batch"
+        f" ({stages} stages per trajectory; {card})"
     )
     _check_one_launch(counted, launched, "ip_sesolve_batched_kernel")
-    run_s = _median_seconds(spd.run)
+    # Three warm runs, each split into its parts
     parts = [_timed_parts(spd, S, sim) for _ in range(3)]
     part = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+    run_s = statistics.median(sum(p.values()) for p in parts)
     stage_s = _median_seconds(
         lambda: S.ip_batched_kernel_inputs(psi0_s, plans, diags, n_q, device)
     )
@@ -2247,7 +2311,7 @@ def _spd10_path(K, S, device, card: str) -> dict:
     )
     print(
         f"times on {card}: ip_sesolve batched {k1b_s * 1e3:.3f} ms, plain"
-        f" (once) {plain_s * 1e3:.3f} ms, warm SPD10 run()"
+        f" (once) {plain_s * 1e3:.3f} ms, warm {name} run()"
         f" {run_s * 1e3:.3f} ms, of which host prep (trajectory draws,"
         f" dense batch, plan staged on the host) {part['prep'] * 1e3:.3f}"
         f" ms, the solve call {part['solve'] * 1e3:.3f} ms (alone: staging"
@@ -2257,10 +2321,10 @@ def _spd10_path(K, S, device, card: str) -> dict:
         f" ({sinfo['n_steps']} RK4 steps, {n_traj} trajectories); bound"
         f" {bound_ms:.3f} ms ({bound_by})"
     )
-    _print_busy("SPD10 run()", *_device_busy(spd.run)[:2])
+    _print_busy(f"{name} run()", *_device_busy(spd.run)[:2])
     return {
         "name": "ip_sesolve_batched",
-        "path": "SPD10",
+        "path": name,
         "route": "cuda",
         "source": "pulser_tpu_torch/csrc/ip_sesolve_batched.cu",
         "replaces": "pulser_tpu/ops/pallas_kernels.py:112",
@@ -2272,6 +2336,24 @@ def _spd10_path(K, S, device, card: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def _batched_shape_line(K, n: int) -> str:
+    """The trajectory-batched mode's shape for n qubits, as the C library
+    reports it, checked against the wrapper's table: blocks and threads
+    a trajectory and the trajectories the card runs at once."""
+    got = K.ip_sesolve_batched_config(n)
+    want = K.ip_sesolve_batched_shape(n)
+    _check(
+        {k: got[k] for k in want} == want,
+        f"n={n}: the library's shape {got} is not the wrapper's {want}",
+    )
+    _check(got["active"] > 0, f"n={n}: no trajectory fits the card: {got}")
+    return (
+        f"{got['blocks']} block(s) of {got['threads']} threads a trajectory"
+        f" ({got['smem_bytes']} B dynamic shared memory a block),"
+        f" {got['active']} trajectories at once"
+    )
 
 
 def _rho_checks(rho: np.ndarray, ref: dict, what: str) -> None:
@@ -4957,10 +5039,15 @@ def _main_path(K, S, device, card: str) -> dict:
         "kernels": [
             _afm16_path(K, S, device, card),  # 6
             _tri16_path(K, S, device, card),  # 21
-            _spd10_path(K, S, device, card),  # 11-12
+            _spd_path(
+                K, S, device, card, "SPD10", spd10_sequence, _SPD10_GOLDEN
+            ),  # 11-12
             _noisy10_path(K, S, device, card),  # 7-8
             _regnoise10_path(K, S, device, card),  # 22
             _pauli10_path(K, S, device, card),  # 9-10
+            _spd_path(
+                K, S, device, card, "SPD16", spd16_sequence, _SPD16_GOLDEN
+            ),  # 32
         ],
         "paths": [
             _backend_afm16_path(K, S, card),  # 19
@@ -4984,6 +5071,8 @@ def _main_path(K, S, device, card: str) -> dict:
     report["paths"] += _sharding_phase(card)  # 29
     launches = {e["name"]: e["launches"] for e in serve if "launches" in e}
     k1, k2 = report["kernels"][0], report["kernels"][3]
+    k1b, spd16 = report["kernels"][2], report["kernels"][-1]
+    k1b["also_on"] = {"SPD16": spd16["launches"]}
     k1["also_on"] = {
         name: launches[name]["ip_sesolve"]
         for name in ("SERVE_AFM16", "SERVE_TRI16")

@@ -37,17 +37,9 @@
 // with cp.async and finds the next non-padding step while the current
 // one runs; every block skips h = 0 padding steps the same way, so all
 // meet the same barriers. Each segment's lab-frame state is written in
-// the same launch.
-//
-// Trajectory-batched mode (the TPU kernel's `segs_per_traj`), for the
-// n >= 14 whose state does not fit one block (below that
-// ip_sesolve_batched.cu gives each trajectory a block of its own): the
-// same cooperative kernel, instantiated with kBatched, runs the
-// trajectories one after another inside the ONE launch. The plan rows are
-// trajectory-major; at each trajectory's first segment every thread
-// resets its amplitudes from psi0 and reloads that trajectory's diagonal,
-// and no rotor is carried across the boundary. All blocks still meet the
-// same barriers. The single-trajectory instantiation compiles none of it.
+// the same launch. The trajectory-batched mode (the TPU kernel's
+// `segs_per_traj`) is ip_sesolve_batched.cu's: one block or one
+// thread-block cluster per trajectory, side by side.
 //
 // Conventions, as in the TPU kernel: qubit q is bit n-1-q of the flat
 // index (MSB first). The drive on qubit q is M_q = a_q |1><0| + conj(a_q)
@@ -75,8 +67,6 @@ namespace {
 
 constexpr int kMinQubits = 10;
 constexpr int kMaxQubits = 17;
-// The smallest n whose trajectory-batched mode runs here
-constexpr int kMinBatchedQubits = 14;
 constexpr int kMaxThreads = 512;
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -168,9 +158,7 @@ __device__ __forceinline__ void rotor(int idx, float dg, float t,
   sincosf(ph, &s, &c);
 }
 
-// kBatched: the n_seg segments are whole trajectories of `spt` segments
-// each, trajectory-major, and `diag` holds one diagonal per trajectory.
-template <int N, int A, bool kBatched>
+template <int N, int A>
 __global__ void __launch_bounds__(Shape<N, A>::kThreads,
                                    A == 1 ? 1024 / Shape<N, A>::kThreads : 1)
 ip_sesolve_kernel(const float* __restrict__ a_re,
@@ -184,7 +172,7 @@ ip_sesolve_kernel(const float* __restrict__ a_re,
                   const float* __restrict__ psi0_re,
                   const float* __restrict__ psi0_im,
                   float* __restrict__ out, float2* __restrict__ wbuf,
-                  int n_seg, int L, int spt) {
+                  int n_seg, int L) {
   using S = Shape<N, A>;
   constexpr int T = S::kThreads, G = S::kGrid, D = S::kDim;
   __shared__ float2 s_w[2][A * T];
@@ -283,19 +271,6 @@ ip_sesolve_kernel(const float* __restrict__ a_re,
         o[idx] = c * phi[a].x + s * phi[a].y;
         o[D + idx] = c * phi[a].y - s * phi[a].x;
       }
-      if constexpr (kBatched) {
-        // The next trajectory starts from psi0 with its own diagonal
-        const int done = emitted + 1;
-        if (done % spt == 0 && done < n_seg) {
-          const float* dn = diag + static_cast<long>(done / spt) * D;
-#pragma unroll
-          for (int a = 0; a < A; ++a) {
-            const int idx = gtid + a * G;
-            phi[a] = make_float2(psi0_re[idx], psi0_im[idx]);
-            dg[a] = dn[idx];
-          }
-        }
-      }
     }
     if (step >= total) break;
     const float h = r.h;
@@ -362,11 +337,7 @@ ip_sesolve_kernel(const float* __restrict__ a_re,
       if (j == 2 && warp == 0) {
         if (nxt < total) {
           const int after = first_real(seg_dts, nxt + 1, total, win);
-          // A rotor holds one trajectory's diagonal: none is carried
-          // into the next trajectory's first step
-          const bool same_traj =
-              !kBatched || nxt / (L * spt) == step / (L * spt);
-          finish_rows(nr, same_traj ? &r : nullptr, nxt, after);
+          finish_rows(nr, &r, nxt, after);
         } else if (lane == 0) {
           nr.step = total;
         }
@@ -396,16 +367,16 @@ __global__ void barrier_probe_kernel(int stages) {
   for (int i = 0; i < stages; ++i) grid.sync();
 }
 
-template <int N, int A, bool kBatched>
+template <int N, int A>
 cudaError_t try_launch(const float* a_re, const float* a_im, const float* cum,
                        const float* t_stage, const float* seg_dts,
                        const float* eval_t, const float* eval_cum,
                        const float* diag, const float* psi0_re,
                        const float* psi0_im, float* out, void* wbuf,
-                       int n_seg, int L, int spt, cudaStream_t st,
-                       int* config, bool* fits) {
+                       int n_seg, int L, cudaStream_t st, int* config,
+                       bool* fits) {
   using S = Shape<N, A>;
-  auto kern = ip_sesolve_kernel<N, A, kBatched>;
+  auto kern = ip_sesolve_kernel<N, A>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -425,7 +396,7 @@ cudaError_t try_launch(const float* a_re, const float* a_im, const float* cum,
   float2* w = static_cast<float2*>(wbuf);
   void* args[] = {&a_re,    &a_im,    &cum, &t_stage, &seg_dts,
                   &eval_t,  &eval_cum, &diag, &psi0_re, &psi0_im,
-                  &out,     &w,       &n_seg, &L,    &spt};
+                  &out,     &w,       &n_seg, &L};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern),
                                     dim3(S::kBlocks), dim3(S::kThreads), args,
                                     0, st);
@@ -436,22 +407,22 @@ cudaError_t try_launch(const float* a_re, const float* a_im, const float* cum,
 // The smallest number of amplitudes per thread whose grid is
 // co-resident on the card, then the launch (or, with `config`, only the
 // grid's blocks, threads and amplitudes per thread).
-template <int N, bool kBatched>
+template <int N>
 cudaError_t launch_n(const float* a_re, const float* a_im, const float* cum,
                      const float* t_stage, const float* seg_dts,
                      const float* eval_t, const float* eval_cum,
                      const float* diag, const float* psi0_re,
                      const float* psi0_im, float* out, void* wbuf, int n_seg,
-                     int L, int spt, cudaStream_t st, int* config) {
+                     int L, cudaStream_t st, int* config) {
   bool fits = false;
-  cudaError_t err = try_launch<N, 1, kBatched>(
+  cudaError_t err = try_launch<N, 1>(
       a_re, a_im, cum, t_stage, seg_dts, eval_t, eval_cum, diag, psi0_re,
-      psi0_im, out, wbuf, n_seg, L, spt, st, config, &fits);
+      psi0_im, out, wbuf, n_seg, L, st, config, &fits);
   if (err != cudaSuccess || fits) return err;
   if constexpr (N >= 17) {
-    err = try_launch<N, 2, kBatched>(
+    err = try_launch<N, 2>(
         a_re, a_im, cum, t_stage, seg_dts, eval_t, eval_cum, diag, psi0_re,
-        psi0_im, out, wbuf, n_seg, L, spt, st, config, &fits);
+        psi0_im, out, wbuf, n_seg, L, st, config, &fits);
     if (err != cudaSuccess || fits) return err;
   }
   return cudaErrorCooperativeLaunchTooLarge;
@@ -466,33 +437,11 @@ cudaError_t dispatch(int n, const float* a_re, const float* a_im,
                      int* config) {
 #define PT_IP_CASE(NQ)                                                      \
   case NQ:                                                                  \
-    return launch_n<NQ, false>(a_re, a_im, cum, t_stage, seg_dts, eval_t,   \
-                               eval_cum, diag, psi0_re, psi0_im, out, wbuf, \
-                               n_seg, L, n_seg, st, config);
+    return launch_n<NQ>(a_re, a_im, cum, t_stage, seg_dts, eval_t,          \
+                        eval_cum, diag, psi0_re, psi0_im, out, wbuf, n_seg, \
+                        L, st, config);
   switch (n) {
     PT_IP_CASE(10) PT_IP_CASE(11) PT_IP_CASE(12) PT_IP_CASE(13)
-    PT_IP_CASE(14) PT_IP_CASE(15) PT_IP_CASE(16) PT_IP_CASE(17)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PT_IP_CASE
-}
-
-// The trajectory-batched mode, for the n whose state does not fit one
-// block.
-cudaError_t dispatch_batched(int n, const float* a_re, const float* a_im,
-                             const float* cum, const float* t_stage,
-                             const float* seg_dts, const float* eval_t,
-                             const float* eval_cum, const float* diags,
-                             const float* psi0_re, const float* psi0_im,
-                             float* out, void* wbuf, int n_seg, int L,
-                             int spt, cudaStream_t st) {
-#define PT_IP_CASE(NQ)                                                      \
-  case NQ:                                                                  \
-    return launch_n<NQ, true>(a_re, a_im, cum, t_stage, seg_dts, eval_t,    \
-                              eval_cum, diags, psi0_re, psi0_im, out, wbuf, \
-                              n_seg, L, spt, st, nullptr);
-  switch (n) {
     PT_IP_CASE(14) PT_IP_CASE(15) PT_IP_CASE(16) PT_IP_CASE(17)
     default:
       return cudaErrorInvalidValue;
@@ -528,29 +477,6 @@ extern "C" int ip_sesolve_run(const float* a_re, const float* a_im,
   return cudaGetLastError();
 }
 
-// The trajectory-batched mode of ip_sesolve_run for kMinBatchedQubits <=
-// n <= 17: the n_seg = B * segs_per_traj plan rows are B trajectories,
-// trajectory-major, `diags` is (B, 2^n), and each trajectory starts from
-// psi0; they run one after another inside one cooperative launch. Other
-// arguments, output and return value as ip_sesolve_run;
-// cudaErrorInvalidValue also when n_seg is no multiple of segs_per_traj.
-extern "C" int ip_sesolve_run_batched(
-    const float* a_re, const float* a_im, const float* cum,
-    const float* t_stage, const float* seg_dts, const float* eval_t,
-    const float* eval_cum, const float* diags, const float* psi0_re,
-    const float* psi0_im, float* out, void* wbuf, int n_seg,
-    int segs_per_traj, int seg_len, int n, void* stream) {
-  if (n < kMinBatchedQubits || n > kMaxQubits || n_seg < 1 || seg_len < 1 ||
-      segs_per_traj < 1 || n_seg % segs_per_traj != 0)
-    return cudaErrorInvalidValue;
-  cudaError_t err = dispatch_batched(
-      n, a_re, a_im, cum, t_stage, seg_dts, eval_t, eval_cum, diags, psi0_re,
-      psi0_im, out, wbuf, n_seg, seg_len, segs_per_traj,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // The grid ip_sesolve_run launches for n qubits on the current device:
 // config = (blocks, threads per block, amplitudes per thread).
 extern "C" int ip_sesolve_config(int n, int* config) {
@@ -573,9 +499,9 @@ extern "C" int ip_sesolve_barrier_probe(int blocks, int threads, int stages,
   return cudaGetLastError();
 }
 
-// The device kernels this library has launched so far (ip_sesolve_run,
-// ip_sesolve_run_batched and ip_sesolve_barrier_probe make one each): a caller counts the launches
-// of one call as the difference, without a profiler.
+// The device kernels this library has launched so far (ip_sesolve_run
+// and ip_sesolve_barrier_probe make one each): a caller counts the
+// launches of one call as the difference, without a profiler.
 extern "C" unsigned long long ip_sesolve_device_launches() {
   return g_device_launches.load();
 }

@@ -4,11 +4,10 @@
   ``pulser_tpu/ops/pallas_kernels.py``: a fused interaction-picture RK4
   sesolve over the evaluation segments of a plan (d=2, one
   ground-rydberg basis). Source: ``pulser_tpu_torch/csrc/ip_sesolve.cu``.
-  Its trajectory-batched mode (``segs_per_traj``) gives each trajectory a
-  thread block of its own for n ≤ 13
-  (``pulser_tpu_torch/csrc/ip_sesolve_batched.cu``) and runs the
-  trajectories one after another inside the cooperative kernel of
-  ``ip_sesolve.cu`` for n ≥ 14.
+  Its trajectory-batched mode (``segs_per_traj``) runs the trajectories
+  side by side in ``pulser_tpu_torch/csrc/ip_sesolve_batched.cu``: a
+  thread block each for n ≤ 13, a thread-block cluster each for n ≥ 14
+  (:data:`IP_BATCHED_SHAPES`).
 - ``mcwf_rows`` replaces the TPU kernel ``_mcwf_rows_kernel`` of the same
   file: the row-batched interaction-picture quantum-jump solve with
   diagonal collapse operators. Source:
@@ -51,8 +50,8 @@ SOURCES = {
 #: solve).
 IP_SESOLVE_LAUNCHES = 0
 #: Launches of the trajectory-batched mode of :func:`ip_sesolve` (one
-#: per whole batch: ``ip_sesolve_batched_kernel`` for n ≤ 13, the
-#: cooperative ``ip_sesolve_kernel`` above that).
+#: ``ip_sesolve_batched_kernel`` per whole batch: a thread block per
+#: trajectory for n ≤ 13, a thread-block cluster per trajectory above).
 IP_SESOLVE_BATCHED_LAUNCHES = 0
 #: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
 MCWF_ROWS_LAUNCHES = 0
@@ -65,9 +64,27 @@ MCWF_ROWS_CARRIED: torch.Tensor | None = None
 
 #: The qubit counts ``ip_sesolve_kernel`` is instantiated for.
 IP_MIN_QUBITS, IP_MAX_QUBITS = 10, 17
-#: The largest n whose trajectory-batched solve gives each trajectory one
-#: thread block (``ip_sesolve_batched_kernel``).
+#: The cluster gate of the trajectory-batched mode: up to this n each
+#: trajectory runs in one thread block of ``ip_sesolve_batched_kernel``
+#: (at most 2^13 amplitudes); above it, in one thread-block cluster of
+#: blocks of the same kernel (:data:`IP_BATCHED_SHAPES`).
 IP_BLOCK_MAX_QUBITS = 13
+#: The trajectory-batched mode's block shape by n, a fixed table that
+#: ``ip_sesolve_batched.cu``'s ``PT_IPB_SHAPES`` instantiates:
+#: ``(block_qubits, threads)``, a block of 2^block_qubits amplitudes, so a
+#: trajectory runs on ``2^(n - block_qubits)`` blocks, one cluster. For
+#: n = 14–16 both block sizes were timed in turns (``tools/block_sizes.py
+#: ip_sesolve_batched_cluster``, NVIDIA H100 80GB HBM3 at 700 W, 100
+#: random trajectories of 254 steps): 2^13 amplitudes and 1024 threads
+#: won at n = 14 (25.653 against 26.254 ms) and n = 16 (101.542 against
+#: 117.740; SPD16's 100 trajectories 1197.385 against 1401.732), 2^12 and
+#: 512 threads at n = 15 (50.306 against 53.534). n = 17 has one shape,
+#: 16 blocks of 2^13, which beat the cooperative kernel that ran the
+#: trajectories one after another (241.863 against 392.273 ms).
+IP_BATCHED_SHAPES = {
+    10: (10, 1024), 11: (11, 1024), 12: (12, 1024), 13: (13, 1024),
+    14: (13, 1024), 15: (12, 512), 16: (13, 1024), 17: (13, 1024),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -165,8 +182,6 @@ def _load(name: str) -> ctypes.CDLL:
         if name == "ip_sesolve":
             lib.ip_sesolve_run.restype = i
             lib.ip_sesolve_run.argtypes = [p] * 12 + [i] * 3 + [p]
-            lib.ip_sesolve_run_batched.restype = i
-            lib.ip_sesolve_run_batched.argtypes = [p] * 12 + [i] * 4 + [p]
             lib.ip_sesolve_config.restype = i
             lib.ip_sesolve_config.argtypes = [i, p]
             lib.ip_sesolve_barrier_probe.restype = i
@@ -174,6 +189,8 @@ def _load(name: str) -> ctypes.CDLL:
         elif name == "ip_sesolve_batched":
             lib.ip_sesolve_batched_run.restype = i
             lib.ip_sesolve_batched_run.argtypes = [p] * 11 + [i] * 4 + [p]
+            lib.ip_sesolve_batched_config.restype = i
+            lib.ip_sesolve_batched_config.argtypes = [i, p]
         elif name == "mcwf_rows":
             lib.mcwf_rows_run.restype = i
             lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
@@ -324,29 +341,20 @@ def ip_sesolve(
         )
     ]
     global IP_SESOLVE_LAUNCHES, IP_SESOLVE_BATCHED_LAUNCHES
-    if segs_per_traj is not None and n <= IP_BLOCK_MAX_QUBITS:
+    if segs_per_traj is not None:
         entry = "ip_sesolve_batched_run"
         err = _load("ip_sesolve_batched").ip_sesolve_batched_run(
             *ptrs, n_traj, segs_per_traj, seg_len, n, stream
         )
         IP_SESOLVE_BATCHED_LAUNCHES += 1
     else:
-        lib = _load("ip_sesolve")
+        entry = "ip_sesolve_run"
         # The double-buffered rotated stage input, interleaved (re, im)
         wbuf = torch.empty((2, dim, 2), dtype=torch.float32, device=dev)
-        if segs_per_traj is None:
-            entry = "ip_sesolve_run"
-            err = lib.ip_sesolve_run(
-                *ptrs, wbuf.data_ptr(), n_seg, seg_len, n, stream
-            )
-            IP_SESOLVE_LAUNCHES += 1
-        else:
-            entry = "ip_sesolve_run_batched"
-            err = lib.ip_sesolve_run_batched(
-                *ptrs, wbuf.data_ptr(), n_seg, segs_per_traj, seg_len, n,
-                stream,
-            )
-            IP_SESOLVE_BATCHED_LAUNCHES += 1
+        err = _load("ip_sesolve").ip_sesolve_run(
+            *ptrs, wbuf.data_ptr(), n_seg, seg_len, n, stream
+        )
+        IP_SESOLVE_LAUNCHES += 1
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}.")
     return out
@@ -368,8 +376,44 @@ def _n_trajectories(n_seg: int, segs_per_traj: int | None) -> int:
 def ip_sesolve_batched_library(n: int) -> str:
     """The kernel of :data:`SOURCES` whose library runs the
     trajectory-batched mode of :func:`ip_sesolve` for n qubits (its
-    device launches are ``device_launches`` of that name)."""
-    return "ip_sesolve_batched" if n <= IP_BLOCK_MAX_QUBITS else "ip_sesolve"
+    device launches are ``device_launches`` of that name): one library
+    for every n, a block or a cluster per trajectory."""
+    if n not in IP_BATCHED_SHAPES:
+        raise ValueError(f"The batched mode takes 10 <= n <= 17, not n={n}.")
+    return "ip_sesolve_batched"
+
+
+def ip_sesolve_batched_shape(n: int) -> dict[str, int]:
+    """The block shape of the trajectory-batched mode for n qubits
+    (:data:`IP_BATCHED_SHAPES`), as ``ip_sesolve_batched.cu`` lays it out:
+    ``block_qubits``, ``blocks`` per trajectory (the cluster), ``threads``
+    per block, ``amps`` per thread and dynamic ``smem_bytes`` per block
+    (two complex planes of the stage input, a third for the RK4
+    accumulator from 8 amplitudes a thread)."""
+    nb, threads = IP_BATCHED_SHAPES[n]
+    amps = (1 << nb) // threads
+    return dict(
+        block_qubits=nb,
+        blocks=1 << (n - nb),
+        threads=threads,
+        amps=amps,
+        smem_bytes=(3 if amps >= 8 else 2) * (1 << nb) * 8,
+    )
+
+
+def ip_sesolve_batched_config(n: int) -> dict[str, int]:
+    """The shape the C library launches for n qubits on the current card
+    (the keys of :func:`ip_sesolve_batched_shape`), with the trajectories
+    it runs at once (``active``: the occupancy API's clusters, or blocks
+    for one block a trajectory)."""
+    config = (ctypes.c_int * 6)()
+    err = _load("ip_sesolve_batched").ip_sesolve_batched_config(n, config)
+    if err != 0:
+        raise RuntimeError(
+            f"ip_sesolve_batched_config failed: CUDA error {err}."
+        )
+    keys = ("block_qubits", "blocks", "threads", "amps", "smem_bytes", "active")
+    return dict(zip(keys, config))
 
 
 def ip_sesolve_grid(n: int) -> tuple[int, int, int]:

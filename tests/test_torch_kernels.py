@@ -17,6 +17,7 @@ on that test's inputs staged by the port and on random inputs.
 
 from __future__ import annotations
 
+import re
 import numpy as np
 import pytest
 import torch
@@ -129,7 +130,9 @@ def test_batched_plain_twin_matches_pallas_on_the_jax_tests_inputs():
     assert np.max(np.abs(plain[1] - plain[3])) > 1e-2
 
 
-@pytest.mark.parametrize("n, n_traj, seed", [(10, 3, 0), (10, 1, 1), (11, 2, 2)])
+@pytest.mark.parametrize(
+    "n, n_traj, seed", [(10, 3, 0), (10, 1, 1), (11, 2, 2), (14, 2, 3)]
+)
 def test_batched_plain_twin_matches_pallas_interpret(n, n_traj, seed):
     """Random drives, phase integrals and diagonals, all different per
     trajectory; 2 segments x 4 steps, the second starting with padding."""
@@ -176,14 +179,29 @@ def test_batched_padding_differs_per_trajectory():
     assert float((mod[0, 0] - mod[0, 1]).abs().max()) > 1e-5
 
 
-@pytest.mark.parametrize("n, lib", [(10, "ip_sesolve_batched"), (13, "ip_sesolve_batched"), (14, "ip_sesolve"), (17, "ip_sesolve")])
-def test_batched_mode_library_by_size(n, lib):
-    """One block per trajectory while the state fits a block, the
-    cooperative kernel above; both sources hold their C entry."""
-    assert K.ip_sesolve_batched_library(n) == lib
-    entry = {
-        "ip_sesolve_batched": "ip_sesolve_batched_run",
-        "ip_sesolve": "ip_sesolve_run_batched",
-    }[lib]
-    with open(K.SOURCES[lib]) as f:
-        assert f'extern "C" int {entry}(' in f.read()
+@pytest.mark.parametrize("n", [10, 13, 14, 17])
+def test_batched_mode_library_by_size(n):
+    """Every batched size runs in the one batched library: one block per
+    trajectory while the state fits a block, one thread-block cluster per
+    trajectory above; its source holds the C entry."""
+    assert K.ip_sesolve_batched_library(n) == "ip_sesolve_batched"
+    shape = K.ip_sesolve_batched_shape(n)
+    assert shape["blocks"] == (1 if n <= K.IP_BLOCK_MAX_QUBITS else 1 << (n - 13))
+    with open(K.SOURCES["ip_sesolve_batched"]) as f:
+        assert 'extern "C" int ip_sesolve_batched_run(' in f.read()
+
+
+@pytest.mark.parametrize("n", sorted(K.IP_BATCHED_SHAPES))
+def test_batched_shape_table(n):
+    """The wrapper's table of the batched mode's block shapes: a
+    trajectory's blocks hold its 2^n amplitudes, a cluster has at most 16
+    blocks, a block fits the card's shared memory, and the source
+    instantiates each n in that shape and no other."""
+    shape = K.ip_sesolve_batched_shape(n)
+    assert shape["blocks"] * shape["threads"] * shape["amps"] == 1 << n
+    assert shape["blocks"] <= 16 and shape["threads"] <= 1024
+    assert shape["smem_bytes"] <= 232_448  # a block's shared memory on an H100
+    threads = "kThreads" if shape["threads"] == 1024 else "kThreads / 2"
+    with open(K.SOURCES["ip_sesolve_batched"]) as f:
+        cases = re.findall(rf"CASE\({n}, (\d+), ([^)]*)\)", f.read())
+    assert cases == [(str(shape["block_qubits"]), threads)]

@@ -74,8 +74,8 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("n", list(range(10, 18)))
 def test_cuda_batched_kernel_matches_plain_twin(cuda, n, n_traj):
     """The trajectory-batched mode: one block per trajectory up to n = 13,
-    the cooperative kernel above; every trajectory with its own drives,
-    phase integrals and diagonal, reset from psi0."""
+    one thread-block cluster per trajectory above; every trajectory with
+    its own drives, phase integrals and diagonal, reset from psi0."""
     args, kw = chip_smoke.random_batched_kernel_inputs(
         n, n, cuda, n_traj=n_traj
     )
@@ -93,7 +93,7 @@ def test_cuda_batched_kernel_matches_plain_twin(cuda, n, n_traj):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [10, 12, 14])
+@pytest.mark.parametrize("n", [10, 12, 14, 15, 16, 17])
 def test_cuda_batched_kernel_equals_single_solves(cuda, n):
     """Each trajectory of a batch equals the single-trajectory kernel on
     its own rows and diagonal (same arithmetic, other grid)."""
@@ -109,7 +109,7 @@ def test_cuda_batched_kernel_equals_single_solves(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [10, 13, 15])
+@pytest.mark.parametrize("n", [10, 13, 14, 15, 16, 17])
 def test_cuda_batched_kernel_padding_steps(cuda, n):
     """Leading all-padding segments (an evaluation at t = 0), a first
     real step beyond the 32 a warp looks at in one go, and per-trajectory
@@ -128,7 +128,7 @@ def test_cuda_batched_kernel_padding_steps(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [10, 13, 14, 17])
+@pytest.mark.parametrize("n", [10, 13, 14, 15, 16, 17])
 def test_cuda_batched_kernel_is_one_device_launch(cuda, n):
     args, kw = chip_smoke.random_batched_kernel_inputs(n, n, cuda)
 
@@ -141,8 +141,28 @@ def test_cuda_batched_kernel_is_one_device_launch(cuda, n):
     )
     assert counted == 1
     assert not launched or (
-        len(launched) == 1 and "ip_sesolve" in launched[0]
+        len(launched) == 1 and "ip_sesolve_batched_kernel" in launched[0]
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [14, 17])
+def test_cuda_batched_kernel_in_waves(cuda, n):
+    """More trajectories than the card runs clusters at once (two waves
+    and one more), against the plain version; the library's shape is
+    the wrapper's."""
+    shape = K.ip_sesolve_batched_config(n)
+    assert {k: shape[k] for k in K.ip_sesolve_batched_shape(n)} == (
+        K.ip_sesolve_batched_shape(n)
+    )
+    n_traj = 2 * shape["active"] + 1
+    args, kw = chip_smoke.random_batched_kernel_inputs(
+        n, 90 + n, cuda, n_traj=n_traj, seg_len=4
+    )
+    got = K.ip_sesolve(*args, **kw)
+    torch.cuda.synchronize()
+    want = K.ip_sesolve_reference(*args, **kw)
+    assert float((got - want).abs().max()) <= BATCHED_TOL
 
 
 @pytest.mark.cuda

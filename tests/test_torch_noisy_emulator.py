@@ -442,6 +442,75 @@ def test_pure_state_batch_policy_matches_pulser_tpu(jax_unsharded):
     assert step_t == step_j and step_t[1]
 
 
+def test_spd16_batch_inputs_match_pulser_tpu(jax_unsharded, monkeypatch):
+    """SPD16 (the 16-atom sweep under SPAM, doppler and amplitude noise)
+    with 4 trajectories, in single precision: from one numpy seed both
+    packages draw the same coefficient batch, build the same batched plan
+    and hand the batched solve the same per-trajectory diagonals, bit for
+    bit. The solves themselves (2^16 amplitudes) are not run."""
+    import chip_smoke
+    from pulser_tpu.emulator import simulation as jax_sim
+
+    seq, noise = chip_smoke.spd16_sequence(tpu, runs=4)
+    assert set(noise.noise_types) == {"SPAM", "doppler", "amplitude"}
+
+    class Stop(Exception):
+        pass
+
+    captured = {}
+
+    def recorder(key):
+        def record(*args, **kwargs):
+            captured[key] = args
+            raise Stop
+
+        return record
+
+    monkeypatch.setattr(jax_sim, "sesolve_rk4_batched", recorder("jax"))
+    monkeypatch.setattr(torch_solver, "sesolve_rk4_batched", recorder("port"))
+    jax.config.update("jax_enable_x64", False)
+    try:
+        jemu, temu = _both(seq, noise)
+        jb, tb = jemu._noisy_coeff_batch(), temu._noisy_coeff_batch()
+        for emu in (jemu, temu):
+            np.random.seed(SEED)
+            with pytest.raises(Stop):
+                emu.run()
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    assert tb.reps == jb.reps and len(tb.reps) == 4
+    for name in ("amp", "det", "diags"):
+        assert np.array_equal(
+            np.asarray(getattr(tb, name)), np.asarray(getattr(jb, name))
+        ), name
+    jargs, targs = captured["jax"], captured["port"]
+    assert targs[3:6] == jargs[3:6] and targs[5] == 16  # pairs, d, n
+    jplans, tplans = jargs[1], targs[1]
+    assert tplans.n_traj == jplans.n_traj == 4
+    jplan, tplan = jplans.plan, tplans.plan
+    for field in (
+        "dts", "store_idx", "grid", "eval_times", "eval_map", "seg_map",
+        "seg_dts", "eval_det_cum", "knots",
+    ):
+        assert np.array_equal(
+            getattr(tplan, field), np.asarray(getattr(jplan, field))
+        ), field
+    assert (tplan.n_eval, tplan.eval_idx0) == (jplan.n_eval, jplan.eval_idx0)
+    assert tplan.stage_arrays.keys() == jplan.stage_arrays.keys()
+    for name, arr in tplan.stage_arrays.items():
+        assert np.array_equal(arr, np.asarray(jplan.stage_arrays[name])), name
+    for got, want in zip(tplan.stage_knots, jplan.stage_knots):
+        assert np.array_equal(got, np.asarray(want))
+    # The per-trajectory interaction diagonals, (4, 2^16)
+    diags = np.asarray(targs[2])
+    assert diags.shape == (4, 1 << 16)
+    assert np.array_equal(diags, np.asarray(jargs[2]))
+    # The trajectories differ in their drives (amplitude and doppler)
+    amp, det = np.asarray(tb.amp), np.asarray(tb.det)
+    assert np.max(np.abs(amp[0] - amp[1])) > 0
+    assert np.max(np.abs(det[0] - det[1])) > 0
+
+
 def test_pure_state_run_twice_and_progress(jax_unsharded, capsys):
     """A second run() redraws the trajectories from the same point of
     the RNG stream as the JAX package's."""

@@ -12,7 +12,14 @@ both alike. Needs a CUDA card. Run from the repository root::
     python3 tools/warm_ab.py PARENT_DIR CHANGE_DIR [--rounds 3] [--reps 15]
         [--paths AFM16,NOISY10]
 
-Paths: AFM16, NOISY10, SPD10, PAULI10 (seed 1234, as chip_smoke.py).
+Paths: AFM16, NOISY10, SPD10, PAULI10 and SPD16 (the 16-atom sweep under
+SPD10's noise, 100 trajectories of 10 samples, built here from
+chip_smoke's AFM16 sequence and NOISY10 noise, so that trees older than
+``chip_smoke.spd16_sequence`` run it too), seed 1234, as chip_smoke.py.
+The pure-state batches (SPD10, SPD16) also report the host preparation
+of a warm run (``chip_smoke._timed_parts``, median of 3) under ``NAME
+prep`` and the device's busy share of one traced run in percent under
+``NAME busy``.
 """
 
 from __future__ import annotations
@@ -48,10 +55,17 @@ def warm(emu):
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
 
+def spd16():
+    from pulser_tpu_torch import NoiseModel
+
+    params = {k: v for k, v in C._NOISY10_NOISE.items() if k != "dephasing_rate"}
+    return C.afm16_sequence(), NoiseModel(**params)
+
 noisy = {
     "NOISY10": C.noisy10_sequence,
     "SPD10": C.spd10_sequence,
     "PAULI10": C.pauli10_sequence,
+    "SPD16": spd16,
 }
 out = {}
 for name in paths:
@@ -66,6 +80,14 @@ for name in paths:
             seq, noise_model=noise, evaluation_times="Minimal"
         )
     out[name] = warm(emu)
+    if name in ("SPD10", "SPD16"):
+        from pulser_tpu_torch.emulator import simulation as sim
+        from pulser_tpu_torch.ops import solver as S
+
+        parts = [C._timed_parts(emu, S, sim)["prep"] for _ in range(3)]
+        out[name + " prep"] = statistics.median(parts) * 1e3
+        wall_s, busy_ms = C._device_busy(emu.run)[:2]
+        out[name + " busy"] = 100 * busy_ms / 1e3 / wall_s
 print(json.dumps(out))
 """
 
