@@ -1205,22 +1205,21 @@ def _plane_probs(states) -> np.ndarray:
     return st[:, 0] ** 2 + st[:, 1] ** 2
 
 
-#: Launch counters of the wrappers in ``pulser_tpu_torch.ops.kernels``.
-_COUNTERS = {
-    "ip_sesolve": "IP_SESOLVE_LAUNCHES",
-    "ip_sesolve_batched": "IP_SESOLVE_BATCHED_LAUNCHES",
-    "mcwf_rows": "MCWF_ROWS_LAUNCHES",
-    "mcwf": "MCWF_LAUNCHES",
-}
+#: The wrappers' launch counts (``pulser_tpu_torch.ops.kernels.launches``)
+#: at the last :func:`_reset_launches`.
+_LAUNCHES_AT_RESET: dict = {}
 
 
 def _reset_launches(K) -> None:
-    for attr in _COUNTERS.values():
-        setattr(K, attr, 0)
+    _LAUNCHES_AT_RESET.update({name: K.launches(name) for name in K.SOURCES})
 
 
 def _launches(K) -> dict:
-    return {name: getattr(K, attr) for name, attr in _COUNTERS.items()}
+    """The wrappers' launches by kernel since :func:`_reset_launches`."""
+    return {
+        name: K.launches(name) - _LAUNCHES_AT_RESET.get(name, 0)
+        for name in K.SOURCES
+    }
 
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W):
@@ -4297,6 +4296,12 @@ def _foreign_modules() -> list:
     )
 
 
+def _sent_since(profiling, before: dict, name: str) -> int:
+    """The bytes counted under ``name`` since the counter report
+    ``before``."""
+    return profiling.counter_report().get(name, 0) - before.get(name, 0)
+
+
 def _shard_rank(case: str, env: dict, n_atoms: int, device=None) -> dict:
     """One rank's run of a sharding case through ``TorchEmulator``, on the
     card unless ``device`` says otherwise: its route, wall ms, the bytes it
@@ -4308,6 +4313,7 @@ def _shard_rank(case: str, env: dict, n_atoms: int, device=None) -> dict:
     import torch
     import torch.distributed as dist
 
+    from pulser_tpu_torch import profiling
     from pulser_tpu_torch.emulator import TorchEmulator
     from pulser_tpu_torch.ops import solver as S
     from pulser_tpu_torch.parallel import comm, mesh2d, state_sharding
@@ -4343,7 +4349,7 @@ def _shard_rank(case: str, env: dict, n_atoms: int, device=None) -> dict:
             (seq, noise), seed = deph10_sequence(), None
         else:
             (seq, noise), seed = spd10_sequence(), 1234
-        comm.EXCHANGED.update(bytes=0, gathered=0)
+        sent = profiling.counter_report()
         if device != "cpu":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4390,8 +4396,8 @@ def _shard_rank(case: str, env: dict, n_atoms: int, device=None) -> dict:
         "info": info,
         "ms": wall_ms,
         "peak_bytes": peak,
-        "exchanged": comm.EXCHANGED["bytes"],
-        "gathered": comm.EXCHANGED["gathered"],
+        "exchanged": _sent_since(profiling, sent, comm.EXCHANGED_BYTES),
+        "gathered": _sent_since(profiling, sent, comm.GATHERED_BYTES),
         "foreign": _foreign_modules(),
         "digest": digest,
         "counts": counts,

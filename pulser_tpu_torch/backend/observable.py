@@ -18,6 +18,7 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 from numpy.typing import ArrayLike, NDArray
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.backend.operator import Operator
 from pulser_tpu_torch.backend.state import State
 
@@ -144,13 +145,11 @@ class Observable(Callback):
             else 1e-6
         )
         if self._is_due(config, t, tol):
-            result._store(
-                observable=self,
-                time=t,
-                value=self.apply(
+            with profiling.phase(f"observable.{self._base_tag}"):
+                value = self.apply(
                     config=config, state=state, hamiltonian=hamiltonian
-                ),
-            )
+                )
+            result._store(observable=self, time=t, value=value)
 
     @abstractmethod
     def apply(

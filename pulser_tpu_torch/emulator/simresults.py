@@ -20,6 +20,7 @@ from typing import Optional, Tuple, TypeVar, Union, cast
 import numpy as np
 from numpy.typing import ArrayLike
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.backend.results import ResultsSequence
 from pulser_tpu_torch.emulator.qobj import Qobj, basis as basis_ket, tensor
 from pulser_tpu_torch.emulator.sim_result import TorchResult
@@ -155,6 +156,13 @@ class SimulationResults(ABC, ResultsSequence[ResultType]):
         Returns:
             Sample distribution of bitstrings at time t.
         """
+        with profiling.phase("results.sample"):
+            return self._sample_state(t, n_samples, t_tol)
+
+    def _sample_state(
+        self, t: float, n_samples: int, t_tol: float
+    ) -> Counter:
+        """The draws of :meth:`sample_state`."""
         t_index = self._get_index_from_time(t, t_tol)
         return self[t_index].get_samples(n_samples)
 
@@ -460,16 +468,16 @@ class CoherentResults(SimulationResults[TorchResult]):
             )
         return super()._meas_projector(state_n)
 
-    def sample_state(
-        self, t: float, n_samples: int = 1000, t_tol: float = 1.0e-3
+    def _sample_state(
+        self, t: float, n_samples: int, t_tol: float
     ) -> Counter:
-        """The result of multiple measurements at time t.
+        """The draws of :meth:`sample_state`.
 
         SPAM measurement errors are applied as vectorized random XOR
         flips, drawn from the numpy global RNG in the JAX package's
         order.
         """
-        sampled_state = super().sample_state(t, n_samples, t_tol)
+        sampled_state = super()._sample_state(t, n_samples, t_tol)
         if self._meas_errors is None or (
             self._meas_errors["epsilon"] == 0.0
             and self._meas_errors["epsilon_prime"] == 0

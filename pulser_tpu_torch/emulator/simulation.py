@@ -291,93 +291,97 @@ class TorchEmulator:
         torch_device: Union[str, torch.device, None] = None,
     ) -> None:
         """Instantiates a TorchEmulator object."""
-        if not isinstance(sampled_seq, SequenceSamples):
-            raise TypeError(
-                "The provided sequence has to be a valid "
-                "SequenceSamples instance."
-            )
-        if sampled_seq.max_duration == 0:
-            raise ValueError("SequenceSamples is empty.")
-        self._sampling_rate = sampling_rate
-        device.validate_register(register)
-        self._register = register
-        self._torch_device = _solver_mod._resolve_device(torch_device)
-        self.solver = Solver(solver)
-        # Smallest quantized step chosen so far, per solver context —
-        # see _sticky_quantized_step
-        self._sticky_steps: dict[str, float] = {}
-        if (
-            sampled_seq._slm_mask.end > 0
-            and not device.supports_slm_mask
-        ):
-            raise ValueError(
-                "Samples use SLM mask but device does not have one."
-            )
-        if not sampled_seq.used_bases <= device.supported_bases:
-            raise ValueError(
-                "Bases used in samples should be supported by device."
-            )
-        if not sampled_seq._slm_mask.targets <= set(register.qubit_ids):
-            raise ValueError(
-                "The ids of qubits targeted in SLM mask"
-                " should be defined in register."
-            )
-
-        self._tot_duration = sampled_seq.max_duration
-        self.samples_obj = sampled_seq.extend_duration(
-            self._tot_duration + 1
-        )
-        self._n_trajectories = n_trajectories
-
-        if not (0 < sampling_rate <= 1.0):
-            raise ValueError(
-                "The sampling rate (`sampling_rate` = "
-                f"{sampling_rate}) must be greater than 0 and "
-                "less than or equal to 1."
-            )
-        if int(self._tot_duration * sampling_rate) < 4:
-            raise ValueError(
-                "`sampling_rate` is too small, less than 4 data points."
-            )
-
-        if noise_model is not None and config is not None:
-            raise ValueError(
-                "'noise_model' and 'config' cannot both be provided to "
-                "'TorchEmulator'. Please provide just a 'noise_model'."
-            )
-        if config is not None:
-            with warnings.catch_warnings():
-                warnings.simplefilter("once")
-                warnings.warn(
-                    "Supplying a 'SimConfig' to the emulator has been "
-                    "deprecated. Please instantiate with a 'NoiseModel' "
-                    "instead.",
-                    DeprecationWarning,
-                    stacklevel=2,
+        with profiling.phase("emulator.init"):
+            if not isinstance(sampled_seq, SequenceSamples):
+                raise TypeError(
+                    "The provided sequence has to be a valid "
+                    "SequenceSamples instance."
                 )
-            noise_model = config.to_noise_model()
-        if not noise_model:
-            noise_model = NoiseModel()
+            if sampled_seq.max_duration == 0:
+                raise ValueError("SequenceSamples is empty.")
+            self._sampling_rate = sampling_rate
+            device.validate_register(register)
+            self._register = register
+            self._torch_device = _solver_mod._resolve_device(torch_device)
+            self.solver = Solver(solver)
+            # Smallest quantized step chosen so far, per solver context —
+            # see _sticky_quantized_step
+            self._sticky_steps: dict[str, float] = {}
+            if (
+                sampled_seq._slm_mask.end > 0
+                and not device.supports_slm_mask
+            ):
+                raise ValueError(
+                    "Samples use SLM mask but device does not have one."
+                )
+            if not sampled_seq.used_bases <= device.supported_bases:
+                raise ValueError(
+                    "Bases used in samples should be supported by device."
+                )
+            if not sampled_seq._slm_mask.targets <= set(register.qubit_ids):
+                raise ValueError(
+                    "The ids of qubits targeted in SLM mask"
+                    " should be defined in register."
+                )
 
-        self._noise_trajectories_used = False
-        self._hamiltonian_data = HamiltonianData(
-            self.samples_obj,
-            register,
-            device,
-            noise_model,
-            self._get_n_trajectories(noise_model, check_value=True),
-        )
-        self._current_hamiltonian = next(self._hamiltonians).hamiltonian
-        self._eval_times_array: np.ndarray
-        self.set_evaluation_times(evaluation_times)
+            self._tot_duration = sampled_seq.max_duration
+            self.samples_obj = sampled_seq.extend_duration(
+                self._tot_duration + 1
+            )
+            self._n_trajectories = n_trajectories
 
-        if self.samples_obj._measurement:
-            self._meas_basis = self.samples_obj._measurement
-        elif "all" in self.basis_name:
-            self._meas_basis = "digital"
-        else:
-            self._meas_basis = self.basis_name.replace("_with_error", "")
-        self.set_initial_state("all-ground")
+            if not (0 < sampling_rate <= 1.0):
+                raise ValueError(
+                    "The sampling rate (`sampling_rate` = "
+                    f"{sampling_rate}) must be greater than 0 and "
+                    "less than or equal to 1."
+                )
+            if int(self._tot_duration * sampling_rate) < 4:
+                raise ValueError(
+                    "`sampling_rate` is too small, less than 4 data points."
+                )
+
+            if noise_model is not None and config is not None:
+                raise ValueError(
+                    "'noise_model' and 'config' cannot both be provided to "
+                    "'TorchEmulator'. Please provide just a 'noise_model'."
+                )
+            if config is not None:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("once")
+                    warnings.warn(
+                        "Supplying a 'SimConfig' to the emulator has been "
+                        "deprecated. Please instantiate with a 'NoiseModel' "
+                        "instead.",
+                        DeprecationWarning,
+                        stacklevel=2,
+                    )
+                noise_model = config.to_noise_model()
+            if not noise_model:
+                noise_model = NoiseModel()
+
+            self._noise_trajectories_used = False
+            with profiling.phase("emulator.hamiltonian_data"):
+                self._hamiltonian_data = HamiltonianData(
+                    self.samples_obj,
+                    register,
+                    device,
+                    noise_model,
+                    self._get_n_trajectories(noise_model, check_value=True),
+                )
+                self._current_hamiltonian = next(
+                    self._hamiltonians
+                ).hamiltonian
+            self._eval_times_array: np.ndarray
+            self.set_evaluation_times(evaluation_times)
+
+            if self.samples_obj._measurement:
+                self._meas_basis = self.samples_obj._measurement
+            elif "all" in self.basis_name:
+                self._meas_basis = "digital"
+            else:
+                self._meas_basis = self.basis_name.replace("_with_error", "")
+            self.set_initial_state("all-ground")
 
     def _get_n_trajectories(
         self, noise_model: NoiseModel, check_value: bool
@@ -1278,68 +1282,74 @@ class TorchEmulator:
         # Additionally bound λ_max·h for RK4 stability/accuracy on the
         # drive term; without the interaction picture the full diagonal
         # and the XY couplings add to the stiffness
-        spacings = np.diff(knots)
-        lambda_max = float(
-            np.sum(
-                2 * np.max(np.abs(hamiltonian.amp_coeffs), axis=(1, 2))
-            )
-        )
-        if not can_use_ip:
-            lambda_max += float(np.max(np.abs(hamiltonian.int_diag))) + float(
-                np.sum(np.max(np.abs(hamiltonian.det_coeffs), axis=(1, 2)))
-            )
-            if hamiltonian.xy_mat is not None:
-                lambda_max += float(
-                    np.max(np.sum(np.abs(hamiltonian.xy_mat[0]), axis=1))
+        with profiling.phase("emulator.step_policy"):
+            spacings = np.diff(knots)
+            lambda_max = float(
+                np.sum(
+                    2 * np.max(np.abs(hamiltonian.amp_coeffs), axis=(1, 2))
                 )
-        base_step = min(
-            float(np.median(spacings)) if len(spacings) else 1e-3,
-            1e-3,
-        )
-        max_step = self._sticky_quantized_step(
-            "sesolve" if can_use_ip else "sesolve_lab",
-            base_step,
-            0.8 / max(lambda_max, 1e-9),
-        )
-        if "max_step" in options and options["max_step"]:
-            max_step = min(max_step, float(options["max_step"]))
-        coarsen = False
-        if can_use_ip:
-            max_step, coarsen = self._coarse_ip_step(
-                "sesolve_coarse", max_step, lambda_max, [hamiltonian], options
             )
-        # The quantum-jump solve and the master equation coarsen the same
-        # way in the interaction picture: the quantum jumps when every
-        # collapse operator is diagonal or a single matrix unit, the
-        # master equation when every one is diagonal (ρ's rotor
-        # conjugation then commutes with the dissipator exactly). The
-        # policy reads the NOISELESS Hamiltonian with the batch margin, as
-        # the JAX package's does, in its order (the noiseless Hamiltonian
-        # draws from the numpy global RNG when first built)
-        mats = hamiltonian._local_collapse_mats
-        use_mcsolve = (
-            use_lindblad and not is_dm and self._lindblad_solver_choice()
-        )
-        mcwf_ip = (
-            use_mcsolve and not lab_only and _solver_mod.mcwf_ip_eligible(mats)
-        )
-        mesolve_ip = (
-            (use_lindblad or is_dm)
-            and not use_mcsolve
-            and not lab_only
-            and _solver_mod.mesolve_ip_eligible(mats)
-        )
-        if mcwf_ip or mesolve_ip:
-            ham0 = self._noiseless_hamiltonian
-            lam_drive = float(
-                np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+            if not can_use_ip:
+                lambda_max += float(
+                    np.max(np.abs(hamiltonian.int_diag))
+                ) + float(
+                    np.sum(np.max(np.abs(hamiltonian.det_coeffs), axis=(1, 2)))
+                )
+                if hamiltonian.xy_mat is not None:
+                    lambda_max += float(
+                        np.max(np.sum(np.abs(hamiltonian.xy_mat[0]), axis=1))
+                    )
+            base_step = min(
+                float(np.median(spacings)) if len(spacings) else 1e-3,
+                1e-3,
             )
-            max_step, coarsen = self._coarse_ip_step(
-                "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
-                max_step, lam_drive, [ham0], options, margin=1.3,
+            max_step = self._sticky_quantized_step(
+                "sesolve" if can_use_ip else "sesolve_lab",
+                base_step,
+                0.8 / max(lambda_max, 1e-9),
             )
-            mcwf_ip = mcwf_ip and coarsen
-            mesolve_ip = mesolve_ip and coarsen
+            if "max_step" in options and options["max_step"]:
+                max_step = min(max_step, float(options["max_step"]))
+            coarsen = False
+            if can_use_ip:
+                max_step, coarsen = self._coarse_ip_step(
+                    "sesolve_coarse", max_step, lambda_max, [hamiltonian],
+                    options,
+                )
+            # The quantum-jump solve and the master equation coarsen the same
+            # way in the interaction picture: the quantum jumps when every
+            # collapse operator is diagonal or a single matrix unit, the
+            # master equation when every one is diagonal (ρ's rotor
+            # conjugation then commutes with the dissipator exactly). The
+            # policy reads the NOISELESS Hamiltonian with the batch margin, as
+            # the JAX package's does, in its order (the noiseless Hamiltonian
+            # draws from the numpy global RNG when first built)
+            mats = hamiltonian._local_collapse_mats
+            use_mcsolve = (
+                use_lindblad and not is_dm and self._lindblad_solver_choice()
+            )
+            mcwf_ip = (
+                use_mcsolve
+                and not lab_only
+                and _solver_mod.mcwf_ip_eligible(mats)
+            )
+            mesolve_ip = (
+                (use_lindblad or is_dm)
+                and not use_mcsolve
+                and not lab_only
+                and _solver_mod.mesolve_ip_eligible(mats)
+            )
+            if mcwf_ip or mesolve_ip:
+                ham0 = self._noiseless_hamiltonian
+                lam_drive = float(
+                    np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+                )
+                max_step, coarsen = self._coarse_ip_step(
+                    "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
+                    max_step, lam_drive, [ham0], options, margin=1.3,
+                )
+                mcwf_ip = mcwf_ip and coarsen
+                mesolve_ip = mesolve_ip and coarsen
 
         coeffs = {"amp": hamiltonian.amp_coeffs, "det": hamiltonian.det_coeffs}
         if hamiltonian.int_w is not None:
@@ -1404,8 +1414,9 @@ class TorchEmulator:
                     device=self._torch_device,
                     **xy,
                 )
-            states = [Qobj(s, dims=[[d] * n, [d] * n]) for s in states_arr]
-            return self._wrap_coherent(states)
+            with profiling.phase("emulator.wrap_results"):
+                states = [Qobj(s, dims=[[d] * n, [d] * n]) for s in states_arr]
+                return self._wrap_coherent(states)
         if not can_use_ip and (use_lindblad or is_dm):
             if is_dm:
                 rho0: Any = np.asarray(
@@ -1480,11 +1491,14 @@ class TorchEmulator:
             # at ~1e-10 by the ω·h bound).
             states_arr.normalize = bool(coarsen)
             shape, dims = (d**n, 1), [[d] * n, [1] * n]
-        states = [
-            Qobj.deferred(functools.partial(states_arr.state, i), shape, dims)
-            for i in range(len(states_arr))
-        ]
-        return self._wrap_coherent(states, device_states=states_arr)
+        with profiling.phase("emulator.wrap_results"):
+            states = [
+                Qobj.deferred(
+                    functools.partial(states_arr.state, i), shape, dims
+                )
+                for i in range(len(states_arr))
+            ]
+            return self._wrap_coherent(states, device_states=states_arr)
 
     @staticmethod
     def _make_ip_occ(hamiltonian: Hamiltonian) -> np.ndarray:
@@ -1590,75 +1604,83 @@ class TorchEmulator:
             NoisyResults (bitstring counts at each evaluation time) when
             the noise is stochastic, CoherentResults otherwise.
         """
-        self._validate_options(options)
-        if not (progress_bar is True or progress_bar is False or progress_bar is None):
-            raise ValueError("`progress_bar` must be a bool.")
-        if not _has_stochastic_noise(self.noise_model):
-            if print_progress:
-                print("Emulating Trajectory 1/1")
-            return self._run_solver(
-                mcsolve_ntraj=self.n_trajectories or 1, **options
-            )
-
-        # The routes in the JAX package's order. The gates build the
-        # noiseless Hamiltonian, whose one draw from the numpy global RNG
-        # comes here in the JAX package too.
-        total_count = None
-        if self._can_batch_lindblad():
-            # Quantum jumps: the draws run on the device after the solve
-            # where the row-batched solve takes the batch (None, before
-            # any draw, under the master equation)
-            total_count = self._counts_rows_fused(
-                print_progress=print_progress, **options
-            )
-        if total_count is None and (
-            self._can_batch_trajectories() or self._can_batch_lindblad()
-        ):
-            # One solve for the batch (pure states, or one density matrix
-            # per trajectory), one vectorized sampling pass on the host
-            total_count = self._sample_runs_vectorized(
-                progress_bar=progress_bar,
-                print_progress=print_progress,
-                **options,
-            )
-        elif total_count is None:
-            # One solve per trajectory (a density-matrix initial state, or
-            # depolarizing noise under the master equation), sampled per
-            # trajectory and evaluation time
-            spr = self.noise_model.samples_per_run
-            total_count = np.array([Counter() for _ in self._eval_times_array])
-            for cres, reps in self._noisy_runs(
-                progress_bar=progress_bar,
-                print_progress=print_progress,
-                **options,
+        with profiling.phase("emulator.run"):
+            self._validate_options(options)
+            if not (
+                progress_bar is True
+                or progress_bar is False
+                or progress_bar is None
             ):
-                total_count += np.array(
-                    [
-                        cres.sample_state(t, n_samples=spr * reps)
-                        for t in self._eval_times_array
-                    ]
+                raise ValueError("`progress_bar` must be a bool.")
+            if not _has_stochastic_noise(self.noise_model):
+                if print_progress:
+                    print("Emulating Trajectory 1/1")
+                return self._run_solver(
+                    mcsolve_ntraj=self.n_trajectories or 1, **options
                 )
-        n_measures = (
-            cast(int, self.n_trajectories) * self.noise_model.samples_per_run
-        )
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", category=DeprecationWarning)
-            results = [
-                SampledResult(
-                    tuple(self._hamiltonian_data.register.qubits),
-                    self._meas_basis,
-                    total_count[ind],
-                    evaluation_time=t / (self._tot_duration * 1e-3),
+
+            # The routes in the JAX package's order. The gates build the
+            # noiseless Hamiltonian, whose one draw from the numpy global RNG
+            # comes here in the JAX package too.
+            total_count = None
+            if self._can_batch_lindblad():
+                # Quantum jumps: the draws run on the device after the solve
+                # where the row-batched solve takes the batch (None, before
+                # any draw, under the master equation)
+                total_count = self._counts_rows_fused(
+                    print_progress=print_progress, **options
                 )
-                for ind, t in enumerate(self._eval_times_array)
-            ]
-        return NoisyResults(
-            results,
-            self._hamiltonian_data.n_qudits,
-            self.basis_name,
-            self._eval_times_array,
-            n_measures,
-        )
+            if total_count is None and (
+                self._can_batch_trajectories() or self._can_batch_lindblad()
+            ):
+                # One solve for the batch (pure states, or one density matrix
+                # per trajectory), one vectorized sampling pass on the host
+                total_count = self._sample_runs_vectorized(
+                    progress_bar=progress_bar,
+                    print_progress=print_progress,
+                    **options,
+                )
+            elif total_count is None:
+                # One solve per trajectory (a density-matrix initial state, or
+                # depolarizing noise under the master equation), sampled per
+                # trajectory and evaluation time
+                spr = self.noise_model.samples_per_run
+                total_count = np.array(
+                    [Counter() for _ in self._eval_times_array]
+                )
+                for cres, reps in self._noisy_runs(
+                    progress_bar=progress_bar,
+                    print_progress=print_progress,
+                    **options,
+                ):
+                    total_count += np.array(
+                        [
+                            cres.sample_state(t, n_samples=spr * reps)
+                            for t in self._eval_times_array
+                        ]
+                    )
+            n_measures = (
+                cast(int, self.n_trajectories)
+                * self.noise_model.samples_per_run
+            )
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", category=DeprecationWarning)
+                results = [
+                    SampledResult(
+                        tuple(self._hamiltonian_data.register.qubits),
+                        self._meas_basis,
+                        total_count[ind],
+                        evaluation_time=t / (self._tot_duration * 1e-3),
+                    )
+                    for ind, t in enumerate(self._eval_times_array)
+                ]
+            return NoisyResults(
+                results,
+                self._hamiltonian_data.n_qudits,
+                self.basis_name,
+                self._eval_times_array,
+                n_measures,
+            )
 
     def _refresh_trajectories(self) -> None:
         """Draws fresh noise trajectories for repeated run() calls."""
@@ -2218,8 +2240,12 @@ class TorchEmulator:
                 the first CUDA device; without one the call raises, and
                 ``"cpu"`` must be asked for).
         """
+        with profiling.phase("emulator.sample_sequence"):
+            samples = HamiltonianData._sequence_samples(
+                sequence, with_modulation
+            )
         return cls(
-            HamiltonianData._sequence_samples(sequence, with_modulation),
+            samples,
             sequence.register,
             sequence.device,
             sampling_rate,

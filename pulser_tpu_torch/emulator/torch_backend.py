@@ -17,6 +17,7 @@ from __future__ import annotations
 import warnings
 from typing import TYPE_CHECKING, Any
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.backend.abc import Backend, EmulatorBackend
 from pulser_tpu_torch.backend.config import EmulationConfig, EmulatorConfig
 from pulser_tpu_torch.backend.default_observables import (
@@ -253,81 +254,85 @@ class TorchBackendV2(EmulatorBackend):
         solver_options: dict[str, Any],
     ) -> Results:
         """Executes the sequence on the backend."""
-        eigenstates = (
-            sim_obj._current_hamiltonian.basis_data.eigenbasis
-        )
-        device = sim_obj._torch_device
-        # The device copies of the noiseless Hamiltonian's static parts,
-        # shared by every evaluation time of every trajectory
-        ham_cache: dict = {}
-
-        def _feed_results(
-            coherent_res: CoherentResults, res: Results
-        ) -> None:
-            consumers = (
-                *config.callbacks,
-                *config.observables,
+        with profiling.phase("backend.run"):
+            eigenstates = (
+                sim_obj._current_hamiltonian.basis_data.eigenbasis
             )
-            device_states = getattr(coherent_res, "_device_states", None)
-            for i, sim_res in enumerate(coherent_res):
-                t = sim_res.evaluation_time
-                state = unit_state(
-                    sim_res.state
-                    if device_states is None
-                    else device_states.device_state(i),
-                    eigenstates,
-                    torch_device=device,
-                )
-                # Built once (and first built here, after the solve: its
-                # draw from the numpy global RNG comes where the JAX
-                # package's does)
-                ham = HamiltonianOperator(
-                    sim_obj._get_noiseless_hamiltonian(
-                        config.noise_model.with_leakage
-                    ),
-                    t * res.total_duration / 1000,
-                    eigenstates,
-                    cache=ham_cache,
-                )
-                for consume in consumers:
-                    consume(
-                        config=config,
-                        t=float(t),
-                        state=state,
-                        hamiltonian=ham,
-                        result=res,
-                    )
+            device = sim_obj._torch_device
+            # The device copies of the noiseless Hamiltonian's static parts,
+            # shared by every evaluation time of every trajectory
+            ham_cache: dict = {}
 
-        if not _has_stochastic_noise(sim_obj.noise_model):
-            # A single run is needed, regardless of the trajectory count
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", DeprecationWarning)
-                single_res = sim_obj.run(**solver_options)
-            assert isinstance(single_res, CoherentResults)
-            res = Results(
-                atom_order=tuple(sim_obj._register.qubit_ids),
-                total_duration=sim_obj.total_duration_ns,
-            )
-            _feed_results(single_res, res)
-            return res
-        else:
-            results: list[Results] = []
-            for cleanres_noisyseq, reps in sim_obj._noisy_runs(
-                **solver_options
-            ):
-                for _ in range(reps):
-                    res = Results(
-                        atom_order=tuple(sim_obj._register.qubit_ids),
-                        total_duration=sim_obj.total_duration_ns,
-                    )
-                    _feed_results(cleanres_noisyseq, res)
-                    results.append(res)
-            custom_aggregators = {}
-            if (state_tag := _get_state_tag(results[0])) is not None:
-                custom_aggregators[state_tag] = (
-                    density_matrix_aggregator
+            def _feed_results(
+                coherent_res: CoherentResults, res: Results
+            ) -> None:
+                consumers = (
+                    *config.callbacks,
+                    *config.observables,
                 )
-            return Results.aggregate(results, **custom_aggregators)
+                device_states = getattr(coherent_res, "_device_states", None)
+                for i, sim_res in enumerate(coherent_res):
+                    t = sim_res.evaluation_time
+                    state = unit_state(
+                        sim_res.state
+                        if device_states is None
+                        else device_states.device_state(i),
+                        eigenstates,
+                        torch_device=device,
+                    )
+                    # Built once (and first built here, after the solve: its
+                    # draw from the numpy global RNG comes where the JAX
+                    # package's does)
+                    ham = HamiltonianOperator(
+                        sim_obj._get_noiseless_hamiltonian(
+                            config.noise_model.with_leakage
+                        ),
+                        t * res.total_duration / 1000,
+                        eigenstates,
+                        cache=ham_cache,
+                    )
+                    for consume in consumers:
+                        consume(
+                            config=config,
+                            t=float(t),
+                            state=state,
+                            hamiltonian=ham,
+                            result=res,
+                        )
+
+            if not _has_stochastic_noise(sim_obj.noise_model):
+                # A single run is needed, regardless of the trajectory count
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", DeprecationWarning)
+                    single_res = sim_obj.run(**solver_options)
+                assert isinstance(single_res, CoherentResults)
+                res = Results(
+                    atom_order=tuple(sim_obj._register.qubit_ids),
+                    total_duration=sim_obj.total_duration_ns,
+                )
+                with profiling.phase("backend.observables"):
+                    _feed_results(single_res, res)
+                return res
+            else:
+                results: list[Results] = []
+                for cleanres_noisyseq, reps in sim_obj._noisy_runs(
+                    **solver_options
+                ):
+                    for _ in range(reps):
+                        res = Results(
+                            atom_order=tuple(sim_obj._register.qubit_ids),
+                            total_duration=sim_obj.total_duration_ns,
+                        )
+                        with profiling.phase("backend.observables"):
+                            _feed_results(cleanres_noisyseq, res)
+                        results.append(res)
+                custom_aggregators = {}
+                if (state_tag := _get_state_tag(results[0])) is not None:
+                    custom_aggregators[state_tag] = (
+                        density_matrix_aggregator
+                    )
+                with profiling.phase("backend.aggregate"):
+                    return Results.aggregate(results, **custom_aggregators)
 
 
 # Drop-in aliases matching the reference class names

@@ -30,6 +30,7 @@ from typing import Any, Type, TypeVar, Union
 import numpy as np
 import torch
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.backend.operator import FullOp, Operator, QuditOp
 from pulser_tpu_torch.backend.state import Eigenstate
 from pulser_tpu_torch.emulator.qobj import Qobj, basis as basis_ket, qeye, tensor
@@ -47,6 +48,15 @@ TorchOperatorType = TypeVar("TorchOperatorType", bound="TorchOperator")
 #: One term: a coefficient and the local ``d × d`` operators by qudit
 #: (absent qudits carry the identity).
 Term = tuple[complex, dict[int, np.ndarray]]
+
+
+def _stage(
+    host: Any, device: torch.device, dtype: torch.dtype = WORK_DTYPE
+) -> torch.Tensor:
+    """A host array as a tensor of ``dtype`` on ``device`` (a copy from
+    pageable memory, which waits for the card)."""
+    profiling.count("sync.operator.stage")
+    return torch.as_tensor(np.asarray(host)).to(device, dtype)
 
 
 def _term_gram(a: list[Term], b: list[Term], d: int, n: int) -> complex:
@@ -144,6 +154,7 @@ class TorchOperator(Operator[complex, complex, TorchStateType]):
         d, n = self._d, self._n
         dims = [[d] * n, [d] * n]
         if self._dense is not None:
+            profiling.count("sync.operator.qobj")
             return Qobj(
                 self._dense.detach().resolve_conj().cpu().numpy(), dims=dims
             )
@@ -171,13 +182,7 @@ class TorchOperator(Operator[complex, complex, TorchStateType]):
         key = str(device)
         if key not in cache:
             cache[key] = [
-                (
-                    c,
-                    [
-                        (q, torch.from_numpy(m).to(device, WORK_DTYPE))
-                        for q, m in sorted(facs.items())
-                    ],
-                )
+                (c, [(q, _stage(m, device)) for q, m in sorted(facs.items())])
                 for c, facs in self._terms
             ]
         return cache[key]
@@ -225,6 +230,7 @@ class TorchOperator(Operator[complex, complex, TorchStateType]):
         local traces."""
         if self._hermitian is None:
             if self._dense is not None:
+                profiling.count("sync.operator.hermitian")
                 a = self._dense.detach().resolve_conj().cpu().numpy()
                 self._hermitian = bool(np.allclose(a, a.conj().T))
             else:
@@ -256,6 +262,8 @@ class TorchOperator(Operator[complex, complex, TorchStateType]):
         the state's device."""
         self._validate_other(state, TorchState, "TorchOperator.expect()")
         x = state._work()
+        # The value is read on the host
+        profiling.count("sync.operator.expect")
         if state.isket:
             val = complex(torch.vdot(x, self._left(x, rows=False)).item())
         else:
@@ -447,15 +455,14 @@ class HamiltonianOperator(TorchOperator):
         if key not in self._cache:
             ham = self._ham
 
-            def dev(x: Any, dtype: torch.dtype) -> torch.Tensor:
-                return torch.as_tensor(np.asarray(x)).to(device, dtype)
-
             self._cache[key] = {
-                "diag": dev(ham.int_diag, torch.float64),
+                "diag": _stage(ham.int_diag, device, torch.float64),
                 "xy": (
                     None
                     if ham.xy_mat is None
-                    else dev(np.asarray(ham.xy_mat).real, torch.float64)
+                    else _stage(
+                        np.asarray(ham.xy_mat).real, device, torch.float64
+                    )
                 ),
             }
         return self._cache[key]
@@ -469,9 +476,7 @@ class HamiltonianOperator(TorchOperator):
         diag, xy = st["diag"], st["xy"]
         # The SLM mask's interaction weights at t (as in get_matrix)
         if ham.int_w is not None:
-            w = torch.as_tensor(ham._int_weights_at(t)).to(
-                x.device, torch.float64
-            )
+            w = _stage(ham._int_weights_at(t), x.device, torch.float64)
             if diag.ndim == 2:
                 diag = w @ diag
             if xy is not None and xy.shape[0] == 2:
@@ -481,8 +486,8 @@ class HamiltonianOperator(TorchOperator):
         return _hpsi(
             x,
             diag,
-            torch.as_tensor(np.asarray(amp)).to(x.device, WORK_DTYPE),
-            torch.as_tensor(np.asarray(det).real).to(x.device, torch.float64),
+            _stage(amp, x.device),
+            _stage(np.asarray(det).real, x.device, torch.float64),
             tuple(tuple(p) for p in ham.pairs),
             ham.dim,
             ham.n_qudits,

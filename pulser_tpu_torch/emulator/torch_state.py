@@ -28,6 +28,7 @@ from typing import Any, Type, TypeVar, Union
 import numpy as np
 import torch
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.backend.state import Eigenstate, State
 from pulser_tpu_torch.emulator.qobj import Qobj, basis as basis_ket, tensor
 from pulser_tpu_torch.math.multinomial import multinomial
@@ -172,9 +173,11 @@ class TorchState(State[complex, float]):
             device=device or self._state.device, dtype=WORK_DTYPE
         )
 
-    def _host(self) -> np.ndarray:
+    def _host(self, site: str) -> np.ndarray:
         """The amplitudes as a complex128 host array (a column for a ket),
-        the JAX package's ``Qobj`` data."""
+        the JAX package's ``Qobj`` data; ``site`` names the read
+        (``sync.state.<site>``)."""
+        profiling.count(f"sync.state.{site}")
         arr = self._state.detach().resolve_conj().cpu().numpy()
         arr = arr.astype(complex)
         return arr.reshape(-1, 1) if self.isket else arr
@@ -182,9 +185,12 @@ class TorchState(State[complex, float]):
     def to_qobj(self) -> Qobj:
         """Returns a copy of the state's Qobj representation (fetched to
         the host)."""
+        return self._qobj("qobj")
+
+    def _qobj(self, site: str) -> Qobj:
         d, n = self.qudit_dim, self.n_qudits
         dims = [[d] * n, [1] * n] if self.isket else [[d] * n, [d] * n]
-        return Qobj(self._host(), dims=dims)
+        return Qobj(self._host(site), dims=dims)
 
     def overlap(self, other: TorchState) -> float:
         """The overlap between this state and another of the same type.
@@ -217,6 +223,7 @@ class TorchState(State[complex, float]):
             raise NotImplementedError(msg)
         device = _common_device(self, other)
         a, b = self._work(device), other._work(device)
+        profiling.count("sync.state.overlap")
         if self.isket and other.isket:
             return float(abs(torch.vdot(a, b).item()) ** 2)
         if self.isket:
@@ -235,7 +242,7 @@ class TorchState(State[complex, float]):
             cutoff: The value below which a probability is considered
                 zero.
         """
-        q = self.to_qobj()
+        q = self._qobj("probabilities")
         if not q.isket:
             probs = np.abs(q.diag()).real
         else:

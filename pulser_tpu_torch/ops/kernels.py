@@ -36,6 +36,7 @@ import subprocess
 import numpy as np
 import torch
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.ops.apply import apply_axis_c, neg_i
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,17 +47,14 @@ SOURCES = {
     for name in ("ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf")
 }
 
-#: Launches of ``ip_sesolve_kernel`` (one cooperative launch per whole
-#: solve).
-IP_SESOLVE_LAUNCHES = 0
-#: Launches of the trajectory-batched mode of :func:`ip_sesolve` (one
-#: ``ip_sesolve_batched_kernel`` per whole batch: a thread block per
-#: trajectory for n ≤ 13, a thread-block cluster per trajectory above).
-IP_SESOLVE_BATCHED_LAUNCHES = 0
-#: Launches of ``mcwf_rows_kernel`` (one per whole trajectory batch).
-MCWF_ROWS_LAUNCHES = 0
-#: Launches of ``mcwf_kernel`` (one per whole trajectory batch).
-MCWF_LAUNCHES = 0
+#: The wrappers count their launches in :mod:`pulser_tpu_torch.profiling`
+#: under ``kernels.<kernel>.launches`` (:func:`launches`): one
+#: cooperative ``ip_sesolve_kernel`` per whole solve; one
+#: ``ip_sesolve_batched_kernel`` per whole trajectory batch (a thread
+#: block per trajectory for n ≤ 13, a thread-block cluster per trajectory
+#: above); one ``mcwf_rows_kernel`` and one ``mcwf_kernel`` per whole
+#: trajectory batch.
+LAUNCH_COUNTER = "kernels.{}.launches"
 #: Of the last ``mcwf_rows_kernel`` launch: the ``(B,)`` int32 device
 #: tensor of the steps of each trajectory whose first rotor the kernel
 #: carried over from the step before (``None`` before the first launch).
@@ -176,8 +174,9 @@ def _load(name: str) -> ctypes.CDLL:
     """Builds (on first use) and loads the library of kernel ``name``."""
     lib = _libs.get(name)
     if lib is None:
-        (path, _), = build((name,)).values()
-        lib = ctypes.CDLL(path)
+        with profiling.phase("kernels.build"):
+            (path, _), = build((name,)).values()
+            lib = ctypes.CDLL(path)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "ip_sesolve":
             lib.ip_sesolve_run.restype = i
@@ -200,6 +199,16 @@ def _load(name: str) -> ctypes.CDLL:
         getattr(lib, f"{name}_device_launches").restype = ctypes.c_ulonglong
         _libs[name] = lib
     return lib
+
+
+def launches(name: str) -> int:
+    """The launches the wrapper of kernel ``name`` (a key of
+    :data:`SOURCES`) has counted so far (since the last
+    :func:`~pulser_tpu_torch.profiling.reset_phases`): the launches of
+    one call are the difference across it."""
+    if name not in SOURCES:
+        raise ValueError(f"{name} is no kernel of {tuple(SOURCES)}.")
+    return profiling.counter_report().get(LAUNCH_COUNTER.format(name), 0)
 
 
 def device_launches(name: str) -> int:
@@ -340,13 +349,12 @@ def ip_sesolve(
             diag2d, psi0_re, psi0_im, out,
         )
     ]
-    global IP_SESOLVE_LAUNCHES, IP_SESOLVE_BATCHED_LAUNCHES
     if segs_per_traj is not None:
         entry = "ip_sesolve_batched_run"
         err = _load("ip_sesolve_batched").ip_sesolve_batched_run(
             *ptrs, n_traj, segs_per_traj, seg_len, n, stream
         )
-        IP_SESOLVE_BATCHED_LAUNCHES += 1
+        profiling.count(LAUNCH_COUNTER.format("ip_sesolve_batched"))
     else:
         entry = "ip_sesolve_run"
         # The double-buffered rotated stage input, interleaved (re, im)
@@ -354,7 +362,7 @@ def ip_sesolve(
         err = _load("ip_sesolve").ip_sesolve_run(
             *ptrs, wbuf.data_ptr(), n_seg, seg_len, n, stream
         )
-        IP_SESOLVE_LAUNCHES += 1
+        profiling.count(LAUNCH_COUNTER.format("ip_sesolve"))
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}.")
     return out
@@ -622,8 +630,8 @@ def mcwf_rows(
         carried.data_ptr(),
         n_traj, n_seg, seg_len, n, len(cops), g00, g11, stream,
     )
-    global MCWF_ROWS_LAUNCHES, MCWF_ROWS_CARRIED
-    MCWF_ROWS_LAUNCHES += 1
+    global MCWF_ROWS_CARRIED
+    profiling.count(LAUNCH_COUNTER.format("mcwf_rows"))
     MCWF_ROWS_CARRIED = carried
     if err != 0:
         raise RuntimeError(f"mcwf_rows_run failed: CUDA error {err}.")
@@ -895,8 +903,7 @@ def mcwf(
         n_traj, segs_per_traj, seg_len, n, len(cops),
         g_diag[0], g_diag[1], g_lo[0], g_lo[1], stream,
     )
-    global MCWF_LAUNCHES
-    MCWF_LAUNCHES += 1
+    profiling.count(LAUNCH_COUNTER.format("mcwf"))
     if err != 0:
         raise RuntimeError(f"mcwf_run failed: CUDA error {err}.")
     return out, jumps

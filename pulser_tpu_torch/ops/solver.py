@@ -59,6 +59,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from pulser_tpu_torch import profiling
 from pulser_tpu_torch.ops.apply import (
     _digits_of,
     _group_matrix,
@@ -541,6 +542,7 @@ class DeviceStateBatch:
         """Blocks until the device computation that wrote the states has
         finished (a no-op once they have been fetched, and on the CPU)."""
         if self._dev is not None and self._dev.device.type == "cuda":
+            profiling.count("sync.results.sync")
             torch.cuda.synchronize(self._dev.device)
 
     def _post(self, vec: np.ndarray) -> np.ndarray:
@@ -560,9 +562,11 @@ class DeviceStateBatch:
             if len(self._cache) >= self._BULK_THRESHOLD:
                 return self.fetch_all()[i]
             assert self._dev is not None
-            seg = int(self._eval_map[i])
-            host = self._dev[seg].cpu().numpy()
-            self._cache[i] = self._post(self._to_complex(host))
+            with profiling.phase("results.fetch"):
+                seg = int(self._eval_map[i])
+                profiling.count("sync.results.fetch")
+                host = self._dev[seg].cpu().numpy()
+                self._cache[i] = self._post(self._to_complex(host))
         return self._cache[i]
 
     def device_state(self, i: int) -> torch.Tensor:
@@ -575,6 +579,8 @@ class DeviceStateBatch:
         if not self.normalize:
             return vec
         nrm = torch.linalg.vector_norm(vec)
+        # The comparison reads the norm on the host
+        profiling.count("sync.results.norm")
         return vec if nrm == 0 else vec / nrm
 
     def device_norm(self, i: int) -> torch.Tensor:
@@ -590,10 +596,12 @@ class DeviceStateBatch:
         """All states as one host ``(n_eval, dim)`` array (cached)."""
         if self._all is None:
             assert self._dev is not None
-            host = self._dev.cpu().numpy()[self._eval_map]
-            self._all = np.stack(
-                [self._post(self._to_complex(h)) for h in host]
-            )
+            with profiling.phase("results.fetch"):
+                profiling.count("sync.results.fetch")
+                host = self._dev.cpu().numpy()[self._eval_map]
+                self._all = np.stack(
+                    [self._post(self._to_complex(h)) for h in host]
+                )
             self._dev = None
             self._cache = {}
         return self._all
@@ -688,7 +696,9 @@ def sesolve_rk4(
         )
 
     def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
-        # dtype conversion on the host, then a pure transfer
+        # dtype conversion on the host, then a pure transfer (from
+        # pageable memory, so it waits for the card)
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
             dev
         )
@@ -750,6 +760,7 @@ def _ip_stage_arrays(
     two_pi = 2 * np.pi
 
     def to_dev(host: np.ndarray, dt: Any) -> torch.Tensor:
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
 
     return (
@@ -833,6 +844,8 @@ def _make_ip_phase_fn(
             occ = np.stack(
                 [(ar // d ** (g - 1 - p)) % d == kp for p in range(g)]
             )
+            # A copy from pageable memory waits for the card
+            profiling.count("sync.solver.stage")
             per_group.append(
                 torch.as_tensor(occ, dtype=rdtype, device=device)
             )
@@ -1216,6 +1229,8 @@ def ip_kernel_inputs(
     f32 = np.float32
 
     def to_dev(host: np.ndarray) -> torch.Tensor:
+        # A copy from pageable memory waits for the card
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, dtype=f32)).to(
             dev
         )
@@ -1742,6 +1757,8 @@ def ip_batched_kernel_inputs(
     f32 = np.float32
 
     def to_dev(host: np.ndarray) -> torch.Tensor:
+        # A copy from pageable memory waits for the card
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, dtype=f32)).to(
             dev
         )
@@ -2013,6 +2030,7 @@ def rows_kernel_inputs(
     r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
 
     def to_dev(host: np.ndarray) -> torch.Tensor:
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
 
     return [
@@ -2152,6 +2170,7 @@ def mcwf_kernel_inputs(
     r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
 
     def to_dev(host: np.ndarray) -> torch.Tensor:
+        profiling.count("sync.solver.stage")
         return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
 
     def flat(x: torch.Tensor) -> torch.Tensor:

@@ -39,10 +39,14 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-#: Bytes this process has sent to other ranks: ``"bytes"`` through
-#: :func:`all_to_all` (the exchanges of the solve loops), ``"gathered"``
-#: through the gathers, reductions and broadcasts that end a solve.
-EXCHANGED = {"bytes": 0, "gathered": 0}
+from pulser_tpu_torch import profiling
+
+#: The :mod:`pulser_tpu_torch.profiling` counters of the bytes this
+#: process has sent to other ranks: through :func:`all_to_all` (the
+#: exchanges of the solve loops), and through the gathers, reductions and
+#: broadcasts that end a solve.
+EXCHANGED_BYTES = "comm.exchanged_bytes"
+GATHERED_BYTES = "comm.gathered_bytes"
 
 _MESHES: dict[tuple, Any] = {}
 
@@ -178,7 +182,9 @@ def all_to_all(
         dist.all_to_all_single, (out, inp), group,
         output_split_sizes=out_sizes, input_split_sizes=in_sizes,
     )
-    EXCHANGED["bytes"] += (sum(in_sizes) - in_sizes[me]) * inp.element_size()
+    profiling.count(
+        EXCHANGED_BYTES, (sum(in_sizes) - in_sizes[me]) * inp.element_size()
+    )
     res: list[torch.Tensor | None] = []
     for piece, sh in zip(torch.split(out, out_sizes), recv_shapes):
         if sh is None:
@@ -277,7 +283,9 @@ def gather_to_host(x: torch.Tensor, group: Any) -> torch.Tensor:
     dist = _dist()
     out = _gather_host(x, group)
     size = dist.get_world_size(group)
-    EXCHANGED["gathered"] += (size - 1) * out.numel() // size * out.element_size()
+    profiling.count(
+        GATHERED_BYTES, (size - 1) * out.numel() // size * out.element_size()
+    )
     if x.is_complex():
         return torch.view_as_complex(out.reshape(size, *x.shape, 2))
     return out.reshape(size, *x.shape)
@@ -288,7 +296,7 @@ def all_reduce_sum(x: torch.Tensor, group: Any) -> torch.Tensor:
     dist = _dist()
     flat = _flat_real(x).clone()
     host_staged_collective(dist.all_reduce, (flat,), group)
-    EXCHANGED["gathered"] += flat.numel() * flat.element_size()
+    profiling.count(GATHERED_BYTES, flat.numel() * flat.element_size())
     if x.is_complex():
         return torch.view_as_complex(flat.reshape(*x.shape, 2))
     return flat.reshape(x.shape)
@@ -319,7 +327,7 @@ def broadcast_from(
     )
     _broadcast_host(buf, src, None)
     if x is not None:
-        EXCHANGED["gathered"] += buf.numel() * buf.element_size()
+        profiling.count(GATHERED_BYTES, buf.numel() * buf.element_size())
     if dtype.is_complex:
         return torch.view_as_complex(buf.reshape(*shape, 2))
     return buf.reshape(shape)

@@ -33,6 +33,7 @@ from numpy.typing import ArrayLike
 
 import pulser_tpu_torch
 import pulser_tpu_torch.math as pm
+from pulser_tpu_torch import profiling
 import pulser_tpu_torch.sequence._decorators as seq_decorators
 import pulser_tpu_torch.sequence._eom_mode as _eom_mode
 from pulser_tpu_torch.channels.base_channel import (
@@ -1444,6 +1445,14 @@ class Sequence(Generic[DeviceType]):
         Returns:
             The Sequence built with the given variable values.
         """
+        with profiling.phase("sequence.build"):
+            return self._build(qubits, vars)
+
+    def _build(
+        self,
+        qubits: Optional[Mapping[QubitId, int]],
+        vars: dict[str, Union[ArrayLike, pm.TensorLike, float, int]],
+    ) -> Sequence:
         mappable = self.is_register_mappable()
         if mappable and qubits is None:
             raise ValueError(
@@ -1474,7 +1483,7 @@ class Sequence(Generic[DeviceType]):
             warnings.warn(
                 "Building a non-parametrized sequence simply returns"
                 " a copy of itself.",
-                stacklevel=2,
+                stacklevel=3,
             )
             return seq
 

@@ -60,9 +60,9 @@ def test_plain_twin_matches_pallas_interpret(n, seed):
 
 def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
     args, kw = chip_smoke.random_kernel_inputs(10, 3, "cpu", seg_len=4)
-    before = K.IP_SESOLVE_LAUNCHES
+    before = K.launches("ip_sesolve")
     got = K.ip_sesolve(*args, **kw)
-    assert K.IP_SESOLVE_LAUNCHES == before
+    assert K.launches("ip_sesolve") == before
     assert torch.equal(got, K.ip_sesolve_reference(*args, **kw))
 
 
@@ -159,9 +159,10 @@ def test_batched_plain_twin_equals_one_solve_per_trajectory():
 
 def test_batched_wrapper_on_cpu_runs_the_plain_version_uncounted():
     args, kw = chip_smoke.random_batched_kernel_inputs(10, 3, "cpu", seg_len=4)
-    before = K.IP_SESOLVE_BATCHED_LAUNCHES, K.IP_SESOLVE_LAUNCHES
+    before = K.launches("ip_sesolve_batched"), K.launches("ip_sesolve")
     got = K.ip_sesolve(*args, **kw)
-    assert (K.IP_SESOLVE_BATCHED_LAUNCHES, K.IP_SESOLVE_LAUNCHES) == before
+    after = K.launches("ip_sesolve_batched"), K.launches("ip_sesolve")
+    assert after == before
     assert torch.equal(got, K.ip_sesolve_reference(*args, **kw))
     with pytest.raises(ValueError, match="whole number"):
         K.ip_sesolve(*args, **{**kw, "segs_per_traj": 4})

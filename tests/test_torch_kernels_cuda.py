@@ -36,10 +36,10 @@ def cuda():
 @pytest.mark.parametrize("n", [10, 13, 16, 17])
 def test_cuda_kernel_matches_plain_twin(cuda, n):
     args, kw = chip_smoke.random_kernel_inputs(n, n, cuda)
-    before = K.IP_SESOLVE_LAUNCHES
+    before = K.launches("ip_sesolve")
     got = K.ip_sesolve(*args, **kw)
     torch.cuda.synchronize()
-    assert K.IP_SESOLVE_LAUNCHES == before + 1
+    assert K.launches("ip_sesolve") == before + 1
     want = K.ip_sesolve_reference(*args, **kw)
     assert float((got - want).abs().max()) <= TOL
 
@@ -79,11 +79,11 @@ def test_cuda_batched_kernel_matches_plain_twin(cuda, n, n_traj):
     args, kw = chip_smoke.random_batched_kernel_inputs(
         n, n, cuda, n_traj=n_traj
     )
-    before = K.IP_SESOLVE_BATCHED_LAUNCHES, K.IP_SESOLVE_LAUNCHES
+    before = K.launches("ip_sesolve_batched"), K.launches("ip_sesolve")
     got = K.ip_sesolve(*args, **kw)
     torch.cuda.synchronize()
-    assert K.IP_SESOLVE_BATCHED_LAUNCHES == before[0] + 1
-    assert K.IP_SESOLVE_LAUNCHES == before[1]
+    assert K.launches("ip_sesolve_batched") == before[0] + 1
+    assert K.launches("ip_sesolve") == before[1]
     want = K.ip_sesolve_reference(*args, **kw)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= BATCHED_TOL
@@ -178,10 +178,10 @@ def _check_k2(args):
     """One K2 launch against the plain version: states, jump counts and
     the kernel's count of carried rotors. Returns the jump counts."""
     cops = chip_smoke.RANDOM_COPS
-    before = K.MCWF_ROWS_LAUNCHES
+    before = K.launches("mcwf_rows")
     got, jumps = K.mcwf_rows(*args, cops=cops)
     torch.cuda.synchronize()
-    assert K.MCWF_ROWS_LAUNCHES == before + 1
+    assert K.launches("mcwf_rows") == before + 1
     want, jumps_p = K.mcwf_rows_reference(*args, cops=cops)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(jumps, jumps_p)
@@ -256,10 +256,10 @@ def test_cuda_mcwf_rows_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("n", list(range(1, 14)))
 def test_cuda_mcwf_matches_plain_twin(cuda, n):
     args, kw = chip_smoke.random_k3_inputs(n, n, cuda)
-    before = K.MCWF_LAUNCHES
+    before = K.launches("mcwf")
     got, jumps = K.mcwf(*args, **kw)
     torch.cuda.synchronize()
-    assert K.MCWF_LAUNCHES == before + 1
+    assert K.launches("mcwf") == before + 1
     want, jumps_p = K.mcwf_reference(*args, **kw)
     assert bool(torch.isfinite(got).all())
     assert int(jumps.min()) >= 1 and torch.equal(jumps, jumps_p)
@@ -555,15 +555,15 @@ def test_cuda_tutorial02_quantum_jumps_one_k2_launch(cuda):
 
     def on_cell(_, code, seconds):
         torch.cuda.synchronize()
-        seen.append((code, K.MCWF_ROWS_LAUNCHES, K.device_launches("mcwf_rows"),
-                     dict(S.last_solve_info)))
+        seen.append((code, K.launches("mcwf_rows"),
+                     K.device_launches("mcwf_rows"), dict(S.last_solve_info)))
 
     name = "02_noisy_simulation"
     np.random.seed(golden["seed"])
     B.execute(name, "cuda", on_cell=on_cell)  # builds the kernels first
     np.random.seed(golden["seed"])
     seen.clear()
-    before = (K.MCWF_ROWS_LAUNCHES, K.device_launches("mcwf_rows"))
+    before = (K.launches("mcwf_rows"), K.device_launches("mcwf_rows"))
     ns = B.execute(name, "cuda", on_cell=on_cell)
     for code, wrapper, lib, info in seen:
         if "nm_both = ptt.NoiseModel(" in code:
@@ -591,3 +591,87 @@ def test_cuda_scale_ladder_20_atoms_within_solve_bytes(cuda):
     assert abs(rec["norm"] - 1) <= L.NORM_TOL
     assert 0 < rec["peak_bytes"] <= capacity.solve_bytes(2, 20)
     assert rec["peak_bytes"] <= rec["solve_bytes"]
+
+
+def _afm_job(kind: str, rows: int, cols: int, device):
+    """One job of a benchmark cell on a ``rows`` x ``cols`` AFM sweep:
+    ``"emulator"`` runs the emulator, fetches the final state and draws
+    100 shots; ``"backend"`` runs ``TorchBackendV2`` with occupations at
+    11 times, the correlation matrix, the energy and 100 bitstrings."""
+    import numpy as np
+
+    import pulser_tpu_torch as P
+    from pulser_tpu_torch.emulator import (
+        TorchBackendV2,
+        TorchConfig,
+        TorchEmulator,
+    )
+
+    reg = P.Register.rectangle(rows, cols, spacing=9.757, prefix="q")
+    seq = chip_smoke._sweep_sequence(
+        reg, 2 * np.pi * 2.3, -12 * np.pi, 4 * np.pi, 252, 800, 500
+    )
+
+    def job() -> None:
+        np.random.seed(3)
+        if kind == "emulator":
+            res = TorchEmulator.from_sequence(
+                seq, evaluation_times=np.linspace(0, 1.552, 11),
+                torch_device=device,
+            ).run()
+            res.states[-1].full()
+            res.sample_final_state(100)
+            return
+        TorchBackendV2(
+            seq,
+            config=TorchConfig(
+                observables=[
+                    P.Occupation(evaluation_times=list(np.linspace(0, 1, 11))),
+                    P.CorrelationMatrix(evaluation_times=[1.0]),
+                    P.Energy(evaluation_times=[1.0]),
+                    P.BitStrings(evaluation_times=[1.0], num_shots=100),
+                ],
+                torch_device=device,
+            ),
+        ).run()
+
+    return job
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,rows,cols",
+    [("backend", 2, 3), ("backend", 3, 4), ("emulator", 3, 4)],
+)
+def test_cuda_sync_counter_equals_the_synchronizing_calls(
+    cuda, kind, rows, cols
+):
+    """Every call of one job that waits for the card, as PyTorch's sync
+    debug mode warns of it, is one count of a ``sync.*`` counter, and no
+    count is a call that does not wait (the torch loop at 6 atoms, K1 at
+    12)."""
+    import warnings
+
+    from pulser_tpu_torch import profiling
+
+    def reads() -> int:
+        return sum(
+            v for k, v in profiling.counter_report().items()
+            if k.startswith("sync.")
+        )
+
+    job = _afm_job(kind, rows, cols, cuda)
+    job()  # builds, stages and caches what every later job reuses
+    torch.cuda.synchronize()
+    before = reads()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            job()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = sum(
+        "synchronizing CUDA operation" in str(w.message) for w in caught
+    )
+    assert warned == reads() - before > 0

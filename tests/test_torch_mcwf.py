@@ -262,9 +262,9 @@ def test_k2_twin_matches_pallas_with_jumps(n, seed, cops):
 
 
 def _check_k2_twin_against_pallas(args, n, cops):
-    before = K.MCWF_ROWS_LAUNCHES
+    before = K.launches("mcwf_rows")
     got, jumps = K.mcwf_rows(*args, cops=cops)
-    assert K.MCWF_ROWS_LAUNCHES == before  # CPU tensors: the plain twin
+    assert K.launches("mcwf_rows") == before  # CPU tensors: the plain twin
     assert got.shape == (8, 2, 2, 1 << n) and got.dtype == torch.float32
     assert int(jumps.min()) >= 1
     want = _pallas_states(args, cops)
@@ -618,9 +618,9 @@ def test_k3_twin_matches_pallas_with_jumps(n):
     jump that fired on one side only would move the state by O(1)."""
     args, kw = chip_smoke.random_k3_inputs(n, n, "cpu")
     assert kw["g_lo"] != (0.0, 0.0)
-    before = K.MCWF_LAUNCHES
+    before = K.launches("mcwf")
     got, jumps = K.mcwf(*args, **kw)
-    assert K.MCWF_LAUNCHES == before  # CPU tensors: the plain version
+    assert K.launches("mcwf") == before  # CPU tensors: the plain version
     assert got.shape == (8, 2, 2, 1 << n) and got.dtype == torch.float32
     assert jumps.dtype == torch.int32 and int(jumps.min()) >= 3
     want = _jax_k3(args, kw)

@@ -169,15 +169,29 @@ def _mesolve(P):
     return dict(noise_model=P.NoiseModel(dephasing_rate=0.1))
 
 
+#: The phases the port marks at each layer boundary a run crosses and the
+#: JAX package leaves unmarked: the sampling, the emulator's construction
+#: and its Hamiltonian data, the whole ``run()``, the draws of the shots.
+LAYER_PHASES = {
+    "emulator.sample_sequence",
+    "emulator.init",
+    "emulator.hamiltonian_data",
+    "emulator.run",
+    "results.sample",
+}
+#: The one-solve path also marks its step policy and result wrapping
+#: under the names the noisy batches use, and the fetch of its states
+ONE_SOLVE = {"emulator.step_policy", "emulator.wrap_results", "results.fetch"}
+
 #: (scenario, emulator options as a function of the package namespace,
-#: phases only the port reports, with why)
+#: phases only the port reports beyond LAYER_PHASES, with why)
 SCENARIOS = [
-    ("noiseless", _noiseless, set()),
+    ("noiseless", _noiseless, ONE_SOLVE),
     ("noisy_jumps", _jumps, set()),
     # The port times the pure-state batch's plan as both packages time
     # the quantum-jump batch's; the JAX package leaves it unmarked
     ("noisy_pure_batch", _pure_batch, {"emulator.build_plan_batched"}),
-    ("mesolve", _mesolve, set()),
+    ("mesolve", _mesolve, ONE_SOLVE),
 ]
 
 
@@ -211,6 +225,302 @@ def test_phase_names_equal_the_jax_packages(monkeypatch, options, port_only):
         options,
         {"torch_device": "cpu"},
     )
-    assert want and all(name.startswith("emulator.") for name in got)
-    assert got - port_only == want
-    assert port_only <= got
+    assert want and all(
+        name.split(".")[0] in ("emulator", "results") for name in got
+    )
+    assert got - port_only - LAYER_PHASES == want
+    assert port_only | LAYER_PHASES <= got
+
+
+# -- self time, counters, and the phases and reads of one job ---------------
+
+
+def test_self_time_of_nested_phases():
+    """A phase's self time is its total less the totals of the phases
+    opened inside it on the same thread; a grandchild counts in its parent
+    only, and a phase of another thread in none."""
+    profiling.reset_phases()
+
+    def elsewhere() -> None:
+        with profiling.phase("other"):
+            time.sleep(0.02)
+
+    other = threading.Thread(target=elsewhere)
+    with profiling.phase("outer"):
+        time.sleep(0.002)
+        for _ in range(2):
+            with profiling.phase("inner"):
+                time.sleep(0.002)
+                with profiling.phase("leaf"):
+                    time.sleep(0.002)
+        with profiling.phase("side"):
+            other.start()
+            other.join()
+    report = profiling.phase_report(reset=True)
+    outer, inner = report["outer"], report["inner"]
+    leaf, side = report["leaf"], report["side"]
+    assert outer["self_s"] == pytest.approx(
+        outer["total_s"] - inner["total_s"] - side["total_s"], abs=1e-12
+    )
+    assert inner["self_s"] == pytest.approx(
+        inner["total_s"] - leaf["total_s"], abs=1e-12
+    )
+    assert leaf["self_s"] == leaf["total_s"] >= 0.004
+    assert side["self_s"] == side["total_s"] >= report["other"]["total_s"]
+    assert 0.002 <= outer["self_s"] < outer["total_s"]
+
+
+def test_a_phase_marks_the_timeline_only_while_a_profiler_records(
+    monkeypatch,
+):
+    """Without a profiler a phase opens no ``record_function`` range (one
+    costs many times the rest of a phase); under one it opens one."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name, *args):
+        opened.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    profiling.reset_phases()
+    with profiling.phase("quiet"):
+        pass
+    assert opened == []
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]
+    ):
+        with profiling.phase("seen"):
+            pass
+    assert opened == ["seen"]
+    assert set(profiling.phase_report(reset=True)) == {"quiet", "seen"}
+
+
+def test_self_time_of_a_phase_closed_out_of_order():
+    """A phase left open across a generator's yield and closed after a
+    later phase still closes its own entry of the thread's stack."""
+    profiling.reset_phases()
+
+    def gen():
+        with profiling.phase("held"):
+            yield
+
+    g = gen()
+    next(g)
+    with profiling.phase("after"):
+        g.close()
+    with profiling.phase("next"):
+        pass
+    report = profiling.phase_report(reset=True)
+    assert set(report) == {"held", "after", "next"}
+    assert report["after"]["self_s"] <= report["after"]["total_s"]
+    assert report["next"]["self_s"] == report["next"]["total_s"]
+
+
+def test_counters_and_their_reset():
+    profiling.reset_phases()
+    profiling.count("a")
+    profiling.count("a", 3)
+    profiling.count("b", 0)
+    with profiling.phase("p"):
+        profiling.count("c")
+    assert profiling.counter_report() == {"a": 4, "b": 0, "c": 1}
+    # A phase reset leaves the counters, and the other way round
+    profiling.phase_report(reset=True)
+    assert profiling.counter_report() == {"a": 4, "b": 0, "c": 1}
+    with profiling.phase("p"):
+        pass
+    assert profiling.counter_report(reset=True) == {"a": 4, "b": 0, "c": 1}
+    assert profiling.counter_report() == {}
+    assert set(profiling.phase_report()) == {"p"}
+    # reset_phases clears both
+    profiling.count("a")
+    profiling.reset_phases()
+    assert profiling.phase_report() == {} and profiling.counter_report() == {}
+
+
+def test_counts_from_threads_all_count():
+    profiling.reset_phases()
+    n_threads, n_counts = 8, 500
+
+    def work() -> None:
+        for _ in range(n_counts):
+            profiling.count("shared")
+
+    threads = [threading.Thread(target=work) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert profiling.counter_report(reset=True) == {
+        "shared": n_threads * n_counts
+    }
+
+
+def _afm(rows: int, cols: int):
+    """Pulser's AFM tutorial sweep (its values, 252/800/500 ns) on a
+    ``rows`` x ``cols`` rectangle at the blockade radius of U = 2π,
+    parametrized by Ω_max and δ_f."""
+    P = pulser_tpu_torch
+    reg = P.Register.rectangle(rows, cols, spacing=9.757, prefix="q")
+    seq = P.Sequence(reg, P.MockDevice)
+    seq.declare_channel("ryd", "rydberg_global")
+    omega, delta_f = seq.declare_variable("omega"), seq.declare_variable("df")
+    d0 = -6 * 2 * np.pi
+    rise = P.RampWaveform(252, 0.0, omega)
+    sweep = P.RampWaveform(800, d0, delta_f)
+    fall = P.RampWaveform(500, omega, 0.0)
+    seq.add(P.Pulse.ConstantDetuning(rise, d0, 0.0), "ryd")
+    seq.add(P.Pulse.ConstantAmplitude(omega, sweep, 0.0), "ryd")
+    seq.add(P.Pulse.ConstantDetuning(fall, delta_f, 0.0), "ryd")
+    return seq
+
+
+def _emulator_job(seq, n_eval: int) -> None:
+    """A job of the sweep: build, the emulator, its run, the final state
+    fetched and 100 shots."""
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    built = seq.build(omega=2 * np.pi * 2.3, df=2 * np.pi * 2)
+    times = np.linspace(0, built.get_duration() * 1e-3, n_eval)
+    res = TorchEmulator.from_sequence(
+        built, evaluation_times=times, torch_device="cpu"
+    ).run()
+    res.states[-1].full()
+    np.random.seed(3)
+    res.sample_final_state(100)
+
+
+def _backend_job(seq, n_eval: int) -> None:
+    """A job of the observables traffic: occupations at ``n_eval`` times,
+    the correlation matrix, the energy and 100 bitstrings at the end."""
+    from pulser_tpu_torch.emulator import TorchBackendV2, TorchConfig
+
+    P = pulser_tpu_torch
+    built = seq.build(omega=2 * np.pi * 2.3, df=2 * np.pi * 2)
+    np.random.seed(3)
+    TorchBackendV2(
+        built,
+        config=TorchConfig(
+            observables=[
+                P.Occupation(evaluation_times=list(np.linspace(0, 1, n_eval))),
+                P.CorrelationMatrix(evaluation_times=[1.0]),
+                P.Energy(evaluation_times=[1.0]),
+                P.BitStrings(evaluation_times=[1.0], num_shots=100),
+            ],
+            torch_device="cpu",
+        ),
+    ).run()
+
+
+def _ranges(path) -> list[tuple[float, float, str]]:
+    events = json.loads(path.read_text())["traceEvents"]
+    return [
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+        for e in events
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+    ]
+
+
+def _inside(ranges, inner: str, outer: str) -> bool:
+    """Whether every range ``inner`` lies inside some range ``outer``."""
+    outs = [(a, b) for a, b, n in ranges if n == outer]
+    ins = [(a, b) for a, b, n in ranges if n == inner]
+    return bool(ins) and all(
+        any(a0 <= a and b <= b0 for a0, b0 in outs) for a, b in ins
+    )
+
+
+#: (inner, outer) of the phases one job of each cell crosses
+EMULATOR_NESTING = [
+    ("emulator.hamiltonian_data", "emulator.init"),
+    ("emulator.step_policy", "emulator.run"),
+    ("emulator.build_plan", "emulator.run"),
+    ("emulator.sesolve", "emulator.run"),
+    ("emulator.wrap_results", "emulator.run"),
+]
+BACKEND_NESTING = EMULATOR_NESTING + [
+    ("emulator.run", "backend.run"),
+    ("backend.observables", "backend.run"),
+    ("observable.occupation", "backend.observables"),
+    ("observable.correlation_matrix", "backend.observables"),
+    ("observable.energy", "backend.observables"),
+    ("observable.bitstrings", "backend.observables"),
+]
+
+
+def test_trace_of_one_job_of_each_cell_holds_the_layer_phases(tmp_path):
+    """A CPU Chrome trace of a 2x3-atom emulator job and a backend job
+    with the observables traffic holds every layer phase, nested as the
+    layers call each other."""
+    seq = _afm(2, 3)
+    with profiling.trace(str(tmp_path / "emu"), device="cpu"):
+        _emulator_job(seq, 11)
+    with profiling.trace(str(tmp_path / "backend"), device="cpu"):
+        _backend_job(seq, 11)
+    emu = _ranges(tmp_path / "emu" / "trace.json")
+    backend = _ranges(tmp_path / "backend" / "trace.json")
+    assert {n for *_, n in emu} >= {
+        "sequence.build", "emulator.sample_sequence", "emulator.init",
+        "emulator.hamiltonian_data", "emulator.run", "emulator.step_policy",
+        "emulator.build_plan", "emulator.sesolve", "emulator.wrap_results",
+        "results.fetch", "results.sample",
+    }
+    assert {n for *_, n in backend} >= {
+        "sequence.build", "emulator.sample_sequence", "emulator.init",
+        "emulator.run", "backend.run", "backend.observables",
+        "observable.occupation", "observable.correlation_matrix",
+        "observable.energy", "observable.bitstrings",
+    }
+    for inner, outer in EMULATOR_NESTING:
+        assert _inside(emu, inner, outer), (inner, outer)
+    for inner, outer in BACKEND_NESTING:
+        assert _inside(backend, inner, outer), (inner, outer)
+    # The backend's own job holds no fetch of the states and no
+    # emulator built inside its run
+    assert not _inside(backend, "emulator.init", "backend.run")
+    assert "results.fetch" not in {n for *_, n in backend}
+    # The fetch and the shots come after the run, outside it
+    assert not _inside(emu, "results.fetch", "emulator.run")
+    assert not _inside(emu, "results.sample", "emulator.run")
+
+
+@pytest.mark.parametrize(
+    "rows,cols,n_eval", [(2, 3, 11), (1, 4, 7), (2, 4, 5)]
+)
+def test_sync_counts_of_one_job_of_each_cell(rows, cols, n_eval):
+    """The reads that wait for the card, by site, of one job of each cell
+    after a first: on the CPU the same sites count as on the card.
+
+    The emulator job stages the interaction-picture solve's 7 inputs and
+    the occupancy patterns of its two phase evaluators, one a group of up
+    to six qubits (this size runs the torch loop), and fetches its final
+    state once; the
+    backend job reads each occupation, each distinct pair of the
+    correlation matrix and the energy once, the norm of each state it
+    hands its observables once (the coarse steps renormalize on the
+    device), stages the Hamiltonian's diagonal and its coefficients at
+    the end, and fetches the amplitudes once for the bitstrings."""
+    n = rows * cols
+    stage = 7 + 2 * -(-n // 6)
+    seq = _afm(rows, cols)
+    for job, want in (
+        (
+            _emulator_job,
+            {"sync.solver.stage": stage, "sync.results.fetch": 1},
+        ),
+        (
+            _backend_job,
+            {
+                "sync.solver.stage": stage,
+                "sync.results.norm": n_eval,
+                "sync.operator.expect": n * n_eval + n * (n + 1) // 2 + 1,
+                "sync.operator.stage": 3,
+                "sync.state.probabilities": 1,
+            },
+        ),
+    ):
+        job(seq, n_eval)
+        profiling.reset_phases()
+        job(seq, n_eval)
+        assert profiling.counter_report(reset=True) == want, job.__name__
