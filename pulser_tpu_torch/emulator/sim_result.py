@@ -125,7 +125,7 @@ class TorchResult(Result):
     def _state_probs(self) -> np.ndarray:
         if not self.state.isket:
             return np.abs(self.state.diag())
-        return (np.abs(self.state.full()) ** 2).flatten()
+        return (np.abs(np.asarray(self.state)) ** 2).reshape(-1)
 
     def _weights(self) -> np.ndarray:
         size = self._size
@@ -170,8 +170,10 @@ class TorchResult(Result):
                 "Cannot sample system with single-atom state vectors "
                 "of dimension > 4."
             )
-        # Takes care of numerical artefacts in case sum(weights) != 1
-        return cast(np.ndarray, weights / sum(weights))
+        # Takes care of numerical artefacts in case sum(weights) != 1;
+        # the sum stays sequential (left to right, as Python's ``sum``):
+        # a pairwise or exact sum gives other bits, and other shots
+        return cast(np.ndarray, weights / np.add.accumulate(weights)[-1])
 
     def _eliminated_indices(
         self, ex_state_idx: list[int]

@@ -25,8 +25,21 @@ __all__ = ["Result", "SampledResult"]
 
 
 def _labels_of(indices: np.ndarray, width: int) -> list[str]:
-    """Basis-state indices -> zero-padded bitstring labels."""
-    return [format(int(i), f"0{width}b") for i in indices]
+    """Basis-state indices -> zero-padded bitstring labels.
+
+    Equal item for item to ``format(int(i), f"0{width}b")``, which it
+    falls back to where a bit table of int64 cannot make the labels:
+    widths above 62, and indices outside ``[0, 2**width)`` (``format``
+    widens the label of ``2**width``, which ``searchsorted`` gives a
+    uniform beyond the last cumulative weight).
+    """
+    idx = np.asarray(indices)
+    if width > 62 or not idx.size or idx.min() < 0 or idx.max() >> width:
+        return [format(int(i), f"0{width}b") for i in idx]
+    shifts = np.arange(width - 1, -1, -1, dtype=np.int64)
+    bits = (idx.astype(np.int64).reshape(-1, 1) >> shifts) & 1
+    table = (bits + ord("0")).astype(np.uint8)
+    return table.view(f"S{width}").ravel().astype(str).tolist()
 
 
 def _counts_to_weights(counts: dict[str, int], width: int) -> np.ndarray:
@@ -128,8 +141,16 @@ class Result(ABC, backend_results.Results):
         Returns:
             The drawn bitstrings, as a Counter.
         """
-        draws = multinomial(n_samples, self._weights())
-        return Counter(_labels_of(np.asarray(draws), self._size))
+        draws = np.asarray(multinomial(n_samples, self._weights()))
+        # Each outcome labelled once, in the order of its first draw: the
+        # Counter's contents and iteration order are those of counting
+        # the label of every draw
+        outcomes, first, counts = np.unique(
+            draws, return_index=True, return_counts=True
+        )
+        order = np.argsort(first)
+        labels = _labels_of(outcomes[order], self._size)
+        return Counter(dict(zip(labels, counts[order].tolist())))
 
     def get_state(self) -> Any:
         """The underlying quantum state, when one is available."""

@@ -373,3 +373,138 @@ def test_spam_measurement_errors_alone_stay_coherent():
     # complex64 against complex128 states: a draw within float32 rounding
     # of a bin edge may move one count
     assert moved <= 2
+
+
+# -- Shots of a coherent result -------------------------------------------
+
+
+def _skewed_state(n, dim, seed):
+    """A seeded, unnormalized host state over ``dim**n`` levels whose
+    probabilities spread over decades, so a thousand shots repeat their
+    likeliest outcomes."""
+    rng = np.random.default_rng(seed)
+    size = dim**n
+    amps = rng.normal(size=size) + 1j * rng.normal(size=size)
+    return 3.7 * amps * rng.exponential(size=size) ** 4
+
+
+def _result_pair(state, n, dim, meas_basis, matching):
+    """``TpuResult`` and ``TorchResult`` over the same complex128 state."""
+    from pulser_tpu.emulator import qobj as jax_qobj
+    from pulser_tpu.emulator.sim_result import TpuResult
+
+    from pulser_tpu_torch.emulator.qobj import Qobj
+    from pulser_tpu_torch.emulator.sim_result import TorchResult
+
+    qids = tuple(f"q{i}" for i in range(n))
+    dims = [[dim] * n, [1] * n]
+    with pytest.warns(DeprecationWarning):
+        jres = TpuResult(
+            qids, meas_basis, jax_qobj.Qobj(state, dims=dims), matching
+        )
+    with pytest.warns(DeprecationWarning):
+        tres = TorchResult(qids, meas_basis, Qobj(state, dims=dims), matching)
+    return jres, tres
+
+
+# (dim, meas_basis, matching, basis the result resolves to)
+_WEIGHT_BASES = {
+    "ground-rydberg": (2, "ground-rydberg", True, "ground-rydberg"),
+    "digital": (2, "digital", True, "digital"),
+    "non-matching": (2, "ground-rydberg", False, "digital"),
+    "ground-rydberg_with_error": (
+        3, "ground-rydberg", True, "ground-rydberg_with_error"
+    ),
+    "all_with_error": (4, "ground-rydberg", True, "all_with_error"),
+}
+
+
+@pytest.mark.parametrize(
+    "basis, n",
+    [
+        (basis, n)
+        for basis in ("ground-rydberg", "digital", "non-matching")
+        for n in (10, 12, 16)
+    ]
+    # 3**16 and 4**12 amplitudes do not fit a test's memory
+    + [("ground-rydberg_with_error", n) for n in (10, 12)]
+    + [("all_with_error", 10)],
+)
+def test_result_weights_bit_equal_to_pulser_tpu(basis, n):
+    """``TorchResult._weights`` normalizes with the JAX package's
+    sequential sum: the same bits, not merely close values."""
+    dim, meas_basis, matching, resolved = _WEIGHT_BASES[basis]
+    state = _skewed_state(n, dim, seed=n + 100 * dim)
+    jres, tres = _result_pair(state, n, dim, meas_basis, matching)
+    assert tres._basis_name == jres._basis_name == resolved
+    want = np.asarray(jres._weights())
+    got = tres._weights()
+    assert got.dtype == want.dtype == np.float64
+    assert np.array_equal(got, want)
+    # The state is far from normalized: the division is what is compared
+    assert abs(np.sum(np.abs(state) ** 2) - 1.0) > 0.1
+
+
+@pytest.fixture(scope="module")
+def shots16():
+    """``CoherentResults`` of both packages over one 16-atom host state."""
+    from pulser_tpu.emulator.simresults import CoherentResults as JaxCoherent
+
+    n = 16
+    state = _skewed_state(n, 2, seed=16)
+    times = np.array([1.0])
+    jres, tres = _result_pair(state, n, 2, "ground-rydberg", True)
+    return (
+        JaxCoherent([jres], n, "ground-rydberg", times, "ground-rydberg"),
+        CoherentResults([tres], n, "ground-rydberg", times, "ground-rydberg"),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 5])
+def test_sample_final_state_n16_equals_pulser_tpu(shots16, seed):
+    """Seeded shots of a 16-atom state: the same Counter as the JAX
+    package's, in the same iteration order, and the RNG left at the
+    same point."""
+    jres, tres = shots16
+    rng_state = np.random.get_state()
+    try:
+        np.random.seed(seed)
+        want = jres.sample_final_state(1000)
+        j_after = np.random.rand()
+        np.random.seed(seed)
+        got = tres.sample_final_state(1000)
+        assert np.random.rand() == j_after
+    finally:
+        np.random.set_state(rng_state)
+    assert got == want and sum(got.values()) == 1000
+    assert list(got) == list(want)
+    assert got.most_common() == want.most_common()
+    # Outcomes repeat, so the order of first draws is what is held
+    assert max(got.values()) > 1 and len(got) < 1000
+
+
+@pytest.mark.parametrize("kind", ["span", "empty", "beyond"])
+@pytest.mark.parametrize("width", [1, 2, 16, 29, 62, 63])
+def test_labels_of_equals_format(width, kind):
+    """The bit-table labels equal ``format`` item for item; widths above
+    62, an empty array and an index past ``2**width`` (what
+    ``searchsorted`` gives a uniform beyond the last cumulative weight)
+    take the ``format`` fallback."""
+    from pulser_tpu_torch.result import _labels_of
+
+    rng = np.random.default_rng(width)
+    if kind == "span":
+        idx = np.concatenate(
+            [
+                [0, 2**width - 1],
+                rng.integers(0, 2**width, size=200, dtype=np.int64),
+            ]
+        ).astype(np.int64)
+    elif kind == "empty":
+        idx = np.array([], dtype=np.int64)
+    else:
+        idx = np.array([2**width - 1, 2 ** min(width, 62), 0], dtype=np.int64)
+    want = [format(int(i), f"0{width}b") for i in idx]
+    got = _labels_of(idx, width)
+    assert got == want
+    assert all(type(s) is str for s in got)
