@@ -2170,9 +2170,16 @@ def _timed_parts(emu, S, sim, solver_fn: str = "sesolve_rk4_batched") -> dict:
     """Wall seconds of the parts of one warm noisy ``run()`` that samples
     on the host: host preparation (trajectory draws, batch, step policy,
     plan), the solve call ``S.<solver_fn>`` (staging, solve, fetch), the
-    wrapping of the states into results, and the host sampling."""
+    wrapping of the states into results (none on the pure-state route),
+    and the host sampling."""
     marks: dict = {}
-    solve, sample = getattr(S, solver_fn), sim._sample_weight_rows
+    solve = getattr(S, solver_fn)
+    # The pure-state route draws from its states, the others from the
+    # weight rows of their wrapped results
+    samplers = {
+        name: getattr(sim, name)
+        for name in ("_sample_weight_rows", "_sample_ket_states")
+    }
 
     def timed_solve(*a, **k):
         marks["solve_begin"] = time.perf_counter()
@@ -2180,21 +2187,26 @@ def _timed_parts(emu, S, sim, solver_fn: str = "sesolve_rk4_batched") -> dict:
         marks["solve_end"] = time.perf_counter()
         return out
 
-    def timed_sample(*a, **k):
-        marks["sample_begin"] = time.perf_counter()
-        out = sample(*a, **k)
-        marks["sample_end"] = time.perf_counter()
-        return out
+    def timed(sample):
+        def timed_sample(*a, **k):
+            marks["sample_begin"] = time.perf_counter()
+            out = sample(*a, **k)
+            marks["sample_end"] = time.perf_counter()
+            return out
+
+        return timed_sample
 
     setattr(S, solver_fn, timed_solve)
-    sim._sample_weight_rows = timed_sample
+    for name, sample in samplers.items():
+        setattr(sim, name, timed(sample))
     try:
         start = time.perf_counter()
         emu.run()
         end = time.perf_counter()
     finally:
         setattr(S, solver_fn, solve)
-        sim._sample_weight_rows = sample
+        for name, sample in samplers.items():
+            setattr(sim, name, sample)
     return {
         "prep": marks["solve_begin"] - start,
         "solve": marks["solve_end"] - marks["solve_begin"],

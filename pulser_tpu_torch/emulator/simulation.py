@@ -52,7 +52,7 @@ import functools
 import os
 import warnings
 from collections import Counter
-from collections.abc import Iterator
+from collections.abc import Iterable, Iterator
 from enum import Enum
 from typing import Any, NamedTuple, Optional, Union, cast
 
@@ -1536,24 +1536,25 @@ class TorchEmulator:
                 )
                 for state, t in zip(states, self._eval_times_array)
             ]
-        meas_errors = (
-            {
-                "epsilon": self.noise_model.p_false_pos,
-                "epsilon_prime": self.noise_model.p_false_neg,
-            }
-            if "SPAM" in self.noise_model.noise_types
-            else None
-        )
         coherent = CoherentResults(
             results,
             self._hamiltonian_data.n_qudits,
             self.basis_name,
             self._eval_times_array,
             self._meas_basis,
-            meas_errors,
+            self._meas_errors(),
         )
         coherent._device_states = device_states
         return coherent
+
+    def _meas_errors(self) -> "dict[str, float] | None":
+        """The SPAM measurement errors the results flip their shots with."""
+        if "SPAM" not in self.noise_model.noise_types:
+            return None
+        return {
+            "epsilon": self.noise_model.p_false_pos,
+            "epsilon_prime": self.noise_model.p_false_neg,
+        }
 
     def _validate_options(self, options: Any) -> None:
         if "max_step" not in options:
@@ -1717,8 +1718,33 @@ class TorchEmulator:
     ) -> Iterator[tuple[SimulationResults, int]]:
         """The pure-state trajectory batch in a single solve: yields one
         ``(CoherentResults, repetitions)`` per trajectory."""
-        self._refresh_trajectories()
-        batch = self._noisy_coeff_batch()
+        reps_all, states_batch, coarsen, (d, n) = self._noisy_states_batched(
+            print_progress=print_progress, **options
+        )
+        legal_dims_ket = [[d] * n, [1] * n]
+        for reps, states_t in zip(reps_all, states_batch):
+            with profiling.phase("emulator.wrap_results"):
+                if coarsen:
+                    states_t = _renormalized(states_t)
+                states_q = [Qobj(s, dims=legal_dims_ket) for s in states_t]
+                res = self._wrap_coherent(states_q)
+            yield res, reps
+
+    def _noisy_states_batched(
+        self,
+        print_progress: bool = False,
+        **options: Any,
+    ) -> tuple[list[int], np.ndarray, bool, tuple[int, int]]:
+        """The pure-state trajectory batch in a single solve:
+        ``(repetitions, states, renormalize, (d, n))`` with the
+        ``(T, n_eval, d^n)`` states as the solve returns them; under the
+        coarsened step each state is to be renormalized
+        (:func:`_renormalized`)."""
+        with profiling.phase("emulator.noise_trajectories"):
+            with profiling.phase("emulator.traj_draw"):
+                self._refresh_trajectories()
+            with profiling.phase("emulator.coeff_batch"):
+                batch = self._noisy_coeff_batch()
         if print_progress:
             print(
                 f"Emulating Trajectories [1 - {self.n_trajectories}]"
@@ -1727,26 +1753,30 @@ class TorchEmulator:
         first = batch.template
         d, n = first.dim, first.n_qudits
         knots = first.sampling_times
-        # Shared step cap: the tightest across trajectories
-        lambda_max = float(
-            np.max(np.sum(2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1))
-        )
-        base_step = min(
-            float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
-            1e-3,
-        )
-        # 1.3 margin: noise draws stay inside one power-of-two step
-        max_step = self._sticky_quantized_step(
-            "sesolve_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
-        )
-        if "max_step" in options and options["max_step"]:
-            max_step = min(max_step, float(options["max_step"]))
-        # The batch integrates in the interaction picture, so the
-        # coherent path's step coarsening applies (its 1.3 margin for
-        # several trajectories absorbs the fluctuations of their gaps)
-        max_step, coarsen = self._coarse_ip_step(
-            "sesolve_batch_coarse", max_step, lambda_max, batch.shims, options
-        )
+        with profiling.phase("emulator.step_policy"):
+            # Shared step cap: the tightest across trajectories
+            lambda_max = float(
+                np.max(
+                    np.sum(2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1)
+                )
+            )
+            base_step = min(
+                float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
+                1e-3,
+            )
+            # 1.3 margin: noise draws stay inside one power-of-two step
+            max_step = self._sticky_quantized_step(
+                "sesolve_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
+            )
+            if "max_step" in options and options["max_step"]:
+                max_step = min(max_step, float(options["max_step"]))
+            # The batch integrates in the interaction picture, so the
+            # coherent path's step coarsening applies (its 1.3 margin for
+            # several trajectories absorbs the fluctuations of their gaps)
+            max_step, coarsen = self._coarse_ip_step(
+                "sesolve_batch_coarse", max_step, lambda_max, batch.shims,
+                options,
+            )
         # Beyond the state-sharding threshold, noisy runs use both
         # parallel axes at once: trajectories × state blocks on a 2-D
         # mesh (the collectives ride the state axis only)
@@ -1797,15 +1827,9 @@ class TorchEmulator:
                     mesh=trajectories.default_mesh(),
                     device=self._torch_device,
                 )
-        if coarsen:
-            # As on the coherent path: unitary evolution, renormalize
-            norms = np.linalg.norm(states_batch, axis=-1, keepdims=True)
-            states_batch = states_batch / np.where(norms == 0, 1.0, norms)
-        legal_dims_ket = [[d] * n, [1] * n]
+        profiling.count("traj.realizations", n_traj_true)
         self._current_hamiltonian = batch.last_ham()
-        for reps, states_t in zip(batch.reps, states_batch):
-            states_q = [Qobj(s, dims=legal_dims_ket) for s in states_t]
-            yield self._wrap_coherent(states_q), reps
+        return batch.reps, states_batch, coarsen, (d, n)
 
     def _noisy_runs(
         self,
@@ -1861,6 +1885,29 @@ class TorchEmulator:
         """
         eval_ts = self._eval_times_array
         spr = self.noise_model.samples_per_run
+        width = self._hamiltonian_data.n_qudits
+        if (
+            self._can_batch_trajectories()
+            and self._hamiltonian_data.basis_data.dim == 2
+            and self._meas_basis in self.basis_name
+        ):
+            # Qubit kets measured in their own basis: the shots are drawn
+            # from the states with the arithmetic of TorchResult._weights,
+            # and no result is wrapped
+            reps_all, states, coarsen, _ = self._noisy_states_batched(
+                print_progress=print_progress, **options
+            )
+            with profiling.phase("emulator.sample_counts"):
+                return _sample_ket_states(
+                    states,
+                    coarsen,
+                    [_time_index(eval_ts, t) for t in eval_ts],
+                    self._meas_basis == "ground-rydberg",
+                    [spr * reps for reps in reps_all for _ in eval_ts],
+                    len(eval_ts),
+                    width,
+                    self._meas_errors(),
+                )
         weight_rows: list[np.ndarray] = []
         ns: list[int] = []
         meas_errors = None
@@ -1869,18 +1916,15 @@ class TorchEmulator:
             print_progress=print_progress,
             **options,
         ):
-            meas_errors = getattr(cres, "_meas_errors", None)
-            for t in eval_ts:
-                ti = cres._get_index_from_time(t, 1.0e-3)
-                weight_rows.append(cres[ti]._weights())
-                ns.append(spr * reps)
+            with profiling.phase("emulator.traj_weights"):
+                meas_errors = getattr(cres, "_meas_errors", None)
+                for t in eval_ts:
+                    ti = cres._get_index_from_time(t, 1.0e-3)
+                    weight_rows.append(cres[ti]._weights())
+                    ns.append(spr * reps)
         with profiling.phase("emulator.sample_counts"):
             return _sample_weight_rows(
-                np.stack(weight_rows),
-                ns,
-                len(eval_ts),
-                self._hamiltonian_data.n_qudits,
-                meas_errors,
+                weight_rows, ns, len(eval_ts), width, meas_errors
             )
 
     def _can_batch_lindblad(self) -> bool:
@@ -2258,28 +2302,121 @@ class TorchEmulator:
         )
 
 
+def _renormalized(states: np.ndarray) -> np.ndarray:
+    """``(n_eval, dim)`` states each divided by its own norm (a zero
+    state stays zero), as the coherent path renormalizes its unitary
+    evolution under the coarsened step."""
+    norms = np.linalg.norm(states, axis=-1, keepdims=True)
+    return states / np.where(norms == 0, 1.0, norms)
+
+
+def _time_index(times: np.ndarray, t: float, tol: float = 1.0e-3) -> int:
+    """The first index of ``times`` within ``tol`` of ``t`` (µs), as
+    ``CoherentResults`` looks an evaluation time up."""
+    return int(np.where(abs(t - times) < tol)[0][0])
+
+
+def _sample_ket_states(
+    states: np.ndarray,
+    renormalize: bool,
+    time_index: list[int],
+    reverse: bool,
+    ns: list[int],
+    n_times: int,
+    width: int,
+    meas_errors: "dict | None",
+) -> np.ndarray:
+    """Bitstring Counters per evaluation time drawn from ``(T, n_eval,
+    2^width)`` qubit kets measured in their own basis, without wrapping
+    them into results.
+
+    The draws are those of :func:`_sample_weight_rows` over the weight
+    rows of the states' results, bit for bit, a state at a time in
+    reused buffers: where ``renormalize``, the state divided by its norm
+    as :func:`_renormalized` divides it (the norm's reduction of one
+    row, then numpy's complex-by-real division, which multiplies by the
+    rounded reciprocal; a zero's sign may differ, no weight does); the
+    row at ``time_index[i]`` for evaluation time ``i``; then
+    ``TorchResult._weights``: widened to complex128 as its ``Qobj``
+    stores it, ``|amplitude|²``, reversed into bitstring order for the
+    ground-rydberg basis (its states list the Rydberg level first), over
+    its sequential total; then summed cumulatively, after the uniforms
+    are drawn. One thread: on a shared host, threads made the pass
+    faster on average but far less steady.
+    """
+    offs = np.concatenate(([0], np.cumsum(ns)))
+    rnd = np.random.rand(offs[-1])
+    idx = np.empty(offs[-1], dtype=np.int64)
+    dim, real = states.shape[-1], states.real.dtype
+    square = np.empty(dim, dtype=states.dtype)
+    state = np.empty(dim, dtype=states.dtype)
+    amps = np.empty(dim, dtype=complex)
+    probs, scaled, cum = np.empty((3, dim))
+    weights = probs[::-1] if reverse else probs
+    entry = 0
+    for states_t in states:
+        for ti in time_index:
+            if renormalize:
+                np.conjugate(states_t[ti], out=square)
+                np.multiply(square, states_t[ti], out=square)
+                norm = np.sqrt(np.add.reduce(square.real))
+                inv = real.type(1) / (norm if norm != 0 else real.type(1))
+                np.multiply(states_t[ti].view(real), inv, out=state.view(real))
+                amps[...] = state
+            else:
+                amps[...] = states_t[ti]
+            np.abs(amps, out=probs)
+            np.square(probs, out=probs)
+            total = np.add.accumulate(weights, out=scaled)[-1]
+            np.divide(weights, total, out=scaled)
+            np.cumsum(scaled, out=cum)
+            sl = slice(offs[entry], offs[entry + 1])
+            idx[sl] = _draw_from(cum, rnd[sl])
+            entry += 1
+    return _counts_of(idx, offs, n_times, width, meas_errors)
+
+
+def _draw_from(cum: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """Outcome indices of uniforms ``u`` by a searchsorted of cumulative
+    weights ``cum``. A row's rounded total can end a few ulps below 1; a
+    uniform above it draws the row's last outcome of positive weight."""
+    return np.minimum(np.searchsorted(cum, u), np.searchsorted(cum, cum[-1]))
+
+
 def _sample_weight_rows(
-    weights: np.ndarray,
+    weights: Iterable[np.ndarray],
     ns: list[int],
     n_times: int,
     width: int,
     meas_errors: "dict | None",
 ) -> np.ndarray:
     """Bitstring Counters per evaluation time, drawn on the host from
-    ``(n_entries, 2^width)`` measurement weights.
+    measurement weights: one row of ``2^width`` per entry.
 
     Entry ``e`` (trajectory-major, eval-time-minor) takes ``ns[e]``
     uniforms of one draw from the numpy global RNG and a searchsorted of
-    its cumulative weights; the SPAM flips (``meas_errors`` with
-    "epsilon" and "epsilon_prime") are one more draw over all the bits.
+    its cumulative weights (:func:`_draw_from`); the SPAM flips
+    (``meas_errors`` with "epsilon" and "epsilon_prime") are one more
+    draw over all the bits (:func:`_counts_of`).
     """
-    cum = np.cumsum(weights, axis=1)
     offs = np.concatenate(([0], np.cumsum(ns)))
     rnd = np.random.rand(offs[-1])
     idx = np.empty(offs[-1], dtype=np.int64)
-    for e in range(len(ns)):
+    for e, row in enumerate(weights):
         sl = slice(offs[e], offs[e + 1])
-        idx[sl] = np.searchsorted(cum[e], rnd[sl])
+        idx[sl] = _draw_from(np.cumsum(row), rnd[sl])
+    return _counts_of(idx, offs, n_times, width, meas_errors)
+
+
+def _counts_of(
+    idx: np.ndarray,
+    offs: np.ndarray,
+    n_times: int,
+    width: int,
+    meas_errors: "dict | None",
+) -> np.ndarray:
+    """The Counters per evaluation time of drawn outcome indices, entry
+    ``e`` holding ``idx[offs[e]:offs[e + 1]]``, after the SPAM flips."""
     bit_pos = np.arange(width - 1, -1, -1)
     bits = (idx[:, None] >> bit_pos) & 1
     if meas_errors is not None and (
@@ -2292,7 +2429,7 @@ def _sample_weight_rows(
         bits = bits ^ flips
     codes = bits @ (1 << bit_pos)
     total_count = np.array([Counter() for _ in range(n_times)])
-    for e in range(len(ns)):
+    for e in range(len(offs) - 1):
         vals, cnts = np.unique(
             codes[offs[e] : offs[e + 1]], return_counts=True
         )

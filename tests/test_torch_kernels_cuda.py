@@ -597,7 +597,10 @@ def _afm_job(kind: str, rows: int, cols: int, device):
     """One job of a benchmark cell on a ``rows`` x ``cols`` AFM sweep:
     ``"emulator"`` runs the emulator, fetches the final state and draws
     100 shots; ``"backend"`` runs ``TorchBackendV2`` with occupations at
-    11 times, the correlation matrix, the energy and 100 bitstrings."""
+    11 times, the correlation matrix, the energy and 100 bitstrings;
+    ``"noisy"`` runs the emulator under SPAM, doppler and amplitude noise
+    (4 realizations of 5 samples: the trajectory-batched K1) and counts
+    its shots at 11 times."""
     import numpy as np
 
     import pulser_tpu_torch as P
@@ -614,6 +617,19 @@ def _afm_job(kind: str, rows: int, cols: int, device):
 
     def job() -> None:
         np.random.seed(3)
+        if kind == "noisy":
+            noise = P.NoiseModel(
+                state_prep_error=0.005, p_false_pos=0.01, p_false_neg=0.05,
+                temperature=50.0, amp_sigma=0.05, laser_waist=175.0,
+                runs=4, samples_per_run=5,
+            )
+            res = TorchEmulator.from_sequence(
+                seq, noise_model=noise,
+                evaluation_times=np.linspace(0, 1.552, 11),
+                torch_device=device,
+            ).run()
+            [r.bitstring_counts for r in res]
+            return
         if kind == "emulator":
             res = TorchEmulator.from_sequence(
                 seq, evaluation_times=np.linspace(0, 1.552, 11),
@@ -641,7 +657,12 @@ def _afm_job(kind: str, rows: int, cols: int, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "kind,rows,cols",
-    [("backend", 2, 3), ("backend", 3, 4), ("emulator", 3, 4)],
+    [
+        ("backend", 2, 3),
+        ("backend", 3, 4),
+        ("emulator", 3, 4),
+        ("noisy", 3, 4),
+    ],
 )
 def test_cuda_sync_counter_equals_the_synchronizing_calls(
     cuda, kind, rows, cols
@@ -649,7 +670,8 @@ def test_cuda_sync_counter_equals_the_synchronizing_calls(
     """Every call of one job that waits for the card, as PyTorch's sync
     debug mode warns of it, is one count of a ``sync.*`` counter, and no
     count is a call that does not wait (the torch loop at 6 atoms, K1 at
-    12)."""
+    12, and K1's trajectory-batched mode at 12 under shot-to-shot
+    noise)."""
     import warnings
 
     from pulser_tpu_torch import profiling

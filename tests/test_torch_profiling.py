@@ -182,15 +182,25 @@ LAYER_PHASES = {
 #: The one-solve path also marks its step policy and result wrapping
 #: under the names the noisy batches use, and the fetch of its states
 ONE_SOLVE = {"emulator.step_policy", "emulator.wrap_results", "results.fetch"}
+#: The pure-state trajectory batch: its plan and the steps before it
+PURE_BATCH = {
+    "emulator.build_plan_batched",
+    "emulator.noise_trajectories",
+    "emulator.traj_draw",
+    "emulator.coeff_batch",
+    "emulator.step_policy",
+}
 
 #: (scenario, emulator options as a function of the package namespace,
 #: phases only the port reports beyond LAYER_PHASES, with why)
 SCENARIOS = [
     ("noiseless", _noiseless, ONE_SOLVE),
     ("noisy_jumps", _jumps, set()),
-    # The port times the pure-state batch's plan as both packages time
-    # the quantum-jump batch's; the JAX package leaves it unmarked
-    ("noisy_pure_batch", _pure_batch, {"emulator.build_plan_batched"}),
+    # The port times the pure-state batch's plan, its noise draws and
+    # step policy as both packages time the quantum-jump batch's; the JAX
+    # package leaves them unmarked. The port draws this batch's shots
+    # without wrapping its states into results
+    ("noisy_pure_batch", _pure_batch, PURE_BATCH),
     ("mesolve", _mesolve, ONE_SOLVE),
 ]
 
