@@ -297,11 +297,18 @@ to sample it, median of 3 each, beside the card's name and power limit):
     (``tests/goldens/spd16_reference.json``,
     ``tools/spd16_reference.py``): K1's trajectory-batched mode, one
     thread-block cluster a trajectory, in exactly one launch; also the
-    trajectories the card runs at once. Its kernel entry comes last, and
-    SPD10's entry lists its launches under ``also_on``.
+    trajectories the card runs at once. SPD10's entry lists its
+    launches under ``also_on``.
+33. The shot sampler (:func:`_sampler_path`) on the batch of the
+    benchmark's ``spd16.shots`` cell (SPD16 at 101 evaluation times): the
+    route draws the shots on the card in one ``sample_states`` launch and
+    fetches only the indices; the kernel on that batch against its plain
+    version (the outcome indices, one for one), its time alone, the
+    plain version's, and its bound (the batch's bytes read once). Its
+    kernel entry comes last.
 
-Phases 30 and 31 run after 25, before the serving phase; 32 runs after
-10.
+Phases 30 and 31 run after 25, before the serving phase; 32 and 33 run
+after 10.
 
 An earlier line names the JSON-schema validator the host has (the wire
 paths validate every payload with it).
@@ -1049,6 +1056,42 @@ def random_batched_kernel_inputs(
     )
 
 
+def random_sample_inputs(
+    n: int, seed: int, device, n_traj: int = 3, n_seg: int = 4,
+    shots: int = 60,
+) -> tuple:
+    """Random inputs of ``kernels.sample_states``, made with numpy from
+    ``seed``: ``(planes, seg_of, offs, u)`` on ``device``. ``n_traj``
+    trajectories of ``n_seg`` segments of 2^n float32 amplitudes, a few
+    percent off their norm; trajectory 0 is a peaked AFM-like state (the
+    two Néel states hold most of the weight) and every state has zero
+    amplitudes at both ends of its index range, so a row's weights start
+    and end with zeros in either bit order. Five evaluation times read
+    segments ``(0, 2, 2, 1, n_seg - 1)``; entry e draws ``shots + e % 3``
+    uniforms, the last of each 1 − 2^-53, above a row's total when it
+    rounds below 1."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dim = 1 << n
+    planes = rng.standard_normal((n_traj, n_seg, 2, dim))
+    planes /= np.sqrt((planes**2).sum(axis=(2, 3), keepdims=True))
+    planes *= rng.uniform(0.97, 1.03, (n_traj, n_seg, 1, 1))
+    neel = [int("01" * (n // 2), 2), int("10" * (n // 2), 2)]
+    planes[0] *= 0.01
+    planes[0, :, 0, neel] = 0.7
+    planes[..., :3] = planes[..., -5:] = 0.0
+    seg_of = np.array([0, 2, 2, 1, n_seg - 1], dtype=np.int64) % n_seg
+    ns = [shots + e % 3 for e in range(n_traj * len(seg_of))]
+    offs = np.concatenate(([0], np.cumsum(ns))).astype(np.int64)
+    u = rng.random(int(offs[-1]))
+    u[offs[1:] - 1] = 1.0 - 2.0**-53
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        for x in (planes.astype(np.float32), seg_of, offs, u)
+    )
+
+
 #: Diagonal collapse operators of the random K2 inputs, (l00_re, l00_im,
 #: l11_re, l11_im) each: a Z-like and a strong Rydberg-decay-like channel,
 #: so that trajectories jump within a few steps.
@@ -1312,7 +1355,8 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = entry.group(1)
             kernel = re.search(
                 r"(ip_sesolve_kernel|ip_sesolve_batched_kernel"
-                r"|barrier_probe_kernel|mcwf_rows_kernel|mcwf_kernel)",
+                r"|barrier_probe_kernel|mcwf_rows_kernel|mcwf_kernel"
+                r"|sample_states_kernel)",
                 mangled,
             )
             args = re.findall(r"L[ib](\d+)E", mangled)
@@ -2167,18 +2211,22 @@ def _pauli10_path(K, S, device, card: str) -> dict:
 
 
 def _timed_parts(emu, S, sim, solver_fn: str = "sesolve_rk4_batched") -> dict:
-    """Wall seconds of the parts of one warm noisy ``run()`` that samples
-    on the host: host preparation (trajectory draws, batch, step policy,
-    plan), the solve call ``S.<solver_fn>`` (staging, solve, fetch), the
-    wrapping of the states into results (none on the pure-state route),
-    and the host sampling."""
+    """Wall seconds of the parts of one warm noisy ``run()``: host
+    preparation (trajectory draws, batch, step policy, plan), the solve
+    call ``S.<solver_fn>`` (staging, solve, fetch), the wrapping of the
+    states into results (none on the pure-state route), and the
+    sampling (on the host, or on the card from the batched kernel's
+    output)."""
     marks: dict = {}
     solve = getattr(S, solver_fn)
     # The pure-state route draws from its states, the others from the
     # weight rows of their wrapped results
     samplers = {
         name: getattr(sim, name)
-        for name in ("_sample_weight_rows", "_sample_ket_states")
+        for name in (
+            "_sample_weight_rows", "_sample_ket_states",
+            "_sample_batched_kets",
+        )
     }
 
     def timed_solve(*a, **k):
@@ -2245,7 +2293,10 @@ def _spd_path(K, S, device, card: str, name: str, build, golden: str) -> dict:
     _check(sinfo["n_traj"] == ref["n_traj"], f"trajectories {sinfo['n_traj']}")
     _check_shots(sres)
     tv = _tv_distance(dict(sres[-1].bitstring_counts), ref["final_counts"])
-    states = captured["out"]  # (B, n_eval, dim) complex64
+    # The route leaves the batch on the card (S.BatchedKets) and draws the
+    # shots there: fetched here for the checks
+    _check(isinstance(captured["out"], S.BatchedKets), "the batch on the card")
+    states = captured["out"].fetch()  # (B, n_eval, dim) complex64
     _check(bool(np.isfinite(states).all()), f"finite {name} states")
     probs = np.abs(states[:, -1].astype(np.complex128)) ** 2
     probs /= probs.sum(axis=1, keepdims=True)  # as run() renormalizes
@@ -2328,7 +2379,7 @@ def _spd_path(K, S, device, card: str, name: str, build, golden: str) -> dict:
         f" ms, the solve call {part['solve'] * 1e3:.3f} ms (alone: staging"
         f" {stage_s * 1e3:.3f} ms, fetch {fetch_s * 1e3:.3f} ms), wrapping"
         f" the states into results {part['wrap'] * 1e3:.3f} ms, host"
-        f" sampling {part['sampling'] * 1e3:.3f} ms"
+        f" sampling (on the card) {part['sampling'] * 1e3:.3f} ms"
         f" ({sinfo['n_steps']} RK4 steps, {n_traj} trajectories); bound"
         f" {bound_ms:.3f} ms ({bound_by})"
     )
@@ -2342,6 +2393,103 @@ def _spd_path(K, S, device, card: str, name: str, build, golden: str) -> dict:
         "launches": k1b_launches,
         "max_abs_err": k1b_err,
         "ms": k1b_s * 1e3,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def _sampler_path(K, S, device, card: str) -> dict:
+    """The shot sampler on the batch of the benchmark's ``spd16.shots``
+    cell: one seeded SPD16 ``run()`` at 101 evaluation times drawing its
+    shots on the card (one launch, only the int32 indices fetched), then
+    the kernel on that run's kets against its plain version, one for
+    one, its time alone, the plain version's and the bound."""
+    import torch
+
+    from pulser_tpu_torch import profiling
+    from pulser_tpu_torch.emulator import TorchEmulator
+    from pulser_tpu_torch.emulator import simulation as sim
+
+    seq, noise = spd16_sequence()
+    times = np.linspace(0, seq.get_duration() * 1e-3, 101)
+    calls: list = []
+    draw = sim._sample_batched_kets
+
+    def keep(kets, renormalize, time_index, reverse, ns, *rest):
+        calls.append((kets, renormalize, time_index, reverse, ns))
+        return draw(kets, renormalize, time_index, reverse, ns, *rest)
+
+    sim._sample_batched_kets = keep
+    try:
+        for seed in (1234, 1235):  # the first builds and loads
+            np.random.seed(seed)
+            emu = TorchEmulator.from_sequence(
+                seq, noise_model=noise, evaluation_times=times
+            )
+            before = K.device_launches("sample_states")
+            profiling.counter_report(reset=True)
+            t0 = time.perf_counter()
+            emu.run()
+            run_s = time.perf_counter() - t0
+            report = profiling.counter_report(reset=True)
+            counted = K.device_launches("sample_states") - before
+    finally:
+        sim._sample_batched_kets = draw
+    kets, renormalize, time_index, reverse, ns = calls[-1]
+    shots = int(sum(ns))
+    _check(counted == 1, f"one sample_states launch a run, not {counted}")
+    _check(
+        report["traj.fetched_bytes"] == shots * 4,
+        f"only the indices fetched: {report['traj.fetched_bytes']} B",
+    )
+    offs = np.concatenate(([0], np.cumsum(ns))).astype(np.int64)
+    u = np.random.default_rng(7).random(shots)
+    args = [
+        kets.planes,
+        torch.from_numpy(kets.eval_map[np.asarray(time_index)]).to(device),
+        torch.from_numpy(offs).to(device),
+        torch.from_numpy(u).to(device),
+    ]
+    kw = dict(renormalize=renormalize, reverse=reverse)
+    got = K.sample_states(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = K.sample_states_reference(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    differ = int((got != want).sum())
+    k_s = _median_seconds(lambda: K.sample_states(*args, **kw))
+    counted_call, launched = launches_per_call(
+        K, "sample_states", lambda: K.sample_states(*args, **kw)
+    )
+    n_traj, _, _, dim = kets.planes.shape
+    read = n_traj * len(time_index) * dim * 8
+    bound_ms, bound_by = _bound(0.0, read + _nbytes(*args[1:], got))
+    print(
+        f"SPD16 shots on the card ({n_traj} trajectories x"
+        f" {len(time_index)} times, {shots} shots, renormalize"
+        f" {renormalize}, reverse {reverse}): run() {run_s * 1e3:.3f} ms,"
+        f" one sample_states launch, {report['traj.fetched_bytes']} B"
+        f" fetched, {sum(v for k, v in report.items() if k.startswith('sync.'))}"
+        f" waiting reads; sample_states {k_s * 1e3:.3f} ms, plain (once)"
+        f" {plain_s * 1e3:.3f} ms, {differ} of {shots} indices differ;"
+        f" bound {bound_ms:.3f} ms ({bound_by}, {read / 1e9:.4f} GB of"
+        f" states read once); {counted_call} device launch(es) a call,"
+        f" traced {sorted(set(launched))} [{card}]"
+    )
+    _check(differ <= max(1, shots // 10000), f"{differ} indices differ")
+    _check_one_launch(counted_call, launched, "sample_states_kernel")
+    return {
+        "name": "sample_states",
+        "path": "SPD16 (spd16.shots' batch)",
+        "route": "cuda",
+        "source": "pulser_tpu_torch/csrc/sample_states.cu",
+        "replaces": None,
+        "launches": counted,
+        "max_abs_err": differ,
+        "ms": k_s * 1e3,
         "plain_ms": plain_s * 1e3,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -4806,13 +4954,13 @@ def _tutorials_phase(K, S, card: str) -> tuple[list, int]:
                     (
                         code,
                         _launches(K),
-                        {k: K.device_launches(k) for k in _COUNTERS},
+                        {k: K.device_launches(k) for k in K.SOURCES},
                         dict(S.last_solve_info),
                     )
                 )
 
             _reset_launches(K)
-            lib0 = {k: K.device_launches(k) for k in _COUNTERS}
+            lib0 = {k: K.device_launches(k) for k in K.SOURCES}
             np.random.seed(golden["seed"])
             t0 = time.perf_counter()
             ns = B.execute(name, "cuda", tmp, on_cell)
@@ -4838,7 +4986,7 @@ def _tutorials_phase(K, S, card: str) -> tuple[list, int]:
                     _check(tr_err <= TRACE_TOL, f"{name} trace {tr_err:.3e}")
             label = f"TUT{index:02d}"
             if name == "02_noisy_simulation":
-                prev_w, prev_l = dict.fromkeys(_COUNTERS, 0), lib0
+                prev_w, prev_l = dict.fromkeys(K.SOURCES, 0), lib0
                 for code, wrapper, lib, info in cells:
                     if "nm_both = ptt.NoiseModel(" in code:
                         k2 = wrapper["mcwf_rows"] - prev_w["mcwf_rows"]
@@ -5066,6 +5214,7 @@ def _main_path(K, S, device, card: str) -> dict:
             _spd_path(
                 K, S, device, card, "SPD16", spd16_sequence, _SPD16_GOLDEN
             ),  # 32
+            _sampler_path(K, S, device, card),  # 33
         ],
         "paths": [
             _backend_afm16_path(K, S, card),  # 19
@@ -5089,7 +5238,7 @@ def _main_path(K, S, device, card: str) -> dict:
     report["paths"] += _sharding_phase(card)  # 29
     launches = {e["name"]: e["launches"] for e in serve if "launches" in e}
     k1, k2 = report["kernels"][0], report["kernels"][3]
-    k1b, spd16 = report["kernels"][2], report["kernels"][-1]
+    k1b, spd16 = report["kernels"][2], report["kernels"][-2]
     k1b["also_on"] = {"SPD16": spd16["launches"]}
     k1["also_on"] = {
         name: launches[name]["ip_sesolve"]

@@ -1733,13 +1733,16 @@ class TorchEmulator:
     def _noisy_states_batched(
         self,
         print_progress: bool = False,
+        lazy: bool = False,
         **options: Any,
-    ) -> tuple[list[int], np.ndarray, bool, tuple[int, int]]:
+    ) -> tuple[list[int], Any, bool, tuple[int, int]]:
         """The pure-state trajectory batch in a single solve:
         ``(repetitions, states, renormalize, (d, n))`` with the
         ``(T, n_eval, d^n)`` states as the solve returns them; under the
         coarsened step each state is to be renormalized
-        (:func:`_renormalized`)."""
+        (:func:`_renormalized`). When ``lazy`` and the batch takes the
+        batched kernel, the states are the kernel's output where it lies
+        (a :class:`~pulser_tpu_torch.ops.solver.BatchedKets`)."""
         with profiling.phase("emulator.noise_trajectories"):
             with profiling.phase("emulator.traj_draw"):
                 self._refresh_trajectories()
@@ -1826,6 +1829,7 @@ class TorchEmulator:
                     dtype=cdtype,
                     mesh=trajectories.default_mesh(),
                     device=self._torch_device,
+                    lazy=lazy,
                 )
         profiling.count("traj.realizations", n_traj_true)
         self._current_hamiltonian = batch.last_ham()
@@ -1878,10 +1882,13 @@ class TorchEmulator:
         """Per-eval-time bitstring Counters over all noisy runs.
 
         One vectorized pass over the whole (trajectory × eval-time)
-        batch on the host: a cumsum and searchsorted sampler per entry
-        and the SPAM flips, drawn from the numpy global RNG in the JAX
-        package's order (one uniform per measurement sample, trajectory-
-        major and eval-time-minor, then the flip uniforms).
+        batch: a cumsum and searchsorted sampler per entry and the SPAM
+        flips, drawn from the numpy global RNG in the JAX package's order
+        (one uniform per measurement sample, trajectory-major and
+        eval-time-minor, then the flip uniforms). Where the batch took
+        the batched kernel, the outcomes are drawn on its device from
+        the same uniforms (:func:`_sample_batched_kets`); elsewhere on
+        the host.
         """
         eval_ts = self._eval_times_array
         spr = self.noise_model.samples_per_run
@@ -1893,12 +1900,18 @@ class TorchEmulator:
         ):
             # Qubit kets measured in their own basis: the shots are drawn
             # from the states with the arithmetic of TorchResult._weights,
-            # and no result is wrapped
+            # and no result is wrapped; the batched kernel's states stay on
+            # its device, where they are drawn from
             reps_all, states, coarsen, _ = self._noisy_states_batched(
-                print_progress=print_progress, **options
+                print_progress=print_progress, lazy=True, **options
+            )
+            sample = (
+                _sample_batched_kets
+                if isinstance(states, _solver_mod.BatchedKets)
+                else _sample_ket_states
             )
             with profiling.phase("emulator.sample_counts"):
-                return _sample_ket_states(
+                return sample(
                     states,
                     coarsen,
                     [_time_index(eval_ts, t) for t in eval_ts],
@@ -2373,6 +2386,34 @@ def _sample_ket_states(
             sl = slice(offs[entry], offs[entry + 1])
             idx[sl] = _draw_from(cum, rnd[sl])
             entry += 1
+    return _counts_of(idx, offs, n_times, width, meas_errors)
+
+
+def _sample_batched_kets(
+    kets: "_solver_mod.BatchedKets",
+    renormalize: bool,
+    time_index: list[int],
+    reverse: bool,
+    ns: list[int],
+    n_times: int,
+    width: int,
+    meas_errors: "dict | None",
+) -> np.ndarray:
+    """Bitstring Counters per evaluation time drawn from the batched
+    kernel's kets where they lie (:meth:`~pulser_tpu_torch.ops.solver.
+    BatchedKets.draw`), with the arguments of :func:`_sample_ket_states`.
+
+    The host draws the same uniforms from the numpy global RNG, then the
+    same SPAM flips (:func:`_counts_of`), so the generator ends where the
+    host pass leaves it; the device reproduces the host pass's weights,
+    and an outcome can differ only where a uniform lies within the
+    rounding of a cumulative weight.
+    """
+    offs = np.concatenate(([0], np.cumsum(ns)))
+    rnd = np.random.rand(offs[-1])
+    idx = kets.draw(
+        time_index, offs, rnd, renormalize=renormalize, reverse=reverse
+    )
     return _counts_of(idx, offs, n_times, width, meas_errors)
 
 

@@ -15,6 +15,10 @@
 - ``mcwf`` replaces the TPU kernel ``_mcwf_kernel`` of the same file: the
   lab-frame quantum-jump solve with general 2×2 collapse operators.
   Source: ``pulser_tpu_torch/csrc/mcwf.cu``.
+- ``sample_states`` has no TPU kernel (the JAX package draws these shots
+  on the host): the measurement outcomes of the trajectory-batched
+  ``ip_sesolve``'s kets, drawn where the solve left them from uniforms
+  the host drew. Source: ``pulser_tpu_torch/csrc/sample_states.cu``.
 
 Each source says what bounds its kernel on the card and how the design
 answers that. Each is compiled with ``nvcc`` for ``sm_90a`` on first use
@@ -44,7 +48,10 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 #: The CUDA sources, by kernel name.
 SOURCES = {
     name: os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    for name in ("ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf")
+    for name in (
+        "ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf",
+        "sample_states",
+    )
 }
 
 #: The wrappers count their launches in :mod:`pulser_tpu_torch.profiling`
@@ -53,7 +60,7 @@ SOURCES = {
 #: ``ip_sesolve_batched_kernel`` per whole trajectory batch (a thread
 #: block per trajectory for n ≤ 13, a thread-block cluster per trajectory
 #: above); one ``mcwf_rows_kernel`` and one ``mcwf_kernel`` per whole
-#: trajectory batch.
+#: trajectory batch; one ``sample_states_kernel`` per batch of draws.
 LAUNCH_COUNTER = "kernels.{}.launches"
 #: Of the last ``mcwf_rows_kernel`` launch: the ``(B,)`` int32 device
 #: tensor of the steps of each trajectory whose first rotor the kernel
@@ -190,6 +197,9 @@ def _load(name: str) -> ctypes.CDLL:
             lib.ip_sesolve_batched_run.argtypes = [p] * 11 + [i] * 4 + [p]
             lib.ip_sesolve_batched_config.restype = i
             lib.ip_sesolve_batched_config.argtypes = [i, p]
+        elif name == "sample_states":
+            lib.sample_states_run.restype = i
+            lib.sample_states_run.argtypes = [p] * 5 + [i] * 6 + [p]
         elif name == "mcwf_rows":
             lib.mcwf_rows_run.restype = i
             lib.mcwf_rows_run.argtypes = [p] * 16 + [i] * 5 + [f, f, p]
@@ -518,6 +528,136 @@ def ip_sesolve_reference(
         out[:, s, 1] = lab.imag
     return out.reshape(n_seg, 2, 1 << n_row, 1 << n_col)
 
+
+#: The fixed-point unit of the sampler's cumulative weights, 2^-62.
+_SAMPLE_SCALE = float(1 << 62)
+
+
+def sample_states(
+    planes: torch.Tensor,
+    seg_of: torch.Tensor,
+    offs: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    renormalize: bool,
+    reverse: bool,
+) -> torch.Tensor:
+    """Measurement outcomes drawn from a trajectory batch's qubit kets.
+
+    Entry ``e = t·n_times + i`` reads trajectory ``t``'s state after
+    segment ``seg_of[i]`` and draws one outcome for each of its uniforms
+    ``u[offs[e]:offs[e + 1]]``, as the host pass
+    ``emulator.simulation._sample_ket_states`` draws them from the
+    fetched states: where ``renormalize``, the state times the float32
+    reciprocal of its float32 norm; the weights ``|a|²`` in float64, in
+    bitstring order (reversed where ``reverse``); divided by their total;
+    the first outcome whose cumulative weight reaches the uniform, capped
+    at the last outcome of positive weight. The cumulative weights are
+    sums of the normalized weights each rounded to a multiple of 2^-62,
+    exact in any order (see ``csrc/sample_states.cu``); they differ from
+    the host's float64 sums by rounding alone. One device launch per
+    call.
+
+    Args:
+        planes: ``(T, S, 2, 2^n)`` float32 real and imaginary planes of
+            each trajectory's state after each segment (the batched
+            :func:`ip_sesolve`'s output, reshaped).
+        seg_of: ``(n_times,)`` int64 segment of each evaluation time.
+        offs: ``(T·n_times + 1,)`` int64 offsets of the entries' uniforms.
+        u: ``(offs[-1],)`` float64 uniforms in [0, 1).
+        renormalize: Divide each state by its norm first.
+        reverse: Bitstring order is the state's reversed (the
+            ground-rydberg basis lists the Rydberg level first).
+
+    Returns:
+        ``(offs[-1],)`` int32 outcome indices in bitstring order.
+    """
+    kw = dict(renormalize=renormalize, reverse=reverse)
+    if planes.device.type == "cpu":
+        return sample_states_reference(planes, seg_of, offs, u, **kw)
+    if planes.device.type != "cuda":
+        raise ValueError(f"Unsupported device {planes.device}.")
+    n_traj, spt, two, dim = planes.shape
+    n = dim.bit_length() - 1
+    if two != 2 or dim != 1 << n:
+        raise ValueError(f"planes has shape {tuple(planes.shape)}.")
+    if not IP_MIN_QUBITS <= n <= IP_MAX_QUBITS:
+        # The qubit counts of the batched ip_sesolve whose output it reads
+        raise ValueError(
+            f"sample_states takes {IP_MIN_QUBITS} <= n <= {IP_MAX_QUBITS},"
+            f" not n={n}."
+        )
+    n_times = seg_of.numel()
+    expected = dict(
+        planes=(torch.float32, (n_traj, spt, 2, dim)),
+        seg_of=(torch.int64, (n_times,)),
+        offs=(torch.int64, (n_traj * n_times + 1,)),
+        u=(torch.float64, (u.numel(),)),
+    )
+    tensors = dict(planes=planes, seg_of=seg_of, offs=offs, u=u)
+    for name, (dtype, shape) in expected.items():
+        t = tensors[name]
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} must be {dtype} of shape {shape}, not {t.dtype}"
+                f" of shape {tuple(t.shape)}."
+            )
+        if t.device != planes.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {planes.device}.")
+    out = torch.empty(u.shape, dtype=torch.int32, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = _load("sample_states").sample_states_run(
+        *(t.data_ptr() for t in (planes, seg_of, offs, u, out)),
+        n_traj, spt, n_times, n, int(renormalize), int(reverse), stream,
+    )
+    profiling.count(LAUNCH_COUNTER.format("sample_states"))
+    if err != 0:
+        raise RuntimeError(f"sample_states_run failed: CUDA error {err}.")
+    return out
+
+
+def sample_states_reference(
+    planes: torch.Tensor,
+    seg_of: torch.Tensor,
+    offs: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    renormalize: bool,
+    reverse: bool,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sample_states` (same arguments).
+
+    Runs on the inputs' device, a trajectory at a time over all its
+    evaluation times: the norm a float64 sum of the float32 squares
+    rounded to float32, the fixed-point cumulative weights an int64
+    ``cumsum``, each draw a ``searchsorted``.
+    """
+    n_traj = planes.shape[0]
+    n_times = seg_of.numel()
+    bounds = offs.tolist()
+    out = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+    for t in range(n_traj):
+        states = planes[t, seg_of]  # (n_times, 2, dim)
+        re, im = states[:, 0], states[:, 1]
+        if renormalize:
+            sq = (re * re + im * im).double().sum(1, keepdim=True)
+            norm = torch.sqrt(sq.float())
+            inv = 1.0 / torch.where(norm != 0, norm, torch.ones_like(norm))
+            re, im = re * inv, im * inv
+        h = torch.hypot(re.double(), im.double())
+        w = h * h
+        if reverse:
+            w = w.flip(-1)
+        total = w.sum(1, keepdim=True)
+        scaled = torch.where(total > 0, w / total, torch.zeros_like(w))
+        cum = torch.cumsum(torch.round(scaled * _SAMPLE_SCALE).long(), 1)
+        for i in range(n_times):
+            e = t * n_times + i
+            sl = slice(bounds[e], bounds[e + 1])
+            target = torch.ceil(u[sl] * _SAMPLE_SCALE).long()
+            target = torch.minimum(target, cum[i, -1])
+            out[sl] = torch.searchsorted(cum[i], target).int()
+    return out
 
 
 def _f32(x: float) -> float:

@@ -1612,7 +1612,8 @@ def sesolve_rk4_batched(
     dtype: Any = None,
     mesh: Any = None,
     device: Any = None,
-) -> np.ndarray:
+    lazy: bool = False,
+) -> "np.ndarray | BatchedKets":
     """Batched interaction-picture sesolve over noise trajectories.
 
     Every trajectory's host-staged stage coefficients ride a leading
@@ -1644,9 +1645,14 @@ def sesolve_rk4_batched(
         device: The torch device to solve on (default: the first CUDA
             device; without one this raises: pass ``"cpu"`` to run on
             the CPU).
+        lazy: On the kernel's route, return its output where it lies, a
+            :class:`BatchedKets`, in place of the fetched states (the
+            other routes return the states).
 
     Returns:
-        ``(T, n_eval, dim)`` complex states at the evaluation times.
+        ``(T, n_eval, dim)`` complex states at the evaluation times, or,
+        when ``lazy`` and the batch takes the kernel, a
+        :class:`BatchedKets`.
     """
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
@@ -1665,7 +1671,7 @@ def sesolve_rk4_batched(
         and dev.type == "cuda"
     ):
         return _sesolve_batched_kernel(
-            psi0_np, plans, static_diags, n, cdtype, dev
+            psi0_np, plans, static_diags, n, cdtype, dev, lazy=lazy
         )
 
     def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
@@ -1822,10 +1828,12 @@ def _sesolve_batched_kernel(
     n: int,
     cdtype: Any,
     device: Any,
-) -> np.ndarray:
+    lazy: bool = False,
+) -> "np.ndarray | BatchedKets":
     """Dispatches the trajectory-batched mode of the hand-written
     interaction-picture sesolve kernel: one device launch for the whole
-    batch, the states fetched once.
+    batch, the states fetched once, or, when ``lazy``, left where they
+    lie as a :class:`BatchedKets`.
 
     On a CPU device the kernel's plain PyTorch version runs instead.
     """
@@ -1850,17 +1858,85 @@ def _sesolve_batched_kernel(
         n_traj=plans.n_traj,
         n_steps=int(np.count_nonzero(base.seg_dts)),
     )
-    spt = kwargs["segs_per_traj"]
-    planes = out.reshape(plans.n_traj, spt, 2, -1)
-    eval_map = np.asarray(base.eval_map, dtype=np.int64)
-    if not np.array_equal(eval_map, np.arange(spt)):
+    kets = BatchedKets(
+        out.reshape(plans.n_traj, kwargs["segs_per_traj"], 2, -1),
+        np.asarray(base.eval_map, dtype=np.int64),
+    )
+    return kets if lazy else kets.fetch().astype(cdtype, copy=False)
+
+
+@dataclasses.dataclass
+class BatchedKets:
+    """A trajectory batch's kets as the batched kernel left them.
+
+    Attributes:
+        planes: ``(T, S, 2, dim)`` float32 real and imaginary planes of
+            each trajectory's state after each of the plan's S segments,
+            on the solve's device.
+        eval_map: ``(n_eval,)`` segment of each evaluation time.
+    """
+
+    planes: torch.Tensor
+    eval_map: np.ndarray
+
+    def fetch(self) -> np.ndarray:
+        """The ``(T, n_eval, dim)`` complex64 states in host memory:
+        gathered at the evaluation times and assembled into complex
+        states on the device, then copied once (:func:`_fetch_states`)."""
+        dev = self.planes.device
+        planes = self.planes
+        if not np.array_equal(self.eval_map, np.arange(planes.shape[1])):
+            # A copy from pageable memory waits for the card
+            profiling.count("sync.solver.stage")
+            planes = planes[:, torch.from_numpy(self.eval_map).to(dev)]
+        return _fetch_states(torch.complex(planes[:, :, 0], planes[:, :, 1]))
+
+    def draw(
+        self,
+        time_index: list[int],
+        offs: np.ndarray,
+        rnd: np.ndarray,
+        *,
+        renormalize: bool,
+        reverse: bool,
+    ) -> np.ndarray:
+        """Outcome indices of the uniforms ``rnd`` drawn on the kets'
+        device (:func:`~pulser_tpu_torch.ops.kernels.sample_states`):
+        entry ``e = t·n_times + i`` (trajectory-major) reads trajectory
+        ``t`` at evaluation index ``time_index[i]`` and draws
+        ``rnd[offs[e]:offs[e + 1]]``. The segment map, the offsets and the
+        uniforms cross to the device in one copy, the indices come back
+        in one: only they, of the states, reach the host.
+
+        Returns:
+            ``(offs[-1],)`` int64 outcome indices in bitstring order
+            (reversed where ``reverse``).
+        """
+        from pulser_tpu_torch.ops.kernels import sample_states
+
+        seg_of = self.eval_map[np.asarray(time_index, dtype=np.int64)]
+        n_seg, n_off = len(seg_of), len(offs)
+        packed = np.concatenate(
+            [
+                seg_of.astype(np.int64),
+                np.asarray(offs, dtype=np.int64),
+                np.asarray(rnd, dtype=np.float64).view(np.int64),
+            ]
+        )
         # A copy from pageable memory waits for the card
         profiling.count("sync.solver.stage")
-        planes = planes[:, torch.from_numpy(eval_map).to(dev)]
-    # (T, n_eval, dim) complex states assembled on the device, so the
-    # host receives them in one copy and makes none of its own
-    states = torch.complex(planes[:, :, 0], planes[:, :, 1])
-    return _fetch_states(states).astype(cdtype, copy=False)
+        staged = torch.from_numpy(packed).to(self.planes.device)
+        idx = sample_states(
+            self.planes,
+            staged[:n_seg],
+            staged[n_seg : n_seg + n_off],
+            staged[n_seg + n_off :].view(torch.float64),
+            renormalize=renormalize,
+            reverse=reverse,
+        )
+        profiling.count("sync.solver.fetch")
+        profiling.count("traj.fetched_bytes", idx.numel() * idx.element_size())
+        return idx.cpu().numpy().astype(np.int64)
 
 
 def _lindblad_drive_arrays(

@@ -70,7 +70,8 @@ def test_device_launch_count_only_for_counting_libraries():
     """Every kernel's library counts its device launches; asking for a
     name that is no kernel raises before anything is built or loaded."""
     assert set(K.SOURCES) == {
-        "ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf"
+        "ip_sesolve", "ip_sesolve_batched", "mcwf_rows", "mcwf",
+        "sample_states",
     }
     with pytest.raises(ValueError, match="no kernel"):
         K.device_launches("mcwf_cols")

@@ -320,6 +320,141 @@ def test_cuda_mcwf_rows_on_regnoise10_distinct_diagonals(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 13, 14, 16])
+def test_cuda_sample_states_matches_plain_version(cuda, n):
+    """The sampler on one of each of K1's batched shapes (a block, a
+    full block, clusters of 2 and 8 blocks): random states off their
+    norm, a peaked AFM-like one and zero tails, with and without the
+    renormalization and the reversal, draw the plain version's outcome
+    indices exactly, in one launch each."""
+    inputs = chip_smoke.random_sample_inputs(n, 300 + n, cuda)
+    on_cpu = [x.cpu() for x in inputs]
+    for renormalize in (False, True):
+        for reverse in (False, True):
+            kw = dict(renormalize=renormalize, reverse=reverse)
+            before = K.launches("sample_states")
+            got = K.sample_states(*inputs, **kw)
+            torch.cuda.synchronize()
+            assert K.launches("sample_states") == before + 1
+            want = K.sample_states_reference(*on_cpu, **kw)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_sample_states_rejects_bad_inputs(cuda):
+    planes, seg_of, offs, u = chip_smoke.random_sample_inputs(10, 0, cuda)
+    kw = dict(renormalize=True, reverse=True)
+    with pytest.raises(ValueError, match="float64"):
+        K.sample_states(planes, seg_of, offs, u.float(), **kw)
+    with pytest.raises(ValueError, match="offs"):
+        K.sample_states(planes, seg_of, offs[:-1], u, **kw)
+    with pytest.raises(ValueError, match="n=9"):
+        K.sample_states(planes[..., :512].contiguous(), seg_of, offs, u, **kw)
+
+
+def _spd16_job(seed: int, device):
+    """One seeded SPD16 ``run()`` (20 realizations of 50 samples at 101
+    times) through the card's route: the results."""
+    import numpy as np
+
+    from pulser_tpu_torch.emulator import TorchEmulator
+
+    seq, noise = chip_smoke.spd16_sequence()
+    np.random.seed(seed)
+    emu = TorchEmulator.from_sequence(
+        seq, noise_model=noise,
+        evaluation_times=np.linspace(0, seq.get_duration() * 1e-3, 101),
+        torch_device=device,
+    )
+    return emu.run()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2**31 + 12, 3000000011])
+def test_cuda_sampling_route_draws_the_host_passes_shots(
+    cuda, monkeypatch, seed
+):
+    """SPD16 on the card: the outcomes drawn from K1's output where it
+    lies against the host pass on the same states fetched
+    (``_sample_ket_states``) from the same generator state. Every shot
+    that differs has its uniform within 1e-6 of a cumulative weight of
+    its state; without one the counts are equal; either way the
+    generator's next draw is."""
+    import numpy as np
+
+    from pulser_tpu_torch.emulator import simulation as sim
+
+    drawn, host = [], {}
+    counts_of, on_card = sim._counts_of, sim._sample_batched_kets
+
+    def keep(idx, *rest):
+        drawn.append(idx.copy())
+        return counts_of(idx, *rest)
+
+    def both(kets, renormalize, time_index, reverse, ns, *rest):
+        state = np.random.get_state()
+        states = kets.fetch()
+        host["counts"] = sim._sample_ket_states(
+            states, renormalize, time_index, reverse, ns, *rest
+        )
+        host["next"] = np.random.rand()
+        np.random.set_state(state)
+        host["u"] = np.random.rand(int(sum(ns)))
+        host.update(states=states, args=(renormalize, time_index, reverse, ns))
+        np.random.set_state(state)
+        return on_card(kets, renormalize, time_index, reverse, ns, *rest)
+
+    monkeypatch.setattr(sim, "_counts_of", keep)
+    monkeypatch.setattr(sim, "_sample_batched_kets", both)
+    res = _spd16_job(seed, cuda)
+    card_next = np.random.rand()
+    assert card_next == host["next"]
+    h_idx, c_idx = drawn
+    renormalize, time_index, reverse, ns = host["args"]
+    offs = np.concatenate(([0], np.cumsum(ns)))
+    for k in np.nonzero(h_idx != c_idx)[0]:
+        e = int(np.searchsorted(offs, k, side="right")) - 1
+        t, i = divmod(e, len(time_index))
+        state = host["states"][t, time_index[i]]
+        if renormalize:
+            state = sim._renormalized(state[None])[0]
+        w = np.abs(state.astype(np.complex128)) ** 2
+        if reverse:
+            w = w[::-1]
+        cum = np.cumsum(w / w.sum())
+        assert np.min(np.abs(cum - host["u"][k])) <= 1e-6, (seed, k)
+    if np.array_equal(h_idx, c_idx):
+        assert [dict(r.bitstring_counts) for r in res] == [
+            dict(c) for c in host["counts"]
+        ]
+    assert (h_idx != c_idx).sum() <= 2
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_route_is_one_launch_and_fetches_the_indices(cuda):
+    """A warm SPD16 job on the card's route: one batched K1 and one
+    sampler launch (the wrappers' and the C libraries' counts), no
+    unbatched K1, and only the int32 indices counted as fetched."""
+    from pulser_tpu_torch import profiling
+
+    _spd16_job(5, cuda)  # builds and loads both libraries
+    before = {k: K.device_launches(k) for k in ("ip_sesolve_batched",
+                                                "sample_states")}
+    profiling.counter_report(reset=True)
+    res = _spd16_job(6, cuda)
+    report = profiling.counter_report(reset=True)
+    counted = {k: K.device_launches(k) - v for k, v in before.items()}
+    shots = 20 * 50 * 101
+    assert sum(sum(r.bitstring_counts.values()) for r in res) == shots
+    assert counted == {"ip_sesolve_batched": 1, "sample_states": 1}
+    assert report[K.LAUNCH_COUNTER.format("sample_states")] == 1
+    assert report[K.LAUNCH_COUNTER.format("ip_sesolve_batched")] == 1
+    assert K.LAUNCH_COUNTER.format("ip_sesolve") not in report
+    assert report["traj.fetched_bytes"] == shots * 4
+    assert report["traj.realizations"] == 20
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_on_tri16_plan(cuda):
     """K1 on TRI16's plan (AFM16's sweep on AnalogDevice's calibrated
     triangular layout, reached with ``with_new_device``) against its

@@ -463,6 +463,40 @@ def test_the_routes_counts_equal_those_of_its_wrapped_results(
     assert [list(c.items()) for c in got] == [list(c.items()) for c in want]
 
 
+def test_on_the_cpu_the_route_draws_on_the_host(cell, monkeypatch):
+    """On the CPU the batch takes the torch loop, whose states come back
+    to the host: the route draws them with ``_sample_ket_states`` and
+    never with the card's sampler; its counts and the generator's next
+    draw are those of the host pass over the solve's states from the
+    generator's state at the draws."""
+    import pulser_tpu_torch.ops.kernels as K
+    from pulser_tpu_torch.emulator import simulation as sim
+
+    calls = []
+    host_pass = sim._sample_ket_states
+
+    def keep(states, *rest):
+        calls.append((np.random.get_state(), np.array(states), rest))
+        return host_pass(states, *rest)
+
+    def refuse(*a, **k):
+        raise AssertionError("the card's sampler ran on the CPU")
+
+    monkeypatch.setattr(sim, "_sample_ket_states", keep)
+    monkeypatch.setattr(sim, "_sample_batched_kets", refuse)
+    monkeypatch.setattr(K, "sample_states", refuse)
+    job = _jobs(cell, 2**31 + 91, 1)[0]
+    got = _runner(cell).run(dict(job))["counts"]
+    got_next = np.random.rand()
+    assert len(calls) == 1
+    state, states, rest = calls[0]
+    assert isinstance(states, np.ndarray) and states.shape[0] == RUNS
+    np.random.set_state(state)
+    want = host_pass(states, *rest)
+    assert np.random.rand() == got_next
+    assert [list(c.items()) for c in got] == [list(c.items()) for c in want]
+
+
 def test_a_uniform_above_a_rows_rounded_total_draws_its_last_outcome(
     monkeypatch,
 ):
