@@ -209,6 +209,31 @@ class _LindbladPrep(NamedTuple):
     mesolve_ip: bool
 
 
+class _StepChoice(NamedTuple):
+    """The integration grid :meth:`TorchEmulator._step_policy` chose."""
+
+    max_step: float
+    coarsen: bool  # the interaction picture's coarsened grid
+    mcwf_ip: bool  # the quantum jumps in the interaction picture
+    mesolve_ip: bool  # the master equation in the interaction picture
+    knots: np.ndarray
+    marks: Any  # what the breakpoints are marked from
+
+    def breakpoints(self) -> "np.ndarray | None":
+        """The knots that anchor the coarsened grid (None on the fine
+        grid), marked when the plan is built."""
+        if not self.coarsen:
+            return None
+        if isinstance(self.marks, (list, _CoeffBatch)):
+            return TorchEmulator._sharp_knots(self.marks, self.knots)
+        return self.marks
+
+
+def _lab_only(ham: Any) -> bool:
+    """Whether the XY term or ``int_w`` keeps ``ham`` in the lab frame."""
+    return ham.xy_mat is not None or ham.int_w is not None
+
+
 def _has_stochastic_noise(noise_model: NoiseModel) -> bool:
     return has_shot_to_shot_except_spam(noise_model) or (
         "SPAM" in noise_model.noise_types
@@ -1258,6 +1283,90 @@ class TorchEmulator:
         self._sticky_steps[key] = step
         return step
 
+    def _dissipation(self, ham: Hamiltonian) -> "str | None":
+        """The dissipative solve ``ham`` takes: ``"mcwf"`` (quantum
+        jumps), ``"mesolve"`` (the master equation, also for a density
+        matrix) or None (the Schrödinger solve of a ket)."""
+        is_dm = not self.initial_state.isket
+        if not is_dm and not ham.lindblad_data.local_collapse_ops:
+            return None
+        if not is_dm and self._lindblad_solver_choice():
+            return "mcwf"
+        return "mesolve"
+
+    def _step_policy(
+        self,
+        ham: Hamiltonian,
+        lambda_max: float,
+        key: str,
+        margin: float,
+        marks: "list[Hamiltonian] | _CoeffBatch | np.ndarray | None",
+        options: dict,
+    ) -> "_StepChoice":
+        """The integration step of one solve or of one trajectory batch,
+        in the JAX package's order: the median knot spacing, at most
+        1 ns, halved until ``0.8 / (margin·λ_max)`` bounds it, never
+        grown back across runs (sticky under ``key``), and capped by the
+        ``max_step`` option; then, in the interaction picture, coarsened
+        by :meth:`_coarse_ip_step`. The quantum jumps (every collapse
+        operator diagonal or a single matrix unit) and the master
+        equation (every one diagonal: ρ's rotor conjugation then
+        commutes with the dissipator) coarsen from the NOISELESS
+        Hamiltonian with the batch margin, as the JAX package's do (that
+        Hamiltonian draws from the numpy global RNG when first built).
+
+        Args:
+            ham: The run's Hamiltonian, or a batch's template: its
+                structure picks the frame and the dissipative solve.
+            lambda_max: The stiffness, read from what the caller holds.
+            key: The sticky step's key.
+            margin: 1.0 for one Hamiltonian, 1.3 for a batch (the noise
+                draws stay inside one power-of-two step).
+            marks: What the coarsening and the breakpoints read: the
+                Hamiltonian in a list, the batch (its shims feed the
+                coarsening), or :meth:`_factored_policy`'s breakpoints.
+            options: The run's options.
+        """
+        knots = ham.sampling_times
+        spacings = np.diff(knots)
+        base_step = min(
+            float(np.median(spacings)) if len(spacings) else 1e-3, 1e-3
+        )
+        max_step = self._sticky_quantized_step(
+            key, base_step, 0.8 / max(margin * lambda_max, 1e-9)
+        )
+        if options.get("max_step"):
+            max_step = min(max_step, float(options["max_step"]))
+        coarsen, ip_kind = False, None
+        dissipation = self._dissipation(ham)
+        lab = _lab_only(ham)
+        if not lab and dissipation is None:
+            max_step, coarsen = self._coarse_ip_step(
+                key + "_coarse",
+                max_step,
+                lambda_max,
+                marks.shims if isinstance(marks, _CoeffBatch) else marks,
+                options,
+            )
+        elif not lab and (
+            _solver_mod.mcwf_ip_eligible
+            if dissipation == "mcwf"
+            else _solver_mod.mesolve_ip_eligible
+        )(ham._local_collapse_mats):
+            ham0 = self._noiseless_hamiltonian
+            lam_drive = float(
+                np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+            )
+            max_step, coarsen = self._coarse_ip_step(
+                dissipation + "_coarse", max_step, lam_drive, [ham0],
+                options, margin=1.3,
+            )
+            ip_kind = dissipation if coarsen else None
+        return _StepChoice(
+            max_step, coarsen, ip_kind == "mcwf", ip_kind == "mesolve", knots,
+            marks,
+        )
+
     def _run_solver(
         self,
         hamiltonian: "Hamiltonian | None" = None,
@@ -1274,16 +1383,11 @@ class TorchEmulator:
         d = hamiltonian.dim
         n = hamiltonian.n_qudits
         knots = hamiltonian.sampling_times
-        is_dm = not self.initial_state.isket
-        use_lindblad = len(hamiltonian.lindblad_data.local_collapse_ops) > 0
-        lab_only = hamiltonian.xy_mat is not None or hamiltonian.int_w is not None
-        can_use_ip = not lab_only and not use_lindblad and not is_dm
-        # Keep steps at or below 1 ns (and below any user max_step, µs).
-        # Additionally bound λ_max·h for RK4 stability/accuracy on the
-        # drive term; without the interaction picture the full diagonal
-        # and the XY couplings add to the stiffness
+        dissipation = self._dissipation(hamiltonian)
+        can_use_ip = dissipation is None and not _lab_only(hamiltonian)
+        # Without the interaction picture the full diagonal and the XY
+        # couplings add to the drive's stiffness
         with profiling.phase("emulator.step_policy"):
-            spacings = np.diff(knots)
             lambda_max = float(
                 np.sum(
                     2 * np.max(np.abs(hamiltonian.amp_coeffs), axis=(1, 2))
@@ -1299,58 +1403,14 @@ class TorchEmulator:
                     lambda_max += float(
                         np.max(np.sum(np.abs(hamiltonian.xy_mat[0]), axis=1))
                     )
-            base_step = min(
-                float(np.median(spacings)) if len(spacings) else 1e-3,
-                1e-3,
-            )
-            max_step = self._sticky_quantized_step(
+            step = self._step_policy(
+                hamiltonian,
+                lambda_max,
                 "sesolve" if can_use_ip else "sesolve_lab",
-                base_step,
-                0.8 / max(lambda_max, 1e-9),
+                1.0,
+                [hamiltonian],
+                options,
             )
-            if "max_step" in options and options["max_step"]:
-                max_step = min(max_step, float(options["max_step"]))
-            coarsen = False
-            if can_use_ip:
-                max_step, coarsen = self._coarse_ip_step(
-                    "sesolve_coarse", max_step, lambda_max, [hamiltonian],
-                    options,
-                )
-            # The quantum-jump solve and the master equation coarsen the same
-            # way in the interaction picture: the quantum jumps when every
-            # collapse operator is diagonal or a single matrix unit, the
-            # master equation when every one is diagonal (ρ's rotor
-            # conjugation then commutes with the dissipator exactly). The
-            # policy reads the NOISELESS Hamiltonian with the batch margin, as
-            # the JAX package's does, in its order (the noiseless Hamiltonian
-            # draws from the numpy global RNG when first built)
-            mats = hamiltonian._local_collapse_mats
-            use_mcsolve = (
-                use_lindblad and not is_dm and self._lindblad_solver_choice()
-            )
-            mcwf_ip = (
-                use_mcsolve
-                and not lab_only
-                and _solver_mod.mcwf_ip_eligible(mats)
-            )
-            mesolve_ip = (
-                (use_lindblad or is_dm)
-                and not use_mcsolve
-                and not lab_only
-                and _solver_mod.mesolve_ip_eligible(mats)
-            )
-            if mcwf_ip or mesolve_ip:
-                ham0 = self._noiseless_hamiltonian
-                lam_drive = float(
-                    np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
-                )
-                max_step, coarsen = self._coarse_ip_step(
-                    "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
-                    max_step, lam_drive, [ham0], options, margin=1.3,
-                )
-                mcwf_ip = mcwf_ip and coarsen
-                mesolve_ip = mesolve_ip and coarsen
-
         coeffs = {"amp": hamiltonian.amp_coeffs, "det": hamiltonian.det_coeffs}
         if hamiltonian.int_w is not None:
             coeffs["int_w"] = hamiltonian.int_w
@@ -1359,8 +1419,8 @@ class TorchEmulator:
         # inputs (see EvolutionPlan.runtime_cache)
         plan_key = (
             self._eval_times_array.tobytes(),
-            float(max_step),
-            bool(coarsen),
+            float(step.max_step),
+            bool(step.coarsen),
         )
         cached = getattr(self, "_plan_cache", None)
         if (
@@ -1375,13 +1435,9 @@ class TorchEmulator:
                     knots,
                     coeffs,
                     self._eval_times_array,
-                    max_step=max_step,
-                    coarsen=coarsen,
-                    breakpoints=(
-                        self._sharp_knots([hamiltonian], knots)
-                        if coarsen
-                        else None
-                    ),
+                    max_step=step.max_step,
+                    coarsen=step.coarsen,
+                    breakpoints=step.breakpoints(),
                 )
             self._plan_cache = (plan_key, plan, hamiltonian)
 
@@ -1389,7 +1445,8 @@ class TorchEmulator:
         n_eval = len(self._eval_times_array)
         itemsize = torch.finfo(cdtype).bits // 8
         xy = dict(xy_static=hamiltonian.xy_mat, xy_indices=hamiltonian.xy_indices)
-        if use_mcsolve:
+        mats = hamiltonian._local_collapse_mats
+        if dissipation == "mcwf":
             # The trajectories are averaged into (n_eval, dim, dim)
             # density matrices on the device, so the footprint contract is
             # the density-matrix model
@@ -1410,15 +1467,15 @@ class TorchEmulator:
                     seed=int(np.random.randint(2**31)),
                     dtype=cdtype,
                     mesh=trajectories.default_mesh(),
-                    ip=mcwf_ip,
+                    ip=step.mcwf_ip,
                     device=self._torch_device,
                     **xy,
                 )
             with profiling.phase("emulator.wrap_results"):
                 states = [Qobj(s, dims=[[d] * n, [d] * n]) for s in states_arr]
                 return self._wrap_coherent(states)
-        if not can_use_ip and (use_lindblad or is_dm):
-            if is_dm:
+        if dissipation == "mesolve":
+            if not self.initial_state.isket:
                 rho0: Any = np.asarray(
                     self.initial_state.full(),
                     dtype=_solver_mod._numpy_dtype(cdtype),
@@ -1447,7 +1504,7 @@ class TorchEmulator:
                     n,
                     mats,
                     dtype=cdtype,
-                    ip=mesolve_ip,
+                    ip=step.mesolve_ip,
                     state_mesh=rho_mesh,
                     lazy=True,
                     device=self._torch_device,
@@ -1489,7 +1546,7 @@ class TorchEmulator:
             # is exactly unitary, so the emitted states are renormalized
             # at fetch time (direction/phase accuracy is separately held
             # at ~1e-10 by the ω·h bound).
-            states_arr.normalize = bool(coarsen)
+            states_arr.normalize = bool(step.coarsen)
             shape, dims = (d**n, 1), [[d] * n, [1] * n]
         with profiling.phase("emulator.wrap_results"):
             states = [
@@ -1706,8 +1763,7 @@ class TorchEmulator:
         lindblad = self._hamiltonian_data.lindblad_data
         return (
             len(lindblad.local_collapse_ops) == 0
-            and ham0.xy_mat is None
-            and ham0.int_w is None
+            and not _lab_only(ham0)
             and self.initial_state.isket
         )
 
@@ -1757,28 +1813,17 @@ class TorchEmulator:
         d, n = first.dim, first.n_qudits
         knots = first.sampling_times
         with profiling.phase("emulator.step_policy"):
-            # Shared step cap: the tightest across trajectories
+            # Shared step cap: the tightest across trajectories. The batch
+            # integrates in the interaction picture, so the coherent
+            # path's coarsening applies (its 1.3 margin for several
+            # trajectories absorbs the fluctuations of their gaps)
             lambda_max = float(
                 np.max(
                     np.sum(2 * np.max(np.abs(batch.amp), axis=(2, 3)), axis=1)
                 )
             )
-            base_step = min(
-                float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
-                1e-3,
-            )
-            # 1.3 margin: noise draws stay inside one power-of-two step
-            max_step = self._sticky_quantized_step(
-                "sesolve_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
-            )
-            if "max_step" in options and options["max_step"]:
-                max_step = min(max_step, float(options["max_step"]))
-            # The batch integrates in the interaction picture, so the
-            # coherent path's step coarsening applies (its 1.3 margin for
-            # several trajectories absorbs the fluctuations of their gaps)
-            max_step, coarsen = self._coarse_ip_step(
-                "sesolve_batch_coarse", max_step, lambda_max, batch.shims,
-                options,
+            step = self._step_policy(
+                first, lambda_max, "sesolve_batch", 1.3, batch, options
             )
         # Beyond the state-sharding threshold, noisy runs use both
         # parallel axes at once: trajectories × state blocks on a 2-D
@@ -1801,11 +1846,9 @@ class TorchEmulator:
                 knots,
                 {"amp": amp_b, "det": det_b},
                 self._eval_times_array,
-                max_step=max_step,
-                coarsen=coarsen,
-                breakpoints=(
-                    self._sharp_knots(batch, knots) if coarsen else None
-                ),
+                max_step=step.max_step,
+                coarsen=step.coarsen,
+                breakpoints=step.breakpoints(),
             )
         cdtype = _solver_mod._numpy_dtype(_default_cdtype())
         psi0 = np.asarray(self._initial_ket(), dtype=cdtype)
@@ -1833,7 +1876,7 @@ class TorchEmulator:
                 )
         profiling.count("traj.realizations", n_traj_true)
         self._current_hamiltonian = batch.last_ham()
-        return batch.reps, states_batch, coarsen, (d, n)
+        return batch.reps, states_batch, step.coarsen, (d, n)
 
     def _noisy_runs(
         self,
@@ -1950,8 +1993,7 @@ class TorchEmulator:
         return (
             len(lindblad.local_collapse_ops) > 0
             and not lindblad.depolarizing_pauli_2ds
-            and ham0.xy_mat is None
-            and ham0.int_w is None
+            and not _lab_only(ham0)
             and self.initial_state.isket
         )
 
@@ -1981,19 +2023,17 @@ class TorchEmulator:
         first = batch.template
         d, n = first.dim, first.n_qudits
         knots = first.sampling_times
+        factored = (
+            batch.amp_factors is not None and batch.det_factors is not None
+        )
         # Shared step cap across trajectories: full (lab-frame)
         # stiffness
         with profiling.phase("emulator.step_policy"):
-            factored = (
-                batch.amp_factors is not None
-                and batch.det_factors is not None
-            )
-            sharp_times: Any = None
             diag_stiff = np.max(
                 np.abs(batch.diags.reshape(len(batch.reps), -1)), axis=1
             )
             if factored:
-                amp_stiff, det_stiff, sharp_times = self._factored_policy(
+                amp_stiff, det_stiff, marks = self._factored_policy(
                     batch, knots
                 )
             else:
@@ -2003,46 +2043,11 @@ class TorchEmulator:
                 det_stiff = np.sum(
                     np.max(np.abs(batch.det), axis=(2, 3)), axis=1
                 )
+                marks = batch
             lambda_max = float(np.max(amp_stiff + diag_stiff + det_stiff))
-        base_step = min(
-            float(np.median(np.diff(knots))) if len(knots) > 1 else 1e-3,
-            1e-3,
-        )
-        # 1.3 margin: noise draws stay inside one power-of-two step
-        max_step = self._sticky_quantized_step(
-            "lindblad_batch", base_step, 0.8 / max(1.3 * lambda_max, 1e-9)
-        )
-        if "max_step" in options and options["max_step"]:
-            max_step = min(max_step, float(options["max_step"]))
-        # The quantum-jump solve integrates in the interaction picture
-        # (eligible collapse ops) and then coarsens its step. The policy
-        # reads the NOISELESS Hamiltonian, as the JAX package does.
-        # The master equation does the same with diagonal collapse ops.
-        first_mats = first._local_collapse_mats
-        use_mcwf = self._lindblad_solver_choice() and self.initial_state.isket
-        structure_ok = first.xy_mat is None and first.int_w is None
-        mcwf_ip = (
-            use_mcwf
-            and structure_ok
-            and _solver_mod.mcwf_ip_eligible(first_mats)
-        )
-        mesolve_ip = (
-            not use_mcwf
-            and structure_ok
-            and _solver_mod.mesolve_ip_eligible(first_mats)
-        )
-        coarsen = False
-        if mcwf_ip or mesolve_ip:
-            ham0 = self._noiseless_hamiltonian
-            lam_drive = float(
-                np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2)))
+            step = self._step_policy(
+                first, lambda_max, "lindblad_batch", 1.3, marks, options
             )
-            max_step, coarsen = self._coarse_ip_step(
-                "mcwf_coarse" if mcwf_ip else "mesolve_coarse",
-                max_step, lam_drive, [ham0], options, margin=1.3,
-            )
-            mcwf_ip = mcwf_ip and coarsen
-            mesolve_ip = mesolve_ip and coarsen
         # One plan for the whole batch; the drives and the exact phase
         # integrals are staged on the device from the raw knot values
         if factored:
@@ -2057,18 +2062,10 @@ class TorchEmulator:
                 knots,
                 coeffs_for_plan,
                 self._eval_times_array,
-                max_step=max_step,
+                max_step=step.max_step,
                 host_stage=False,
-                coarsen=coarsen,
-                breakpoints=(
-                    (
-                        sharp_times
-                        if factored
-                        else self._sharp_knots(batch, knots)
-                    )
-                    if coarsen
-                    else None
-                ),
+                coarsen=step.coarsen,
+                breakpoints=step.breakpoints(),
             )
         return _LindbladPrep(
             batch=batch,
@@ -2081,8 +2078,8 @@ class TorchEmulator:
                 self._initial_ket(),
                 dtype=_solver_mod._numpy_dtype(_default_cdtype()),
             ),
-            mcwf_ip=mcwf_ip,
-            mesolve_ip=mesolve_ip,
+            mcwf_ip=step.mcwf_ip,
+            mesolve_ip=step.mesolve_ip,
         )
 
     def _noisy_runs_batched_lindblad(

@@ -36,6 +36,7 @@ import math
 import os
 import shutil
 import subprocess
+from typing import Any
 
 import numpy as np
 import torch
@@ -69,6 +70,23 @@ MCWF_ROWS_CARRIED: torch.Tensor | None = None
 
 #: The qubit counts ``ip_sesolve_kernel`` is instantiated for.
 IP_MIN_QUBITS, IP_MAX_QUBITS = 10, 17
+
+
+def ip_sesolve_takes(
+    d: int, pairs: tuple, n: int, rdtype: Any, device: torch.device
+) -> bool:
+    """Whether K1 (``ip_sesolve_kernel``, either mode) takes an
+    interaction-picture solve: qubits (d=2) with the one ground-rydberg
+    drive basis ``(1, 0, 0)``, ``IP_MIN_QUBITS ≤ n ≤ IP_MAX_QUBITS``,
+    single precision (``rdtype`` is the real dtype), on a CUDA device."""
+    return (
+        d == 2
+        and tuple(tuple(p) for p in pairs) == ((1, 0, 0),)
+        and IP_MIN_QUBITS <= n <= IP_MAX_QUBITS
+        and np.dtype(rdtype) == np.float32
+        and device.type == "cuda"
+    )
+
 #: The cluster gate of the trajectory-batched mode: up to this n each
 #: trajectory runs in one thread block of ``ip_sesolve_batched_kernel``
 #: (at most 2^13 amplitudes); above it, in one thread-block cluster of

@@ -496,6 +496,16 @@ def _resolve_device(device: Any) -> torch.device:
 resolve_device = _resolve_device
 
 
+def _stage_host(host: Any, device: Any, dtype: Any = None) -> torch.Tensor:
+    """A host array on ``device``: cast on the host to the numpy ``dtype``
+    (default: its own), then copied from pageable memory, which waits for
+    the card. Every copy counts once as ``sync.solver.stage``."""
+    profiling.count("sync.solver.stage")
+    return torch.from_numpy(np.ascontiguousarray(host, dtype=dtype)).to(
+        device
+    )
+
+
 class DeviceStateBatch:
     """Device-resident ``(n_eval, dim)`` solver output, fetched lazily.
 
@@ -680,56 +690,43 @@ def sesolve_rk4(
                     lambda h: h,
                 )
             return sharded
-    # The hand-written kernel covers the flagship configuration:
-    # qubits (d=2), a single drive basis, single precision, on a card
-    if (
-        use_ip
-        and d == 2
-        and len(pairs) == 1
-        and tuple(pairs[0]) == (1, 0, 0)
-        and 10 <= n <= 17
-        and rdtype == np.float32
-        and dev.type == "cuda"
-    ):
+    from pulser_tpu_torch.ops.kernels import ip_sesolve_takes
+
+    # The hand-written kernel covers the flagship configuration
+    if use_ip and ip_sesolve_takes(d, pairs, n, rdtype, dev):
         return _sesolve_rk4_kernel(
             psi0_np, plan, static_diag, n, cdtype, dev, lazy=lazy
-        )
-
-    def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
-        # dtype conversion on the host, then a pure transfer (from
-        # pageable memory, so it waits for the card)
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
-            dev
         )
 
     pairs = tuple(tuple(p) for p in pairs)
     if use_ip:
         out = _sesolve_scan_ip(
-            to_dev(psi0_np, cdtype),
+            _stage_host(psi0_np, dev, cdtype),
             *_ip_stage_arrays(plan, rdtype, cdtype, dev),
-            to_dev(np.asarray(static_diag).real, rdtype),
+            _stage_host(np.asarray(static_diag).real, dev, rdtype),
             pairs=pairs,
             d=d,
             n=n,
         )
     else:
         out = _sesolve_scan(
-            to_dev(psi0_np, cdtype),
-            to_dev(plan.seg_stage("amp"), cdtype),
-            to_dev(plan.seg_stage("det").real, rdtype),
+            _stage_host(psi0_np, dev, cdtype),
+            _stage_host(plan.seg_stage("amp"), dev, cdtype),
+            _stage_host(plan.seg_stage("det").real, dev, rdtype),
             np.asarray(plan.seg_dts, dtype=rdtype),
-            to_dev(np.asarray(static_diag).real, rdtype),
+            _stage_host(np.asarray(static_diag).real, dev, rdtype),
             pairs=pairs,
             d=d,
             n=n,
             int_w=(
-                to_dev(plan.seg_stage("int_w"), rdtype) if has_int_w else None
+                _stage_host(plan.seg_stage("int_w"), dev, rdtype)
+                if has_int_w
+                else None
             ),
             xy_s=(
                 None
                 if xy_static is None
-                else to_dev(np.asarray(xy_static).real, rdtype)
+                else _stage_host(np.asarray(xy_static).real, dev, rdtype)
             ),
             xy_indices=xy_indices,
         )
@@ -758,18 +755,13 @@ def _ip_stage_arrays(
     before the cast (sign: D = int_diag − Σ det·occ, so Φ gets the −∫det
     terms)."""
     two_pi = 2 * np.pi
-
-    def to_dev(host: np.ndarray, dt: Any) -> torch.Tensor:
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
-
     return (
-        to_dev(plan.seg_stage("amp"), cdtype),
-        to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
-        to_dev(plan.seg_stage("t_stage"), rdtype),
+        _stage_host(plan.seg_stage("amp"), dev, cdtype),
+        _stage_host((-plan.seg_stage("det_cum")) % two_pi, dev, rdtype),
+        _stage_host(plan.seg_stage("t_stage"), dev, rdtype),
         np.asarray(plan.seg_dts, dtype=rdtype),
-        to_dev(plan.eval_times - plan.grid[0], rdtype),
-        to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+        _stage_host(plan.eval_times - plan.grid[0], dev, rdtype),
+        _stage_host((-plan.eval_det_cum) % two_pi, dev, rdtype),
     )
 
 
@@ -844,11 +836,7 @@ def _make_ip_phase_fn(
             occ = np.stack(
                 [(ar // d ** (g - 1 - p)) % d == kp for p in range(g)]
             )
-            # A copy from pageable memory waits for the card
-            profiling.count("sync.solver.stage")
-            per_group.append(
-                torch.as_tensor(occ, dtype=rdtype, device=device)
-            )
+            per_group.append(_stage_host(occ, device, _numpy_dtype(rdtype)))
         patterns.append(per_group)
     k_axes = len(phase_groups)
 
@@ -1227,14 +1215,6 @@ def ip_kernel_inputs(
     two_pi = 2 * np.pi
     n_seg, seg_len = plan.seg_dts.shape
     f32 = np.float32
-
-    def to_dev(host: np.ndarray) -> torch.Tensor:
-        # A copy from pageable memory waits for the card
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=f32)).to(
-            dev
-        )
-
     key = ("ip_kernel_inputs", str(dev))
     staged = plan.runtime_cache.get(key)
     if staged is None:
@@ -1245,22 +1225,28 @@ def ip_kernel_inputs(
         seg_dts = np.asarray(plan.seg_dts, f32).reshape(n_seg, seg_len, 1)
         staged = (
             [
-                to_dev(a.real),
-                to_dev(a.imag),
-                to_dev(cum),
-                to_dev(plan.seg_stage("t_stage")),
-                to_dev(seg_dts),
-                to_dev(np.reshape(eval_t, (n_seg, 1, 1))),
-                to_dev(np.reshape(eval_cum, (n_seg, 1, n))),
+                _stage_host(x, dev, f32)
+                for x in (
+                    a.real,
+                    a.imag,
+                    cum,
+                    plan.seg_stage("t_stage"),
+                    seg_dts,
+                    np.reshape(eval_t, (n_seg, 1, 1)),
+                    np.reshape(eval_cum, (n_seg, 1, n)),
+                )
             ],
             seg_dts,
         )
         plan.runtime_cache[key] = staged
     tensors, seg_dts_host = staged
     per_run = [
-        to_dev(np.asarray(static_diag).real.reshape(1, rows, cols)),
-        to_dev(psi0_np.real.reshape(rows, cols)),
-        to_dev(psi0_np.imag.reshape(rows, cols)),
+        _stage_host(x, dev, f32)
+        for x in (
+            np.asarray(static_diag).real.reshape(1, rows, cols),
+            psi0_np.real.reshape(rows, cols),
+            psi0_np.imag.reshape(rows, cols),
+        )
     ]
     kwargs = dict(
         n_row=n_row, n_col=n_col, seg_len=seg_len, seg_dts_host=seg_dts_host
@@ -1472,8 +1458,8 @@ def _on_device(x: Any, device: Any, dtype: torch.dtype | None = None) -> Any:
         return x.to(device=device, dtype=dtype or x.dtype)
     arr = np.asarray(x)
     if np.issubdtype(arr.dtype, np.integer):
-        return torch.from_numpy(arr.astype(np.int64)).to(device)
-    t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return _stage_host(arr, device, np.int64)
+    t = _stage_host(arr, device)
     return t if dtype is None else t.to(dtype)
 
 
@@ -1601,6 +1587,23 @@ def _batched_inputs(
     )
 
 
+def _batched_k1_takes(
+    plans: Any, mesh: Any, d: int, pairs: tuple, n: int, rdtype: Any,
+    dev: torch.device,
+) -> bool:
+    """:func:`sesolve_rk4_batched`'s gate: K1's own
+    (:func:`~pulser_tpu_torch.ops.kernels.ip_sesolve_takes`), for a
+    :class:`BatchedPlan` on one rank (a mesh of several ranks never takes
+    the kernel). On a card it alone decides."""
+    from pulser_tpu_torch.ops.kernels import ip_sesolve_takes
+
+    return (
+        isinstance(plans, BatchedPlan)
+        and _mesh_size(mesh) == 1
+        and ip_sesolve_takes(d, pairs, n, rdtype, dev)
+    )
+
+
 def sesolve_rk4_batched(
     psi0: np.ndarray,
     plans: "list[EvolutionPlan] | BatchedPlan",
@@ -1659,26 +1662,9 @@ def sesolve_rk4_batched(
     dev = _resolve_device(device)
     psi0_np = np.asarray(psi0, dtype=cdtype)
     pairs = tuple(tuple(p) for p in pairs)
-    # The same gate as sesolve_rk4's: on a card it alone decides (and a
-    # mesh of several ranks never takes the kernel)
-    if (
-        isinstance(plans, BatchedPlan)
-        and _mesh_size(mesh) == 1
-        and d == 2
-        and pairs == ((1, 0, 0),)
-        and 10 <= n <= 17
-        and rdtype == np.float32
-        and dev.type == "cuda"
-    ):
+    if _batched_k1_takes(plans, mesh, d, pairs, n, rdtype, dev):
         return _sesolve_batched_kernel(
             psi0_np, plans, static_diags, n, cdtype, dev, lazy=lazy
-        )
-
-    def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
-        # A copy from pageable memory waits for the card
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
-            dev
         )
 
     # Phases reduced mod 2π in float64 on the host, before the cast
@@ -1700,13 +1686,13 @@ def sesolve_rk4_batched(
 
         per_traj, _ = pad_to_multiple(per_traj, _mesh_size(mesh))
     amp, cum, ev_cum, diags = (
-        to_dev(x, dt)
+        _stage_host(x, dev, dt)
         for x, dt in zip(per_traj, (cdtype, rdtype, rdtype, rdtype))
     )
     shared = (
-        to_dev(base.seg_stage("t_stage"), rdtype),
+        _stage_host(base.seg_stage("t_stage"), dev, rdtype),
         np.asarray(base.seg_dts, dtype=rdtype),
-        to_dev(base.eval_times - base.grid[0], rdtype),
+        _stage_host(base.eval_times - base.grid[0], dev, rdtype),
     )
     if sharded:
         from pulser_tpu_torch.parallel.trajectories import (
@@ -1714,12 +1700,14 @@ def sesolve_rk4_batched(
         )
 
         out = sesolve_ip_states_sharded(
-            mesh, to_dev(psi0_np, cdtype), amp, cum, *shared, ev_cum, diags,
+            mesh, _stage_host(psi0_np, dev, cdtype), amp, cum, *shared,
+            ev_cum, diags,
             pairs=pairs, d=d, n=n,
         )
     else:
         out = _sesolve_scan_ip(
-            to_dev(psi0_np, cdtype), amp, cum, *shared, ev_cum, diags,
+            _stage_host(psi0_np, dev, cdtype), amp, cum, *shared, ev_cum,
+            diags,
             pairs=pairs, d=d, n=n,
         )
     last_solve_info.clear()
@@ -1783,13 +1771,6 @@ def ip_batched_kernel_inputs(
     n_flat = n_traj * spt
     f32 = np.float32
 
-    def to_dev(host: np.ndarray) -> torch.Tensor:
-        # A copy from pageable memory waits for the card
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=f32)).to(
-            dev
-        )
-
     def tiled(x: np.ndarray, shape: tuple) -> np.ndarray:
         return np.tile(np.asarray(x, f32).reshape(shape), (n_traj, 1, 1))
 
@@ -1800,16 +1781,19 @@ def ip_batched_kernel_inputs(
     eval_cum = (-plans.eval_det_cum_b[:, :, 0, :]) % two_pi
     seg_dts = tiled(base.seg_dts, (spt, seg_len, 1))
     tensors = [
-        to_dev(a.real),
-        to_dev(a.imag),
-        to_dev(cum.reshape(stage)),
-        to_dev(tiled(base.seg_stage("t_stage"), (spt, seg_len, 3))),
-        to_dev(seg_dts),
-        to_dev(tiled(base.eval_times - base.grid[0], (spt, 1, 1))),
-        to_dev(eval_cum.reshape(n_flat, 1, n)),
-        to_dev(np.asarray(static_diags).real.reshape(n_traj, rows, cols)),
-        to_dev(psi0_np.real.reshape(rows, cols)),
-        to_dev(psi0_np.imag.reshape(rows, cols)),
+        _stage_host(x, dev, f32)
+        for x in (
+            a.real,
+            a.imag,
+            cum.reshape(stage),
+            tiled(base.seg_stage("t_stage"), (spt, seg_len, 3)),
+            seg_dts,
+            tiled(base.eval_times - base.grid[0], (spt, 1, 1)),
+            eval_cum.reshape(n_flat, 1, n),
+            np.asarray(static_diags).real.reshape(n_traj, rows, cols),
+            psi0_np.real.reshape(rows, cols),
+            psi0_np.imag.reshape(rows, cols),
+        )
     ]
     kwargs = dict(
         n_row=n_row,
@@ -1883,12 +1867,9 @@ class BatchedKets:
         """The ``(T, n_eval, dim)`` complex64 states in host memory:
         gathered at the evaluation times and assembled into complex
         states on the device, then copied once (:func:`_fetch_states`)."""
-        dev = self.planes.device
         planes = self.planes
         if not np.array_equal(self.eval_map, np.arange(planes.shape[1])):
-            # A copy from pageable memory waits for the card
-            profiling.count("sync.solver.stage")
-            planes = planes[:, torch.from_numpy(self.eval_map).to(dev)]
+            planes = planes[:, _stage_host(self.eval_map, planes.device)]
         return _fetch_states(torch.complex(planes[:, :, 0], planes[:, :, 1]))
 
     def draw(
@@ -1923,9 +1904,7 @@ class BatchedKets:
                 np.asarray(rnd, dtype=np.float64).view(np.int64),
             ]
         )
-        # A copy from pageable memory waits for the card
-        profiling.count("sync.solver.stage")
-        staged = torch.from_numpy(packed).to(self.planes.device)
+        staged = _stage_host(packed, self.planes.device)
         idx = sample_states(
             self.planes,
             staged[:n_seg],
@@ -1968,14 +1947,10 @@ def _lindblad_drive_arrays(
         ]
         return (*staged, plans.plan, plans.n_traj)
     base, n_traj, host = _batched_inputs(plans, ("amp", "det"))
-
-    def to_dev(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, np_r)).to(dev)
-
     return (
-        to_dev(host["amp"].real),
-        to_dev(host["amp"].imag),
-        to_dev(host["det"].real),
+        _stage_host(host["amp"].real, dev, np_r),
+        _stage_host(host["amp"].imag, dev, np_r),
+        _stage_host(host["det"].real, dev, np_r),
         base,
         n_traj,
     )
@@ -2132,24 +2107,20 @@ def rows_kernel_inputs(
     amp_im = _stage_on_device(_on_device(amp_im_leaf, dev), idx0, idx1, frac)
     cum_b, ev_cum_b = _stage_cum_on_device(*cum_in)
     r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
-
-    def to_dev(host: np.ndarray) -> torch.Tensor:
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
-
+    np32 = np.float32
     return [
         amp_re,
         amp_im,
         cum_b,
-        to_dev(base.seg_stage("t_stage")),
-        to_dev(base.seg_dts),
-        to_dev(us),
-        to_dev(base.eval_times - base.grid[0]),
+        _stage_host(base.seg_stage("t_stage"), dev, np32),
+        _stage_host(base.seg_dts, dev, np32),
+        _stage_host(us, dev, np32),
+        _stage_host(base.eval_times - base.grid[0], dev, np32),
         ev_cum_b.to(f32),
-        to_dev(r0),
-        to_dev(np.asarray(diags).real),
-        to_dev(psi0_np.real),
-        to_dev(psi0_np.imag),
+        _stage_host(r0, dev, np32),
+        _stage_host(np.asarray(diags).real, dev, np32),
+        _stage_host(psi0_np.real, dev, np32),
+        _stage_host(psi0_np.imag, dev, np32),
     ]
 
 
@@ -2180,8 +2151,8 @@ def _sample_codes(
     )[np.asarray(row_ti, np.int64)]
     p = states[:, :, 0] ** 2 + states[:, :, 1] ** 2
     cum = torch.cumsum(p.reshape(-1, p.shape[-1]), dim=-1)
-    rows_g = cum[torch.from_numpy(row_idx).to(dev)]
-    u = torch.from_numpy(np.asarray(samp_u, np.float32)).to(dev)
+    rows_g = cum[_stage_host(row_idx, dev)]
+    u = _stage_host(np.asarray(samp_u, np.float32), dev)
     return torch.searchsorted(rows_g, u * rows_g[:, -1:], right=False)
 
 
@@ -2273,23 +2244,19 @@ def mcwf_kernel_inputs(
     amp_re, amp_im, det, _, _ = _lindblad_drive_arrays(plans, np.float32, dev)
     r0, us = _mcwf_uniforms(seeds, (n_seg, seg_len))
 
-    def to_dev(host: np.ndarray) -> torch.Tensor:
-        profiling.count("sync.solver.stage")
-        return torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(dev)
-
     def flat(x: torch.Tensor) -> torch.Tensor:
         return x.reshape(n_traj * n_seg, seg_len, 3, n)
 
-    tensors = [
-        flat(amp_re),
-        flat(amp_im),
-        flat(det),
-        to_dev(np.tile(base.seg_dts.reshape(n_seg, seg_len, 1), (n_traj, 1, 1))),
-        to_dev(us.reshape(n_traj * n_seg, seg_len, 2)),
-        to_dev(r0.reshape(n_traj, 1)),
-        to_dev(np.asarray(diags).real.reshape((n_traj,) + shape2d)),
-        to_dev(psi0_np.real.reshape(shape2d)),
-        to_dev(psi0_np.imag.reshape(shape2d)),
+    tensors = [flat(amp_re), flat(amp_im), flat(det)] + [
+        _stage_host(x, dev, np.float32)
+        for x in (
+            np.tile(base.seg_dts.reshape(n_seg, seg_len, 1), (n_traj, 1, 1)),
+            us.reshape(n_traj * n_seg, seg_len, 2),
+            r0.reshape(n_traj, 1),
+            np.asarray(diags).real.reshape((n_traj,) + shape2d),
+            psi0_np.real.reshape(shape2d),
+            psi0_np.imag.reshape(shape2d),
+        )
     ]
     kw = dict(
         n_row=n_row,
@@ -2467,7 +2434,7 @@ def mcsolve_rk4_batched(
             psi0_np, plans, diags, n, collapse_ops, seeds, cdtype, dev
         )
     amp, det, base, n_traj = _mesolve_drive_arrays(plans, rdtype, dev)
-    psi0_t = torch.from_numpy(psi0_np).to(dev)
+    psi0_t = _stage_host(psi0_np, dev)
     diag_b = _on_device(np.asarray(np.asarray(diags).real, rdtype), dev)
     dts = np.asarray(base.seg_dts, dtype=rdtype)
     if ip:
@@ -2485,7 +2452,7 @@ def mcsolve_rk4_batched(
         n_traj, _mcwf_traj_bytes(collapse_ops, dts.shape[0], d, n, cdtype),
         dev,
     )
-    eval_map = torch.as_tensor(base.eval_map, device=dev)
+    eval_map = _stage_host(base.eval_map, dev)
 
     def solve(a, dg, r0_b, us_b, x1, x2=None):
         frame: dict[str, Any] = {"det": x1}
@@ -2659,7 +2626,7 @@ def _mcwf_traj_states(
     dim = d**n
     mats = np.stack([np.asarray(c, np.complex128) for c in collapse_ops])
     dev, cdtype = psi0.device, psi0.dtype
-    coef = candidate_coefs(torch.from_numpy(mats).to(dev, cdtype), d, n)
+    coef = candidate_coefs(_stage_host(mats, dev).to(cdtype), d, n)
     n_cand = len(mats) * n
     use_ip = ip_args is not None
     if use_ip:
@@ -2671,7 +2638,7 @@ def _mcwf_traj_states(
         phase_at = _make_ip_phase_fn(pairs, d, n, diag_static.dtype, dev)
     else:
         g_sum = np.einsum("kji,kjl->il", mats.conj(), mats)  # Σ L†L
-        g_stack = torch.from_numpy(g_sum).to(dev, cdtype).expand(n, d, d)
+        g_stack = _stage_host(g_sum, dev).to(cdtype).expand(n, d, d)
         groups = group_sizes(d, n)
         decay = [
             -0.5 * _group_matrix(g_stack, q0, q0 + g, d)
@@ -2798,33 +2765,32 @@ def mcsolve_rk4(
     cdtype = _complex_dtype(dtype or np.asarray(psi0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
-
-    def to_dev(host: Any, dt: Any = rdtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
-
     two_pi = 2 * np.pi
     kw: dict[str, Any] = {}
     if ip:
-        kw["ip_args"] = (
-            to_dev((-plan.seg_stage("det_cum")) % two_pi),
-            to_dev(plan.seg_stage("t_stage")),
-            to_dev(plan.eval_times - plan.grid[0]),
-            to_dev((-plan.eval_det_cum) % two_pi),
-            to_dev(_embedded_g_diag(collapse_ops, d, n)),
+        kw["ip_args"] = tuple(
+            _stage_host(x, dev, rdtype)
+            for x in (
+                (-plan.seg_stage("det_cum")) % two_pi,
+                plan.seg_stage("t_stage"),
+                plan.eval_times - plan.grid[0],
+                (-plan.eval_det_cum) % two_pi,
+                _embedded_g_diag(collapse_ops, d, n),
+            )
         )
     else:
-        kw["det"] = to_dev(plan.seg_stage("det").real)
+        kw["det"] = _stage_host(plan.seg_stage("det").real, dev, rdtype)
         if has_int_w:
-            kw["int_w"] = to_dev(plan.seg_stage("int_w"))
+            kw["int_w"] = _stage_host(plan.seg_stage("int_w"), dev, rdtype)
         if xy_static is not None:
-            kw["xy_s"] = to_dev(np.asarray(xy_static).real)
+            kw["xy_s"] = _stage_host(np.asarray(xy_static).real, dev, rdtype)
             kw["xy_indices"] = xy_indices
     dts = np.asarray(plan.seg_dts, dtype=rdtype)
     keys = prng.split(prng.PRNGKey(seed), ntraj)
     r0, us = _traj_uniforms(keys, dts.shape, rdtype)
-    psi0_t = to_dev(psi0, cdtype)
-    amp = to_dev(plan.seg_stage("amp"), cdtype)
-    diag = to_dev(np.asarray(static_diag).real)
+    psi0_t = _stage_host(psi0, dev, cdtype)
+    amp = _stage_host(plan.seg_stage("amp"), dev, cdtype)
+    diag = _stage_host(np.asarray(static_diag).real, dev, rdtype)
     chunk = _chunk_trajectories(
         ntraj, _mcwf_traj_bytes(collapse_ops, dts.shape[0], d, n, cdtype),
         dev,
@@ -2858,15 +2824,17 @@ def mcsolve_rk4(
             if not weight.any():
                 continue
         states = _mcwf_traj_states(
-            psi0_t, amp, dts, diag, collapse_ops, to_dev(r0[idx]),
-            to_dev(us[idx]), pairs=tuple(tuple(p) for p in pairs), d=d,
-            n=n, **kw,
+            psi0_t, amp, dts, diag, collapse_ops,
+            _stage_host(r0[idx], dev, rdtype),
+            _stage_host(us[idx], dev, rdtype),
+            pairs=tuple(tuple(p) for p in pairs), d=d, n=n, **kw,
         )
         if weight.all():
             rho += _avg_density(states, ntraj)
         else:
             rho += _avg_density(
-                states * to_dev(weight)[:, None, None], ntraj
+                states * _stage_host(weight, dev, rdtype)[:, None, None],
+                ntraj,
             )
         del states
     if ranks > 1:
@@ -2952,14 +2920,14 @@ def _collapse_algebra(
     if np.any(np.abs(unit_coef) > 1e-14):
         dig = _digits_of(d, n, device)
         dig_c = dig[:, cols]
-        coef = torch.as_tensor(unit_coef, device=device).to(cdtype)
+        coef = _stage_host(unit_coef, device).to(cdtype)
         diag_mask = torch.zeros(
             (d**n, dig_c.shape[1]), dtype=cdtype, device=device
         )
         for q in range(n):
             diag_mask += coef[dig[q][:, None], dig_c[q][None, :]]
     return CollapseAlgebra(
-        torch.as_tensor(cdc_sum, device=device).to(cdtype),
+        _stage_host(cdc_sum, device).to(cdtype),
         lrl_idx,
         lrl_coef,
         diag_mask,
@@ -3356,10 +3324,6 @@ def mesolve_rk4(
     cdtype = _complex_dtype(dtype or src.dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
-
-    def to_dev(host: np.ndarray, dt: np.dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
-
     shard = None
     if state_mesh is not None:
         from pulser_tpu_torch.parallel import comm
@@ -3379,32 +3343,37 @@ def mesolve_rk4(
         shard = RhoColumns(state_mesh, dim)
     cols = slice(None) if shard is None else shard.cols
     if pure:
-        psi = to_dev(src, cdtype)
+        psi = _stage_host(src, dev, cdtype)
         rho0_t = psi[:, None] * psi.conj()[None, cols]
     else:
-        rho0_t = to_dev(np.asarray(src)[:, cols], cdtype)
+        rho0_t = _stage_host(np.asarray(src)[:, cols], dev, cdtype)
     alg = _collapse_algebra(collapse_ops, d, n, rho0_t.dtype, dev, cols)
     two_pi = 2 * np.pi
     kw: dict[str, Any] = {}
     if ip:
-        kw["ip_args"] = (
-            to_dev((-plan.seg_stage("det_cum")) % two_pi, rdtype),
-            to_dev(plan.seg_stage("t_stage"), rdtype),
-            to_dev(plan.eval_times - plan.grid[0], rdtype),
-            to_dev((-plan.eval_det_cum) % two_pi, rdtype),
+        kw["ip_args"] = tuple(
+            _stage_host(x, dev, rdtype)
+            for x in (
+                (-plan.seg_stage("det_cum")) % two_pi,
+                plan.seg_stage("t_stage"),
+                plan.eval_times - plan.grid[0],
+                (-plan.eval_det_cum) % two_pi,
+            )
         )
     else:
-        kw["det"] = to_dev(plan.seg_stage("det").real, rdtype)
+        kw["det"] = _stage_host(plan.seg_stage("det").real, dev, rdtype)
         if has_int_w:
-            kw["int_w"] = to_dev(plan.seg_stage("int_w").real, rdtype)
+            kw["int_w"] = _stage_host(
+                plan.seg_stage("int_w").real, dev, rdtype
+            )
         if xy_static is not None:
-            kw["xy_s"] = to_dev(np.asarray(xy_static).real, rdtype)
+            kw["xy_s"] = _stage_host(np.asarray(xy_static).real, dev, rdtype)
             kw["xy_indices"] = xy_indices
     out = _mesolve_scan(
         rho0_t,
-        to_dev(plan.seg_stage("amp"), cdtype),
+        _stage_host(plan.seg_stage("amp"), dev, cdtype),
         np.asarray(plan.seg_dts, dtype=rdtype),
-        to_dev(np.asarray(static_diag).real, rdtype),
+        _stage_host(np.asarray(static_diag).real, dev, rdtype),
         alg,
         pairs=tuple(tuple(p) for p in pairs),
         d=d,
@@ -3495,11 +3464,8 @@ def _mesolve_drive_arrays(
     dev = torch.device(device)
     np_r = np.dtype(rdtype)
     np_c = np.result_type(np_r, np.complex64)
-    amp = torch.from_numpy(np.ascontiguousarray(host["amp"], np_c)).to(dev)
-    det = torch.from_numpy(
-        np.ascontiguousarray(host["det"].real, np_r)
-    ).to(dev)
-    return amp, det, base, n_traj
+    amp = _stage_host(host["amp"], dev, np_c)
+    return amp, _stage_host(host["det"].real, dev, np_r), base, n_traj
 
 
 def mesolve_rk4_batched(
@@ -3549,12 +3515,10 @@ def mesolve_rk4_batched(
     cdtype = _complex_dtype(dtype or np.asarray(rho0).dtype)
     rdtype = np.zeros((), dtype=cdtype).real.dtype
     dev = _resolve_device(device)
-    rho0_t = torch.from_numpy(np.ascontiguousarray(rho0, dtype=cdtype)).to(dev)
+    rho0_t = _stage_host(rho0, dev, cdtype)
     amp, det, base, n_traj = _mesolve_drive_arrays(plans, rdtype, dev)
     amp = amp.to(rho0_t.dtype)
-    diag_b = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(diags).real, dtype=rdtype)
-    ).to(dev)
+    diag_b = _stage_host(np.asarray(diags).real, dev, rdtype)
     alg = _collapse_algebra(collapse_ops, d, n, rho0_t.dtype, dev)
     dts = np.asarray(base.seg_dts, dtype=rdtype)
     if ip:
@@ -3569,7 +3533,7 @@ def mesolve_rk4_batched(
     n_seg = dts.shape[0]
     per_traj = (LIVE_STATE_BUFFERS + n_seg) * dim * dim * rho0_t.element_size()
     batch = _chunk_trajectories(n_traj, per_traj, dev)
-    eval_map = torch.as_tensor(base.eval_map, device=dev)
+    eval_map = _stage_host(base.eval_map, dev)
 
     def solve(a, dg, x1, x2=None):
         frame: dict[str, Any] = {"det": x1}

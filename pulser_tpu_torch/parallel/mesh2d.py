@@ -150,25 +150,20 @@ def sesolve_ip_2d_sharded(
         tk = slice(t_rank * tb, (t_rank + 1) * tb)
         block = 2 ** (n - k)
         sl = slice(s_rank * block, (s_rank + 1) * block)
-
-        def to_dev(host: Any, dt: Any) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
-                dev
-            )
-
         body = _make_ip_local_work(
             tuple(map(tuple, pairs)), n, k, s_rank,
             comm.axis_group(mesh, state_axis),
         )
+        stage = S._stage_host
         loc = body(
-            to_dev(np.asarray(psi0, cdtype)[sl], cdtype),
-            to_dev(amp_np[tk], cdtype),
-            to_dev((-det_cum[tk]) % two_pi, rdtype),
-            to_dev(base.seg_stage("t_stage"), rdtype),
+            stage(np.asarray(psi0, cdtype)[sl], dev, cdtype),
+            stage(amp_np[tk], dev, cdtype),
+            stage((-det_cum[tk]) % two_pi, dev, rdtype),
+            stage(base.seg_stage("t_stage"), dev, rdtype),
             np.asarray(base.seg_dts, dtype=rdtype),
-            to_dev(base.eval_times - base.grid[0], rdtype),
-            to_dev((-plans.eval_det_cum_b[tk]) % two_pi, rdtype),
-            to_dev(np.asarray(static_diags).real[tk, sl], rdtype),
+            stage(base.eval_times - base.grid[0], dev, rdtype),
+            stage((-plans.eval_det_cum_b[tk]) % two_pi, dev, rdtype),
+            stage(np.asarray(static_diags).real[tk, sl], dev, rdtype),
         )  # (tb, n_seg, block)
         # Assembled on the host: the card holds only the rank's block
         full = _gather_blocks(loc, comm.axis_group(mesh, state_axis))

@@ -217,16 +217,14 @@ def sesolve_ip_statevector_sharded(
         )
         body = _make_ip_local_work(tuple(map(tuple, pairs)), n, k, rank, group)
         loc = body(
-            torch.from_numpy(psi0_np[sl].copy()).to(dev),
+            S._stage_host(psi0_np[sl], dev),
             amp,
             cum,
             t_stage,
             dts,
             eval_t,
             eval_cum,
-            torch.from_numpy(
-                np.ascontiguousarray(np.asarray(static_diag).real[sl], rdtype)
-            ).to(dev),
+            S._stage_host(np.asarray(static_diag).real[sl], dev, rdtype),
         )
         ys = _gather_blocks(loc, group)
     out = comm.broadcast_from(ys, mesh, (n_seg, 2**n), S._torch_dtype(cdtype))
@@ -417,16 +415,10 @@ def xy_sesolve_statevector_sharded(
         ]
         groups = group_sizes(2, n_local)
         offsets = [sum(groups[:i]) for i in range(len(groups))]
-
-        def to_dev(host: Any, dt: Any) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(
-                dev
-            )
-
-        amp = to_dev(plan.seg_stage("amp"), cdtype)
-        det = to_dev(plan.seg_stage("det").real, rdtype)
-        diag_loc = to_dev(np.asarray(static_diag).real[sl], rdtype)
-        u = to_dev(np.asarray(xy_mat).real, rdtype).to(amp.dtype)
+        amp = S._stage_host(plan.seg_stage("amp"), dev, cdtype)
+        det = S._stage_host(plan.seg_stage("det").real, dev, rdtype)
+        diag_loc = S._stage_host(np.asarray(static_diag).real[sl], dev, rdtype)
+        u = S._stage_host(np.asarray(xy_mat).real, dev, rdtype).to(amp.dtype)
 
         def lower_raise(v: torch.Tensor, q: int, src: int, dst: int):
             """The local qubit ``q``'s ``|dst><src|`` on ``v``."""
@@ -488,7 +480,8 @@ def xy_sesolve_statevector_sharded(
 
         per_step = 3 * (sum(4**g for g in groups) + 2 * k)
         loc = S._scan_segments(
-            to_dev(psi0_np[sl], cdtype), np.asarray(plan.seg_dts, rdtype),
+            S._stage_host(psi0_np[sl], dev, cdtype),
+            np.asarray(plan.seg_dts, rdtype),
             chunk_inputs, deriv, per_step * 2 * det.element_size(),
             lambda s, psi: psi,
         )
@@ -636,7 +629,7 @@ def _qudit_local_solve(
         plan, rdtype, cdtype, dev
     )
     rdt = cum_mod.dtype
-    diag_loc = torch.from_numpy(np.ascontiguousarray(diag_np[sl])).to(dev)
+    diag_loc = S._stage_host(diag_np[sl], dev)
     glob = rank * block + torch.arange(block, device=dev)
 
     def digit(q: int) -> torch.Tensor:
@@ -725,7 +718,7 @@ def _qudit_local_solve(
 
     per_step = 3 * (sum(16**g for g in groups) + 2 * block)
     return S._scan_segments(
-        torch.from_numpy(np.ascontiguousarray(psi0_np[sl])).to(dev),
+        S._stage_host(psi0_np[sl], dev),
         dts, chunk_inputs, deriv, per_step * 2 * rdt.itemsize, emit,
     )
 

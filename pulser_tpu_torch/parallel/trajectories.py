@@ -243,16 +243,12 @@ def run_trajectories_sharded(
     block = n_traj // n_dev
     rank = comm.axis_rank(mesh, axis_name)
     take = slice(rank * block, (rank + 1) * block)
-
-    def to_dev(host: Any, dt: Any) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host, dtype=dt)).to(dev)
-
     finals = _sesolve_scan_batched(
-        to_dev(psi0, cdtype),
-        to_dev(np.asarray(amp_stages)[take], cdtype),
-        to_dev(np.asarray(det_stages)[take], rdtype),
+        S._stage_host(psi0, dev, cdtype),
+        S._stage_host(np.asarray(amp_stages)[take], dev, cdtype),
+        S._stage_host(np.asarray(det_stages)[take], dev, rdtype),
         np.asarray(dts),
-        to_dev(np.asarray(static_diag).real, rdtype),
+        S._stage_host(np.asarray(static_diag).real, dev, rdtype),
         tuple(tuple(p) for p in pairs),
         d,
         n,

@@ -54,6 +54,7 @@ from pulser_tpu_torch.interop import (
 )
 from pulser_tpu_torch.ops import solver as torch_solver
 from pulser_tpu_torch.result import SampledResult
+from torch_parity import assert_lindblad_policy_matches
 
 torch.set_num_threads(1)
 
@@ -248,6 +249,8 @@ def test_fast_coeff_batch_and_policy_are_bit_equal(jax_rows):
     assert (got is None) == (want is None)
     if want is not None:
         assert np.array_equal(got, np.asarray(want))
+    # The whole policy of the batch, in its one home
+    assert_lindblad_policy_matches(temu, jemu, tb, jb)
 
 
 def test_repeated_runs_redraw_trajectories(jax_rows):
@@ -440,6 +443,27 @@ def test_pure_state_batch_policy_matches_pulser_tpu(jax_unsharded):
     step_t = temu._coarse_ip_step("k", 1e-3, 12.0, tb.shims, opts_t)
     step_j = jemu._coarse_ip_step("k", 1e-3, 12.0, jb.shims, opts_j)
     assert step_t == step_j and step_t[1]
+    # The whole policy of the batch, in its one home, against the JAX
+    # package's steps: sticky quantized step, cap, coarsening, marks
+    knots = np.asarray(jb.template.sampling_times)
+    base = min(float(np.median(np.diff(knots))), 1e-3)
+    fine = jemu._sticky_quantized_step(
+        "sesolve_batch", base, 0.8 / max(1.3 * 12.0, 1e-9)
+    )
+    fine = min(fine, float(opts_j["max_step"]))
+    want = jemu._coarse_ip_step(
+        "sesolve_batch_coarse", fine, 12.0, jb.shims, opts_j
+    )
+    got = temu._step_policy(
+        tb.template, 12.0, "sesolve_batch", 1.3, tb, opts_t
+    )
+    assert (got.max_step, got.coarsen) == want and got.coarsen
+    assert not (got.mcwf_ip or got.mesolve_ip)
+    assert temu._sticky_steps == jemu._sticky_steps
+    marks, want_marks = got.breakpoints(), jemu._sharp_knots(jb, knots)
+    assert (marks is None) == (want_marks is None)
+    if want_marks is not None:
+        assert np.array_equal(marks, np.asarray(want_marks))
 
 
 def test_spd16_batch_inputs_match_pulser_tpu(jax_unsharded, monkeypatch):

@@ -534,3 +534,53 @@ def test_sync_counts_of_one_job_of_each_cell(rows, cols, n_eval):
         profiling.reset_phases()
         job(seq, n_eval)
         assert profiling.counter_report(reset=True) == want, job.__name__
+
+
+#: Each dissipative route's host-to-device copies on a two-qubit lab-frame
+#: solve (one collapse operator, one chunk of trajectories), by array.
+DISSIPATIVE_COPIES = {
+    # detunings, initial state, drives, diagonal; the chunk's thresholds
+    # and uniforms; the operators and Σ L†L of the trajectory scan
+    "mcsolve_rk4": 4 + 2 + 2,
+    # ρ0, Σ L†L and the unit-coefficient table of the collapse algebra,
+    # detunings, drives, diagonal
+    "mesolve_rk4": 1 + 2 + 3,
+    # the knot gather (two indices, the fractions) and the three raw
+    # leaves; initial state, diagonals, thresholds, uniforms, the
+    # evaluation map; the operators and Σ L†L of the scan
+    "mcsolve_rk4_batched": 3 + 3 + 5 + 2,
+    # ρ0, the knot gather and the three raw leaves, diagonals, Σ L†L and
+    # the unit-coefficient table, the evaluation map
+    "mesolve_rk4_batched": 1 + 3 + 3 + 1 + 2 + 1,
+}
+
+
+@pytest.mark.parametrize("solve", sorted(DISSIPATIVE_COPIES))
+def test_dissipative_routes_count_each_copy(solve):
+    """The quantum-jump and master-equation routes count
+    ``sync.solver.stage`` once per array they copy to the device, as the
+    Schrödinger routes do."""
+    from pulser_tpu_torch.ops import solver
+
+    knots = np.linspace(0, 0.01, 11)
+    coeffs = {"amp": np.ones((1, 2, 11), complex), "det": np.zeros((1, 2, 11))}
+    eval_t = np.array([0.01])
+    psi0, rho0 = np.eye(4)[0], np.eye(4) / 4
+    args = (((1, 0, 0),), 2, 2, [np.diag([1.0, 0.0])])
+    if solve.endswith("_batched"):
+        plan = solver.build_plan_batched(
+            knots, {k: np.stack([v] * 3) for k, v in coeffs.items()},
+            eval_t, max_step=1e-3, host_stage=False,
+        )
+        diag = np.zeros((3, 4))
+        kw = {"seeds": [1, 2, 3]} if solve.startswith("mc") else {}
+    else:
+        plan = solver.build_plan(knots, coeffs, eval_t, max_step=1e-3)
+        diag = np.zeros(4)
+        kw = {"ntraj": 2, "seed": 1} if solve.startswith("mc") else {}
+    start = psi0 if solve.startswith("mc") else rho0
+    profiling.counter_report(reset=True)
+    getattr(solver, solve)(start, plan, diag, *args, device="cpu", **kw)
+    assert profiling.counter_report(reset=True) == {
+        "sync.solver.stage": DISSIPATIVE_COPIES[solve]
+    }

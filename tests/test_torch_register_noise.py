@@ -38,6 +38,7 @@ import pulser_tpu_torch as ptt
 from pulser_tpu_torch.emulator import TorchEmulator
 from pulser_tpu_torch.hamiltonian_data import hamiltonian_data as torch_hd
 from pulser_tpu_torch.ops import solver as torch_solver
+from torch_parity import assert_lindblad_policy_matches
 
 torch.set_num_threads(1)
 
@@ -237,6 +238,8 @@ def test_coefficient_batch_under_register_noise_is_bit_equal(jax_rows):
             assert got is None
         else:
             assert np.array_equal(got, np.asarray(want))
+    # The whole policy of the batch, in its one home
+    assert_lindblad_policy_matches(temu, jemu, tb, jb)
 
 
 def _trajectory_populations(args, solve, n) -> np.ndarray:

@@ -454,3 +454,54 @@ def test_sesolve_batched_refuses_a_mesh_and_needs_a_device():
             torch_solver.sesolve_rk4_batched(
                 psi0, plans, diags, pairs, d, n, True
             )
+
+
+#: The flagship configuration K1 takes, and the changes of one term each
+#: that take it out of K1's slice (or keep it at the slice's edges).
+_K1_CHANGES = [
+    ({}, True),
+    ({"n": 9}, False),
+    ({"n": 10}, True),
+    ({"n": 17}, True),
+    ({"n": 18}, False),
+    ({"d": 3}, False),
+    ({"pairs": ((1, 0, 0), (2, 1, 1))}, False),
+    ({"rdtype": np.float64}, False),
+    ({"device": "cpu"}, False),
+]
+
+
+@pytest.mark.parametrize(
+    "batched,change,takes",
+    [(b, c, t) for b in (False, True) for c, t in _K1_CHANGES]
+    + [(True, {"plans": "list"}, False), (True, {"ranks": 2}, False)],
+)
+def test_k1_gate(batched, change, takes):
+    """Both solves' K1 gate: ``kernels.ip_sesolve_takes`` for
+    ``sesolve_rk4``; for ``sesolve_rk4_batched`` the same terms plus a
+    :class:`BatchedPlan` (not a list of plans) on one rank. The predicate
+    reads only the device's type, so a CUDA device needs no card."""
+    from pulser_tpu_torch.ops import kernels
+
+    cfg = dict(
+        d=2, pairs=((1, 0, 0),), n=16, rdtype=np.float32, device="cuda",
+        plans="batched", ranks=1,
+    )
+    cfg.update(change)
+    dev = torch.device(cfg["device"])
+    terms = (cfg["d"], cfg["pairs"], cfg["n"], cfg["rdtype"], dev)
+    if not batched:
+        assert kernels.ip_sesolve_takes(*terms) is takes
+        return
+    knots, coeffs, eval_times, _, _ = _batched_case(3, 2, ((1, 0, 0),))
+    if cfg["plans"] == "batched":
+        plans = torch_solver.build_plan_batched(knots, coeffs, eval_times)
+    else:
+        plans = [
+            torch_solver.build_plan(
+                knots, {k: v[t] for k, v in coeffs.items()}, eval_times
+            )
+            for t in range(3)
+        ]
+    mesh = None if cfg["ranks"] == 1 else StubMesh(cfg["ranks"])
+    assert torch_solver._batched_k1_takes(plans, mesh, *terms) is takes

@@ -216,3 +216,43 @@ class StubMesh:
 
     def size(self) -> int:
         return self._size
+
+
+def assert_lindblad_policy_matches(temu: Any, jemu: Any, tb: Any, jb: Any):
+    """The batched dissipative run's step policy on a factored batch: the
+    port's one home (``TorchEmulator._step_policy``, fed the rank factors'
+    stiffness and marks) against the JAX package's
+    ``_lindblad_batch_prep`` written out from its own methods. The same
+    sticky steps, the same coarsening from the noiseless Hamiltonian and
+    the same breakpoints, bit for bit."""
+    knots = np.asarray(jb.template.sampling_times)
+    amp_j, det_j, marks_j = jemu._factored_policy(jb, knots)
+    reps = len(jb.reps)
+    diag = np.max(np.abs(np.asarray(jb.diags).reshape(reps, -1)), axis=1)
+    lam = float(np.max(np.asarray(amp_j) + diag + np.asarray(det_j)))
+    opts_t: dict = {}
+    opts_j: dict = {}
+    temu._validate_options(opts_t)
+    jemu._validate_options(opts_j)
+    base = min(float(np.median(np.diff(knots))), 1e-3)
+    fine = jemu._sticky_quantized_step(
+        "lindblad_batch", base, 0.8 / max(1.3 * lam, 1e-9)
+    )
+    if opts_j.get("max_step"):
+        fine = min(fine, float(opts_j["max_step"]))
+    ham0 = jemu._noiseless_hamiltonian
+    lam0 = float(np.sum(2 * np.max(np.abs(ham0.amp_coeffs), axis=(1, 2))))
+    want = jemu._coarse_ip_step(
+        "mcwf_coarse", fine, lam0, [ham0], opts_j, margin=1.3
+    )
+    marks_t = temu._factored_policy(tb, knots)[2]
+    got = temu._step_policy(
+        tb.template, lam, "lindblad_batch", 1.3, marks_t, opts_t
+    )
+    assert (got.max_step, got.coarsen) == want and got.coarsen
+    assert got.mcwf_ip and not got.mesolve_ip
+    assert temu._sticky_steps == jemu._sticky_steps
+    marks = got.breakpoints()
+    assert (marks is None) == (marks_j is None)
+    if marks_j is not None:
+        assert np.array_equal(marks, np.asarray(marks_j))
