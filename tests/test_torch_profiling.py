@@ -182,13 +182,15 @@ LAYER_PHASES = {
 #: The one-solve path also marks its step policy and result wrapping
 #: under the names the noisy batches use, and the fetch of its states
 ONE_SOLVE = {"emulator.step_policy", "emulator.wrap_results", "results.fetch"}
-#: The pure-state trajectory batch: its plan and the steps before it
+#: The pure-state trajectory batch: its plan and the steps before it,
+#: and the tally of its shots into counts
 PURE_BATCH = {
     "emulator.build_plan_batched",
     "emulator.noise_trajectories",
     "emulator.traj_draw",
     "emulator.coeff_batch",
     "emulator.step_policy",
+    "emulator.counts",
 }
 
 #: (scenario, emulator options as a function of the package namespace,

@@ -270,7 +270,8 @@ def test_work_count_matches_a_hand_count():
 def test_the_new_phases_and_counters_fire_once_a_job(cell):
     """A warm job: the realizations' draw, coefficients and step policy
     once, one solve whose states come back once, and one sampling pass
-    that computes the weight rows as it draws, with no result wrapped."""
+    that computes the weight rows as it draws and tallies the counts
+    once, with no result wrapped."""
     runner = _runner(cell)
     first, job = _jobs(cell, 2**31 + 5)
     runner.run(first)
@@ -283,7 +284,7 @@ def test_the_new_phases_and_counters_fire_once_a_job(cell):
         "emulator.noise_trajectories", "emulator.traj_draw",
         "emulator.coeff_batch", "emulator.step_policy",
         "emulator.build_plan_batched", "emulator.sesolve_batched",
-        "emulator.sample_counts", "emulator.run",
+        "emulator.sample_counts", "emulator.counts", "emulator.run",
     ):
         assert phases[name] == 1.0, name
     assert "emulator.wrap_results" not in phases
